@@ -1,0 +1,71 @@
+"""Carry the JAX package's state into the port.
+
+The inputs are plain numpy arrays, Python numbers and dicts (for
+example `dataclasses.asdict(cfg)` or `np.asarray` of each field), so
+this module imports nothing of JAX. The tests use it to run both
+packages on identical inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from sphexa_tpu_torch.config import SphConfig
+from sphexa_tpu_torch.propagator.ve_cellmajor import RVState
+from sphexa_tpu_torch.sfc.box import Box, Boundary
+from sphexa_tpu_torch.state import _FIELDS, Particles, SimState
+from sphexa_tpu_torch.util.device import resolve_device
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def config_from_dict(d: dict) -> SphConfig:
+    """SphConfig from a dict of its fields (unknown keys raise)."""
+    names = {f.name for f in dataclasses.fields(SphConfig)}
+    extra = set(d) - names
+    if extra:
+        raise ValueError(f"unknown SphConfig fields: {sorted(extra)}")
+    return SphConfig(**d)
+
+
+def box_from_numpy(bounds, boundaries) -> Box:
+    """Box from [xmin, xmax, ymin, ymax, zmin, zmax] and the three
+    boundary codes (Boundary values: 0 open, 1 periodic, 2 fixed)."""
+    b = [float(v) for v in np.asarray(bounds, dtype=np.float64)]
+    bx, by, bz = (Boundary(int(c)) for c in boundaries)
+    return Box(*b, bx, by, bz)
+
+
+def state_from_numpy(fields: dict, ttot, dt, dt_m1, iteration,
+                     device=None) -> SimState:
+    """SimState from per-particle numpy fields (all of state._FIELDS)
+    and the four scalars."""
+    device = resolve_device(device)
+    ps = Particles(**{f: _tensor(fields[f], device) for f in _FIELDS})
+    f32 = dict(dtype=torch.float32, device=device)
+    return SimState(p=ps, ttot=torch.tensor(float(ttot), **f32),
+                    dt=torch.tensor(float(dt), **f32),
+                    dt_m1=torch.tensor(float(dt_m1), **f32),
+                    iteration=torch.tensor(int(iteration), dtype=torch.int32,
+                                           device=device))
+
+
+def resident_from_numpy(rv_fields: dict, device=None) -> RVState:
+    """RVState from every field of a resident state turned into numpy
+    (rows, valid, and the 0-dim drift/overflow/ttot/dt/dt_m1/iteration)."""
+    device = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(RVState):
+        a = np.asarray(rv_fields[f.name])
+        if f.name in ("overflow", "iteration"):
+            a = a.astype(np.int32)
+        kw[f.name] = _tensor(a, device)
+    return RVState(**kw)

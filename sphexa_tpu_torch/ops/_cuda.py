@@ -1,0 +1,191 @@
+"""Build and bind the port's CUDA kernels (no JAX counterpart: Pallas
+kernels are compiled by XLA).
+
+Each source in sphexa_tpu_torch/csrc/ is compiled by nvcc for sm_90a
+into its own shared library with a plain C interface, at first use,
+under build/sphexa_tpu_torch/ of the checkout; the sources build in
+parallel. The libraries are loaded with ctypes and launch on PyTorch's
+current stream. Every C entry returns cudaGetLastError(); a non-zero
+code raises here.
+
+A header with the kernel constants (the sinc polynomials of
+sph/kernels.py, FILL_POS) is generated into the build directory, so
+the kernels and the plain versions share one definition. Library file
+names carry a hash of source, header and flags: a changed source is
+rebuilt, an unchanged one is loaded as built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "sphexa_tpu_torch"
+SOURCES = ("ghost_refresh.cu", "cell_pair.cu")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_libs: dict = {}
+build_info: dict = {}   # source -> {"seconds": float, "ptxas": str}
+
+
+def _f32_literal(x: float) -> str:
+    """C++ hex literal of float32(x): exact, no decimal rounding."""
+    return float(np.float32(x)).hex() + "f"
+
+
+def _consts_header() -> str:
+    from sphexa_tpu_torch.ops.pair_ve import _NEG, FILL_POS
+    from sphexa_tpu_torch.sph.kernels import _DSINC_OVER_V_COEF, _SINC_COEF
+
+    def poly(name, coef):
+        lines = [f"__device__ __forceinline__ float {name}(float v2) {{",
+                 f"    float acc = {_f32_literal(coef[-1])};"]
+        for c in reversed(coef[:-1]):
+            lines.append(f"    acc = acc * v2 + {_f32_literal(c)};")
+        lines += ["    return acc;", "}"]
+        return "\n".join(lines)
+
+    return "\n".join([
+        "// generated by sphexa_tpu_torch/ops/_cuda.py from sph/kernels.py",
+        "// and ops/pair_ve.py; do not edit",
+        "#pragma once",
+        f"#define SPH_FILL_POS ({_f32_literal(FILL_POS)})",
+        f"#define SPH_NEG ({_f32_literal(_NEG)})",
+        poly("sinc_poly", _SINC_COEF),
+        poly("dsinc_over_v_poly", _DSINC_OVER_V_COEF),
+        ""])
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        p = Path(cand) / "bin" / "nvcc"
+        if cand and p.exists():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _target(src: str, header: str) -> Path:
+    text = (_CSRC / src).read_text() + header + " ".join(NVCC_FLAGS)
+    digest = hashlib.sha1(text.encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{Path(src).stem}-{digest}.so"
+
+
+def build(sources=SOURCES) -> dict:
+    """Compile every given source whose library is missing, all nvcc
+    processes started together. Returns {source: library path}."""
+    header = _consts_header()
+    inc = BUILD_DIR / "include"
+    inc.mkdir(parents=True, exist_ok=True)
+    hpath = inc / "sph_consts.h"
+    if not hpath.exists() or hpath.read_text() != header:
+        hpath.write_text(header)
+    targets = {s: _target(s, header) for s in sources}
+    procs = {}
+    t0 = time.perf_counter()
+    for src, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(inc), "-o", str(tmp),
+               str(_CSRC / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, so)
+    failed = []
+    for src, (proc, tmp, so) in procs.items():
+        log, _ = proc.communicate()
+        build_info[src] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{log}")
+            continue
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return targets
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+
+class PairGeom(ctypes.Structure):
+    _fields_ = [("nx", _I), ("n", _I), ("nz", _I), ("npd", _I), ("npz", _I),
+                ("cap", _I), ("n_slots", _LL)]
+
+
+class PairParams(ctypes.Structure):
+    _fields_ = [("K3d", _F), ("n_w", _I), ("ngmin", _F), ("ngmax", _F),
+                ("h_cap", _F), ("h_iter", _I), ("alphamin", _F),
+                ("alphamax", _F), ("decay_constant", _F), ("atmin", _F),
+                ("atmax", _F), ("ramp", _F), ("uniform_mass", _I),
+                ("hcoef", _F)]
+
+
+def _bind(src: str, lib: ctypes.CDLL):
+    if src == "ghost_refresh.cu":
+        lib.ghost_refresh.restype = _I
+        lib.ghost_refresh.argtypes = [_P, _I, _LL, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _F, _F, _F, _I, _I, _I,
+                                      _F, _P]
+    else:
+        lib.pair_launch.restype = _I
+        lib.pair_launch.argtypes = [_I, _P, _P, _P, PairGeom, PairParams, _P]
+
+
+def lib(src: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
+    if src not in _libs:
+        so = build([src])[src]
+        handle = ctypes.CDLL(str(so))
+        _bind(src, handle)
+        _libs[src] = handle
+    return _libs[src]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(code: int, what: str):
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def ghost_launch(stack, cells, grid, box, xyz_rows, fill_pos: float):
+    ix, iy, iz = xyz_rows if xyz_rows is not None else (-1, -1, -1)
+    px, py, pz = box.periodic
+    code = lib("ghost_refresh.cu").ghost_refresh(
+        stack.data_ptr(), stack.shape[0], grid.n_slots, cells.data_ptr(),
+        cells.shape[0], grid.cap, grid.nx, grid.n, grid.nz, int(px), int(py),
+        int(pz), box.lx, box.ly, box.lz, ix, iy, iz, fill_pos,
+        _stream(stack))
+    _check(code, "ghost_refresh")
+
+
+def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float):
+    geom = PairGeom(grid.nx, grid.n, grid.nz, grid.np_, grid.npz, grid.cap,
+                    grid.n_slots)
+    prm = PairParams(K3d, int(cfg.sinc_index), float(cfg.ng0 // 4),
+                     float(cfg.ngmax), cfg.h_cap, cfg.h_iter, cfg.alphamin,
+                     cfg.alphamax, cfg.decay_constant, cfg.atmin, cfg.atmax,
+                     cfg.ramp, int(cfg.uniform_mass), 1023.0 * cfg.ng0)
+    code = lib("cell_pair.cu").pair_launch(
+        stage, J.data_ptr(), None if I2 is None else I2.data_ptr(),
+        out.data_ptr(), geom, prm, _stream(J))
+    _check(code, f"pair stage {stage}")

@@ -1,0 +1,595 @@
+"""VE pair stages and the ghost refresh over the cell-major layout.
+
+Counterpart of sphexa_tpu/ops/pallas_ve.py. Each Pallas kernel on the
+resident VE path has a hand-written CUDA kernel (csrc/cell_pair.cu,
+csrc/ghost_refresh.cu) and, beside its wrapper here, a plain PyTorch
+version of the same function:
+
+  K1 ghost_refresh   <- make_ghost_refresh          (pallas_ve.py:349)
+  K3 pair_xh         <- _xh_body                    (pallas_ve.py:537)
+  K4 pair_gradh      <- _gradh_body                 (pallas_ve.py:622)
+  K5 pair_iad        <- _iad_direct_body            (pallas_ve.py:704)
+  K6 pair_av         <- _av_direct_body             (pallas_ve.py:900)
+  K7 pair_momentum   <- _momentum_body              (pallas_ve.py:1022)
+
+K3-K7 share the driver make_cell_pair_call (pallas_ve.py:103), which in
+the port is the launch skeleton of cell_pair.cu: one thread block per
+interior cell, one thread per i-slot, the 27 neighbour cells streamed
+through shared memory.
+
+A wrapper runs the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel (and counts the launch) or raises.
+
+Frame contract (kept from the JAX package): invalid slots carry FILL_POS
+positions and drop out of every pair sum through the distance overflow;
+self-pairs are included and absorbed analytically; every stage masks
+its outputs with x < 0.5 * FILL_POS so all streamed rows stay finite.
+Row orders of the J matrices are those of the JAX package; the TPU's
+8-row padding is dropped.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from sphexa_tpu_torch.config import SphConfig
+from sphexa_tpu_torch.ops import _cuda
+from sphexa_tpu_torch.ops.cellmajor import (CMGrid, CMLayout,
+                                            _cell_coords_all,
+                                            _interior_cells_np, positions_cm,
+                                            to_cm)
+from sphexa_tpu_torch.sfc.box import Box
+from sphexa_tpu_torch.sph.kernels import (_DSINC_OVER_V_COEF, _SINC_COEF,
+                                          _poly_even, _pow_int, exp_pair,
+                                          kernel_3d_k)
+from sphexa_tpu_torch.util.fp import rdiv
+
+# base row indices shared by every stage's J matrix
+RX, RY, RZ, RH, RGID = 0, 1, 2, 3, 4
+NBASE = 5
+
+FILL_POS = 1e8    # invalid-slot position fill: d2 overflows the support
+_NEG = -1e30
+
+# pair candidates evaluated at once by a plain version (bounds its
+# temporaries to a few tens of MB each)
+_PAIR_BUDGET = 1 << 22
+
+
+# ---------------------------------------------------------------------------
+# geometry shared by the plain versions and the launches
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def interior_cells(grid: CMGrid) -> np.ndarray:
+    """Padded ids of the interior cells in (cx, cy, cz) row-major order,
+    the order of the CUDA kernels' blocks (padded ids are row-major)."""
+    ids = np.flatnonzero(_interior_cells_np(grid)).astype(np.int64)
+    ids.setflags(write=False)
+    return ids
+
+
+def _nbr_offsets(grid: CMGrid) -> np.ndarray:
+    """Padded-id offsets of the 27 neighbour cells, (dx, dy, dz) order."""
+    d = np.arange(-1, 2)
+    dx, dy, dz = np.meshgrid(d, d, d, indexing="ij")
+    return ((dx * grid.np_ + dy) * grid.npz + dz).ravel()
+
+
+def _run_plain(body, J, I2, grid: CMGrid, fo: int, **kw):
+    """Evaluate `body` for every interior cell in chunks of cells.
+    body(I, Jn, i2, **kw) gets I[r] as [C, CAP, 1] i-columns, Jn[r] as
+    [C, 1, 27*CAP] j-rows and i2[r] as [C, CAP, 1], and returns fo
+    [C, CAP, 1] outputs. Slots outside interior cells come out zero."""
+    cap = grid.cap
+    dev = J.device
+    out = torch.zeros((fo, grid.n_slots), dtype=torch.float32, device=dev)
+    cells = torch.tensor(interior_cells(grid), device=dev)
+    offs = torch.tensor(_nbr_offsets(grid), device=dev)
+    lane = torch.arange(cap, device=dev)
+    chunk = max(1, _PAIR_BUDGET // (27 * cap * cap))
+    for c0 in range(0, cells.shape[0], chunk):
+        cc = cells[c0:c0 + chunk]
+        own = (cc[:, None] * cap + lane).reshape(-1)
+        nb = ((cc[:, None] + offs)[:, :, None] * cap + lane).reshape(
+            cc.shape[0], -1)
+        C = cc.shape[0]
+        I = J[:, own].reshape(J.shape[0], C, cap, 1)
+        Jn = J[:, nb.reshape(-1)].reshape(J.shape[0], C, 1, -1)
+        i2 = None if I2 is None else I2[:, own].reshape(I2.shape[0], C, cap, 1)
+        res = body(I, Jn, i2, **kw)
+        out[:, own] = torch.stack([r.reshape(-1) for r in res])
+    return out
+
+
+def _w_v2(v2, n_w: int):
+    """W = sinc(pi v/2)^n as a polynomial in v^2; zero outside support."""
+    sinc = _poly_even(v2, _SINC_COEF)
+    return torch.where(v2 < 4.0, _pow_int(sinc, n_w), 0.0)
+
+
+def _sum(t):
+    return torch.sum(t, dim=-1, keepdim=True)
+
+
+def _geo(I, Jn):
+    rx = I[RX] - Jn[RX]
+    ry = I[RY] - Jn[RY]
+    rz = I[RZ] - Jn[RZ]
+    return rx, ry, rz, rx * rx + ry * ry + rz * rz
+
+
+def _oki(I):
+    return I[RX] < 0.5 * FILL_POS
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the stage bodies
+# ---------------------------------------------------------------------------
+
+def _xh_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+    """Neighbour count, h_iter rounds of the nc->h controller, xmass.
+    Outputs [xm, h, nc, nonconv]."""
+    RM = NBASE
+    hi = I[RH]
+    _, _, _, d2 = _geo(I, Jn)
+
+    def count_sph(hi_inv2):
+        return _sum((d2 * hi_inv2 < 4.0).to(torch.float32))
+
+    hinv = 1.0 / hi
+    nc_sph = count_sph(hinv * hinv)
+    ngmin = float(cfg.ng0 // 4)
+    for it in range(cfg.h_iter):
+        need = (nc_sph < ngmin) | (nc_sph - 1.0 > float(cfg.ngmax))
+        h_new = hi * 0.5 * torch.pow(
+            1.0 + rdiv(1023.0 * float(cfg.ng0), torch.clamp_min(nc_sph, 1.0)),
+            0.1)
+        if cfg.h_cap > 0.0:
+            h_new = torch.clamp_max(h_new, float(np.float32(cfg.h_cap)))
+        hi = torch.where(need, h_new, hi)
+        hinv = 1.0 / hi
+        if it < cfg.h_iter - 1:
+            nc_sph = count_sph(hinv * hinv)
+
+    v2 = d2 * (hinv * hinv)
+    acc = _sum(_w_v2(v2, n_w) * Jn[RM])        # includes +mi (self)
+    nc = _sum((v2 < 4.0).to(torch.float32)) - 1.0   # self excluded
+    xm = I[RM] * (hi * hi * hi) / (K3d * acc)
+    nonconv = ((nc + 1.0 < ngmin) | (nc > float(cfg.ngmax))).to(torch.float32)
+    ok = _oki(I)
+    return (torch.where(ok, xm, 1.0), hi, torch.where(ok, nc, 0.0),
+            torch.where(ok, nonconv, 0.0))
+
+
+def _gradh_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+    """VE normalization kx and grad-h, sqrt-free. Outputs [kx, gradh]."""
+    RM, RXM = NBASE, NBASE + 1
+    hi = I[RH]
+    hinv = 1.0 / hi
+    hi_inv2 = hinv * hinv
+    _, _, _, d2 = _geo(I, Jn)
+    v2 = d2 * hi_inv2
+    sinc = _poly_even(v2, _SINC_COEF)
+    wnm1 = _pow_int(sinc, n_w - 1)
+    inside = v2 < 4.0
+    w = torch.where(inside, wnm1 * sinc, 0.0)
+    vdw = torch.where(inside,
+                      n_w * wnm1 * (v2 * _poly_even(v2, _DSINC_OVER_V_COEF)),
+                      0.0)
+    dterh = -(3.0 * w + vdw)
+    kx = _sum(w * Jn[RXM])
+    whomega = _sum(dterh * Jn[RXM])
+    wrho0 = _sum(dterh * Jn[RM])
+
+    mi, xmi = I[RM], I[RXM]
+    h3inv = hinv * hi_inv2
+    kx = kx * K3d * h3inv
+    whomega = whomega * K3d * h3inv * hinv
+    wrho0 = wrho0 * K3d * h3inv * hinv
+    whomega = whomega * mi / xmi + (kx - K3d * xmi * h3inv) * wrho0
+    rho = kx * mi / xmi
+    gradh = 1.0 + hi / (rho * 3.0) * whomega
+    ok = _oki(I)
+    return torch.where(ok, kx, 1.0), torch.where(ok, gradh, 1.0)
+
+
+def _iad_tail(t11, t12, t13, t22, t23, t33, hi):
+    det = (t11 * t22 * t33 + 2.0 * t12 * t23 * t13
+           - t11 * t23 * t23 - t22 * t13 * t13 - t33 * t12 * t12)
+    fac = 1.0 / (det * hi * hi)
+    return ((t22 * t33 - t23 * t23) * fac, (t13 * t23 - t33 * t12) * fac,
+            (t12 * t23 - t22 * t13) * fac, (t11 * t33 - t13 * t13) * fac,
+            (t13 * t12 - t11 * t23) * fac, (t11 * t22 - t12 * t12) * fac)
+
+
+def _iad_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+    """IAD tau and its inverse, divv, curlv and the six symmetrised
+    velocity-gradient rows. Outputs 14 rows."""
+    RKX, RXM, RVX, RVY, RVZ = range(NBASE, NBASE + 5)
+    hi = I[RH]
+    hinv = 1.0 / hi
+    hi_inv2 = hinv * hinv
+    h3inv = hinv * hi_inv2
+    rx, ry, rz, d2 = _geo(I, Jn)
+    w = _w_v2(d2 * hi_inv2, n_w)
+    volj = Jn[RXM] / Jn[RKX]
+    wn = (volj * w) * (K3d * h3inv)
+    sx, sy, sz = rx * hinv, ry * hinv, rz * hinv
+    t11, t12, t13 = _sum(sx * sx * wn), _sum(sx * sy * wn), _sum(sx * sz * wn)
+    t22, t23, t33 = _sum(sy * sy * wn), _sum(sy * sz * wn), _sum(sz * sz * wn)
+
+    wxm = w * Jn[RXM]
+    vji = (Jn[RVX] - I[RVX], Jn[RVY] - I[RVY], Jn[RVZ] - I[RVZ])
+    rr = (rx, ry, rz)
+    Q = [[_sum(wxm * vji[a] * rr[b]) for b in range(3)] for a in range(3)]
+
+    cij = _iad_tail(t11, t12, t13, t22, t23, t33, hi)
+    c11, c12, c13, c22, c23, c33 = cij
+    C = ((c11, c12, c13), (c12, c22, c23), (c13, c23, c33))
+
+    def dv(a):
+        return [-(C[b][0] * Q[a][0] + C[b][1] * Q[a][1] + C[b][2] * Q[a][2])
+                for b in range(3)]
+    dVx, dVy, dVz = dv(0), dv(1), dv(2)
+
+    norm_kx = K3d * h3inv / I[RKX]
+    divv = norm_kx * (dVx[0] + dVy[1] + dVz[2])
+    curlv = norm_kx * torch.sqrt((dVz[1] - dVy[2]) ** 2
+                                 + (dVx[2] - dVz[0]) ** 2
+                                 + (dVy[0] - dVx[1]) ** 2)
+    outs = [c11, c12, c13, c22, c23, c33, divv, curlv,
+            norm_kx * dVx[0], norm_kx * (dVx[1] + dVy[0]),
+            norm_kx * (dVx[2] + dVz[0]), norm_kx * dVy[1],
+            norm_kx * (dVy[2] + dVz[1]), norm_kx * dVz[2]]
+    ok = _oki(I)
+    return [torch.where(ok, o, 0.0) for o in outs]
+
+
+def _av_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+    """Max approaching signal speed, graddivv and the Cullen-Dehnen
+    alpha update (av_switches_kern.hpp:45). Output [alpha]."""
+    RC, RKX, RXM, RDIVV, RVX, RVY, RVZ = range(NBASE, NBASE + 7)
+    hi = I[RH]
+    hinv = 1.0 / hi
+    hi_inv2 = hinv * hinv
+    h3inv = hinv * hi_inv2
+    ci = I[RC]
+    divv_i = I[RDIVV]
+    c11i, c12i, c13i, c22i, c23i, c33i = (i2[k] for k in range(6))
+
+    rx, ry, rz, d2 = _geo(I, Jn)
+    v2 = d2 * hi_inv2
+    mask = v2 < 4.0
+    rv = (rx * (I[RVX] - Jn[RVX]) + ry * (I[RVY] - Jn[RVY])
+          + rz * (I[RVZ] - Jn[RVZ]))
+    inv_d = torch.rsqrt(torch.clamp_min(d2, 1e-30))
+    vsig = torch.where(mask & (rv < 0.0), ci + Jn[RC] - 3.0 * rv * inv_d, _NEG)
+
+    w = _w_v2(v2, n_w) * (K3d * h3inv)
+    termA1 = -(c11i * rx + c12i * ry + c13i * rz) * w
+    termA2 = -(c12i * rx + c22i * ry + c23i * rz) * w
+    termA3 = -(c13i * rx + c23i * ry + c33i * rz) * w
+    factor = (Jn[RXM] / Jn[RKX]) * (divv_i - Jn[RDIVV])
+    gx, gy, gz = _sum(factor * termA1), _sum(factor * termA2), _sum(
+        factor * termA3)
+
+    vijsignal = torch.maximum(torch.amax(vsig, dim=-1, keepdim=True),
+                              1e-30 * ci)
+    graddivv = torch.sqrt(gx * gx + gy * gy + gz * gz)
+    alpha_i, dt = i2[6], i2[7]
+    a_const = hi * hi * graddivv
+    alphaloc = torch.where(divv_i < 0.0,
+                           cfg.alphamax * a_const
+                           / (a_const + hi * torch.abs(divv_i) + 0.05 * ci),
+                           0.0)
+    decay = hi / (cfg.decay_constant * vijsignal)
+    alphadot = torch.where(alphaloc >= cfg.alphamin,
+                           (alphaloc - alpha_i) / decay,
+                           (cfg.alphamin - alpha_i) / decay)
+    alpha = torch.where(alphaloc >= alpha_i, alphaloc, alpha_i + alphadot * dt)
+    return [torch.where(_oki(I), alpha, 0.0)]
+
+
+def _momentum_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+    """Momentum and energy (momentum_energy_kern.hpp:65-222) with the
+    Atwood-ramped VE terms and pair AV. Outputs [ax, ay, az, du,
+    maxvsignal]."""
+    (RVX, RVY, RVZ, RC, RPRHO, RRHO, RXM, RAL, RM,
+     R11, R12, R13, R22, R23, R33) = range(NBASE, NBASE + 15)
+    hi = I[RH]
+    hi_inv = 1.0 / hi
+    hi_inv2 = hi_inv * hi_inv
+    hi3inv = hi_inv * hi_inv2
+    ci, alpha_i, rhoi, prhoi, xmi = I[RC], I[RAL], I[RRHO], I[RPRHO], I[RXM]
+    rhoi_inv = 1.0 / rhoi
+    lxmi = torch.log(xmi)
+
+    rx, ry, rz, d2 = _geo(I, Jn)
+    v2i = d2 * hi_inv2
+    mask = v2i < 4.0
+    hj_inv = 1.0 / Jn[RH]
+    v2j = d2 * (hj_inv * hj_inv)
+    Wi = _w_v2(v2i, n_w) * hi3inv
+    Wj = torch.where(mask, _w_v2(v2j, n_w) * (hj_inv * hj_inv * hj_inv), 0.0)
+
+    def term(c11, c12, c13, c22, c23, c33, W):
+        return (-(c11 * rx + c12 * ry + c13 * rz) * W,
+                -(c12 * rx + c22 * ry + c23 * rz) * W,
+                -(c13 * rx + c23 * ry + c33 * rz) * W)
+
+    tAi = term(*(I[r] for r in (R11, R12, R13, R22, R23, R33)), Wi)
+    tAj = term(*(Jn[r] for r in (R11, R12, R13, R22, R23, R33)), Wj)
+
+    vx_ij = I[RVX] - Jn[RVX]
+    vy_ij = I[RVY] - Jn[RVY]
+    vz_ij = I[RVZ] - Jn[RVZ]
+    rv = rx * vx_ij + ry * vy_ij + rz * vz_ij
+    inv_d = torch.rsqrt(torch.clamp_min(d2, 1e-30))
+    wij = rv * inv_d
+    csum = ci + Jn[RC]
+    vij_signal = (alpha_i + Jn[RAL]) * 0.25 * csum - 2.0 * wij
+    visc = torch.where(wij < 0.0, -vij_signal * wij, 0.0)
+    vsig = torch.where(mask & (d2 > 0.0), 0.5 * csum - 2.0 * wij, _NEG)
+
+    mj, xmj, rhoj = Jn[RM], Jn[RXM], Jn[RRHO]
+    drho = torch.abs(rhoi - rhoj)
+    srho = rhoi + rhoj
+    sigma = cfg.ramp * (drho / srho - cfg.atmin)
+    lxmj = torch.log(xmj)
+    prod = xmi * xmj
+    if cfg.uniform_mass:
+        sc = torch.clamp(sigma, 0.0, 1.0)
+        ep, em = exp_pair((1.0 - sc) * (lxmj - lxmi))
+        a_mom = prod * em
+        b_mom = prod * ep
+    else:
+        is_lo = drho < cfg.atmin * srho
+        is_hi = drho > cfg.atmax * srho
+        t = torch.exp((sigma - 1.0) * (lxmj - lxmi))
+        a_mom = torch.where(is_lo, xmi * xmi,
+                            torch.where(is_hi, prod, prod * t))
+        b_mom = torch.where(is_lo, xmj * xmj,
+                            torch.where(is_hi, prod, prod / t))
+
+    a_visc = (mj * rhoi_inv) * visc
+    b_visc = (mj / rhoj) * visc
+    av = [0.5 * (a_visc * tAi[k] + b_visc * tAj[k]) for k in range(3)]
+    a_visc_energy = _sum(av[0] * vx_ij + av[1] * vy_ij + av[2] * vz_ij)
+    energy = _sum(mj * a_mom * (vx_ij * tAi[0] + vy_ij * tAi[1]
+                                + vz_ij * tAi[2]))
+    mom_i = mj * prhoi * a_mom
+    mom_j = mj * Jn[RPRHO] * b_mom
+    mom = [_sum(mom_i * tAi[k] + mom_j * tAj[k] + av[k]) for k in range(3)]
+
+    a_visc_energy = torch.clamp_min(a_visc_energy, 0.0)
+    maxvsignal = torch.clamp_min(torch.amax(vsig, dim=-1, keepdim=True), 0.0)
+    du = K3d * (prhoi * energy + 0.5 * a_visc_energy)
+    ok = _oki(I)
+    return [torch.where(ok, o, 0.0) for o in
+            (-K3d * mom[0], -K3d * mom[1], -K3d * mom[2], du, maxvsignal)]
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_rows(name, t, rows, grid: CMGrid):
+    if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"{name}: expects a contiguous 2-D float32 tensor")
+    if t.shape != (rows, grid.n_slots):
+        raise ValueError(f"{name}: expects shape {(rows, grid.n_slots)}, "
+                         f"got {tuple(t.shape)}")
+
+
+class PairKernel:
+    """One pair stage: the CUDA kernel (stage `stage` of cell_pair.cu)
+    and its plain PyTorch version. `launches` counts kernel launches."""
+
+    def __init__(self, name: str, stage: int, fj: int, fo: int, fi2: int,
+                 body):
+        self.name = name
+        self.stage = stage
+        self.fj, self.fo, self.fi2 = fj, fo, fi2
+        self.body = body
+        self.launches = 0
+
+    def plain(self, J, I2, grid: CMGrid, cfg: SphConfig) -> torch.Tensor:
+        return _run_plain(self.body, J, I2, grid, self.fo, cfg=cfg,
+                          K3d=kernel_3d_k(cfg.sinc_index),
+                          n_w=int(cfg.sinc_index))
+
+    def _launch(self, J, I2, grid: CMGrid, cfg: SphConfig) -> torch.Tensor:
+        out = torch.zeros((self.fo, grid.n_slots), dtype=torch.float32,
+                          device=J.device)
+        _cuda.pair_launch(self.stage, J, I2, out, grid, cfg,
+                          kernel_3d_k(cfg.sinc_index))
+        return out
+
+    def __call__(self, J, I2, grid: CMGrid, cfg: SphConfig) -> torch.Tensor:
+        _check_rows(self.name, J, self.fj, grid)
+        if self.fi2:
+            _check_rows(self.name, I2, self.fi2, grid)
+            if I2.device != J.device:
+                raise ValueError(f"{self.name}: J and I2 on different devices")
+        if J.device.type == "cpu":
+            return self.plain(J, I2, grid, cfg)
+        if J.device.type != "cuda":
+            raise ValueError(f"{self.name}: no kernel for device {J.device}")
+        out = self._launch(J, I2, grid, cfg)
+        self.launches += 1
+        return out
+
+
+@functools.lru_cache(maxsize=8)
+def _ghost_maps(grid: CMGrid, box: Box):
+    """Host maps of K1: ghost cell ids, and per ghost slot its source
+    slot (column and z wrapped, as srcmap and the z-wrap of
+    make_ghost_refresh), its periodic shifts and its open-axis flag."""
+    cap, npd, npz, npx = grid.cap, grid.np_, grid.npz, grid.npx
+    cx, cy, cz = _cell_coords_all(grid)
+    ghost = ~_interior_cells_np(grid)
+    cells = np.arange(grid.n_cells)[ghost]
+    gx, gy, gz = cx[ghost], cy[ghost], cz[ghost]
+
+    def wrap(c, last, nint):
+        return np.where(c == 0, nint, np.where(c == last - 1, 1, c))
+
+    def side(c, last):
+        return np.where(c == 0, -1.0, np.where(c == last - 1, 1.0, 0.0))
+
+    src_cell = (wrap(gx, npx, grid.nx) * npd + wrap(gy, npd, grid.n)) * npz \
+        + wrap(gz, npz, grid.nz)
+    px, py, pz = box.periodic
+    shift = np.stack([side(gx, npx) * box.lx * px,
+                      side(gy, npd) * box.ly * py,
+                      side(gz, npz) * box.lz * pz]).astype(np.float32)
+    bad = np.zeros(cells.shape, bool)
+    for per, c, last in ((px, gx, npx), (py, gy, npd), (pz, gz, npz)):
+        if not per:
+            bad |= (c == 0) | (c == last - 1)
+    lane = np.arange(cap)
+    maps = dict(
+        cells=cells.astype(np.int32),
+        slots=(cells[:, None] * cap + lane).ravel(),
+        src=(src_cell[:, None] * cap + lane).ravel(),
+        shift=np.repeat(shift, cap, axis=1),
+        bad=np.repeat(bad, cap))
+    for a in maps.values():
+        a.setflags(write=False)
+    return maps
+
+
+class GhostRefresh:
+    """K1: refresh every ghost column and z-ghost lane of a [nrows,
+    n_slots] row stack from its interior source cell, in place.
+    xyz_rows=(ix, iy, iz) marks coordinate rows: they get the +-L
+    periodic shifts, and open-axis ghosts get FILL_POS there and 0 in
+    the other rows. With xyz_rows=None every ghost is a plain copy."""
+
+    name = "ghost_refresh"
+
+    def __init__(self):
+        self.launches = 0
+        self._cells = {}
+
+    def plain(self, stack, grid: CMGrid, box: Box, xyz_rows=None):
+        mp = _ghost_maps(grid, box)
+        dev = stack.device
+        slots = torch.tensor(mp["slots"], device=dev)
+        vals = stack[:, torch.tensor(mp["src"], device=dev)]
+        if xyz_rows is not None:
+            shift = torch.tensor(mp["shift"], device=dev)
+            fill = torch.zeros((stack.shape[0], 1), dtype=stack.dtype,
+                               device=dev)
+            for k, r in enumerate(xyz_rows):
+                if box.periodic[k]:
+                    vals[r] += shift[k]
+                fill[r] = FILL_POS
+            vals = torch.where(torch.tensor(mp["bad"], device=dev), fill, vals)
+        stack[:, slots] = vals
+        return stack
+
+    def _launch(self, stack, grid: CMGrid, box: Box, xyz_rows):
+        key = (grid, box, stack.device)
+        if key not in self._cells:
+            self._cells[key] = torch.tensor(
+                _ghost_maps(grid, box)["cells"], device=stack.device)
+        _cuda.ghost_launch(stack, self._cells[key], grid, box, xyz_rows,
+                           FILL_POS)
+        return stack
+
+    def __call__(self, stack, grid: CMGrid, box: Box, xyz_rows=None):
+        _check_rows(self.name, stack, stack.shape[0], grid)
+        if stack.device.type == "cpu":
+            return self.plain(stack, grid, box, xyz_rows)
+        if stack.device.type != "cuda":
+            raise ValueError(f"{self.name}: no kernel for device "
+                             f"{stack.device}")
+        self._launch(stack, grid, box, xyz_rows)
+        self.launches += 1
+        return stack
+
+
+ghost_refresh = GhostRefresh()
+pair_xh = PairKernel("pair_xh", 0, NBASE + 1, 4, 0, _xh_body)
+pair_gradh = PairKernel("pair_gradh", 1, NBASE + 2, 2, 0, _gradh_body)
+pair_iad = PairKernel("pair_iad", 2, NBASE + 5, 14, 0, _iad_body)
+pair_av = PairKernel("pair_av", 3, NBASE + 7, 1, 8, _av_body)
+pair_momentum = PairKernel("pair_momentum", 4, NBASE + 15, 5, 0,
+                           _momentum_body)
+
+KERNELS = (ghost_refresh, pair_xh, pair_gradh, pair_iad, pair_av,
+           pair_momentum)
+
+
+# ---------------------------------------------------------------------------
+# stage collection (counterpart of PallasVE)
+# ---------------------------------------------------------------------------
+
+class PairVE:
+    """The five VE pair stages for one (grid, cfg), with the stage
+    methods and J row orders of the JAX package's PallasVE."""
+
+    def __init__(self, grid: CMGrid, cfg: SphConfig):
+        if grid.cap % 32 or grid.cap > 1024:
+            raise ValueError(f"cap {grid.cap}: must be a multiple of 32, "
+                             f"at most 1024")
+        n_w = int(cfg.sinc_index)
+        if float(n_w) != float(cfg.sinc_index) or n_w < 2:
+            raise ValueError("the pair stages need an integer sinc index >= 2")
+        if cfg.av_clean:
+            raise NotImplementedError(
+                "the avClean momentum branch is not ported yet")
+        if cfg.mxu_moments or cfg.mxu_momentum:
+            raise NotImplementedError(
+                "the moment-matmul stage bodies are not ported yet")
+        self.grid = grid
+        self.cfg = cfg
+        self.K3d = kernel_3d_k(cfg.sinc_index)
+
+    def base_rows(self, layout: CMLayout, x, y, z, h):
+        """The 5 base rows shared by all stages. Invalid slots get
+        FILL_POS positions and gid -1."""
+        xcm, ycm, zcm = positions_cm(layout, x, y, z)
+        fillv = torch.where(layout.valid, 0.0, FILL_POS).to(torch.float32)
+        hcm = to_cm(layout, h, fill=1.0)
+        gid = torch.where(layout.valid, layout.src.to(torch.float32), -1.0)
+        return [xcm + fillv, ycm + fillv, zcm + fillv, hcm, gid]
+
+    def _run(self, kern: PairKernel, rows, i2_rows=None):
+        I2 = None if i2_rows is None else torch.stack(i2_rows)
+        return kern(torch.stack(rows), I2, self.grid, self.cfg)
+
+    def xmass_h(self, base, m_cm):
+        """Fused nc/h-iteration/xmass. Returns (xm, h, nc, nonconv)."""
+        out = self._run(pair_xh, base + [m_cm])
+        return out[0], out[1], out[2], out[3]
+
+    def gradh(self, base, m_cm, xm_cm):
+        out = self._run(pair_gradh, base + [m_cm, xm_cm])
+        return out[0], out[1]
+
+    def iad_divv(self, base, kx_cm, xm_cm, vx_cm, vy_cm, vz_cm):
+        out = self._run(pair_iad, base + [kx_cm, xm_cm, vx_cm, vy_cm, vz_cm])
+        cij = tuple(out[i] for i in range(6))
+        gradv = tuple(out[8 + i] for i in range(6))
+        return cij, out[6], out[7], gradv
+
+    def av_switches(self, base, c_cm, kx_cm, xm_cm, divv_cm, vx_cm, vy_cm,
+                    vz_cm, cij, alpha_cm, dt):
+        dt_row = dt.to(alpha_cm.dtype).expand_as(alpha_cm)
+        out = self._run(pair_av, base + [c_cm, kx_cm, xm_cm, divv_cm, vx_cm,
+                                         vy_cm, vz_cm],
+                        list(cij) + [alpha_cm, dt_row])
+        return out[0]
+
+    def momentum(self, base, vx_cm, vy_cm, vz_cm, c_cm, prho_cm, rho_cm,
+                 xm_cm, alpha_cm, m_cm, cij):
+        out = self._run(pair_momentum,
+                        base + [vx_cm, vy_cm, vz_cm, c_cm, prho_cm, rho_cm,
+                                xm_cm, alpha_cm, m_cm] + list(cij))
+        return out[0], out[1], out[2], out[3], out[4]
