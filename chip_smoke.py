@@ -8,19 +8,28 @@ Phases (any failure exits non-zero before the last line):
   2. build the CUDA kernels from sphexa_tpu_torch/csrc (nvcc, in parallel);
   3. kernel check at Sedov 30^3: every kernel against its plain PyTorch
      version on identical, perturbed inputs, with the CPU tests'
-     tolerances; then the resident engine on the card against the same
-     engine on the CPU (plain versions) for 3 steps at Sedov 10^3;
+     tolerances; (a) each gated stage (K2g) against its gated plain
+     version on a seeded activity pattern; then the resident engine on
+     the card against the same engine on the CPU (plain versions) for 3
+     steps at Sedov 10^3, and (b) the block-time-step engine BdtVE on the
+     card against the CPU for two rung cycles at Sedov 10^3;
   4. the main path: ResidentVE on the card at Sedov 100^3 (1M particles),
      one warm-up step, then 10 timed steps with a forced rebin; launch
      counters are zeroed just before and read just after;
   5. each kernel timed at the main path's own inputs, beside its plain
      version, its bound and (K1) a library gather;
-  6. the kernel table as one JSON line, then the device line.
+  6. (c) the block-time-step path: BdtVE at Sedov 100^3, 4 rungs, one
+     warm-up cycle, then 2 timed cycles of 8 substeps (counters zeroed
+     just before, read just after); (d) each gated stage timed at the
+     inputs of a substep that skips cells, beside the ungated stage,
+     its gated plain version and its bound;
+  7. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -47,6 +56,7 @@ GEO_FLOPS = 9
 RECOUNT_FLOPS = 2
 BODY_FLOPS = {"pair_xh": 18, "pair_gradh": 40, "pair_iad": 62,
               "pair_av": 55, "pair_momentum": 170}
+GATED_REPLACES = "sphexa_tpu/ops/pallas_ve.py:162-253"
 REPLACES = {
     "ghost_refresh": "sphexa_tpu/ops/pallas_ve.py:349",
     "pair_xh": "sphexa_tpu/ops/pallas_ve.py:537",
@@ -65,6 +75,11 @@ GROUPS = {"pair_xh": [[0], [1]], "pair_gradh": [[0], [1]],
 EXACT = {"pair_xh": [2, 3]}                       # nc, nonconv
 RELATIVE = {"pair_xh": [0, 1], "pair_gradh": [0, 1], "pair_av": [0],
             "pair_momentum": [4]}                 # rtol 1e-5
+
+
+def stage_of(name: str) -> str:
+    """The ungated stage a kernel name belongs to (K2g runs its body)."""
+    return name.removesuffix("_gated")
 
 
 def log(*a):
@@ -99,6 +114,7 @@ def compare(name, ref, out, mask, per_row: bool):
     its own scale (perturbed inputs, as the CPU tests); else each group
     at the group's scale."""
     import torch
+    name = stage_of(name)
     ref, out = ref[:, mask].double(), out[:, mask].double()
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite kernel output")
@@ -218,6 +234,7 @@ def kernel_check(report):
             log(f"  {CHECK_SIDE}^3 ghost_refresh {bnd.name:8s} "
                 f"xyz={rows}: bit-equal")
     report["check_30"] = dict(grid=str(grid), errors=errs)
+    return spy.calls, eng
 
 
 def engine_check(report):
@@ -299,15 +316,18 @@ def main_path(report):
             (k.name, steps) for k in pv.KERNELS[1:]):
         assert launches[name] == want, (name, launches[name], want)
     mean_ms = float(np.mean(step_ms))
+    sim_per_wall = sum(d["dt"]) / (sum(step_ms) * 1e-3)
     log(f"  {side}^3: {mean_ms:.3f} ms/step (CUDA events, mean of {steps}; "
         f"steps {[round(s, 3) for s in step_ms]}), "
-        f"{n / (mean_ms * 1e-3):.4e} particle-updates/s")
+        f"{n / (mean_ms * 1e-3):.4e} particle-updates/s, sim-time per "
+        f"wall-second {sim_per_wall:.6e}")
     log(f"  |etot - e0|/e0 = {drift:.3e}; h_nonconv {d['h_nonconv']}; "
         f"launches {launches}")
     report["main_path"] = dict(
         side=side, n=n, cap=grid.cap, grid=str(grid), n_slots=grid.n_slots,
         steps=steps, rebin_at=rebin_at, step_ms=step_ms, mean_step_ms=mean_ms,
-        particle_updates_per_s=n / (mean_ms * 1e-3), e0=e0,
+        particle_updates_per_s=n / (mean_ms * 1e-3),
+        sim_time_per_wall_s=sim_per_wall, e0=e0,
         energy_drift=drift, diags=d, launches=launches)
     return eng, rst, grid, launches
 
@@ -431,6 +451,325 @@ def timing(report, eng, rst, grid, launches):
     return rows
 
 
+def activity_pattern(grid, valid, seed):
+    """A 0/1 activity row over [npx, npd, npz, cap]: in every third (x, y)
+    column all valid interior slots are active, in every third none, and
+    in the rest each z-cell is active, inactive or has one active slot,
+    at random. Returns (act, per-supercell counts of each kind)."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.ops.cellmajor import _interior_cells_np
+
+    shape = (grid.npx, grid.np_, grid.npz, grid.cap)
+    r = np.random.default_rng(seed)
+    vi = valid.view(shape).cpu().numpy() & np.repeat(
+        _interior_cells_np(grid), grid.cap).reshape(shape)
+    kind = r.integers(0, 3, shape[:3])
+    cx, cy = np.meshgrid(np.arange(grid.npx), np.arange(grid.np_),
+                         indexing="ij")
+    kind[(cx + cy) % 3 == 0] = 0
+    kind[(cx + cy) % 3 == 1] = 2
+    act = np.zeros(shape, np.float32)
+    act[kind == 2] = 1.0
+    first = np.argmax(vi, axis=-1)                # one valid slot a cell
+    one = np.zeros(shape, bool)
+    np.put_along_axis(one, first[..., None], True, axis=-1)
+    act[(kind == 1)[..., None] & one] = 1.0
+    act *= vi
+    Z = pv.resolve_zgroup(grid)
+    sc = (act.reshape(grid.npx, grid.np_, grid.npz // Z, Z, grid.cap)
+          .max(-1))                                # per cell: any active
+    occ = vi.reshape(sc.shape + (grid.cap,)).any(-1)
+    n_act = (sc * occ).sum(-1)
+    n_occ = occ.sum(-1)
+    kinds = dict(active=int(((n_act == n_occ) & (n_occ > 0)).sum()),
+                 inactive=int(((n_act == 0) & (n_occ > 0)).sum()),
+                 mixed=int(((n_act > 0) & (n_act < n_occ)).sum()))
+    return torch.from_numpy(act.reshape(-1)).to(valid.device), kinds
+
+
+def gated_compare(kg, args, out, intmask, per_row):
+    """K2g output against its gated plain version: bit-equal to prev on
+    the interior slots of inactive supercells, the ungated tolerances on
+    the valid slots of active ones. Returns (max abs err, rel)."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    J, I2, g, c, (act, prev), zgroup = args
+    ref = kg.plain(*args)
+    on = pv.supercell_active(act, g, pv.resolve_zgroup(g, zgroup))
+    on = on.repeat_interleave(g.cap)
+    keep = intmask & ~on
+    if not (torch.equal(out[:, keep], prev[:, keep])
+            and torch.equal(ref[:, keep], prev[:, keep])):
+        raise AssertionError(f"{kg.name}: inactive supercells != prev")
+    return compare(kg.name, ref, out, valid_slots(J) & intmask & on,
+                   per_row=per_row)
+
+
+def gated_check(report, calls, eng):
+    """Phase 3a: each K2g stage against its gated plain version at Sedov
+    30^3 (the inputs of phase 3), seeded activity, seeded prev rows."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    grid = eng.grid
+    J0 = calls[0][1][0]
+    act, kinds = activity_pattern(grid, valid_slots(J0), seed=3)
+    log(f"  {CHECK_SIDE}^3 activity: supercells (Z = "
+        f"{pv.resolve_zgroup(grid)}) {kinds}")
+    assert min(kinds.values()) > 0, kinds
+    r = np.random.default_rng(4)
+    errs = {}
+    for k, (J, I2, g, c), _ in calls:
+        kg = next(x for x in pv.GATED_KERNELS if stage_of(x.name) == k.name)
+        prev = torch.from_numpy(r.normal(0, 1, (kg.fo, g.n_slots)).astype(
+            np.float32)).to(J.device)
+        args = (J, I2, g, c, (act, prev), 0)
+        out = kg._launch(*args)
+        err, rel = gated_compare(kg, args, out, eng.intmask, per_row=True)
+        errs[kg.name] = dict(max_abs_err=err, max_rel_err=rel)
+        log(f"  {CHECK_SIDE}^3 {kg.name:20s} inactive bit-equal to prev; "
+            f"active max abs err {err:.3e}, rel {rel:.3e}")
+    report["check_30_gated"] = dict(kinds=kinds, errors=errs)
+
+
+def bdt_setup(side, device, num_rungs, grid=None, dt0=None):
+    """Sedov state and a BdtVE on `device` (grid from the planner unless
+    given)."""
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.init.sedov import init_sedov
+    from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
+
+    if grid is None:
+        state, box, cfg, grid = sedov(side, device)
+    else:
+        state, box, cfg = init_sedov(side, SphConfig(), dt0=dt0,
+                                     device=device)
+    return state, BdtVE(box, grid, cfg, num_rungs=num_rungs, device=device)
+
+
+def bdt_engine_check(report):
+    """Phase 3b: BdtVE on the card against BdtVE on the CPU (plain
+    versions), Sedov 10^3, CMGrid(n=4, cap=128), 3 rungs, two cycles;
+    bounds of tests/test_torch_bdt.py."""
+    from sphexa_tpu_torch.ops.cellmajor import CMGrid
+
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        state, eng = bdt_setup(10, dev, 3, CMGrid(n=4, cap=128), 2e-4)
+        bst = eng.bind_bdt(state)
+        ds, rungs = [], []
+        for _ in range(2):
+            bst, dd = eng.run_cycle(bst)
+            ds += [{k: np.asarray(v.cpu()).tolist()
+                    for k, v in d._asdict().items()} for d in dd]
+            rungs.append(bst.rung.cpu().numpy())
+        runs[dev] = (ds, rungs)
+    (a, ra), (b, rb) = runs["cpu"], runs[DEVICE]
+    for x, y in zip(a, b):
+        assert x["overflow"] == y["overflow"] == 0
+        np.testing.assert_allclose(y["dt"], x["dt"], rtol=1e-5)
+        np.testing.assert_allclose(y["eint"], x["eint"], rtol=1e-6)
+        np.testing.assert_allclose(y["ecin"], x["ecin"], rtol=1e-3,
+                                   atol=1e-12)
+        assert y["rung_hist"] == x["rung_hist"], (y, x)
+        assert y["active_cell_frac"] == x["active_cell_frac"], (y, x)
+    for x, y in zip(ra, rb):
+        np.testing.assert_array_equal(y, x)
+    log(f"  10^3 BdtVE {DEVICE} vs cpu, 2 cycles: rung_hist "
+        f"{[d['rung_hist'] for d in b]} equal, active_cell_frac "
+        f"{[round(d['active_cell_frac'], 4) for d in b]} equal, last eint "
+        f"{b[-1]['eint']:.9f} vs {a[-1]['eint']:.9f}")
+    report["bdt_engine_10"] = dict(card=b, cpu=a)
+
+
+def bdt_main_path(report):
+    """Phase 6c: BdtVE at Sedov 100^3 (the main path's grid), 4 rungs,
+    one warm-up cycle, then 2 timed cycles of 8 substeps."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.propagator.common import compute_energies
+
+    side, nr, cycles = MAIN_SIDE, 4, 2
+    t0 = time.perf_counter()
+    state, eng = bdt_setup(side, DEVICE, nr)
+    e0 = float(sum(compute_energies(state.p, eng.cfg)))
+    bst = eng.bind_bdt(state)
+    assert int(bst.rv.overflow) == 0, "slot overflow at bind"
+    bst, _ = eng.run_cycle(bst)                        # warm-up
+    torch.cuda.synchronize()
+    log(f"  setup + warm-up cycle {time.perf_counter() - t0:.1f} s; cap "
+        f"{eng.grid.cap}, grid {eng.grid}, Z {eng.pve_gated.zgroup}")
+
+    # an event after the resync and after each substep of run_cycle
+    marks = []
+    resync, substep = eng.resync, eng.substep
+
+    def marked(fn, what):
+        def call(b):
+            out = fn(b)
+            marks.append((what, torch.cuda.Event(enable_timing=True)))
+            marks[-1][1].record()
+            return out
+        return call
+    eng.resync = marked(resync, "resync")
+    eng.substep = marked(substep, "substep")
+    kernels = pv.KERNELS + pv.GATED_KERNELS
+    for k in kernels:
+        k.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    diags = []
+    start.record()
+    for _ in range(cycles):
+        bst, ds = eng.run_cycle(bst)
+        diags += ds
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    del eng.resync, eng.substep
+
+    nsub = cycles << (nr - 1)
+    want = dict({k.name: nsub for k in pv.GATED_KERNELS},
+                ghost_refresh=5 * nsub,
+                **{k.name: 0 for k in pv.KERNELS[1:]})
+    assert launches == want, (launches, want)
+    per = 1 + (1 << (nr - 1))          # events a cycle: resync, substeps
+    whats = [w for w, _ in marks]
+    assert whats == (["resync"] + ["substep"] * (per - 1)) * cycles, whats
+    evs = [start] + [e for _, e in marks]
+    span = [a.elapsed_time(b) for a, b in zip(evs, evs[1:])]
+    cycle_ms = [sum(span[i * per:(i + 1) * per]) for i in range(cycles)]
+    resync_ms = span[::per]
+    sub_ms = [x for i, x in enumerate(span) if i % per]
+    d = {k: [np.asarray(getattr(x, k).cpu()).tolist() for x in diags]
+         for k in ("dt", "etot", "ecin", "eint", "active_frac",
+                   "active_cell_frac", "rung_hist", "overflow")}
+    assert max(d["overflow"]) == 0, "slot overflow"
+    rows = [f.name for f in dataclasses.fields(bst) if f.name != "rv"]
+    for f in rows:
+        assert torch.isfinite(getattr(bst, f)).all(), f"non-finite {f}"
+    for f in ("x", "y", "z", "h", "vx", "vy", "vz", "temp", "alpha",
+              "du_m1"):
+        assert torch.isfinite(getattr(bst.rv, f)).all(), f"non-finite {f}"
+    assert min(d["active_cell_frac"]) < 1.0, d["active_cell_frac"]
+    drift = abs(d["etot"][-1] - e0) / e0
+    assert drift < 5e-3, f"energy drift {drift:.3e}"
+    wall = sum(cycle_ms) * 1e-3
+    sim_per_wall = sum(d["dt"]) / wall
+
+    # the substep takes no host sync: one more, untimed and uncounted,
+    # with PyTorch's sync check turned to errors
+    b2, _ = eng.resync(bst)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.substep(b2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    log(f"  {side}^3 BDT, {nr} rungs: {np.mean(cycle_ms):.3f} ms/cycle "
+        f"(cycles {[round(x, 3) for x in cycle_ms]}), "
+        f"{sum(cycle_ms) / nsub:.3f} ms/substep, sim-time per wall-second "
+        f"{sim_per_wall:.6e}")
+    log(f"  active_frac {[round(x, 4) for x in d['active_frac']]}")
+    log(f"  active_cell_frac {[round(x, 4) for x in d['active_cell_frac']]}")
+    log(f"  rung_hist {d['rung_hist'][-1]}; |etot - e0|/e0 = {drift:.3e}; "
+        f"overflow 0; rows finite; substep ran with no host sync")
+    log(f"  resync (layout rebin) ms {[round(x, 3) for x in resync_ms]}; "
+        f"substep ms {[round(x, 3) for x in sub_ms]}")
+    log(f"  launches {launches}, resyncs (layout rebins) {cycles}")
+    report["bdt_main_path"] = dict(
+        side=side, num_rungs=nr, cycles=cycles, cycle_ms=cycle_ms,
+        substep_ms=sum(cycle_ms) / nsub, sim_time_per_wall_s=sim_per_wall,
+        resync_ms=resync_ms, substeps_ms=sub_ms, e0=e0, energy_drift=drift,
+        diags=d, launches=launches, resyncs=cycles)
+    return eng, bst, launches
+
+
+def bdt_timing(report, eng, bst, launches):
+    """Phase 6d: each gated stage at the inputs of substep 1 of a cycle
+    (cells skipped), beside the ungated stage at the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    grid = eng.grid
+    bst, _ = eng.resync(bst)
+    bst, _ = eng.substep(bst)                       # all active
+    with Spy(pv.GATED_KERNELS) as spy:
+        _, d = eng.substep(bst)
+    torch.cuda.synchronize()
+    acf = float(d.active_cell_frac)
+    assert acf < 1.0, acf
+    calls = spy.calls
+    xh_args, xh_out = next((a, o) for k, a, o in calls
+                           if k.name == "pair_xh_gated")
+    J = xh_args[0]
+    act = xh_args[4][0]
+    on = pv.supercell_active(act, grid, eng.pve_gated.zgroup)
+    on_slot = on.repeat_interleave(grid.cap)
+    # in-support pairs of every cell from the ungated stage at the same
+    # inputs (the gated output holds prev in inactive supercells)
+    nc_sph = pv.pair_xh._launch(J, None, grid, xh_args[3])[2] + 1
+    cand, inside, per_slot = pair_counts(J, eng, grid, nc_sph)
+    per_act = torch.where(on_slot, per_slot, 0.0)
+    cand_a = float(per_act.sum())
+    inside_a = float(torch.where(on_slot & valid_slots(J) & eng.intmask,
+                                 nc_sph, 0.0).double().sum())
+    recount, moved = xh_recounts(J, xh_out, grid, xh_args[3], per_act)
+    # cells whose J rows an active cell reads: active cells and their
+    # 26 neighbours
+    shape = (grid.npx, grid.np_, grid.npz)
+    cell_on = (on.view(shape) & eng.intmask.view(-1, grid.cap)[:, 0]
+               .view(shape)).float()
+    near = F.max_pool3d(cell_on[None, None], 3, stride=1, padding=1)[0, 0]
+    n_read = float(near.sum()) * grid.cap
+    n_on = float(cell_on.sum()) * grid.cap
+    n_int = float(eng.intmask.sum())
+    log(f"  substep 1 inputs: active_cell_frac {acf:.4f}, active "
+        f"supercells hold {n_on / n_int:.4f} of interior slots; "
+        f"{cand_a:.4e} of {cand:.4e} candidates and {inside_a:.4e} of "
+        f"{inside:.4e} in-support pairs in active supercells")
+    report["bdt_pairs"] = dict(
+        active_cell_frac=acf, candidates=cand, in_support=inside,
+        active_candidates=cand_a, active_in_support=inside_a,
+        xh_recount_candidates=recount, xh_h_moved=moved,
+        active_slot_frac=n_on / n_int, read_slot_frac=n_read / n_int)
+
+    rows = []
+    for kg, args, out in calls:
+        J, I2, g, c, (act, prev), zgroup = args
+        k = next(x for x in pv.KERNELS if x.name == stage_of(kg.name))
+        err, rel = gated_compare(kg, args, out, eng.intmask,
+                                 per_row=False)
+        ms = cuda_ms(lambda: kg._launch(*args), 5)
+        ungated_ms = cuda_ms(lambda: k._launch(J, I2, g, c), 5)
+        plain_ms = cuda_ms(lambda: kg.plain(*args), 1)
+        ops = cand_a * GEO_FLOPS + inside_a * BODY_FLOPS[k.name]
+        if k.name == "pair_xh":
+            ops += recount * RECOUNT_FLOPS
+        fi2 = I2.shape[0] if I2 is not None else 0
+        nbytes = 4 * (J.shape[0] * n_read + fi2 * n_on + g.n_slots
+                      + kg.fo * (n_int - n_on) + kg.fo * n_int)
+        t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+        rows.append(dict(
+            name=kg.name, route="cuda",
+            source="sphexa_tpu_torch/csrc/cell_pair.cu",
+            replaces=GATED_REPLACES, launches=launches[kg.name],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None))
+        report.setdefault("bdt_ungated_ms", {})[kg.name] = ungated_ms
+        log(f"  {kg.name:20s} {ms:9.3f} ms  ungated {ungated_ms:9.3f} ms  "
+            f"plain {plain_ms:10.3f} ms  bound {max(t_ops, t_bytes):.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'})  err "
+            f"{err:.3e} (rel {rel:.3e})")
+    report["kernels_gated"] = rows
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -458,12 +797,20 @@ def main() -> int:
     report["ptxas"] = {s: i["ptxas"] for s, i in _cuda.build_info.items()}
 
     log("kernel check:")
-    kernel_check(report)
+    calls, eng30 = kernel_check(report)
+    gated_check(report, calls, eng30)
+    del calls, eng30
     engine_check(report)
+    bdt_engine_check(report)
     log("main path:")
     eng, rst, grid, launches = main_path(report)
     log("timing:")
     rows = timing(report, eng, rst, grid, launches)
+    del eng, rst
+    log("block time-steps:")
+    beng, bst, blaunches = bdt_main_path(report)
+    log("block time-steps timing:")
+    rows += bdt_timing(report, beng, bst, blaunches)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

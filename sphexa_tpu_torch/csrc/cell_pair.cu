@@ -29,6 +29,14 @@
 // pair candidate inside the support and reads each input row once from
 // device memory per neighbouring cell (27 * FJ * 4 bytes per slot, most
 // from L2), so its floor is pair work over the card's fp32 rate.
+//
+// K2g, the gated form (make_cell_pair_call(gated=True), pallas_ve.py:
+// 162-172 and :242-251), launches the same five bodies with an activity
+// row and the previous outputs (PairGate below). A block whose
+// z-supercell is inactive only copies FO rows of its cap slots, so the
+// gated stage is bounded by the pair work of the active supercells plus
+// that copy (bytes). It still launches a block for every interior cell:
+// inactive blocks cost a launch slot and one read of Z*cap act values.
 
 #include <cuda_runtime.h>
 
@@ -47,6 +55,13 @@ struct PairParams {
     float alphamin, alphamax, decay_constant, atmin, atmax, ramp;
     int uniform_mass;
     float hcoef;   // 1023 * ng0 of the nc -> h controller
+};
+
+// K2g's gate (see gate_closed); act == nullptr for the ungated stage
+struct PairGate {
+    const float* act;    // [n_slots] 0/1 activity (row 0 of the TPU's act)
+    const float* prev;   // [FO, n_slots] outputs kept by inactive supercells
+    int Z;               // z-supercell size; divides npz
 };
 
 namespace {
@@ -91,6 +106,7 @@ __device__ __forceinline__ float w_v2(float v2, int n_w)
 // --------------------------------------------------------------------------
 struct XhBody {
     static constexpr int FJ = 4;                       // x y z m
+    static constexpr int FO = 4;
     __device__ static int jrow(int s) { return s < 3 ? s : 5; }
 
     __device__ static void run(const float* J, const float*, float* out,
@@ -149,6 +165,7 @@ struct XhBody {
 // --------------------------------------------------------------------------
 struct GradhBody {
     static constexpr int FJ = 5;                       // x y z m xm
+    static constexpr int FO = 2;
     __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
 
     float xi, yi, zi, hi, hinv, hinv2, kx, whomega, wrho0;
@@ -203,6 +220,7 @@ struct GradhBody {
 // --------------------------------------------------------------------------
 struct IadBody {
     static constexpr int FJ = 8;        // x y z kx xm vx vy vz
+    static constexpr int FO = 14;
     __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
 
     float xi, yi, zi, hi, hinv, hinv2, kfac, vxi, vyi, vzi;
@@ -288,6 +306,7 @@ struct IadBody {
 // --------------------------------------------------------------------------
 struct AvBody {
     static constexpr int FJ = 10;   // x y z c kx xm divv vx vy vz
+    static constexpr int FO = 1;
     __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
 
     float xi, yi, zi, hi, hinv2, kfac, ci, divvi, vxi, vyi, vzi;
@@ -365,6 +384,7 @@ __device__ __forceinline__ void exp_pair(float x, float& ep, float& em)
 struct MomentumBody {
     // x y z h vx vy vz c prho rho xm alpha m c11 c12 c13 c22 c23 c33
     static constexpr int FJ = 19;
+    static constexpr int FO = 5;
     __device__ static int jrow(int s) { return s < 4 ? s : s + 1; }
 
     float xi, yi, zi, hinv2, hi3inv, ci, alphai, rhoi, rhoi_inv, prhoi,
@@ -491,15 +511,45 @@ __device__ __forceinline__ long long nbr_cell(const PairGeom& g,
     return own + ((long long)dx * g.npd + dy) * g.npz + dz;
 }
 
+// K2g, the gate of the block-time-step pipeline: the block of interior
+// cell c belongs to the z-supercell of padded z-cells [t*Z, (t+1)*Z) of
+// its (x, y) column, t = cz / Z (make_cell_pair_call's program unit).
+// When no slot of the supercell has act > 0.5, the block copies prev
+// into out for its own cap slots and returns before staging any j-cell.
+// The flag is read over the whole supercell, so an inactive cell inside
+// an active supercell is recomputed, as on the TPU (its fresh outputs
+// are what its active neighbours read in the next stage).
+template <int FO>
+__device__ __forceinline__ bool gate_closed(const PairGate& gt,
+                                            const PairGeom& g,
+                                            long long own, float* out)
+{
+    const int cap = g.cap, i = threadIdx.x;
+    const int cz = (int)(own % g.npz);
+    const long long first = (own - cz % gt.Z) * cap + i;
+    int any = 0;
+    for (int k = 0; k < gt.Z; ++k)
+        any |= gt.act[first + (long long)k * cap] > 0.5f;
+    if (__syncthreads_or(any)) return false;
+    const long long islot = own * cap + i;
+#pragma unroll
+    for (int r = 0; r < FO; ++r)
+        out[r * g.n_slots + islot] = gt.prev[r * g.n_slots + islot];
+    return true;
+}
+
 // streams the 27 neighbour cells one at a time through shared memory
-template <class Body>
+template <class Body, bool Gated>
 __global__ void
 cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
-                 float* __restrict__ out, PairGeom g, PairParams p)
+                 float* __restrict__ out, PairGeom g, PairParams p,
+                 PairGate gt)
 {
     extern __shared__ float sj[];                  // [FJ][cap]
     const int cap = g.cap, i = threadIdx.x;
     const long long own = own_cell(g);
+    if constexpr (Gated)
+        if (gate_closed<Body::FO>(gt, g, own, out)) return;
     const long long islot = own * cap + i;
     Body b;
     b.load_i(J, I2, islot, g.n_slots, p);
@@ -516,15 +566,18 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
 }
 
 // stages all 27 neighbour cells at once, for bodies that iterate
-template <class Body>
+template <class Body, bool Gated>
 __global__ void
 cell_pair_resident(const float* __restrict__ J, const float* __restrict__ I2,
-                   float* __restrict__ out, PairGeom g, PairParams p)
+                   float* __restrict__ out, PairGeom g, PairParams p,
+                   PairGate gt)
 {
     extern __shared__ float sj[];                  // [FJ][27 * cap]
     const int cap = g.cap, i = threadIdx.x;
     const int W = 27 * cap;
     const long long own = own_cell(g);
+    if constexpr (Gated)
+        if (gate_closed<Body::FO>(gt, g, own, out)) return;
     for (int nb = 0; nb < 27; ++nb) {
         const long long jslot = nbr_cell(g, own, nb) * cap + i;
 #pragma unroll
@@ -540,38 +593,48 @@ constexpr size_t SMEM_MAX = 232448;   // 227 KB a block may opt into
 
 template <class Body, bool Resident>
 cudaError_t launch(const float* J, const float* I2, float* out,
-                   const PairGeom& g, const PairParams& p, cudaStream_t st)
+                   const PairGeom& g, const PairParams& p, const PairGate& gt,
+                   cudaStream_t st)
 {
-    void (*kern)(const float*, const float*, float*, PairGeom, PairParams);
+    using Kern = void (*)(const float*, const float*, float*, PairGeom,
+                          PairParams, PairGate);
+    const bool gated = gt.act != nullptr;
+    Kern kern;
     if constexpr (Resident)
-        kern = cell_pair_resident<Body>;
+        kern = gated ? cell_pair_resident<Body, true>
+                     : cell_pair_resident<Body, false>;
     else
-        kern = cell_pair_stream<Body>;
+        kern = gated ? cell_pair_stream<Body, true>
+                     : cell_pair_stream<Body, false>;
     const size_t smem = sizeof(float) * Body::FJ * g.cap * (Resident ? 27 : 1);
     if (smem > SMEM_MAX || g.cap > 1024 || g.cap % 32) return cudaErrorInvalidValue;
+    if (gated && (gt.prev == nullptr || gt.Z < 1 || g.npz % gt.Z))
+        return cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return e;
     }
     const unsigned ncell = (unsigned)g.nx * g.n * g.nz;
-    if (ncell) kern<<<ncell, g.cap, smem, st>>>(J, I2, out, g, p);
+    if (ncell) kern<<<ncell, g.cap, smem, st>>>(J, I2, out, g, p, gt);
     return cudaSuccess;
 }
 
 }  // namespace
 
+// gt.act == nullptr: the ungated stage (K2); else K2g with gt.prev, gt.Z
 extern "C" int pair_launch(int stage, const float* J, const float* I2,
-                           float* out, PairGeom g, PairParams p, void* stream)
+                           float* out, PairGeom g, PairParams p, PairGate gt,
+                           void* stream)
 {
     cudaStream_t st = (cudaStream_t)stream;
     cudaError_t e;
     switch (stage) {
-    case 0: e = launch<XhBody, true>(J, I2, out, g, p, st); break;
-    case 1: e = launch<GradhBody, false>(J, I2, out, g, p, st); break;
-    case 2: e = launch<IadBody, false>(J, I2, out, g, p, st); break;
-    case 3: e = launch<AvBody, false>(J, I2, out, g, p, st); break;
-    case 4: e = launch<MomentumBody, false>(J, I2, out, g, p, st); break;
+    case 0: e = launch<XhBody, true>(J, I2, out, g, p, gt, st); break;
+    case 1: e = launch<GradhBody, false>(J, I2, out, g, p, gt, st); break;
+    case 2: e = launch<IadBody, false>(J, I2, out, g, p, gt, st); break;
+    case 3: e = launch<AvBody, false>(J, I2, out, g, p, gt, st); break;
+    case 4: e = launch<MomentumBody, false>(J, I2, out, g, p, gt, st); break;
     default: e = cudaErrorInvalidValue;
     }
     if (e != cudaSuccess) return (int)e;

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from sphexa_tpu_torch.config import SphConfig
+from sphexa_tpu_torch.propagator.ve_bdt import BDTState
 from sphexa_tpu_torch.propagator.ve_cellmajor import RVState
 from sphexa_tpu_torch.sfc.box import Box, Boundary
 from sphexa_tpu_torch.state import _FIELDS, Particles, SimState
@@ -69,3 +70,19 @@ def resident_from_numpy(rv_fields: dict, device=None) -> RVState:
             a = a.astype(np.int32)
         kw[f.name] = _tensor(a, device)
     return RVState(**kw)
+
+
+def bdt_from_numpy(fields: dict, device=None) -> BDTState:
+    """BDTState from a block-time-step state turned into numpy:
+    fields["rv"] holds the resident fields (as resident_from_numpy
+    takes them), every other key one BDTState row or 0-dim scalar."""
+    device = resolve_device(device)
+    kw = {"rv": resident_from_numpy(fields["rv"], device)}
+    for f in dataclasses.fields(BDTState):
+        if f.name == "rv":
+            continue
+        a = np.asarray(fields[f.name])
+        if f.name == "substep":
+            a = a.astype(np.int32)
+        kw[f.name] = _tensor(a, device)
+    return BDTState(**kw)

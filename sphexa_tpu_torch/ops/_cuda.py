@@ -137,6 +137,11 @@ class PairParams(ctypes.Structure):
                 ("hcoef", _F)]
 
 
+class PairGate(ctypes.Structure):
+    """K2g's gate: act null for the ungated stage."""
+    _fields_ = [("act", _P), ("prev", _P), ("Z", _I)]
+
+
 def _bind(src: str, lib: ctypes.CDLL):
     if src == "ghost_refresh.cu":
         lib.ghost_refresh.restype = _I
@@ -145,7 +150,8 @@ def _bind(src: str, lib: ctypes.CDLL):
                                       _F, _P]
     else:
         lib.pair_launch.restype = _I
-        lib.pair_launch.argtypes = [_I, _P, _P, _P, PairGeom, PairParams, _P]
+        lib.pair_launch.argtypes = [_I, _P, _P, _P, PairGeom, PairParams,
+                                    PairGate, _P]
 
 
 def lib(src: str) -> ctypes.CDLL:
@@ -178,14 +184,20 @@ def ghost_launch(stack, cells, grid, box, xyz_rows, fill_pos: float):
     _check(code, "ghost_refresh")
 
 
-def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float):
+def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None):
+    """gate=None: the ungated stage; else (act, prev, Z) for K2g."""
     geom = PairGeom(grid.nx, grid.n, grid.nz, grid.np_, grid.npz, grid.cap,
                     grid.n_slots)
     prm = PairParams(K3d, int(cfg.sinc_index), float(cfg.ng0 // 4),
                      float(cfg.ngmax), cfg.h_cap, cfg.h_iter, cfg.alphamin,
                      cfg.alphamax, cfg.decay_constant, cfg.atmin, cfg.atmax,
                      cfg.ramp, int(cfg.uniform_mass), 1023.0 * cfg.ng0)
+    if gate is None:
+        gt = PairGate(None, None, 0)
+    else:
+        act, prev, Z = gate
+        gt = PairGate(act.data_ptr(), prev.data_ptr(), Z)
     code = lib("cell_pair.cu").pair_launch(
         stage, J.data_ptr(), None if I2 is None else I2.data_ptr(),
-        out.data_ptr(), geom, prm, _stream(J))
+        out.data_ptr(), geom, prm, gt, _stream(J))
     _check(code, f"pair stage {stage}")

@@ -17,6 +17,11 @@ the port is the launch skeleton of cell_pair.cu: one thread block per
 interior cell, one thread per i-slot, the 27 neighbour cells streamed
 through shared memory.
 
+K2g, the gated driver (make_cell_pair_call(gated=True), pallas_ve.py:
+162-172, :242-251), is the same five stages as GATED_KERNELS: a
+z-supercell (Z cells of one column) with no active slot keeps its
+previous outputs. Block time-steps (propagator/ve_bdt.py) run on it.
+
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel (and counts the launch) or raises.
 
@@ -39,8 +44,8 @@ from sphexa_tpu_torch.config import SphConfig
 from sphexa_tpu_torch.ops import _cuda
 from sphexa_tpu_torch.ops.cellmajor import (CMGrid, CMLayout,
                                             _cell_coords_all,
-                                            _interior_cells_np, positions_cm,
-                                            to_cm)
+                                            _interior_cells_np, legal_zgroup,
+                                            positions_cm, to_cm)
 from sphexa_tpu_torch.sfc.box import Box
 from sphexa_tpu_torch.sph.kernels import (_DSINC_OVER_V_COEF, _SINC_COEF,
                                           _poly_even, _pow_int, exp_pair,
@@ -79,15 +84,17 @@ def _nbr_offsets(grid: CMGrid) -> np.ndarray:
     return ((dx * grid.np_ + dy) * grid.npz + dz).ravel()
 
 
-def _run_plain(body, J, I2, grid: CMGrid, fo: int, **kw):
-    """Evaluate `body` for every interior cell in chunks of cells.
+def _run_plain(body, J, I2, grid: CMGrid, fo: int, cells=None, **kw):
+    """Evaluate `body` for every interior cell (or the padded cell ids
+    `cells`, a subset of them) in chunks of cells.
     body(I, Jn, i2, **kw) gets I[r] as [C, CAP, 1] i-columns, Jn[r] as
     [C, 1, 27*CAP] j-rows and i2[r] as [C, CAP, 1], and returns fo
-    [C, CAP, 1] outputs. Slots outside interior cells come out zero."""
+    [C, CAP, 1] outputs. Slots of other cells come out zero."""
     cap = grid.cap
     dev = J.device
     out = torch.zeros((fo, grid.n_slots), dtype=torch.float32, device=dev)
-    cells = torch.tensor(interior_cells(grid), device=dev)
+    if cells is None:
+        cells = torch.tensor(interior_cells(grid), device=dev)
     offs = torch.tensor(_nbr_offsets(grid), device=dev)
     lane = torch.arange(cap, device=dev)
     chunk = max(1, _PAIR_BUDGET // (27 * cap * cap))
@@ -103,6 +110,29 @@ def _run_plain(body, J, I2, grid: CMGrid, fo: int, **kw):
         res = body(I, Jn, i2, **kw)
         out[:, own] = torch.stack([r.reshape(-1) for r in res])
     return out
+
+
+def resolve_zgroup(grid: CMGrid, zgroup: int = 0) -> int:
+    """The gate unit of K2g: Z z-cells of one (x, y) column. 0 picks
+    legal_zgroup(npz, cap), as make_cell_pair_call does. The z-supercell
+    is part of the block-time-step semantics (an inactive cell inside an
+    active supercell is recomputed), so the port keeps the JAX rule."""
+    if zgroup == 0:
+        zgroup = legal_zgroup(grid.npz, grid.cap)
+        if zgroup == 0:
+            raise ValueError(f"no z-supercell size divides npz={grid.npz} "
+                             f"at cap={grid.cap}")
+    if zgroup < 1 or grid.npz % zgroup:
+        raise ValueError(f"zgroup {zgroup} must divide npz={grid.npz}")
+    return zgroup
+
+
+def supercell_active(act, grid: CMGrid, Z: int):
+    """Per padded cell: its z-supercell holds a slot with act > 0.5
+    (the TPU kernel's max(act) > 0.5 over its [Z*CAP] block)."""
+    flag = (act.reshape(grid.npx, grid.np_, grid.npz // Z, Z * grid.cap)
+            > 0.5).any(-1)
+    return flag.repeat_interleave(Z, dim=2).reshape(-1)
 
 
 def _w_v2(v2, n_w: int):
@@ -387,39 +417,78 @@ def _check_rows(name, t, rows, grid: CMGrid):
 
 class PairKernel:
     """One pair stage: the CUDA kernel (stage `stage` of cell_pair.cu)
-    and its plain PyTorch version. `launches` counts kernel launches."""
+    and its plain PyTorch version. `launches` counts kernel launches.
+
+    A gated stage (K2g) takes gate=(act, prev): act is a [n_slots] 0/1
+    row and prev [fo, n_slots]. Each z-supercell of `zgroup` cells
+    (resolve_zgroup) with no active slot returns prev in its interior
+    slots instead of the pair result."""
 
     def __init__(self, name: str, stage: int, fj: int, fo: int, fi2: int,
-                 body):
+                 body, gated: bool = False):
         self.name = name
         self.stage = stage
         self.fj, self.fo, self.fi2 = fj, fo, fi2
         self.body = body
+        self.gated = gated
         self.launches = 0
 
-    def plain(self, J, I2, grid: CMGrid, cfg: SphConfig) -> torch.Tensor:
-        return _run_plain(self.body, J, I2, grid, self.fo, cfg=cfg,
-                          K3d=kernel_3d_k(cfg.sinc_index),
-                          n_w=int(cfg.sinc_index))
+    def _body_kw(self, cfg: SphConfig):
+        return dict(cfg=cfg, K3d=kernel_3d_k(cfg.sinc_index),
+                    n_w=int(cfg.sinc_index))
 
-    def _launch(self, J, I2, grid: CMGrid, cfg: SphConfig) -> torch.Tensor:
-        out = torch.zeros((self.fo, grid.n_slots), dtype=torch.float32,
-                          device=J.device)
-        _cuda.pair_launch(self.stage, J, I2, out, grid, cfg,
-                          kernel_3d_k(cfg.sinc_index))
+    def plain(self, J, I2, grid: CMGrid, cfg: SphConfig, gate=None,
+              zgroup: int = 0) -> torch.Tensor:
+        if gate is None:
+            return _run_plain(self.body, J, I2, grid, self.fo,
+                              **self._body_kw(cfg))
+        act, prev = gate
+        on = supercell_active(act, grid, resolve_zgroup(grid, zgroup))
+        cells = torch.tensor(interior_cells(grid), device=J.device)
+        live = on[cells]
+        out = _run_plain(self.body, J, I2, grid, self.fo, cells=cells[live],
+                         **self._body_kw(cfg))
+        lane = torch.arange(grid.cap, device=J.device)
+        keep = (cells[~live][:, None] * grid.cap + lane).reshape(-1)
+        out[:, keep] = prev[:, keep]
         return out
 
-    def __call__(self, J, I2, grid: CMGrid, cfg: SphConfig) -> torch.Tensor:
+    def _launch(self, J, I2, grid: CMGrid, cfg: SphConfig, gate=None,
+                zgroup: int = 0) -> torch.Tensor:
+        out = torch.zeros((self.fo, grid.n_slots), dtype=torch.float32,
+                          device=J.device)
+        if gate is not None:
+            gate = (*gate, resolve_zgroup(grid, zgroup))
+        _cuda.pair_launch(self.stage, J, I2, out, grid, cfg,
+                          kernel_3d_k(cfg.sinc_index), gate)
+        return out
+
+    def _check(self, J, I2, grid: CMGrid, gate):
         _check_rows(self.name, J, self.fj, grid)
+        tensors = [J]
         if self.fi2:
             _check_rows(self.name, I2, self.fi2, grid)
-            if I2.device != J.device:
-                raise ValueError(f"{self.name}: J and I2 on different devices")
+            tensors.append(I2)
+        if self.gated != (gate is not None):
+            raise ValueError(f"{self.name}: gate= is required exactly for "
+                             f"a gated stage")
+        if gate is not None:
+            act, prev = gate
+            _check_rows(self.name, act[None], 1, grid)
+            _check_rows(self.name, prev, self.fo, grid)
+            tensors += [act, prev]
+        if any(t.device != J.device for t in tensors):
+            raise ValueError(f"{self.name}: inputs on different devices")
+
+    def __call__(self, J, I2, grid: CMGrid, cfg: SphConfig, gate=None,
+                 zgroup: int = 0) -> torch.Tensor:
+        self._check(J, I2, grid, gate)
+        args = (J, I2, grid, cfg) + (() if gate is None else (gate, zgroup))
         if J.device.type == "cpu":
-            return self.plain(J, I2, grid, cfg)
+            return self.plain(*args)
         if J.device.type != "cuda":
             raise ValueError(f"{self.name}: no kernel for device {J.device}")
-        out = self._launch(J, I2, grid, cfg)
+        out = self._launch(*args)
         self.launches += 1
         return out
 
@@ -524,6 +593,12 @@ pair_momentum = PairKernel("pair_momentum", 4, NBASE + 15, 5, 0,
 
 KERNELS = (ghost_refresh, pair_xh, pair_gradh, pair_iad, pair_av,
            pair_momentum)
+# K2g: the same stages behind the supercell gate (block time-steps)
+GATED_KERNELS = tuple(
+    PairKernel(k.name + "_gated", k.stage, k.fj, k.fo, k.fi2, k.body,
+               gated=True) for k in KERNELS[1:])
+pair_xh_gated, pair_gradh_gated, pair_iad_gated, pair_av_gated, \
+    pair_momentum_gated = GATED_KERNELS
 
 
 # ---------------------------------------------------------------------------
@@ -532,9 +607,16 @@ KERNELS = (ghost_refresh, pair_xh, pair_gradh, pair_iad, pair_av,
 
 class PairVE:
     """The five VE pair stages for one (grid, cfg), with the stage
-    methods and J row orders of the JAX package's PallasVE."""
+    methods and J row orders of the JAX package's PallasVE.
 
-    def __init__(self, grid: CMGrid, cfg: SphConfig):
+    gated=True runs K2g: every stage method then takes gate=(act,
+    prevs), act the [n_slots] 0/1 activity row and prevs the previous
+    output rows in the stage's output order (PallasVE._gate_kw without
+    the TPU's row padding: rows past the list are zero, rows past the
+    stage's outputs are dropped). zgroup 0 picks legal_zgroup."""
+
+    def __init__(self, grid: CMGrid, cfg: SphConfig, gated: bool = False,
+                 zgroup: int = 0):
         if grid.cap % 32 or grid.cap > 1024:
             raise ValueError(f"cap {grid.cap}: must be a multiple of 32, "
                              f"at most 1024")
@@ -550,6 +632,11 @@ class PairVE:
         self.grid = grid
         self.cfg = cfg
         self.K3d = kernel_3d_k(cfg.sinc_index)
+        self.gated = gated
+        self.zgroup = resolve_zgroup(grid, zgroup) if gated else 0
+        kerns = GATED_KERNELS if gated else KERNELS[1:]
+        (self._xh, self._gradh, self._iad, self._av,
+         self._mom) = kerns
 
     def base_rows(self, layout: CMLayout, x, y, z, h):
         """The 5 base rows shared by all stages. Invalid slots get
@@ -560,36 +647,44 @@ class PairVE:
         gid = torch.where(layout.valid, layout.src.to(torch.float32), -1.0)
         return [xcm + fillv, ycm + fillv, zcm + fillv, hcm, gid]
 
-    def _run(self, kern: PairKernel, rows, i2_rows=None):
+    def _run(self, kern: PairKernel, rows, i2_rows=None, gate=None):
         I2 = None if i2_rows is None else torch.stack(i2_rows)
-        return kern(torch.stack(rows), I2, self.grid, self.cfg)
+        if gate is not None:
+            act, prevs = gate
+            prevs = list(prevs)[:kern.fo]
+            prevs += [torch.zeros_like(act)] * (kern.fo - len(prevs))
+            gate = (act, torch.stack(prevs))
+        return kern(torch.stack(rows), I2, self.grid, self.cfg, gate,
+                    self.zgroup)
 
-    def xmass_h(self, base, m_cm):
+    def xmass_h(self, base, m_cm, gate=None):
         """Fused nc/h-iteration/xmass. Returns (xm, h, nc, nonconv)."""
-        out = self._run(pair_xh, base + [m_cm])
+        out = self._run(self._xh, base + [m_cm], gate=gate)
         return out[0], out[1], out[2], out[3]
 
-    def gradh(self, base, m_cm, xm_cm):
-        out = self._run(pair_gradh, base + [m_cm, xm_cm])
+    def gradh(self, base, m_cm, xm_cm, gate=None):
+        out = self._run(self._gradh, base + [m_cm, xm_cm], gate=gate)
         return out[0], out[1]
 
-    def iad_divv(self, base, kx_cm, xm_cm, vx_cm, vy_cm, vz_cm):
-        out = self._run(pair_iad, base + [kx_cm, xm_cm, vx_cm, vy_cm, vz_cm])
+    def iad_divv(self, base, kx_cm, xm_cm, vx_cm, vy_cm, vz_cm, gate=None):
+        out = self._run(self._iad, base + [kx_cm, xm_cm, vx_cm, vy_cm,
+                                           vz_cm], gate=gate)
         cij = tuple(out[i] for i in range(6))
         gradv = tuple(out[8 + i] for i in range(6))
         return cij, out[6], out[7], gradv
 
     def av_switches(self, base, c_cm, kx_cm, xm_cm, divv_cm, vx_cm, vy_cm,
-                    vz_cm, cij, alpha_cm, dt):
+                    vz_cm, cij, alpha_cm, dt, gate=None):
         dt_row = dt.to(alpha_cm.dtype).expand_as(alpha_cm)
-        out = self._run(pair_av, base + [c_cm, kx_cm, xm_cm, divv_cm, vx_cm,
-                                         vy_cm, vz_cm],
-                        list(cij) + [alpha_cm, dt_row])
+        out = self._run(self._av, base + [c_cm, kx_cm, xm_cm, divv_cm, vx_cm,
+                                          vy_cm, vz_cm],
+                        list(cij) + [alpha_cm, dt_row], gate=gate)
         return out[0]
 
     def momentum(self, base, vx_cm, vy_cm, vz_cm, c_cm, prho_cm, rho_cm,
-                 xm_cm, alpha_cm, m_cm, cij):
-        out = self._run(pair_momentum,
+                 xm_cm, alpha_cm, m_cm, cij, gate=None):
+        out = self._run(self._mom,
                         base + [vx_cm, vy_cm, vz_cm, c_cm, prho_cm, rho_cm,
-                                xm_cm, alpha_cm, m_cm] + list(cij))
+                                xm_cm, alpha_cm, m_cm] + list(cij),
+                        gate=gate)
         return out[0], out[1], out[2], out[3], out[4]

@@ -268,7 +268,8 @@ class ResidentVE:
                        iteration=state.iteration.clone())
         return self._gather(layout, fields, scalars, gid_src)
 
-    def _rebin(self, rst: RVState) -> RVState:
+    def _rebin(self, rst: RVState):
+        """(rebinned state, the layout it was gathered with)."""
         x, y, z = put_in_box(self.box, rst.x, rst.y, rst.z)
         alive = rst.valid & self.intmask
         layout = build_layout(self.grid, self.box, x, y, z, alive=alive)
@@ -279,7 +280,7 @@ class ResidentVE:
             overflow=rst.overflow + layout.overflow.to(torch.int32),
             ttot=rst.ttot, dt=rst.dt, dt_m1=rst.dt_m1,
             iteration=rst.iteration)
-        return self._gather(layout, fields, scalars, rst.gid)
+        return self._gather(layout, fields, scalars, rst.gid), layout
 
     def unbind(self, rst: RVState, n_capacity: int) -> SimState:
         validint = rst.valid & self.intmask
@@ -315,7 +316,7 @@ class ResidentVE:
         stale = 2.0 * (h_max0 + rst.drift) >= self.REBIN_FRAC * self.cell_edge
         rebinned = bool(stale)          # the one host sync of the step
         if rebinned:
-            rst = self._rebin(rst)
+            rst, _ = self._rebin(rst)
             validint = rst.valid & self.intmask
 
         base = [rst.x, rst.y, rst.z, rst.h, rst.gid]

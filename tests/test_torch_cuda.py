@@ -11,7 +11,10 @@ Inputs: one resident step of a perturbed Sedov 12^3 frame on a cap-64
 grid, recorded on the CPU. Tolerances as tests/test_torch_pair_ve.py
 (nc and nonconv exact; rtol 1e-5 on h, xm, kx, gradh, alpha and
 maxvsignal; 1e-4 of the row's scale on the cancelling sums), and K1
-bit-equal.
+bit-equal. The gated stages (K2g) take the same inputs with a seeded
+activity pattern: the slots of active z-supercells hold those
+tolerances, and the interior slots of inactive ones equal prev bit for
+bit.
 """
 
 import numpy as np
@@ -21,7 +24,7 @@ import torch
 from sphexa_tpu_torch.config import SphConfig
 from sphexa_tpu_torch.init.sedov import init_sedov
 from sphexa_tpu_torch.ops import pair_ve as pv
-from sphexa_tpu_torch.ops.cellmajor import CMGrid
+from sphexa_tpu_torch.ops.cellmajor import CMGrid, _interior_cells_np
 from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
 from sphexa_tpu_torch.sfc.box import Box, Boundary
 
@@ -79,6 +82,10 @@ def test_pair_kernel_matches_plain(recorded, cuda, name):
     assert k.launches == before + 1
     ref = k.plain(J, I2, grid, cfg)
     mask = (intmask.to(cuda) & (J[0] < 0.5 * pv.FILL_POS))
+    _check_rows(name, ref, out, mask)
+
+
+def _check_rows(name, ref, out, mask):
     a, b = ref[:, mask].cpu().numpy(), out[:, mask].cpu().numpy()
     for r in range(a.shape[0]):
         if r in EXACT.get(name, ()):
@@ -88,6 +95,44 @@ def test_pair_kernel_matches_plain(recorded, cuda, name):
         else:
             assert np.abs(b[r] - a[r]).max() <= 1e-4 * max(
                 np.abs(a[r]).max(), 1e-30), r
+
+
+@pytest.mark.parametrize("zgroup", [0, 1], ids=["Z6", "Z1"])
+@pytest.mark.parametrize("name", ["pair_xh", "pair_gradh", "pair_iad",
+                                  "pair_av", "pair_momentum"])
+def test_gated_kernel_matches_plain(recorded, cuda, name, zgroup):
+    calls, grid, cfg, intmask = recorded
+    k, J, I2 = next(c for c in calls if c[0].name == name)
+    kg = next(g for g in pv.GATED_KERNELS if g.name == name + "_gated")
+    J = J.to(cuda)
+    I2 = None if I2 is None else I2.to(cuda)
+    r = np.random.default_rng(2)
+    # per z-cell of the interior: active (all slots), mixed (one slot)
+    # or inactive, and every third column wholly inactive, so supercells
+    # of every kind occur
+    kind = r.integers(0, 3, (grid.npx, grid.np_, grid.npz))
+    kind[~_interior_cells_np(grid).reshape(kind.shape)] = 0
+    cx, cy = np.meshgrid(np.arange(grid.npx), np.arange(grid.np_),
+                         indexing="ij")
+    kind[(cx + cy) % 3 == 0] = 0
+    act = np.zeros((grid.npx, grid.np_, grid.npz, grid.cap), np.float32)
+    act[kind == 2] = 1.0
+    act[..., 0][kind == 1] = 1.0
+    act = torch.from_numpy(act.reshape(-1)).to(cuda)
+    prev = torch.from_numpy(r.normal(0, 1, (kg.fo, grid.n_slots)).astype(
+        np.float32)).to(cuda)
+    before = kg.launches
+    out = kg(J, I2, grid, cfg, (act, prev), zgroup)
+    assert kg.launches == before + 1
+    ref = kg.plain(J, I2, grid, cfg, (act, prev), zgroup)
+    on = pv.supercell_active(act, grid, pv.resolve_zgroup(grid, zgroup))
+    on = on.repeat_interleave(grid.cap)
+    keep = intmask.to(cuda) & ~on
+    assert keep.any() and on.any()
+    assert torch.equal(out[:, keep], prev[:, keep])
+    assert torch.equal(ref[:, keep], prev[:, keep])
+    _check_rows(name, ref, out, on & intmask.to(cuda)
+                & (J[0] < 0.5 * pv.FILL_POS))
 
 
 @pytest.mark.parametrize("boundary", ["periodic", "open"])
