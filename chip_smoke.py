@@ -23,7 +23,19 @@ Phases (any failure exits non-zero before the last line):
      just before, read just after); (d) each gated stage timed at the
      inputs of a substep that skips cells, beside the ungated stage,
      its gated plain version and its bound;
-  7. the kernel table as one JSON line, then the device line.
+  7. the moment-matmul and avClean bodies (SphConfig mxu_moments +
+     mxu_momentum, + mxu_bf16, av_clean): (e) K8, K9, K10 (float32 and
+     bf16) and K7c against their plain versions at Sedov 30^3, and the
+     gated K8-K10 on the seeded activity pattern; (f) ResidentVE on the
+     card against the CPU at 10^3 for 3 steps under each of the three
+     configurations; (g) the main path under mxu_moments + mxu_momentum
+     at Sedov 100^3, one warm-up step then 10 timed steps with a forced
+     rebin (K8-K10 once a step, K5-K7 never), then 3 timed steps each
+     under + mxu_bf16 and under av_clean, and BdtVE under the moment
+     bodies for one timed cycle (the gated K8-K10); (h) each new kernel
+     timed at those inputs beside its direct counterpart (K5, K6, K7),
+     its plain version and its bound;
+  8. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -55,7 +67,17 @@ HBM_BW = 3.35e12
 GEO_FLOPS = 9
 RECOUNT_FLOPS = 2
 BODY_FLOPS = {"pair_xh": 18, "pair_gradh": 40, "pair_iad": 62,
-              "pair_av": 55, "pair_momentum": 170}
+              "pair_av": 55, "pair_momentum": 170,
+              # K8: K5's tau part and 16 moment FMAs; K9: the vsig
+              # term, W and 8 moment FMAs; K7c: K7 and the avClean
+              # correction (two quadratic forms, exp, guarded divide);
+              # K10: phase A, the five pair weights
+              "pair_iad_mm": 72, "pair_av_mm": 47,
+              "pair_momentum_avclean": 219, "pair_momentum_mm": 95}
+# K10 phase B: 49 FMAs per (pair, family) with a nonzero weight
+MM_FAMILY_FLOPS = 98
+# moment columns built per (i-cell, staged j-slot)
+COL_FLOPS = {"pair_iad_mm": 21, "pair_av_mm": 12, "pair_momentum_mm": 51}
 GATED_REPLACES = "sphexa_tpu/ops/pallas_ve.py:162-253"
 REPLACES = {
     "ghost_refresh": "sphexa_tpu/ops/pallas_ve.py:349",
@@ -64,7 +86,18 @@ REPLACES = {
     "pair_iad": "sphexa_tpu/ops/pallas_ve.py:704",
     "pair_av": "sphexa_tpu/ops/pallas_ve.py:900",
     "pair_momentum": "sphexa_tpu/ops/pallas_ve.py:1022",
+    "pair_iad_mm": "sphexa_tpu/ops/pallas_ve.py:769",
+    "pair_av_mm": "sphexa_tpu/ops/pallas_ve.py:949",
+    "pair_momentum_mm": "sphexa_tpu/ops/pallas_ve.py:1190",
+    "pair_momentum_avclean": "sphexa_tpu/ops/pallas_ve.py:1094-1116",
 }
+# the direct stage each new kernel stands in for
+DIRECT = {"pair_iad_mm": "pair_iad", "pair_av_mm": "pair_av",
+          "pair_momentum_mm": "pair_momentum",
+          "pair_momentum_avclean": "pair_momentum"}
+MM = dict(mxu_moments=True, mxu_momentum=True)
+CONFIGS = {"mm": MM, "mm_bf16": dict(MM, mxu_bf16=True),
+           "avclean": dict(av_clean=True)}
 
 # output rows compared as one group (a matrix or vector is compared at
 # its own scale: near-zero components such as curlv of a radial flow or
@@ -72,9 +105,29 @@ REPLACES = {
 GROUPS = {"pair_xh": [[0], [1]], "pair_gradh": [[0], [1]],
           "pair_iad": [list(range(6)), list(range(6, 14))],
           "pair_av": [[0]], "pair_momentum": [[0, 1, 2], [3], [4]]}
+GROUPS.update(pair_iad_mm=GROUPS["pair_iad"], pair_av_mm=[[0]],
+              pair_momentum_mm=GROUPS["pair_momentum"],
+              pair_momentum_avclean=GROUPS["pair_momentum"])
 EXACT = {"pair_xh": [2, 3]}                       # nc, nonconv
 RELATIVE = {"pair_xh": [0, 1], "pair_gradh": [0, 1], "pair_av": [0],
-            "pair_momentum": [4]}                 # rtol 1e-5
+            "pair_momentum": [4], "pair_av_mm": [0],
+            "pair_momentum_mm": [4],
+            "pair_momentum_avclean": [4]}         # rtol 1e-5
+# K9's graddivv is a cancelling moment sum: on the main path's Sedov
+# state most particles are at rest, graddivv there is rounding noise and
+# alpha follows its summation order (1.4e-5 relative at 100^3). On those
+# inputs (per_row False) alpha is held at 1e-4 of its scale; on the
+# perturbed inputs of (e) at rtol 1e-5.
+NOISY_AT_REST = {"pair_av_mm"}
+# K10 under mxu_bf16 is held against its plain version at this share of
+# the plain version's own bf16-to-float32 distance (per row, at the
+# row's scale): an operand one float32 ulp apart (FMA contraction, the
+# cell-mean summation order) can round to the neighbouring bf16 value,
+# and where a moment sum cancels (cells wide against h) one such flip
+# moves it by a share of bf16's own error (measured on the card: 0.5%
+# of it at 12^3, 5.7% at 30^3, 9.2% at the 100^3 main-path inputs; a
+# kernel that rounded wrongly would sit near 100%)
+BF16_SHARE = 0.25
 
 
 def stage_of(name: str) -> str:
@@ -124,7 +177,8 @@ def compare(name, ref, out, mask, per_row: bool):
         if err[r].max() != 0:
             raise AssertionError(f"{name}: row {r} not exact "
                                  f"({int((err[r] > 0).sum())} slots)")
-    rel_rows = RELATIVE.get(name, [])
+    rel_rows = [] if name in NOISY_AT_REST and not per_row else \
+        RELATIVE.get(name, [])
     for r in rel_rows:
         bad = err[r] > 1e-5 * ref[r].abs()
         if bad.any():
@@ -143,6 +197,36 @@ def compare(name, ref, out, mask, per_row: bool):
                     f"{name}: rows {g} err {float(err[g].max()):.3e} "
                     f"> 1e-4 x {scale:.3e}")
     return float(err.max()), rel
+
+
+def bf16_compare(k, args, out, mask):
+    """K10 under mxu_bf16 against its plain version: within BF16_SHARE of
+    the plain bf16-to-float32 distance, and at least half that distance
+    from float32 (the rounding is applied); maxvsignal (no bf16 operand)
+    rtol 1e-5. Returns (max abs error against plain bf16, the largest
+    error as a share of that distance)."""
+    import torch
+    J, I2, g, c = args
+    ref_b = k.plain(*args)[:, mask].double()
+    ref_f = k.plain(J, I2, g, c.replace(mxu_bf16=False))[:, mask].double()
+    o = out[:, mask].double()
+    if not torch.isfinite(o).all():
+        raise AssertionError("bf16: non-finite kernel output")
+    worst = 0.0
+    for r in range(4):
+        scale = float(ref_f[r].abs().max())
+        d_ref = float((ref_b[r] - ref_f[r]).abs().max()) / scale
+        d_out = float((o[r] - ref_b[r]).abs().max()) / scale
+        d_f32 = float((o[r] - ref_f[r]).abs().max()) / scale
+        if not (d_out <= BF16_SHARE * d_ref and d_f32 >= 0.5 * d_ref):
+            raise AssertionError(
+                f"bf16 row {r}: kernel-plain {d_out:.3e}, kernel-fp32 "
+                f"{d_f32:.3e}, plain bf16-fp32 {d_ref:.3e}")
+        worst = max(worst, d_out / d_ref)
+    bad = (o[4] - ref_b[4]).abs() > 1e-5 * ref_b[4].abs()
+    if bad.any():
+        raise AssertionError("bf16: maxvsignal beyond rtol 1e-5")
+    return float((o - ref_b).abs().max()), worst
 
 
 class Spy:
@@ -173,13 +257,14 @@ class Spy:
             del k._launch
 
 
-def sedov(side, device, perturb_seed=None):
+def sedov(side, device, perturb_seed=None, flags=None):
     import torch
     from sphexa_tpu_torch.config import SphConfig
     from sphexa_tpu_torch.init.sedov import init_sedov
     from sphexa_tpu_torch.ops.cellmajor import choose_cap_and_grid
 
     state, box, cfg = init_sedov(side, SphConfig(), dt0=3e-5, device=device)
+    cfg = cfg.replace(**(flags or {}))
     n = side ** 3
     if perturb_seed is not None:
         r = np.random.default_rng(perturb_seed)
@@ -237,15 +322,16 @@ def kernel_check(report):
     return spy.calls, eng
 
 
-def engine_check(report):
-    """Phase 3b: the whole resident step on the card against the same
-    engine on the CPU (plain versions), Sedov 10^3, 3 steps, forced
-    rebin; bounds of tests/test_torch_resident.py."""
+def engine_check(report, cname=None):
+    """Phase 3b (and (f) with cname, under CONFIGS[cname]): the whole
+    resident step on the card against the same engine on the CPU (plain
+    versions), Sedov 10^3, 3 steps, forced rebin; bounds of
+    tests/test_torch_resident.py."""
     from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
 
     diags = {}
     for dev in (DEVICE, "cpu"):
-        state, box, cfg, grid = sedov(10, dev)
+        state, box, cfg, grid = sedov(10, dev, flags=CONFIGS.get(cname))
         eng = ResidentVE(box, grid, cfg, device=dev)
         rst = eng.bind(state)
         ds = []
@@ -262,21 +348,31 @@ def engine_check(report):
         np.testing.assert_allclose(b["ecin"], a["ecin"], rtol=1e-3,
                                    atol=1e-12)
     a, b = diags["cpu"][-1], diags[DEVICE][-1]
-    log(f"  10^3 engine {DEVICE} vs cpu, 3 steps: dt {b['dt']:.6e} vs "
-        f"{a['dt']:.6e}, eint {b['eint']:.9f} vs {a['eint']:.9f}")
-    report["engine_10"] = diags
+    log(f"  10^3 engine{'' if cname is None else ' ' + cname} {DEVICE} vs "
+        f"cpu, 3 steps: dt {b['dt']:.6e} vs {a['dt']:.6e}, eint "
+        f"{b['eint']:.9f} vs {a['eint']:.9f}, ecin {b['ecin']:.6e} vs "
+        f"{a['ecin']:.6e}")
+    report["engine_10" if cname is None else f"engine_10_{cname}"] = diags
 
 
-def main_path(report):
-    """Phase 4: Sedov 100^3 on the resident engine, 10 timed steps."""
-    import torch
+def all_kernels():
+    """Every kernel wrapper with a launch counter."""
     from sphexa_tpu_torch.ops import pair_ve as pv
+    return (pv.ghost_refresh,) + pv.PAIR_KERNELS
+
+
+def main_path(report, cname=None, steps=10, rebin_at=5):
+    """Phase 4 (and (g) under CONFIGS[cname]): Sedov 100^3 on the
+    resident engine, one warm-up step, then `steps` timed steps with a
+    forced rebin. Every kernel the engine's stages use launches once a
+    step (K1 five times), every other kernel never."""
+    import torch
     from sphexa_tpu_torch.propagator.common import compute_energies
     from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
 
-    side, steps, rebin_at = MAIN_SIDE, 10, 5
+    side = MAIN_SIDE
     t0 = time.perf_counter()
-    state, box, cfg, grid = sedov(side, DEVICE)
+    state, box, cfg, grid = sedov(side, DEVICE, flags=CONFIGS.get(cname))
     e0 = float(sum(compute_energies(state.p, cfg)))
     eng = ResidentVE(box, grid, cfg, device=DEVICE)
     rst = eng.bind(state)
@@ -286,7 +382,8 @@ def main_path(report):
     log(f"  setup + warm-up {time.perf_counter() - t0:.1f} s; cap "
         f"{grid.cap}, grid {grid}, n_slots {grid.n_slots}")
 
-    for k in pv.KERNELS:
+    kernels = all_kernels()
+    for k in kernels:
         k.launches = 0
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     diags = []
@@ -298,7 +395,7 @@ def main_path(report):
         ev[i + 1].record()
         diags.append(d)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in pv.KERNELS}
+    launches = {k.name: k.launches for k in kernels}
 
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
     n = side ** 3
@@ -312,9 +409,10 @@ def main_path(report):
         assert torch.isfinite(getattr(rst, f)).all(), f"non-finite {f}"
     drift = abs(d["etot"][-1] - e0) / e0
     assert drift < 5e-3, f"energy drift {drift:.3e}"
-    for name, want in (("ghost_refresh", 5 * steps),) + tuple(
-            (k.name, steps) for k in pv.KERNELS[1:]):
-        assert launches[name] == want, (name, launches[name], want)
+    used = {k.name for k in eng.pve.kernels}
+    want = {k.name: steps if k.name in used else 0 for k in kernels}
+    want["ghost_refresh"] = 5 * steps
+    assert launches == want, (launches, want)
     mean_ms = float(np.mean(step_ms))
     sim_per_wall = sum(d["dt"]) / (sum(step_ms) * 1e-3)
     log(f"  {side}^3: {mean_ms:.3f} ms/step (CUDA events, mean of {steps}; "
@@ -322,8 +420,9 @@ def main_path(report):
         f"{n / (mean_ms * 1e-3):.4e} particle-updates/s, sim-time per "
         f"wall-second {sim_per_wall:.6e}")
     log(f"  |etot - e0|/e0 = {drift:.3e}; h_nonconv {d['h_nonconv']}; "
-        f"launches {launches}")
-    report["main_path"] = dict(
+        f"launches {dict((k, v) for k, v in launches.items() if v)}, "
+        f"every other kernel 0")
+    report["main_path" if cname is None else f"main_path_{cname}"] = dict(
         side=side, n=n, cap=grid.cap, grid=str(grid), n_slots=grid.n_slots,
         steps=steps, rebin_at=rebin_at, step_ms=step_ms, mean_step_ms=mean_ms,
         particle_updates_per_s=n / (mean_ms * 1e-3),
@@ -534,7 +633,7 @@ def gated_check(report, calls, eng):
     report["check_30_gated"] = dict(kinds=kinds, errors=errs)
 
 
-def bdt_setup(side, device, num_rungs, grid=None, dt0=None):
+def bdt_setup(side, device, num_rungs, grid=None, dt0=None, flags=None):
     """Sedov state and a BdtVE on `device` (grid from the planner unless
     given)."""
     from sphexa_tpu_torch.config import SphConfig
@@ -542,7 +641,7 @@ def bdt_setup(side, device, num_rungs, grid=None, dt0=None):
     from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
 
     if grid is None:
-        state, box, cfg, grid = sedov(side, device)
+        state, box, cfg, grid = sedov(side, device, flags=flags)
     else:
         state, box, cfg = init_sedov(side, SphConfig(), dt0=dt0,
                                      device=device)
@@ -584,16 +683,16 @@ def bdt_engine_check(report):
     report["bdt_engine_10"] = dict(card=b, cpu=a)
 
 
-def bdt_main_path(report):
-    """Phase 6c: BdtVE at Sedov 100^3 (the main path's grid), 4 rungs,
-    one warm-up cycle, then 2 timed cycles of 8 substeps."""
+def bdt_main_path(report, cname=None, cycles=2):
+    """Phase 6c (and (g) under CONFIGS[cname]): BdtVE at Sedov 100^3
+    (the main path's grid), 4 rungs, one warm-up cycle, then `cycles`
+    timed cycles of 8 substeps."""
     import torch
-    from sphexa_tpu_torch.ops import pair_ve as pv
     from sphexa_tpu_torch.propagator.common import compute_energies
 
-    side, nr, cycles = MAIN_SIDE, 4, 2
+    side, nr = MAIN_SIDE, 4
     t0 = time.perf_counter()
-    state, eng = bdt_setup(side, DEVICE, nr)
+    state, eng = bdt_setup(side, DEVICE, nr, flags=CONFIGS.get(cname))
     e0 = float(sum(compute_energies(state.p, eng.cfg)))
     bst = eng.bind_bdt(state)
     assert int(bst.rv.overflow) == 0, "slot overflow at bind"
@@ -615,7 +714,7 @@ def bdt_main_path(report):
         return call
     eng.resync = marked(resync, "resync")
     eng.substep = marked(substep, "substep")
-    kernels = pv.KERNELS + pv.GATED_KERNELS
+    kernels = all_kernels()
     for k in kernels:
         k.launches = 0
     start = torch.cuda.Event(enable_timing=True)
@@ -629,9 +728,9 @@ def bdt_main_path(report):
     del eng.resync, eng.substep
 
     nsub = cycles << (nr - 1)
-    want = dict({k.name: nsub for k in pv.GATED_KERNELS},
-                ghost_refresh=5 * nsub,
-                **{k.name: 0 for k in pv.KERNELS[1:]})
+    used = {k.name for k in eng.pve_gated.kernels}
+    want = {k.name: nsub if k.name in used else 0 for k in kernels}
+    want["ghost_refresh"] = 5 * nsub
     assert launches == want, (launches, want)
     per = 1 + (1 << (nr - 1))          # events a cycle: resync, substeps
     whats = [w for w, _ in marks]
@@ -678,8 +777,10 @@ def bdt_main_path(report):
         f"overflow 0; rows finite; substep ran with no host sync")
     log(f"  resync (layout rebin) ms {[round(x, 3) for x in resync_ms]}; "
         f"substep ms {[round(x, 3) for x in sub_ms]}")
-    log(f"  launches {launches}, resyncs (layout rebins) {cycles}")
-    report["bdt_main_path"] = dict(
+    log(f"  launches {dict((k, v) for k, v in launches.items() if v)}, "
+        f"every other kernel 0; resyncs (layout rebins) {cycles}")
+    report["bdt_main_path" if cname is None
+           else f"bdt_main_path_{cname}"] = dict(
         side=side, num_rungs=nr, cycles=cycles, cycle_ms=cycle_ms,
         substep_ms=sum(cycle_ms) / nsub, sim_time_per_wall_s=sim_per_wall,
         resync_ms=resync_ms, substeps_ms=sub_ms, e0=e0, energy_drift=drift,
@@ -687,9 +788,10 @@ def bdt_main_path(report):
     return eng, bst, launches
 
 
-def bdt_timing(report, eng, bst, launches):
-    """Phase 6d: each gated stage at the inputs of substep 1 of a cycle
-    (cells skipped), beside the ungated stage at the same inputs."""
+def bdt_timing(report, eng, bst, launches, cname=None):
+    """Phase 6d (and (h) for the gated K8-K10 under CONFIGS[cname]):
+    each gated stage at the inputs of substep 1 of a cycle (cells
+    skipped), beside the ungated stage at the same inputs."""
     import torch
     import torch.nn.functional as F
     from sphexa_tpu_torch.ops import pair_ve as pv
@@ -697,7 +799,7 @@ def bdt_timing(report, eng, bst, launches):
     grid = eng.grid
     bst, _ = eng.resync(bst)
     bst, _ = eng.substep(bst)                       # all active
-    with Spy(pv.GATED_KERNELS) as spy:
+    with Spy(eng.pve_gated.kernels) as spy:
         _, d = eng.substep(bst)
     torch.cuda.synchronize()
     acf = float(d.active_cell_frac)
@@ -731,16 +833,20 @@ def bdt_timing(report, eng, bst, launches):
         f"supercells hold {n_on / n_int:.4f} of interior slots; "
         f"{cand_a:.4e} of {cand:.4e} candidates and {inside_a:.4e} of "
         f"{inside:.4e} in-support pairs in active supercells")
-    report["bdt_pairs"] = dict(
+    report["bdt_pairs" if cname is None else f"bdt_pairs_{cname}"] = dict(
         active_cell_frac=acf, candidates=cand, in_support=inside,
         active_candidates=cand_a, active_in_support=inside_a,
         xh_recount_candidates=recount, xh_h_moved=moved,
         active_slot_frac=n_on / n_int, read_slot_frac=n_read / n_int)
 
     rows = []
+    ok_on = on_slot & valid_slots(J) & eng.intmask
     for kg, args, out in calls:
         J, I2, g, c, (act, prev), zgroup = args
-        k = next(x for x in pv.KERNELS if x.name == stage_of(kg.name))
+        if cname is not None and kg.name.removesuffix("_gated") not in DIRECT:
+            continue                # the direct stages are timed above
+        k = next(x for x in pv.PAIR_KERNELS
+                 if not x.gated and x.name == stage_of(kg.name))
         err, rel = gated_compare(kg, args, out, eng.intmask,
                                  per_row=False)
         ms = cuda_ms(lambda: kg._launch(*args), 5)
@@ -749,6 +855,7 @@ def bdt_timing(report, eng, bst, launches):
         ops = cand_a * GEO_FLOPS + inside_a * BODY_FLOPS[k.name]
         if k.name == "pair_xh":
             ops += recount * RECOUNT_FLOPS
+        ops += mm_extra_flops(k.name, J, g, c, ok_on, float(cell_on.sum()))
         fi2 = I2.shape[0] if I2 is not None else 0
         nbytes = 4 * (J.shape[0] * n_read + fi2 * n_on + g.n_slots
                       + kg.fo * (n_int - n_on) + kg.fo * n_int)
@@ -766,7 +873,153 @@ def bdt_timing(report, eng, bst, launches):
             f"plain {plain_ms:10.3f} ms  bound {max(t_ops, t_bytes):.4f} ms "
             f"({'operations' if t_ops >= t_bytes else 'bytes'})  err "
             f"{err:.3e} (rel {rel:.3e})")
-    report["kernels_gated"] = rows
+    report["kernels_gated" if cname is None
+           else f"kernels_gated_{cname}"] = rows
+    return rows
+
+
+def _mm_count_body(I, Jn, i2, **_):
+    """Per i-slot: in-support pairs, those with W_j > 0, and the
+    approaching ones (visc != 0): the pairs for which K10's five weights
+    are nonzero (families 0 and 2 / 1 / 3 and 4)."""
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    rx, ry, rz, d2 = pv._geo(I, Jn)
+    hinv = 1.0 / I[pv.RH]
+    inside = d2 * (hinv * hinv) < 4.0
+    hj_inv = 1.0 / Jn[pv.RH]
+    wj = inside & (d2 * (hj_inv * hj_inv) < 4.0)
+    rv = (rx * (I[5] - Jn[5]) + ry * (I[6] - Jn[6])
+          + rz * (I[7] - Jn[7]))
+    return [pv._sum(x.float()) for x in (inside, wj, inside & (rv < 0.0))]
+
+
+def mm_extra_flops(name, J, grid, cfg, slot_mask, n_cells):
+    """Flops of a moment body beyond its per-pair count: the columns
+    built per (i-cell, staged j-slot) for the n_cells computed cells,
+    and for K10 phase B, 49 FMAs per pair and family with a nonzero
+    weight, over the i-slots of slot_mask (counted on these inputs)."""
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    if name not in COL_FLOPS:
+        return 0.0
+    ops = COL_FLOPS[name] * n_cells * 27 * grid.cap
+    if name == "pair_momentum_mm":
+        cnt = pv._run_plain(_mm_count_body, J, None, grid, 3)
+        n_in, n_wj, n_visc = (float(cnt[r][slot_mask].double().sum())
+                              for r in range(3))
+        ops += MM_FAMILY_FLOPS * (2 * n_in + n_wj + 2 * n_visc)
+    return ops
+
+
+def mm_kernel_check(report):
+    """Phase (e): K8, K9, K10 (float32 and bf16) and K7c against their
+    plain versions at Sedov 30^3 (perturbed), on the inputs of one step
+    of the engine under each configuration; then the gated K8-K10 on
+    the seeded activity pattern."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
+
+    calls = {}
+    for cname in ("mm", "avclean"):
+        state, box, cfg, grid = sedov(CHECK_SIDE, DEVICE, perturb_seed=0,
+                                      flags=CONFIGS[cname])
+        eng = ResidentVE(box, grid, cfg, device=DEVICE)
+        with Spy(pv.MM_KERNELS + (pv.pair_momentum_avclean,)) as spy:
+            eng.step(eng.bind(state))
+        torch.cuda.synchronize()
+        for k, args, out in spy.calls:
+            calls[k.name] = (k, args, out)
+    assert sorted(calls) == sorted(DIRECT), sorted(calls)
+    k, (J, I2, g, c), _ = calls["pair_momentum_mm"]
+    bf = (J, I2, g, c.replace(mxu_bf16=True))
+    calls["pair_momentum_mm_bf16"] = (k, bf, k._launch(*bf))
+    errs = {}
+    for name, (k, args, out) in calls.items():
+        mask = valid_slots(args[0]) & eng.intmask
+        if name.endswith("_bf16"):
+            err, share = bf16_compare(k, args, out, mask)
+            errs[name] = dict(max_abs_err=err, share_of_bf16_error=share)
+            log(f"  {CHECK_SIDE}^3 {name:22s} max abs err {err:.3e}, at "
+                f"most {share:.3e} of the bf16-to-float32 distance")
+            continue
+        err, rel = compare(k.name, k.plain(*args), out, mask, per_row=True)
+        errs[name] = dict(max_abs_err=err, max_rel_err=rel)
+        log(f"  {CHECK_SIDE}^3 {name:22s} max abs err {err:.3e}, "
+            f"max rel err (to row scale) {rel:.3e}")
+    J0 = calls["pair_iad_mm"][1][0]
+    act, kinds = activity_pattern(grid, valid_slots(J0), seed=3)
+    r = np.random.default_rng(4)
+    for name in ("pair_iad_mm", "pair_av_mm", "pair_momentum_mm"):
+        k, (J, I2, g, c), _ = calls[name]
+        kg = next(x for x in pv.GATED_KERNELS if x.name == name + "_gated")
+        prev = torch.from_numpy(r.normal(0, 1, (kg.fo, g.n_slots)).astype(
+            np.float32)).to(J.device)
+        args = (J, I2, g, c, (act, prev), 0)
+        err, rel = gated_compare(kg, args, kg._launch(*args), eng.intmask,
+                                 per_row=True)
+        errs[kg.name] = dict(max_abs_err=err, max_rel_err=rel)
+        log(f"  {CHECK_SIDE}^3 {kg.name:22s} inactive bit-equal to prev; "
+            f"active max abs err {err:.3e}, rel {rel:.3e}")
+    report["check_30_mm"] = dict(grid=str(grid), kinds=kinds, errors=errs)
+    return {name: (k, args) for name, (k, args, _) in calls.items()}
+
+
+def mm_timing(report, eng, rst, grid, launches, bf16_launches=None):
+    """Phase (h): each new kernel that the engine `eng` (state rst) runs,
+    at the 100^3 inputs of one of its steps, beside its direct
+    counterpart on the same inputs, its plain version and its bound.
+    With bf16_launches (the counts of the mxu_bf16 run), K10 again with
+    mxu_bf16 on the same inputs."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    with Spy(pv.KERNELS[1:] + pv.MM_KERNELS
+             + (pv.pair_momentum_avclean,)) as spy:
+        eng.step(rst)
+    torch.cuda.synchronize()
+    calls = {k.name: (k, args, out) for k, args, out in spy.calls}
+    xh_J = calls["pair_xh"][1][0]
+    nc_sph = calls["pair_xh"][2][2] + 1
+    cand, inside, _ = pair_counts(xh_J, eng, grid, nc_sph)
+    ok = valid_slots(xh_J) & eng.intmask
+    n_cells = grid.nx * grid.n * grid.nz
+    runs = [(name, name, launches[name], args, out)
+            for name, (k, args, out) in calls.items() if name in DIRECT]
+    if bf16_launches is not None:
+        J, I2, g, c = calls["pair_momentum_mm"][1]
+        args = (J, I2, g, c.replace(mxu_bf16=True))
+        runs.append(("pair_momentum_mm", "pair_momentum_mm_bf16",
+                     bf16_launches["pair_momentum_mm"], args,
+                     pv.pair_momentum_mm._launch(*args)))
+    rows = []
+    for name, row_name, launched, args, out in runs:
+        k = calls[name][0]
+        J, I2, g, c = args
+        if c.mxu_bf16:
+            err, rel = bf16_compare(k, args, out, ok)
+        else:
+            err, rel = compare(name, k.plain(*args), out, ok, per_row=False)
+        ms = cuda_ms(lambda: k._launch(*args), 5)
+        plain_ms = cuda_ms(lambda: k.plain(*args), 1)
+        direct = next(x for x in pv.KERNELS if x.name == DIRECT[name])
+        Jd = J[:direct.fj].contiguous()
+        direct_ms = cuda_ms(lambda: direct._launch(Jd, I2, g, c), 5)
+        ops = (cand * GEO_FLOPS + inside * BODY_FLOPS[name]
+               + mm_extra_flops(name, J, g, c, ok, n_cells))
+        nbytes = 4 * (J.numel() + (I2.numel() if I2 is not None else 0)
+                      + out.numel())
+        t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+        rows.append(dict(
+            name=row_name, route="cuda",
+            source="sphexa_tpu_torch/csrc/cell_pair.cu",
+            replaces=REPLACES[name], launches=launched, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, direct_ms=direct_ms))
+        log(f"  {row_name:22s} {ms:9.3f} ms  {DIRECT[name]} "
+            f"{direct_ms:8.3f} ms  plain {plain_ms:10.3f} ms  bound "
+            f"{max(t_ops, t_bytes):.4f} ms  err {err:.3e} (rel {rel:.3e})")
+    report.setdefault("kernels_mm", []).extend(rows)
     return rows
 
 
@@ -811,6 +1064,30 @@ def main() -> int:
     beng, bst, blaunches = bdt_main_path(report)
     log("block time-steps timing:")
     rows += bdt_timing(report, beng, bst, blaunches)
+    del beng, bst
+
+    log("(e) moment-matmul and avClean kernels against their plain "
+        "versions:")
+    mm_kernel_check(report)
+    log("(f) card against CPU under the three configurations:")
+    for cname in CONFIGS:
+        engine_check(report, cname)
+    log("(g) main path under mxu_moments + mxu_momentum:")
+    eng, rst, grid, l_mm = main_path(report, "mm")
+    log("(g) + mxu_bf16:")
+    l_bf16 = main_path(report, "mm_bf16", steps=3, rebin_at=1)[3]
+    log("(g) av_clean:")
+    eng_av, rst_av, _, l_av = main_path(report, "avclean", steps=3,
+                                        rebin_at=1)
+    log("(h) timing of K8-K10 and K7c:")
+    rows += mm_timing(report, eng, rst, grid, l_mm, l_bf16)
+    rows += mm_timing(report, eng_av, rst_av, grid, l_av)
+    del eng, rst, eng_av, rst_av
+    log("(g) block time-steps under mxu_moments + mxu_momentum:")
+    beng, bst, blaunches = bdt_main_path(report, "mm", cycles=1)
+    log("(h) timing of the gated K8-K10:")
+    rows += bdt_timing(report, beng, bst, blaunches, "mm")
+    del beng, bst
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

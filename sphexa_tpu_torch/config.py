@@ -64,7 +64,7 @@ class SphConfig:
     fmm_level: int = 4
     fmm_min_sep: int = 3
 
-    # moment-matmul variants of the pair stages (not ported yet)
+    # moment-matmul variants of the pair stages (K8-K10, ops/pair_ve.py)
     mxu_moments: bool = False
     mxu_momentum: bool = False
     mxu_bf16: bool = False

@@ -1,15 +1,20 @@
-// K2 with K3-K7: the VE pair stages over the cell-major layout.
+// K2 with K3-K10: the VE pair stages over the cell-major layout.
 //
 // Replaces the Pallas driver make_cell_pair_call (sphexa_tpu/ops/
-// pallas_ve.py:103, call :260) and its five stage bodies:
+// pallas_ve.py:103, call :260) and its stage bodies:
 //   stage 0  XhBody        <- _xh_body          (pallas_ve.py:537)
 //   stage 1  GradhBody     <- _gradh_body       (pallas_ve.py:622)
 //   stage 2  IadBody       <- _iad_direct_body  (pallas_ve.py:704)
 //   stage 3  AvBody        <- _av_direct_body   (pallas_ve.py:900, :865, :884)
-//   stage 4  MomentumBody  <- _momentum_body    (pallas_ve.py:1022), avClean off
+//   stage 4  MomentumBody<false> <- _momentum_body (pallas_ve.py:1022), avClean off
+//   stage 5  IadMmBody     <- _iad_hybrid_body  (pallas_ve.py:769)     K8
+//   stage 6  AvMmBody      <- _av_mm_body       (pallas_ve.py:949)     K9
+//   stage 7  momentum_mm   <- _momentum_mm_body (pallas_ve.py:1190)    K10
+//   stage 8  MomentumBody<true> <- _momentum_body, avClean branch     K7c
+//            (pallas_ve.py:1031-1033, :1057-1060, :1094-1116)
 //
 // Launch skeleton: one thread block per interior cell, one thread per
-// i-slot (blockDim = cap). The block walks the 27 neighbour cells,
+// i-slot (blockDim = cap; K10 has its own, see cell_pair_momentum_mm). The block walks the 27 neighbour cells,
 // stages each cell's [FJ, cap] j-rows in shared memory, and every thread
 // accumulates its pair sums in registers; all threads read the same j
 // value at once (a shared-memory broadcast). The xmass stage iterates
@@ -38,6 +43,7 @@
 // that copy (bytes). It still launches a block for every interior cell:
 // inactive blocks cost a launch slot and one read of Z*cap act values.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "sph_consts.h"
@@ -55,6 +61,7 @@ struct PairParams {
     float alphamin, alphamax, decay_constant, atmin, atmax, ramp;
     int uniform_mass;
     float hcoef;   // 1023 * ng0 of the nc -> h controller
+    int mxu_bf16;  // K10: round both contraction operands to bf16
 };
 
 // K2g's gate (see gate_closed); act == nullptr for the ungated stage
@@ -107,6 +114,7 @@ __device__ __forceinline__ float w_v2(float v2, int n_w)
 struct XhBody {
     static constexpr int FJ = 4;                       // x y z m
     static constexpr int FO = 4;
+    static constexpr int NM = 0, NORIGIN = 0;          // no moments
     __device__ static int jrow(int s) { return s < 3 ? s : 5; }
 
     __device__ static void run(const float* J, const float*, float* out,
@@ -166,6 +174,7 @@ struct XhBody {
 struct GradhBody {
     static constexpr int FJ = 5;                       // x y z m xm
     static constexpr int FO = 2;
+    static constexpr int NM = 0, NORIGIN = 0;
     __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
 
     float xi, yi, zi, hi, hinv, hinv2, kx, whomega, wrho0;
@@ -221,6 +230,7 @@ struct GradhBody {
 struct IadBody {
     static constexpr int FJ = 8;        // x y z kx xm vx vy vz
     static constexpr int FO = 14;
+    static constexpr int NM = 0, NORIGIN = 0;
     __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
 
     float xi, yi, zi, hi, hinv, hinv2, kfac, vxi, vyi, vzi;
@@ -267,17 +277,8 @@ struct IadBody {
     __device__ void store(const float* J, const float*, float* out,
                           long long islot, long long ns, const PairParams& p)
     {
-        float det = t11 * t22 * t33 + 2.0f * t12 * t23 * t13
-            - t11 * t23 * t23 - t22 * t13 * t13 - t33 * t12 * t12;
-        float fac = 1.0f / (det * hi * hi);
-        float c11 = (t22 * t33 - t23 * t23) * fac;
-        float c12 = (t13 * t23 - t33 * t12) * fac;
-        float c13 = (t12 * t23 - t22 * t13) * fac;
-        float c22 = (t11 * t33 - t13 * t13) * fac;
-        float c23 = (t13 * t12 - t11 * t23) * fac;
-        float c33 = (t11 * t22 - t12 * t12) * fac;
-        const float C[3][3] = {{c11, c12, c13}, {c12, c22, c23},
-                               {c13, c23, c33}};
+        float C[3][3];
+        iad_tail(t11, t12, t13, t22, t23, t33, hi, C);
         float dV[3][3];   // dV[a][b] = -(C Q_a)_b
 #pragma unroll
         for (int a = 0; a < 3; ++a)
@@ -285,19 +286,143 @@ struct IadBody {
             for (int b = 0; b < 3; ++b)
                 dV[a][b] = -(C[b][0] * Q[a][0] + C[b][1] * Q[a][1]
                              + C[b][2] * Q[a][2]);
-        const float nk = kfac / JI(5);
+        iad_store(C, dV, kfac / JI(5), xi < HALF_FILL, out, islot, ns);
+    }
+
+    // the IAD inverse of the h-scaled tau (_iad_tail, pallas_ve.py:672)
+    __device__ static void iad_tail(float t11, float t12, float t13,
+                                    float t22, float t23, float t33,
+                                    float hi, float (&C)[3][3])
+    {
+        float det = t11 * t22 * t33 + 2.0f * t12 * t23 * t13
+            - t11 * t23 * t23 - t22 * t13 * t13 - t33 * t12 * t12;
+        float fac = 1.0f / (det * hi * hi);
+        C[0][0] = (t22 * t33 - t23 * t23) * fac;
+        C[0][1] = C[1][0] = (t13 * t23 - t33 * t12) * fac;
+        C[0][2] = C[2][0] = (t12 * t23 - t22 * t13) * fac;
+        C[1][1] = (t11 * t33 - t13 * t13) * fac;
+        C[1][2] = C[2][1] = (t13 * t12 - t11 * t23) * fac;
+        C[2][2] = (t11 * t22 - t12 * t12) * fac;
+    }
+
+    // cij, divv, curlv and the six gradv rows (_iad_outputs, :684)
+    __device__ static void iad_store(const float (&C)[3][3],
+                                     const float (&dV)[3][3], float nk,
+                                     bool ok, float* out, long long islot,
+                                     long long ns)
+    {
         float cx = dV[2][1] - dV[1][2], cy = dV[0][2] - dV[2][0],
               cz = dV[1][0] - dV[0][1];
         const float o[14] = {
-            c11, c12, c13, c22, c23, c33,
+            C[0][0], C[0][1], C[0][2], C[1][1], C[1][2], C[2][2],
             nk * (dV[0][0] + dV[1][1] + dV[2][2]),
             nk * sqrtf(cx * cx + cy * cy + cz * cz),
             nk * dV[0][0], nk * (dV[0][1] + dV[1][0]),
             nk * (dV[0][2] + dV[2][0]), nk * dV[1][1],
             nk * (dV[1][2] + dV[2][1]), nk * dV[2][2]};
-        const bool ok = xi < HALF_FILL;
 #pragma unroll
         for (int r = 0; r < 14; ++r) out[r * ns + islot] = ok ? o[r] : 0.0f;
+    }
+};
+
+// --------------------------------------------------------------------------
+// stage 5 (K8): IAD with the velocity gradients from 16 cell-centred
+// j-moments. Replaces _iad_hybrid_body (pallas_ve.py:769, dot :832).
+// tau is accumulated per pair as in IadBody. When a j-cell is staged,
+// each thread builds the 16 moment columns of its own j-slot in shared
+// memory (xm_j (1, x_jc) and xm_j (v_j - o_v)(1, x_jc), centred on the
+// i-cell's mean, cell_means); every in-support pair then adds w_ij
+// times the 16 columns, and the epilogue contracts them with the i-side
+// offsets and cij. Out-of-support pairs add exact zeros in the JAX
+// matmul, so they are skipped. Bound: arithmetic, ~16 FMAs more per
+// in-support pair than K5 (plus 16 shared loads), the column build per
+// staged j-slot; no tensor cores (float32 throughout).
+// --------------------------------------------------------------------------
+struct IadMmBody {
+    static constexpr int FJ = 8;        // x y z kx xm vx vy vz
+    static constexpr int FO = 14;
+    static constexpr int NM = 16;       // moment columns
+    static constexpr int NORIGIN = 6;   // x y z vx vy vz
+    __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
+    __device__ static int orow(int r) { return r < 3 ? r : r + 4; }
+
+    __device__ static void moments(float* sj, int cap, int j,
+                                   const float* o)
+    {
+        const float xmj = sj[4 * cap + j];
+        const float xc[3] = {sj[0 * cap + j] - o[0], sj[1 * cap + j] - o[1],
+                             sj[2 * cap + j] - o[2]};
+        float* M = sj + FJ * cap + j;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+            // a = 0: xm_j; a = 1..3: xm_j (v_a - o_va)
+            const float u = a == 0 ? xmj : xmj * (sj[(4 + a) * cap + j]
+                                                  - o[2 + a]);
+            M[(4 * a) * cap] = u;
+#pragma unroll
+            for (int b = 0; b < 3; ++b) M[(4 * a + 1 + b) * cap] = u * xc[b];
+        }
+    }
+
+    float xi, yi, zi, hi, hinv, hinv2, kfac;
+    float t11, t12, t13, t22, t23, t33;
+    float mom[NM];
+    int n_w;
+    const float* org;
+
+    __device__ void load_i(const float* J, const float*, long long islot,
+                           long long ns, const PairParams& p)
+    {
+        xi = JI(0); yi = JI(1); zi = JI(2); hi = JI(3);
+        hinv = __fdiv_rn(1.0f, hi);
+        hinv2 = __fmul_rn(hinv, hinv);
+        kfac = p.K3d * (hinv * hinv2);
+        t11 = t12 = t13 = t22 = t23 = t33 = 0.0f;
+#pragma unroll
+        for (int k = 0; k < NM; ++k) mom[k] = 0.0f;
+        n_w = p.n_w;
+    }
+
+    __device__ void pair(const float* sj, int k, int stride)
+    {
+        float rx = __fsub_rn(xi, SJ(0)), ry = __fsub_rn(yi, SJ(1)),
+              rz = __fsub_rn(zi, SJ(2));
+        float v2 = __fmul_rn(dist2(rx, ry, rz), hinv2);
+        if (!(v2 < 4.0f)) return;
+        float w = pow_int(sinc_poly(v2), n_w);
+        float wn = (SJ(4) / SJ(3) * w) * kfac;
+        float sx = rx * hinv, sy = ry * hinv, sz = rz * hinv;
+        t11 += sx * sx * wn; t12 += sx * sy * wn; t13 += sx * sz * wn;
+        t22 += sy * sy * wn; t23 += sy * sz * wn; t33 += sz * sz * wn;
+#pragma unroll
+        for (int m = 0; m < NM; ++m) mom[m] += w * SJ(FJ + m);
+    }
+
+    __device__ void store(const float* J, const float*, float* out,
+                          long long islot, long long ns, const PairParams& p)
+    {
+        float C[3][3];
+        IadBody::iad_tail(t11, t12, t13, t22, t23, t33, hi, C);
+        const float xib[3] = {xi - org[0], yi - org[1], zi - org[2]};
+        const float S0 = mom[0];
+        float dV[3][3];   // dV[a][b] = -(C F_a)_b
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            // F_b = xi_b (U0 - v_i S0) - (U_b - v_i S_b), U = mom[4(a+1)..]
+            const float vi = JI(7 + a) - org[3 + a];
+            const float U0 = mom[4 * (a + 1)];
+            float F[3];
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                F[b] = xib[b] * (U0 - vi * S0)
+                    - (mom[4 * (a + 1) + 1 + b] - vi * mom[1 + b]);
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                dV[a][b] = -(C[b][0] * F[0] + C[b][1] * F[1]
+                             + C[b][2] * F[2]);
+        }
+        IadBody::iad_store(C, dV, kfac / JI(5), xi < HALF_FILL, out, islot,
+                           ns);
     }
 };
 
@@ -307,6 +432,7 @@ struct IadBody {
 struct AvBody {
     static constexpr int FJ = 10;   // x y z c kx xm divv vx vy vz
     static constexpr int FO = 1;
+    static constexpr int NM = 0, NORIGIN = 0;
     __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
 
     float xi, yi, zi, hi, hinv2, kfac, ci, divvi, vxi, vyi, vzi;
@@ -353,9 +479,19 @@ struct AvBody {
     __device__ void store(const float* J, const float* I2, float* out,
                           long long islot, long long ns, const PairParams& p)
     {
+        float alpha = alpha_tail(I2, islot, ns, p, sqrtf(gx * gx + gy * gy
+                                                         + gz * gz),
+                                 fmaxf(vsig, 1e-30f * ci), divvi, hi, ci);
+        out[islot] = xi < HALF_FILL ? alpha : 0.0f;
+    }
+
+    // Cullen-Dehnen alpha evolution (_av_alpha_tail, pallas_ve.py:865)
+    __device__ static float alpha_tail(const float* I2, long long islot,
+                                       long long ns, const PairParams& p,
+                                       float graddivv, float vijsignal,
+                                       float divvi, float hi, float ci)
+    {
         const float alpha_i = I2[6 * ns + islot], dt = I2[7 * ns + islot];
-        float vijsignal = fmaxf(vsig, 1e-30f * ci);
-        float graddivv = sqrtf(gx * gx + gy * gy + gz * gz);
         float a_const = hi * hi * graddivv;
         float alphaloc = divvi < 0.0f
             ? p.alphamax * a_const / (a_const + hi * fabsf(divvi) + 0.05f * ci)
@@ -363,7 +499,97 @@ struct AvBody {
         float decay = hi / (p.decay_constant * vijsignal);
         float alphadot = alphaloc >= p.alphamin
             ? (alphaloc - alpha_i) / decay : (p.alphamin - alpha_i) / decay;
-        float alpha = alphaloc >= alpha_i ? alphaloc : alpha_i + alphadot * dt;
+        return alphaloc >= alpha_i ? alphaloc : alpha_i + alphadot * dt;
+    }
+};
+
+// --------------------------------------------------------------------------
+// stage 6 (K9): AV switches with graddivv from 8 cell-centred
+// j-moments. Replaces _av_mm_body (pallas_ve.py:949, dot :991). The
+// signal-speed max stays per pair (a max is no sum); the staged j-slot
+// builds vol_j (1, x_jc) and vol_j (divv_j - o_divv)(1, x_jc), and each
+// in-support pair adds W_ij times the 8 columns. Bound: arithmetic, as
+// K6 with 8 FMAs per pair in place of the 3 termA projections.
+// --------------------------------------------------------------------------
+struct AvMmBody {
+    static constexpr int FJ = 10;   // x y z c kx xm divv vx vy vz
+    static constexpr int FO = 1;
+    static constexpr int NM = 8;
+    static constexpr int NORIGIN = 4;   // x y z divv
+    __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
+    __device__ static int orow(int r) { return r < 3 ? r : 8; }
+
+    __device__ static void moments(float* sj, int cap, int j,
+                                   const float* o)
+    {
+        const float volj = sj[5 * cap + j] / sj[4 * cap + j];
+        const float vd = volj * (sj[6 * cap + j] - o[3]);
+        float* M = sj + FJ * cap + j;
+        M[0] = volj;
+        M[4 * cap] = vd;
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+            const float xc = sj[b * cap + j] - o[b];
+            M[(1 + b) * cap] = volj * xc;
+            M[(5 + b) * cap] = vd * xc;
+        }
+    }
+
+    float xi, yi, zi, hi, hinv2, ci, divvi, vxi, vyi, vzi;
+    float vsig;
+    float mom[NM];
+    int n_w;
+    const float* org;
+
+    __device__ void load_i(const float* J, const float*, long long islot,
+                           long long ns, const PairParams& p)
+    {
+        xi = JI(0); yi = JI(1); zi = JI(2); hi = JI(3);
+        ci = JI(5); divvi = JI(8); vxi = JI(9); vyi = JI(10); vzi = JI(11);
+        float hinv = __fdiv_rn(1.0f, hi);
+        hinv2 = __fmul_rn(hinv, hinv);
+        vsig = SPH_NEG;
+#pragma unroll
+        for (int k = 0; k < NM; ++k) mom[k] = 0.0f;
+        n_w = p.n_w;
+    }
+
+    __device__ void pair(const float* sj, int k, int stride)
+    {
+        float rx = __fsub_rn(xi, SJ(0)), ry = __fsub_rn(yi, SJ(1)),
+              rz = __fsub_rn(zi, SJ(2));
+        float d2 = dist2(rx, ry, rz);
+        float v2 = __fmul_rn(d2, hinv2);
+        if (!(v2 < 4.0f)) return;
+        float rv = rx * (vxi - SJ(7)) + ry * (vyi - SJ(8)) + rz * (vzi - SJ(9));
+        if (rv < 0.0f)
+            vsig = fmaxf(vsig, ci + SJ(3) - 3.0f * rv * rsqrtf(fmaxf(d2, 1e-30f)));
+        float w = pow_int(sinc_poly(v2), n_w);
+#pragma unroll
+        for (int m = 0; m < NM; ++m) mom[m] += w * SJ(FJ + m);
+    }
+
+    __device__ void store(const float* J, const float* I2, float* out,
+                          long long islot, long long ns, const PairParams& p)
+    {
+        const float xib[3] = {xi - org[0], yi - org[1], zi - org[2]};
+        const float dvic = divvi - org[3];
+        float G[3];
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+            G[b] = xib[b] * (dvic * mom[0] - mom[4])
+                - (dvic * mom[1 + b] - mom[5 + b]);
+        float c[6];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) c[r] = I2[r * ns + islot];
+        const float hinv = __fdiv_rn(1.0f, hi);
+        const float scale = p.K3d * (hinv * hinv2);
+        float gx = -(c[0] * G[0] + c[1] * G[1] + c[2] * G[2]) * scale;
+        float gy = -(c[1] * G[0] + c[3] * G[1] + c[4] * G[2]) * scale;
+        float gz = -(c[2] * G[0] + c[4] * G[1] + c[5] * G[2]) * scale;
+        float alpha = AvBody::alpha_tail(
+            I2, islot, ns, p, sqrtf(gx * gx + gy * gy + gz * gz),
+            fmaxf(vsig, 1e-30f * ci), divvi, hi, ci);
         out[islot] = xi < HALF_FILL ? alpha : 0.0f;
     }
 };
@@ -381,15 +607,26 @@ __device__ __forceinline__ void exp_pair(float x, float& ep, float& em)
     em = even - odd;
 }
 
+// K7c, AvClean = true (stage 8): the avClean rv correction of
+// _momentum_body (pallas_ve.py:1094-1116, momentum_energy_kern.hpp:
+// 44-63) on six more staged j-rows (the symmetrised gradv d11..d33);
+// eta_crit is read on the i side only. It adds two quadratic forms, an
+// exp below eta_crit and a guarded divide per in-support pair (~40
+// flops); the bound stays arithmetic.
+template <bool AvClean>
 struct MomentumBody {
     // x y z h vx vy vz c prho rho xm alpha m c11 c12 c13 c22 c23 c33
-    static constexpr int FJ = 19;
+    // [+ d11 d12 d13 d22 d23 d33]
+    static constexpr int FJ = AvClean ? 25 : 19;
     static constexpr int FO = 5;
+    static constexpr int NM = 0, NORIGIN = 0;
     __device__ static int jrow(int s) { return s < 4 ? s : s + 1; }
 
-    float xi, yi, zi, hinv2, hi3inv, ci, alphai, rhoi, rhoi_inv, prhoi,
+    float xi, yi, zi, hinv, hinv2, hi3inv, ci, alphai, rhoi, rhoi_inv, prhoi,
         xmi, lxmi, vxi, vyi, vzi;
     float ic[6];
+    float dvi[AvClean ? 6 : 1];
+    float eta_crit;
     float mx, my, mz, energy, avisc, vsig;
     int n_w;
     bool uniform;
@@ -403,7 +640,11 @@ struct MomentumBody {
         vxi = JI(5); vyi = JI(6); vzi = JI(7); ci = JI(8); prhoi = JI(9);
         rhoi = JI(10); xmi = JI(11); alphai = JI(12);
         for (int r = 0; r < 6; ++r) ic[r] = JI(14 + r);
-        float hinv = __fdiv_rn(1.0f, hi);
+        if constexpr (AvClean) {
+            for (int r = 0; r < 6; ++r) dvi[r] = JI(20 + r);
+            eta_crit = JI(26);
+        }
+        hinv = __fdiv_rn(1.0f, hi);
         hinv2 = __fmul_rn(hinv, hinv);
         hi3inv = hinv * hinv2;
         rhoi_inv = 1.0f / rhoi;
@@ -436,7 +677,31 @@ struct MomentumBody {
 
         float vx_ij = vxi - SJ(4), vy_ij = vyi - SJ(5), vz_ij = vzi - SJ(6);
         float rv = rx * vx_ij + ry * vy_ij + rz * vz_ij;
-        float wij = rv * rsqrtf(fmaxf(d2, 1e-30f));
+        const float inv_d = rsqrtf(fmaxf(d2, 1e-30f));
+        if constexpr (AvClean) {
+            // the quadratic forms as the JAX body writes them: the gradv
+            // off-diagonals are symmetrised sums (q2 = d22 ry + d23 rz,
+            // q3 = d33 rz)
+            auto quad = [&](float d11, float d12, float d13, float d22,
+                            float d23, float d33) {
+                float q1 = d11 * rx + d12 * ry + d13 * rz;
+                float q2 = d22 * ry + d23 * rz;
+                float q3 = d33 * rz;
+                return rx * q1 + ry * q2 + rz * q3;
+            };
+            float dmy1 = quad(dvi[0], dvi[1], dvi[2], dvi[3], dvi[4], dvi[5]);
+            float dmy2 = quad(SJ(19), SJ(20), SJ(21), SJ(22), SJ(23), SJ(24));
+            float dist = d2 * inv_d;
+            float eta_ab = dist * fminf(hinv, hj_inv);
+            float eta_diff = 5.0f * (eta_ab - eta_crit);
+            float dmy3 = eta_ab < eta_crit ? expf(-eta_diff * eta_diff) : 1.0f;
+            float A_ab = dmy2 != 0.0f ? dmy1 / dmy2 : 0.0f;
+            float A_abp1 = 1.0f + A_ab;
+            float phi = 0.5f * dmy3
+                * fminf(fmaxf(4.0f * A_ab / (A_abp1 * A_abp1), 0.0f), 1.0f);
+            rv = rv - phi * (dmy1 + dmy2);
+        }
+        float wij = rv * inv_d;
         float csum = ci + SJ(7);
         float vij_signal = (alphai + SJ(11)) * 0.25f * csum - 2.0f * wij;
         float visc = wij < 0.0f ? -vij_signal * wij : 0.0f;
@@ -518,47 +783,78 @@ __device__ __forceinline__ long long nbr_cell(const PairGeom& g,
 // into out for its own cap slots and returns before staging any j-cell.
 // The flag is read over the whole supercell, so an inactive cell inside
 // an active supercell is recomputed, as on the TPU (its fresh outputs
-// are what its active neighbours read in the next stage).
+// are what its active neighbours read in the next stage). Any block
+// size works: the threads stride over the Z*cap flags and cap slots.
 template <int FO>
 __device__ __forceinline__ bool gate_closed(const PairGate& gt,
                                             const PairGeom& g,
                                             long long own, float* out)
 {
-    const int cap = g.cap, i = threadIdx.x;
+    const int cap = g.cap;
     const int cz = (int)(own % g.npz);
-    const long long first = (own - cz % gt.Z) * cap + i;
+    const long long first = (own - cz % gt.Z) * cap;
     int any = 0;
-    for (int k = 0; k < gt.Z; ++k)
-        any |= gt.act[first + (long long)k * cap] > 0.5f;
+    for (int s = threadIdx.x; s < gt.Z * cap; s += blockDim.x)
+        any |= gt.act[first + s] > 0.5f;
     if (__syncthreads_or(any)) return false;
-    const long long islot = own * cap + i;
+    for (int s = threadIdx.x; s < cap; s += blockDim.x) {
+        const long long islot = own * cap + s;
 #pragma unroll
-    for (int r = 0; r < FO; ++r)
-        out[r * g.n_slots + islot] = gt.prev[r * g.n_slots + islot];
+        for (int r = 0; r < FO; ++r)
+            out[r * g.n_slots + islot] = gt.prev[r * g.n_slots + islot];
+    }
     return true;
 }
 
-// streams the 27 neighbour cells one at a time through shared memory
+// The expansion origin of the moment bodies (_cell_means, pallas_ve.py:
+// 522): per row orow(r), the mean over the own cell's valid slots
+// (gid >= 0). One thread sums each row in slot order; the block then
+// reads the NORIGIN means from shared memory.
+template <class Rows>
+__device__ void cell_means(const float* J, long long first, int cap,
+                           long long ns, float* origin)
+{
+    const int r = threadIdx.x;
+    if (r < Rows::NORIGIN) {
+        const long long row = Rows::orow(r);
+        float s = 0.0f, nv = 0.0f;
+        for (int k = 0; k < cap; ++k)
+            if (J[4 * ns + first + k] >= 0.0f) {      // gid row
+                s += J[row * ns + first + k];
+                nv += 1.0f;
+            }
+        origin[r] = s / fmaxf(nv, 1.0f);
+    }
+    __syncthreads();
+}
+
+// streams the 27 neighbour cells one at a time through shared memory;
+// a moment body (NM > 0) also builds NM columns per staged j-slot
 template <class Body, bool Gated>
 __global__ void
 cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
                  float* __restrict__ out, PairGeom g, PairParams p,
                  PairGate gt)
 {
-    extern __shared__ float sj[];                  // [FJ][cap]
+    extern __shared__ float sj[];                  // [FJ + NM][cap]
+    __shared__ float origin[Body::NORIGIN > 0 ? Body::NORIGIN : 1];
     const int cap = g.cap, i = threadIdx.x;
     const long long own = own_cell(g);
     if constexpr (Gated)
         if (gate_closed<Body::FO>(gt, g, own, out)) return;
+    if constexpr (Body::NORIGIN > 0)
+        cell_means<Body>(J, own * cap, cap, g.n_slots, origin);
     const long long islot = own * cap + i;
     Body b;
     b.load_i(J, I2, islot, g.n_slots, p);
+    if constexpr (Body::NORIGIN > 0) b.org = origin;
     for (int nb = 0; nb < 27; ++nb) {
         const long long jslot = nbr_cell(g, own, nb) * cap + i;
         __syncthreads();
 #pragma unroll
         for (int s = 0; s < Body::FJ; ++s)
             sj[s * cap + i] = J[(long long)Body::jrow(s) * g.n_slots + jslot];
+        if constexpr (Body::NM > 0) Body::moments(sj, cap, i, origin);
         __syncthreads();
         for (int k = 0; k < cap; ++k) b.pair(sj, k, cap);
     }
@@ -589,6 +885,344 @@ cell_pair_resident(const float* __restrict__ J, const float* __restrict__ I2,
     Body::run(J, I2, out, sj, W, W, own * cap + i, g.n_slots, p);
 }
 
+// --------------------------------------------------------------------------
+// stage 7 (K10): the momentum stage as five pair-weight families
+// contracted with 49 cell-centred j-moment columns. Replaces
+// _momentum_mm_body (pallas_ve.py:1190, dot :1326), with its own
+// arithmetic (not K7's): exp with is_lo/is_hi for the Atwood ramp, visc
+// masked by the support, i and j rows sanitised by validity, and with
+// mxu_bf16 both operands rounded to bf16 (nearest even) before a float32
+// accumulation (:1321-1325).
+//
+// 5 families x 49 columns are 245 sums per i-slot, more than a thread's
+// registers, so a block of nft*cap threads (nft = min(5, 384 / cap))
+// splits the work; the 384-thread bound leaves 168 registers a thread,
+// enough for the 49 accumulators without spills. Per staged j-cell and per sub-tile of T j-slots:
+//   A. the threads evaluate each (i, j) pair once (thread t takes i =
+//      t % cap and every nft-th j) and write its five weights L_f into
+//      shared memory (zeros outside the support); threads t < T build
+//      the 49 columns of j-slot t of the sub-tile;
+//   B. thread t owns family f = f0 + t / cap of i-slot t % cap and adds
+//      L_f(i, j) * M_k(j) into its 49 accumulators, skipping L = 0 (an
+//      exact zero in the JAX matmul).
+// Above cap 64 the families run in ceil(5 / nft) passes over the 27
+// cells (phase A repeated). The epilogue contracts each family with the
+// i-side offsets and cij, and thread i adds the families up.
+// Bound: arithmetic, with 245 FMAs per in-support pair in phase B (the
+// JAX body's matmul work, on the float32 cores: no tensor cores here),
+// ~90 flops per in-support pair in phase A, and ~70 per staged j-slot
+// per sub-tile for the columns.
+// --------------------------------------------------------------------------
+namespace mm {
+
+constexpr int NC = 49;             // moment columns
+constexpr int NF = 5;              // pair-weight families
+constexpr int MAX_THREADS = 384;   // 168 registers a thread at most
+// staged j-rows: positions, 1/h, velocities, c, alpha, then the
+// sanitised m, xm, rho, prho, log(xm), validity and six cij rows
+enum { SX, SY, SZ, SHINV, SVX, SVY, SVZ, SC, SAL, SM, SXM, SRHO, SPRHO,
+       SLXM, SOK, SC11, NJ = SC11 + 6 };
+
+// J rows of the origin: x y z vx vy vz
+struct Rows {
+    static constexpr int NORIGIN = 6;
+    __device__ static int orow(int r) { return r < 3 ? r : r + 2; }
+};
+
+// the symmetric cij row of (a, b) (_momentum_mm_body's C6)
+__host__ __device__ constexpr int c6(int a, int b)
+{
+    return a <= b ? (a == 0 ? b : a == 1 ? 2 + b : 5)
+                  : (b == 0 ? a : b == 1 ? 2 + a : 5);
+}
+
+__device__ __forceinline__ float bf16r(float x)
+{
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+#define JJ(r) J[(long long)(r) * ns + jslot]
+__device__ __forceinline__ void stage_j(const float* J, long long jslot,
+                                        long long ns, float* sj, int cap,
+                                        int j)
+{
+    const bool ok = JJ(4) >= 0.0f;                 // gid
+    const float xm = ok ? JJ(11) : 1.0f;
+    const float v[SC11] = {JJ(0), JJ(1), JJ(2), 1.0f / JJ(3), JJ(5), JJ(6),
+                           JJ(7), JJ(8), JJ(12), ok ? JJ(13) : 0.0f, xm,
+                           ok ? JJ(10) : 1.0f, ok ? JJ(9) : 0.0f, logf(xm),
+                           ok ? 1.0f : 0.0f};
+#pragma unroll
+    for (int s = 0; s < SC11; ++s) sj[s * cap + j] = v[s];
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+        sj[(SC11 + r) * cap + j] = ok ? JJ(14 + r) : 0.0f;
+}
+#undef JJ
+
+// the 49 columns of staged j-slot j into M[k * T]
+__device__ __forceinline__ void build_cols(const float* sj, int cap, int j,
+                                           float* M, int T, const float* o,
+                                           bool bf16)
+{
+    const bool ok = sj[SOK * cap + j] != 0.0f;
+    float bj[3], vj[3], cj[6];
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+        bj[b] = ok ? sj[(SX + b) * cap + j] - o[b] : 0.0f;
+        vj[b] = ok ? sj[(SVX + b) * cap + j] - o[3 + b] : 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < 6; ++r) cj[r] = sj[(SC11 + r) * cap + j];
+    float col[NC];
+    col[0] = ok ? 1.0f : 0.0f;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+        col[1 + b] = bj[b];
+        col[4 + b] = vj[b];
+    }
+#pragma unroll
+    for (int r = 0; r < 6; ++r) col[16 + r] = cj[r];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+            const float c = cj[c6(a, b)];
+            col[7 + 3 * a + b] = vj[a] * bj[b];
+            col[22 + 3 * a + b] = c * bj[b];
+            col[31 + 3 * a + b] = c * vj[a];
+            col[40 + 3 * a + b] = c * vj[a] * bj[b];
+        }
+#pragma unroll
+    for (int k = 0; k < NC; ++k) M[k * T] = bf16 ? bf16r(col[k]) : col[k];
+}
+
+// the i side of phase A (the JAX body's sanitised i columns)
+struct PairI {
+    float xi, yi, zi, hinv2, hi3inv, vxi, vyi, vzi, ci, alphai, rhoi,
+        rhoi_inv, prhoi, xmi, lxmi;
+
+    __device__ void load(const float* J, long long islot, long long ns)
+    {
+#define JI(r) J[(long long)(r) * ns + islot]
+        xi = JI(0); yi = JI(1); zi = JI(2);
+        const float hinv = __fdiv_rn(1.0f, JI(3));
+        hinv2 = __fmul_rn(hinv, hinv);
+        hi3inv = hinv * hinv2;
+        vxi = JI(5); vyi = JI(6); vzi = JI(7);
+        const bool oki = xi < HALF_FILL;
+        ci = oki ? JI(8) : 1.0f;
+        alphai = oki ? JI(12) : 0.0f;
+        rhoi = oki ? JI(10) : 1.0f;
+        rhoi_inv = 1.0f / rhoi;
+        prhoi = oki ? JI(9) : 0.0f;
+        xmi = oki ? JI(11) : 1.0f;
+        lxmi = logf(xmi);
+#undef JI
+    }
+
+    // the five weights of pair (i, staged j) into L[f * ls]
+    __device__ void pair(const float* sj, int cap, int j, float* L, int ls,
+                         float& vsig, const PairParams& p) const
+    {
+#define S(r) sj[(r) * cap + j]
+        const float rx = __fsub_rn(xi, S(SX)), ry = __fsub_rn(yi, S(SY)),
+                    rz = __fsub_rn(zi, S(SZ));
+        const float d2 = dist2(rx, ry, rz);
+        const float v2i = __fmul_rn(d2, hinv2);
+        if (!(v2i < 4.0f)) {
+#pragma unroll
+            for (int f = 0; f < NF; ++f) L[f * ls] = 0.0f;
+            return;
+        }
+        const float hj_inv = S(SHINV);
+        const float v2j = d2 * (hj_inv * hj_inv);
+        const float Wi = w_v2(v2i, p.n_w) * hi3inv;
+        const float Wj = w_v2(v2j, p.n_w) * (hj_inv * hj_inv * hj_inv);
+        const float rv = rx * (vxi - S(SVX)) + ry * (vyi - S(SVY))
+            + rz * (vzi - S(SVZ));
+        const float wij = rv * rsqrtf(fmaxf(d2, 1e-30f));
+        const float csum = ci + S(SC);
+        const float vij_signal = (alphai + S(SAL)) * 0.25f * csum - 2.0f * wij;
+        const float visc = wij < 0.0f ? -vij_signal * wij : 0.0f;
+        if (d2 > 0.0f) vsig = fmaxf(vsig, 0.5f * csum - 2.0f * wij);
+
+        const float mj = S(SM), xmj = S(SXM), rhoj = S(SRHO);
+        const float drho = fabsf(rhoi - rhoj);
+        const float srho = rhoi + rhoj;
+        const bool is_lo = drho < p.atmin * srho;
+        const bool is_hi = drho > p.atmax * srho;
+        const float sigma = p.ramp * (drho / srho - p.atmin);
+        const float t = expf((sigma - 1.0f) * (S(SLXM) - lxmi));
+        const float prod = xmi * xmj;
+        const float a_mom = is_lo ? xmi * xmi : (is_hi ? prod : prod * t);
+        const float b_mom = is_lo ? xmj * xmj : (is_hi ? prod : prod / t);
+        const float av2 = (0.5f * mj) * visc;
+        const float Vi = av2 * rhoi_inv, Vj = av2 / rhoj;
+        const float Ei = mj * a_mom;
+        const float Pi = prhoi * Ei + Vi;
+        const float Pj = (S(SPRHO) * b_mom) * mj + Vj;
+        const float l[NF] = {Pi * Wi, Pj * Wj, Ei * Wi, Vi * Wi, Vj * Wj};
+#pragma unroll
+        for (int f = 0; f < NF; ++f) L[f * ls] = p.mxu_bf16 ? bf16r(l[f]) : l[f];
+#undef S
+    }
+};
+
+// the i-side offsets and cij of the epilogue (zero on invalid slots)
+struct EpiI {
+    float bic[3], vic[3], cii[6];
+
+    __device__ EpiI(const float* J, long long islot, long long ns,
+                    const float* o)
+    {
+        const bool oki = J[islot] < HALF_FILL;
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+            bic[b] = oki ? J[b * ns + islot] - o[b] : 0.0f;
+            vic[b] = oki ? J[(5 + b) * ns + islot] - o[3 + b] : 0.0f;
+        }
+#pragma unroll
+        for (int r = 0; r < 6; ++r)
+            cii[r] = oki ? J[(14 + r) * ns + islot] : 0.0f;
+    }
+
+    // -sum_ab c_ab,i (v_a b_b S0 - v_a S_{1+b} - b_b S_{4+a} + S_{7+3a+b})
+    __device__ float qi(const float (&S)[NC]) const
+    {
+        float acc = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int b = 0; b < 3; ++b) {
+                float q = vic[a] * bic[b] * S[0] - vic[a] * S[1 + b]
+                    - bic[b] * S[4 + a] + S[7 + 3 * a + b];
+                acc = acc + cii[c6(a, b)] * q;
+            }
+        return -acc;
+    }
+};
+
+// family f's share of the outputs into part[r * cap]: momA (rows 0-2),
+// momB (3-5), energy (6), i-side and j-side visc energy (7, 8)
+__device__ __forceinline__ void partial(int f, const float (&S)[NC],
+                                        const EpiI& e, float* part, int cap)
+{
+    switch (f) {
+    case 0: {
+        float RA[3];
+#pragma unroll
+        for (int b = 0; b < 3; ++b) RA[b] = e.bic[b] * S[0] - S[1 + b];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+            part[a * cap] = -(e.cii[c6(a, 0)] * RA[0] + e.cii[c6(a, 1)] * RA[1]
+                              + e.cii[c6(a, 2)] * RA[2]);
+        break;
+    }
+    case 1:
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            float acc = 0.0f;
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                acc = acc + e.bic[b] * S[16 + c6(a, b)] - S[22 + 3 * a + b];
+            part[(3 + a) * cap] = -acc;
+        }
+        break;
+    case 2: part[6 * cap] = e.qi(S); break;
+    case 3: part[7 * cap] = e.qi(S); break;
+    default: {
+        float acc = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                acc = acc - (e.vic[a] * e.bic[b] * S[16 + c6(a, b)]
+                             - e.vic[a] * S[22 + 3 * a + b]
+                             - e.bic[b] * S[31 + 3 * a + b]
+                             + S[40 + 3 * a + b]);
+        part[8 * cap] = acc;
+    }
+    }
+}
+
+}  // namespace mm
+
+template <bool Gated>
+__global__ void __launch_bounds__(mm::MAX_THREADS)
+cell_pair_momentum_mm(const float* __restrict__ J, float* __restrict__ out,
+                      PairGeom g, PairParams p, PairGate gt, int T, int nft)
+{
+    using namespace mm;
+    extern __shared__ float sm[];
+    __shared__ float origin[Rows::NORIGIN];
+    const int cap = g.cap, t = threadIdx.x, i = t % cap, grp = t / cap;
+    const long long ns = g.n_slots;
+    float* sj = sm;                          // [NJ][cap] staged j-rows
+    float* Ms = sj + NJ * cap;               // [NC][T] sub-tile columns
+    float* Ls = Ms + NC * T;                 // [NF][T][cap] pair weights
+    float* part = Ls + NF * T * cap;         // [9][cap] family shares
+    float* vs = part + 9 * cap;              // [nft][cap] signal maxima
+    const long long own = own_cell(g);
+    if constexpr (Gated)
+        if (gate_closed<NF>(gt, g, own, out)) return;
+    cell_means<Rows>(J, own * cap, cap, ns, origin);
+    const long long islot = own * cap + i;
+    PairI pi;
+    pi.load(J, islot, ns);
+    float vsig = SPH_NEG;
+    for (int f0 = 0; f0 < NF; f0 += nft) {
+        const int f = f0 + grp;
+        float acc[NC];
+#pragma unroll
+        for (int k = 0; k < NC; ++k) acc[k] = 0.0f;
+        for (int nb = 0; nb < 27; ++nb) {
+            __syncthreads();
+            if (t < cap)
+                stage_j(J, nbr_cell(g, own, nb) * cap + t, ns, sj, cap, t);
+            __syncthreads();
+            for (int j0 = 0; j0 < cap; j0 += T) {
+                if (t < T)
+                    build_cols(sj, cap, j0 + t, Ms + t, T, origin,
+                               p.mxu_bf16 != 0);
+                for (int jj = grp; jj < T; jj += nft)
+                    pi.pair(sj, cap, j0 + jj, Ls + jj * cap + i, T * cap,
+                            vsig, p);
+                __syncthreads();
+                if (f < NF) {
+                    const float* Lf = Ls + f * T * cap + i;
+                    for (int jj = 0; jj < T; ++jj) {
+                        const float l = Lf[jj * cap];
+                        if (l != 0.0f) {
+#pragma unroll
+                            for (int k = 0; k < NC; ++k)
+                                acc[k] += l * Ms[k * T + jj];
+                        }
+                    }
+                }
+                __syncthreads();
+            }
+        }
+        if (f < NF) partial(f, acc, EpiI(J, islot, ns, origin), part + i, cap);
+    }
+    vs[grp * cap + i] = vsig;
+    __syncthreads();
+    if (t >= cap) return;
+    float vmax = vs[i];
+    for (int q = 1; q < nft; ++q) vmax = fmaxf(vmax, vs[q * cap + i]);
+    const float prhoi = J[islot] < HALF_FILL ? J[9 * ns + islot] : 0.0f;
+    const float K3d = p.K3d;
+    const float ae = fmaxf(part[7 * cap + i] + part[8 * cap + i], 0.0f);
+    const float o[5] = {
+        -K3d * (part[0 * cap + i] + part[3 * cap + i]),
+        -K3d * (part[1 * cap + i] + part[4 * cap + i]),
+        -K3d * (part[2 * cap + i] + part[5 * cap + i]),
+        K3d * (prhoi * part[6 * cap + i] + 0.5f * ae),
+        fmaxf(vmax, 0.0f)};
+#pragma unroll
+    for (int r = 0; r < 5; ++r) out[r * ns + islot] = o[r];
+}
+
 constexpr size_t SMEM_MAX = 232448;   // 227 KB a block may opt into
 
 template <class Body, bool Resident>
@@ -606,7 +1240,8 @@ cudaError_t launch(const float* J, const float* I2, float* out,
     else
         kern = gated ? cell_pair_stream<Body, true>
                      : cell_pair_stream<Body, false>;
-    const size_t smem = sizeof(float) * Body::FJ * g.cap * (Resident ? 27 : 1);
+    const size_t smem = sizeof(float) * (Body::FJ + Body::NM) * g.cap
+        * (Resident ? 27 : 1);
     if (smem > SMEM_MAX || g.cap > 1024 || g.cap % 32) return cudaErrorInvalidValue;
     if (gated && (gt.prev == nullptr || gt.Z < 1 || g.npz % gt.Z))
         return cudaErrorInvalidValue;
@@ -617,6 +1252,39 @@ cudaError_t launch(const float* J, const float* I2, float* out,
     }
     const unsigned ncell = (unsigned)g.nx * g.n * g.nz;
     if (ncell) kern<<<ncell, g.cap, smem, st>>>(J, I2, out, g, p, gt);
+    return cudaSuccess;
+}
+
+// K10: blocks of nft * cap threads; the sub-tile T shrinks until the
+// shared memory fits
+cudaError_t launch_momentum_mm(const float* J, float* out, const PairGeom& g,
+                               const PairParams& p, const PairGate& gt,
+                               cudaStream_t st)
+{
+    using namespace mm;
+    const int cap = g.cap;
+    if (cap % 32 || cap > MAX_THREADS) return cudaErrorInvalidValue;
+    const int nft = NF < MAX_THREADS / cap ? NF : MAX_THREADS / cap;
+    int T = 32;
+    auto bytes = [&](int tile) {
+        return sizeof(float) * ((size_t)NJ * cap + NC * tile
+                                + (size_t)NF * tile * cap + (9 + nft) * cap);
+    };
+    while (T > 1 && bytes(T) > SMEM_MAX) T /= 2;
+    const size_t smem = bytes(T);
+    if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+    const bool gated = gt.act != nullptr;
+    if (gated && (gt.prev == nullptr || gt.Z < 1 || g.npz % gt.Z))
+        return cudaErrorInvalidValue;
+    auto kern = gated ? cell_pair_momentum_mm<true>
+                      : cell_pair_momentum_mm<false>;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+    }
+    const unsigned ncell = (unsigned)g.nx * g.n * g.nz;
+    if (ncell) kern<<<ncell, nft * cap, smem, st>>>(J, out, g, p, gt, T, nft);
     return cudaSuccess;
 }
 
@@ -634,7 +1302,15 @@ extern "C" int pair_launch(int stage, const float* J, const float* I2,
     case 1: e = launch<GradhBody, false>(J, I2, out, g, p, gt, st); break;
     case 2: e = launch<IadBody, false>(J, I2, out, g, p, gt, st); break;
     case 3: e = launch<AvBody, false>(J, I2, out, g, p, gt, st); break;
-    case 4: e = launch<MomentumBody, false>(J, I2, out, g, p, gt, st); break;
+    case 4: e = launch<MomentumBody<false>, false>(J, I2, out, g, p, gt, st);
+        break;
+    case 5: e = launch<IadMmBody, false>(J, I2, out, g, p, gt, st); break;
+    case 6: e = launch<AvMmBody, false>(J, I2, out, g, p, gt, st); break;
+    case 7: e = launch_momentum_mm(J, out, g, p, gt, st); break;
+    case 8:
+        if (gt.act != nullptr) { e = cudaErrorInvalidValue; break; }  // no K2g form
+        e = launch<MomentumBody<true>, false>(J, I2, out, g, p, gt, st);
+        break;
     default: e = cudaErrorInvalidValue;
     }
     if (e != cudaSuccess) return (int)e;

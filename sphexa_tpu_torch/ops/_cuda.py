@@ -134,7 +134,7 @@ class PairParams(ctypes.Structure):
                 ("h_cap", _F), ("h_iter", _I), ("alphamin", _F),
                 ("alphamax", _F), ("decay_constant", _F), ("atmin", _F),
                 ("atmax", _F), ("ramp", _F), ("uniform_mass", _I),
-                ("hcoef", _F)]
+                ("hcoef", _F), ("mxu_bf16", _I)]
 
 
 class PairGate(ctypes.Structure):
@@ -191,7 +191,8 @@ def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None):
     prm = PairParams(K3d, int(cfg.sinc_index), float(cfg.ng0 // 4),
                      float(cfg.ngmax), cfg.h_cap, cfg.h_iter, cfg.alphamin,
                      cfg.alphamax, cfg.decay_constant, cfg.atmin, cfg.atmax,
-                     cfg.ramp, int(cfg.uniform_mass), 1023.0 * cfg.ng0)
+                     cfg.ramp, int(cfg.uniform_mass), 1023.0 * cfg.ng0,
+                     int(cfg.mxu_bf16))
     if gate is None:
         gt = PairGate(None, None, 0)
     else:

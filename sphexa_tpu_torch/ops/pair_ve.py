@@ -11,14 +11,24 @@ version of the same function:
   K5 pair_iad        <- _iad_direct_body            (pallas_ve.py:704)
   K6 pair_av         <- _av_direct_body             (pallas_ve.py:900)
   K7 pair_momentum   <- _momentum_body              (pallas_ve.py:1022)
+  K7c pair_momentum_avclean <- the same, av_clean   (:1031-1033, :1094-1116)
+  K8 pair_iad_mm     <- _iad_hybrid_body            (pallas_ve.py:769)
+  K9 pair_av_mm      <- _av_mm_body                 (pallas_ve.py:949)
+  K10 pair_momentum_mm <- _momentum_mm_body         (pallas_ve.py:1190)
 
-K3-K7 share the driver make_cell_pair_call (pallas_ve.py:103), which in
+K8-K10 are the moment-matmul bodies (SphConfig.mxu_moments,
+mxu_momentum, mxu_bf16): their plain versions contract the pair
+weights with cell-centred j-moment columns in a float32 matmul; the
+kernels accumulate the same sums per pair, in float32 and without
+tensor cores.
+
+K3-K10 share the driver make_cell_pair_call (pallas_ve.py:103), which in
 the port is the launch skeleton of cell_pair.cu: one thread block per
 interior cell, one thread per i-slot, the 27 neighbour cells streamed
 through shared memory.
 
 K2g, the gated driver (make_cell_pair_call(gated=True), pallas_ve.py:
-162-172, :242-251), is the same five stages as GATED_KERNELS: a
+162-172, :242-251), is the same stages but K7c as GATED_KERNELS: a
 z-supercell (Z cells of one column) with no active slot keeps its
 previous outputs. Block time-steps (propagator/ve_bdt.py) run on it.
 
@@ -265,17 +275,20 @@ def _iad_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
         return [-(C[b][0] * Q[a][0] + C[b][1] * Q[a][1] + C[b][2] * Q[a][2])
                 for b in range(3)]
     dVx, dVy, dVz = dv(0), dv(1), dv(2)
+    return _iad_outputs(cij, dVx, dVy, dVz, K3d * h3inv / I[RKX], _oki(I))
 
-    norm_kx = K3d * h3inv / I[RKX]
+
+def _iad_outputs(cij, dVx, dVy, dVz, norm_kx, ok):
+    """cij, divv, curlv and the six symmetrised gradv rows, zero on
+    invalid i-slots (pallas_ve.py:684)."""
     divv = norm_kx * (dVx[0] + dVy[1] + dVz[2])
     curlv = norm_kx * torch.sqrt((dVz[1] - dVy[2]) ** 2
                                  + (dVx[2] - dVz[0]) ** 2
                                  + (dVy[0] - dVx[1]) ** 2)
-    outs = [c11, c12, c13, c22, c23, c33, divv, curlv,
-            norm_kx * dVx[0], norm_kx * (dVx[1] + dVy[0]),
-            norm_kx * (dVx[2] + dVz[0]), norm_kx * dVy[1],
-            norm_kx * (dVy[2] + dVz[1]), norm_kx * dVz[2]]
-    ok = _oki(I)
+    outs = list(cij) + [divv, curlv,
+                        norm_kx * dVx[0], norm_kx * (dVx[1] + dVy[0]),
+                        norm_kx * (dVx[2] + dVz[0]), norm_kx * dVy[1],
+                        norm_kx * (dVy[2] + dVz[1]), norm_kx * dVz[2]]
     return [torch.where(ok, o, 0.0) for o in outs]
 
 
@@ -309,7 +322,13 @@ def _av_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
 
     vijsignal = torch.maximum(torch.amax(vsig, dim=-1, keepdim=True),
                               1e-30 * ci)
-    graddivv = torch.sqrt(gx * gx + gy * gy + gz * gz)
+    alpha = _alpha_tail(i2, torch.sqrt(gx * gx + gy * gy + gz * gz),
+                        vijsignal, divv_i, hi, ci, cfg)
+    return [torch.where(_oki(I), alpha, 0.0)]
+
+
+def _alpha_tail(i2, graddivv, vijsignal, divv_i, hi, ci, cfg: SphConfig):
+    """Cullen-Dehnen alpha evolution (_av_alpha_tail, pallas_ve.py:865)."""
     alpha_i, dt = i2[6], i2[7]
     a_const = hi * hi * graddivv
     alphaloc = torch.where(divv_i < 0.0,
@@ -320,14 +339,15 @@ def _av_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
     alphadot = torch.where(alphaloc >= cfg.alphamin,
                            (alphaloc - alpha_i) / decay,
                            (cfg.alphamin - alpha_i) / decay)
-    alpha = torch.where(alphaloc >= alpha_i, alphaloc, alpha_i + alphadot * dt)
-    return [torch.where(_oki(I), alpha, 0.0)]
+    return torch.where(alphaloc >= alpha_i, alphaloc, alpha_i + alphadot * dt)
 
 
-def _momentum_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+def _momentum_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int,
+                   av_clean: bool = False):
     """Momentum and energy (momentum_energy_kern.hpp:65-222) with the
-    Atwood-ramped VE terms and pair AV. Outputs [ax, ay, az, du,
-    maxvsignal]."""
+    Atwood-ramped VE terms and pair AV; with av_clean (K7c) the rv
+    correction of the AV velocity-gradient cleaning (:44-63) on six more
+    gradv rows and eta_crit. Outputs [ax, ay, az, du, maxvsignal]."""
     (RVX, RVY, RVZ, RC, RPRHO, RRHO, RXM, RAL, RM,
      R11, R12, R13, R22, R23, R33) = range(NBASE, NBASE + 15)
     hi = I[RH]
@@ -337,6 +357,10 @@ def _momentum_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
     ci, alpha_i, rhoi, prhoi, xmi = I[RC], I[RAL], I[RRHO], I[RPRHO], I[RXM]
     rhoi_inv = 1.0 / rhoi
     lxmi = torch.log(xmi)
+    if av_clean:
+        RD = range(NBASE + 15, NBASE + 21)      # gradv d11..d33
+        RETA = NBASE + 21
+        eta_crit = I[RETA]
 
     rx, ry, rz, d2 = _geo(I, Jn)
     v2i = d2 * hi_inv2
@@ -359,6 +383,28 @@ def _momentum_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
     vz_ij = I[RVZ] - Jn[RVZ]
     rv = rx * vx_ij + ry * vy_ij + rz * vz_ij
     inv_d = torch.rsqrt(torch.clamp_min(d2, 1e-30))
+    if av_clean:
+        # the quadratic form as the JAX body writes it: the gradv
+        # off-diagonals are symmetrised sums, so only the upper triangle
+        def quad(d11, d12, d13, d22, d23, d33):
+            q1 = d11 * rx + d12 * ry + d13 * rz
+            q2 = d22 * ry + d23 * rz
+            q3 = d33 * rz
+            return rx * q1 + ry * q2 + rz * q3
+
+        dmy1 = quad(*(I[r] for r in RD))
+        dmy2 = quad(*(Jn[r] for r in RD))
+        dist = d2 * inv_d
+        eta_ab = dist * torch.minimum(hi_inv, hj_inv)
+        eta_diff = 5.0 * (eta_ab - eta_crit)
+        dmy3 = torch.where(eta_ab < eta_crit,
+                           torch.exp(-eta_diff * eta_diff), 1.0)
+        nz = dmy2 != 0.0
+        A_ab = torch.where(nz, dmy1 / torch.where(nz, dmy2, 1.0), 0.0)
+        A_abp1 = 1.0 + A_ab
+        phi_ab = 0.5 * dmy3 * torch.clamp(4.0 * A_ab / (A_abp1 * A_abp1),
+                                          0.0, 1.0)
+        rv = rv - phi_ab * (dmy1 + dmy2)
     wij = rv * inv_d
     csum = ci + Jn[RC]
     vij_signal = (alpha_i + Jn[RAL]) * 0.25 * csum - 2.0 * wij
@@ -401,6 +447,269 @@ def _momentum_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
     ok = _oki(I)
     return [torch.where(ok, o, 0.0) for o in
             (-K3d * mom[0], -K3d * mom[1], -K3d * mom[2], du, maxvsignal)]
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the moment-matmul bodies (mxu_moments, mxu_momentum)
+# ---------------------------------------------------------------------------
+
+def _cell_means(I, rows):
+    """Mean over the valid slots (gid >= 0) of the i-cell of each row,
+    as [C, 1, 1]: the expansion origin of the moment factorization. The
+    JAX body takes it per 128-slot sub-block when cap > 128
+    (pallas_ve.py:211-214); any origin is algebraically exact, so one
+    per cell differs from it only by rounding."""
+    vrow = I[RGID] >= 0.0
+    nv = torch.clamp_min(torch.sum(vrow.to(torch.float32), dim=1,
+                                   keepdim=True), 1.0)
+    return [torch.sum(torch.where(vrow, I[r], 0.0), dim=1, keepdim=True) / nv
+            for r in rows]
+
+
+def _contract(w, cols):
+    """sum_j w[c, i, j] * col_k[c, 0, j] -> [C, CAP, K]: the moment
+    contraction (the JAX body's dot_general), in float32."""
+    M = torch.cat(cols, dim=1)                       # [C, K, W]
+    return torch.matmul(w, M.transpose(1, 2))
+
+
+def _iad_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+    """K5's outputs with tau accumulated directly and the velocity
+    gradients from 16 cell-centred j-moments (_iad_hybrid_body,
+    pallas_ve.py:769). Outputs 14 rows."""
+    RKX, RXM, RVX, RVY, RVZ = range(NBASE, NBASE + 5)
+    hi = I[RH]
+    hinv = 1.0 / hi
+    hi_inv2 = hinv * hinv
+    h3inv = hinv * hi_inv2
+    ox, oy, oz, ovx, ovy, ovz = _cell_means(I, (RX, RY, RZ, RVX, RVY, RVZ))
+    xib = (I[RX] - ox, I[RY] - oy, I[RZ] - oz)
+    vic = (I[RVX] - ovx, I[RVY] - ovy, I[RVZ] - ovz)
+
+    rx, ry, rz, d2 = _geo(I, Jn)
+    w = _w_v2(d2 * hi_inv2, n_w)
+    volj = Jn[RXM] / Jn[RKX]
+    wn = (volj * w) * (K3d * h3inv)
+    sx, sy, sz = rx * hinv, ry * hinv, rz * hinv
+    t11, t12, t13 = _sum(sx * sx * wn), _sum(sx * sy * wn), _sum(sx * sz * wn)
+    t22, t23, t33 = _sum(sy * sy * wn), _sum(sy * sz * wn), _sum(sz * sz * wn)
+
+    xjc, yjc, zjc = Jn[RX] - ox, Jn[RY] - oy, Jn[RZ] - oz
+    xmj = Jn[RXM]
+    ux = xmj * (Jn[RVX] - ovx)
+    uy = xmj * (Jn[RVY] - ovy)
+    uz = xmj * (Jn[RVZ] - ovz)
+    mom = _contract(w, [xmj, xmj * xjc, xmj * yjc, xmj * zjc,
+                        ux, ux * xjc, ux * yjc, ux * zjc,
+                        uy, uy * xjc, uy * yjc, uy * zjc,
+                        uz, uz * xjc, uz * yjc, uz * zjc])
+
+    def mc(k):
+        return mom[:, :, k:k + 1]
+
+    cij = _iad_tail(t11, t12, t13, t22, t23, t33, hi)
+    c11, c12, c13, c22, c23, c33 = cij
+    S0, S = mc(0), (mc(1), mc(2), mc(3))
+
+    def dv(base, v_i):
+        # F_b = xi_b (U0 - v_i S0) - (U_b - v_i S_b); dV_a = -(C F)_a
+        U0 = mc(base)
+        F = [xib[b] * (U0 - v_i * S0) - (mc(base + 1 + b) - v_i * S[b])
+             for b in range(3)]
+        return [-(c11 * F[0] + c12 * F[1] + c13 * F[2]),
+                -(c12 * F[0] + c22 * F[1] + c23 * F[2]),
+                -(c13 * F[0] + c23 * F[1] + c33 * F[2])]
+
+    dVx, dVy, dVz = dv(4, vic[0]), dv(8, vic[1]), dv(12, vic[2])
+    return _iad_outputs(cij, dVx, dVy, dVz, K3d * h3inv / I[RKX], _oki(I))
+
+
+def _av_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+    """K6's alpha with graddivv from 8 cell-centred j-moments
+    (_av_mm_body, pallas_ve.py:949); the signal-speed max stays per
+    pair. Output [alpha]."""
+    RC, RKX, RXM, RDIVV, RVX, RVY, RVZ = range(NBASE, NBASE + 7)
+    hi = I[RH]
+    hinv = 1.0 / hi
+    hi_inv2 = hinv * hinv
+    h3inv = hinv * hi_inv2
+    ci = I[RC]
+    divv_i = I[RDIVV]
+    c11i, c12i, c13i, c22i, c23i, c33i = (i2[k] for k in range(6))
+    ox, oy, oz, odv = _cell_means(I, (RX, RY, RZ, RDIVV))
+    xib = (I[RX] - ox, I[RY] - oy, I[RZ] - oz)
+    dvic = divv_i - odv
+
+    rx, ry, rz, d2 = _geo(I, Jn)
+    v2 = d2 * hi_inv2
+    mask = v2 < 4.0
+    rv = (rx * (I[RVX] - Jn[RVX]) + ry * (I[RVY] - Jn[RVY])
+          + rz * (I[RVZ] - Jn[RVZ]))
+    inv_d = torch.rsqrt(torch.clamp_min(d2, 1e-30))
+    vsig = torch.where(mask & (rv < 0.0), ci + Jn[RC] - 3.0 * rv * inv_d, _NEG)
+
+    wm = _w_v2(v2, n_w)
+    volj = Jn[RXM] / Jn[RKX]
+    xjc, yjc, zjc = Jn[RX] - ox, Jn[RY] - oy, Jn[RZ] - oz
+    vd = volj * (Jn[RDIVV] - odv)
+    mom = _contract(wm, [volj, volj * xjc, volj * yjc, volj * zjc,
+                         vd, vd * xjc, vd * yjc, vd * zjc])
+
+    def mc(k):
+        return mom[:, :, k:k + 1]
+
+    S0v, Sv, D0, D = mc(0), (mc(1), mc(2), mc(3)), mc(4), (mc(5), mc(6),
+                                                           mc(7))
+    G = [xib[b] * (dvic * S0v - D0) - (dvic * Sv[b] - D[b]) for b in range(3)]
+    scale = K3d * h3inv
+    gx = -(c11i * G[0] + c12i * G[1] + c13i * G[2]) * scale
+    gy = -(c12i * G[0] + c22i * G[1] + c23i * G[2]) * scale
+    gz = -(c13i * G[0] + c23i * G[1] + c33i * G[2]) * scale
+    vijsignal = torch.maximum(torch.amax(vsig, dim=-1, keepdim=True),
+                              1e-30 * ci)
+    alpha = _alpha_tail(i2, torch.sqrt(gx * gx + gy * gy + gz * gz),
+                        vijsignal, divv_i, hi, ci, cfg)
+    return [torch.where(_oki(I), alpha, 0.0)]
+
+
+def bf16_round(x):
+    """x rounded to bfloat16 (nearest even) and back to float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+# (a, b) pairs of the momentum moment columns, and the symmetric cij row
+# of each (the C6 map of _momentum_mm_body)
+_AB = tuple((a, b) for a in range(3) for b in range(3))
+_C6 = {(0, 0): 0, (0, 1): 1, (1, 0): 1, (0, 2): 2, (2, 0): 2,
+       (1, 1): 3, (1, 2): 4, (2, 1): 4, (2, 2): 5}
+
+
+def _momentum_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+    """K7's five reductions as one contraction of five pair-weight
+    families with 49 cell-centred j-moment columns (_momentum_mm_body,
+    pallas_ve.py:1190). Its own arithmetic, not K7's: the Atwood ramp
+    always takes exp with is_lo/is_hi, visc is masked by the support,
+    and the i and j rows are sanitised by validity. cfg.mxu_bf16 rounds
+    both operands to bf16 (nearest even) and accumulates in float32.
+    Outputs [ax, ay, az, du, maxvsignal]."""
+    (RVX, RVY, RVZ, RC, RPRHO, RRHO, RXM, RAL, RM,
+     R11, R12, R13, R22, R23, R33) = range(NBASE, NBASE + 15)
+    hi = I[RH]
+    hi_inv = 1.0 / hi
+    hi_inv2 = hi_inv * hi_inv
+    hi3inv = hi_inv * hi_inv2
+    oki = _oki(I)
+    ci = torch.where(oki, I[RC], 1.0)
+    alpha_i = torch.where(oki, I[RAL], 0.0)
+    rhoi = torch.where(oki, I[RRHO], 1.0)
+    rhoi_inv = 1.0 / rhoi
+    prhoi = torch.where(oki, I[RPRHO], 0.0)
+    xmi = torch.where(oki, I[RXM], 1.0)
+    lxmi = torch.log(xmi)
+    cii = [torch.where(oki, I[r], 0.0) for r in (R11, R12, R13, R22, R23,
+                                                 R33)]
+    ox, oy, oz, ovx, ovy, ovz = _cell_means(I, (RX, RY, RZ, RVX, RVY, RVZ))
+    bic = [torch.where(oki, I[r] - o, 0.0)
+           for r, o in ((RX, ox), (RY, oy), (RZ, oz))]
+    vic = [torch.where(oki, I[r] - o, 0.0)
+           for r, o in ((RVX, ovx), (RVY, ovy), (RVZ, ovz))]
+
+    rx, ry, rz, d2 = _geo(I, Jn)
+    v2i = d2 * hi_inv2
+    mask = v2i < 4.0
+    hj_inv = 1.0 / Jn[RH]
+    v2j = d2 * (hj_inv * hj_inv)
+    Wi = torch.where(mask, _w_v2(v2i, n_w) * hi3inv, 0.0)
+    Wj = torch.where(mask, _w_v2(v2j, n_w) * (hj_inv * hj_inv * hj_inv), 0.0)
+
+    vx_ij = I[RVX] - Jn[RVX]
+    vy_ij = I[RVY] - Jn[RVY]
+    vz_ij = I[RVZ] - Jn[RVZ]
+    rv = rx * vx_ij + ry * vy_ij + rz * vz_ij
+    wij = rv * torch.rsqrt(torch.clamp_min(d2, 1e-30))
+    csum = ci + Jn[RC]
+    vij_signal = (alpha_i + Jn[RAL]) * 0.25 * csum - 2.0 * wij
+    visc = torch.where(mask & (wij < 0.0), -vij_signal * wij, 0.0)
+    vsig = torch.where(mask & (d2 > 0.0), 0.5 * csum - 2.0 * wij, _NEG)
+
+    okj = Jn[RGID] >= 0.0
+    mj = torch.where(okj, Jn[RM], 0.0)
+    xmj = torch.where(okj, Jn[RXM], 1.0)
+    rhoj = torch.where(okj, Jn[RRHO], 1.0)
+    prhoj = torch.where(okj, Jn[RPRHO], 0.0)
+
+    drho = torch.abs(rhoi - rhoj)
+    srho = rhoi + rhoj
+    is_lo = drho < cfg.atmin * srho
+    is_hi = drho > cfg.atmax * srho
+    sigma = cfg.ramp * (drho / srho - cfg.atmin)
+    t = torch.exp((sigma - 1.0) * (torch.log(xmj) - lxmi))
+    prod = xmi * xmj
+    a_mom = torch.where(is_lo, xmi * xmi, torch.where(is_hi, prod, prod * t))
+    b_mom = torch.where(is_lo, xmj * xmj, torch.where(is_hi, prod, prod / t))
+
+    av2 = (0.5 * mj) * visc
+    Vi_w = av2 * rhoi_inv
+    Vj_w = av2 / rhoj
+    Ei_w = mj * a_mom
+    Pi_w = prhoi * Ei_w + Vi_w
+    Pj_w = (prhoj * b_mom) * mj + Vj_w
+    L = [Pi_w * Wi, Pj_w * Wj, Ei_w * Wi, Vi_w * Wi, Vj_w * Wj]
+
+    one = okj.to(torch.float32)
+    bjc = [torch.where(okj, Jn[r] - o, 0.0)
+           for r, o in ((RX, ox), (RY, oy), (RZ, oz))]
+    vjc = [torch.where(okj, Jn[r] - o, 0.0)
+           for r, o in ((RVX, ovx), (RVY, ovy), (RVZ, ovz))]
+    cj6 = [torch.where(okj, Jn[r], 0.0)
+           for r in (R11, R12, R13, R22, R23, R33)]
+    cols = [one] + bjc + vjc
+    cols += [vjc[a] * bjc[b] for a, b in _AB]
+    cols += cj6
+    cols += [cj6[_C6[ab]] * bjc[ab[1]] for ab in _AB]
+    cols += [cj6[_C6[ab]] * vjc[ab[0]] for ab in _AB]
+    cols += [cj6[_C6[ab]] * vjc[ab[0]] * bjc[ab[1]] for ab in _AB]
+    if cfg.mxu_bf16:
+        L = [bf16_round(x) for x in L]
+        cols = [bf16_round(x) for x in cols]
+    SA, SB, SC, SD, SE = (_contract(x, cols) for x in L)
+
+    def col(S, k):
+        return S[:, :, k:k + 1]
+
+    RA = [bic[b] * col(SA, 0) - col(SA, 1 + b) for b in range(3)]
+    momA = [-(cii[_C6[(a, 0)]] * RA[0] + cii[_C6[(a, 1)]] * RA[1]
+              + cii[_C6[(a, 2)]] * RA[2]) for a in range(3)]
+
+    def UB(a):
+        acc = 0.0
+        for b in range(3):
+            acc = acc + bic[b] * col(SB, 16 + _C6[(a, b)]) \
+                - col(SB, 22 + 3 * a + b)
+        return acc
+
+    mom = [momA[a] - UB(a) for a in range(3)]
+
+    def QI(S):
+        acc = 0.0
+        for a, b in _AB:
+            q = (vic[a] * bic[b] * col(S, 0) - vic[a] * col(S, 1 + b)
+                 - bic[b] * col(S, 4 + a) + col(S, 7 + 3 * a + b))
+            acc = acc + cii[_C6[(a, b)]] * q
+        return -acc
+
+    energy = QI(SC)
+    avE_i = QI(SD)
+    avE_j = 0.0
+    for a, b in _AB:
+        avE_j = avE_j - (vic[a] * bic[b] * col(SE, 16 + _C6[(a, b)])
+                         - vic[a] * col(SE, 22 + 3 * a + b)
+                         - bic[b] * col(SE, 31 + 3 * a + b)
+                         + col(SE, 40 + 3 * a + b))
+    a_visc_energy = torch.clamp_min(avE_i + avE_j, 0.0)
+    maxvsignal = torch.clamp_min(torch.amax(vsig, dim=-1, keepdim=True), 0.0)
+    du = K3d * (prhoi * energy + 0.5 * a_visc_energy)
+    return [-K3d * mom[0], -K3d * mom[1], -K3d * mom[2], du, maxvsignal]
 
 
 # ---------------------------------------------------------------------------
@@ -591,14 +900,32 @@ pair_av = PairKernel("pair_av", 3, NBASE + 7, 1, 8, _av_body)
 pair_momentum = PairKernel("pair_momentum", 4, NBASE + 15, 5, 0,
                            _momentum_body)
 
+# the moment-matmul bodies (K8-K10) and K7's avClean form (K7c)
+pair_iad_mm = PairKernel("pair_iad_mm", 5, NBASE + 5, 14, 0, _iad_mm_body)
+pair_av_mm = PairKernel("pair_av_mm", 6, NBASE + 7, 1, 8, _av_mm_body)
+pair_momentum_mm = PairKernel("pair_momentum_mm", 7, NBASE + 15, 5, 0,
+                              _momentum_mm_body)
+pair_momentum_avclean = PairKernel(
+    "pair_momentum_avclean", 8, NBASE + 22, 5, 0,
+    functools.partial(_momentum_body, av_clean=True))
+
+# the default (direct) bodies of the resident step
 KERNELS = (ghost_refresh, pair_xh, pair_gradh, pair_iad, pair_av,
            pair_momentum)
-# K2g: the same stages behind the supercell gate (block time-steps)
+MM_KERNELS = (pair_iad_mm, pair_av_mm, pair_momentum_mm)
+# K2g: the stages behind the supercell gate (block time-steps); K7c has
+# no gated form (BdtVE refuses avClean, as the JAX package)
 GATED_KERNELS = tuple(
     PairKernel(k.name + "_gated", k.stage, k.fj, k.fo, k.fi2, k.body,
-               gated=True) for k in KERNELS[1:])
-pair_xh_gated, pair_gradh_gated, pair_iad_gated, pair_av_gated, \
-    pair_momentum_gated = GATED_KERNELS
+               gated=True) for k in KERNELS[1:] + MM_KERNELS)
+(pair_xh_gated, pair_gradh_gated, pair_iad_gated, pair_av_gated,
+ pair_momentum_gated, pair_iad_mm_gated, pair_av_mm_gated,
+ pair_momentum_mm_gated) = GATED_KERNELS
+PAIR_KERNELS = KERNELS[1:] + MM_KERNELS + (pair_momentum_avclean,) \
+    + GATED_KERNELS
+# K10 runs one thread per (i-slot, family group) in a block of at most
+# 384 threads (cell_pair.cu, launch_momentum_mm)
+MM_MOMENTUM_MAX_CAP = 384
 
 
 # ---------------------------------------------------------------------------
@@ -613,7 +940,12 @@ class PairVE:
     prevs), act the [n_slots] 0/1 activity row and prevs the previous
     output rows in the stage's output order (PallasVE._gate_kw without
     the TPU's row padding: rows past the list are zero, rows past the
-    stage's outputs are dropped). zgroup 0 picks legal_zgroup."""
+    stage's outputs are dropped). zgroup 0 picks legal_zgroup.
+
+    The bodies are chosen as PallasVE.__init__ does (pallas_ve.py:
+    1427-1436): mxu_moments takes K8 and K9 for IAD and AV; the momentum
+    stage is K7c under av_clean (also when mxu_momentum is set), else K10
+    under mxu_momentum, else K7. `kernels` lists the five chosen."""
 
     def __init__(self, grid: CMGrid, cfg: SphConfig, gated: bool = False,
                  zgroup: int = 0):
@@ -623,18 +955,31 @@ class PairVE:
         n_w = int(cfg.sinc_index)
         if float(n_w) != float(cfg.sinc_index) or n_w < 2:
             raise ValueError("the pair stages need an integer sinc index >= 2")
-        if cfg.av_clean:
+        if gated and cfg.av_clean:
             raise NotImplementedError(
-                "the avClean momentum branch is not ported yet")
-        if cfg.mxu_moments or cfg.mxu_momentum:
-            raise NotImplementedError(
-                "the moment-matmul stage bodies are not ported yet")
+                "the avClean momentum stage has no gated form (block "
+                "time-steps run with av_clean off, as in the JAX package)")
         self.grid = grid
         self.cfg = cfg
         self.K3d = kernel_3d_k(cfg.sinc_index)
         self.gated = gated
         self.zgroup = resolve_zgroup(grid, zgroup) if gated else 0
-        kerns = GATED_KERNELS if gated else KERNELS[1:]
+        if cfg.av_clean:
+            mom = pair_momentum_avclean
+        elif cfg.mxu_momentum:
+            mom = pair_momentum_mm
+            if grid.cap > MM_MOMENTUM_MAX_CAP:
+                raise ValueError(f"mxu_momentum: cap {grid.cap} above "
+                                 f"{MM_MOMENTUM_MAX_CAP}")
+        else:
+            mom = pair_momentum
+        iad, av = ((pair_iad_mm, pair_av_mm) if cfg.mxu_moments
+                   else (pair_iad, pair_av))
+        kerns = (pair_xh, pair_gradh, iad, av, mom)
+        if gated:
+            kerns = tuple(next(g for g in GATED_KERNELS
+                               if g.name == k.name + "_gated") for k in kerns)
+        self.kernels = kerns
         (self._xh, self._gradh, self._iad, self._av,
          self._mom) = kerns
 
@@ -682,9 +1027,16 @@ class PairVE:
         return out[0]
 
     def momentum(self, base, vx_cm, vy_cm, vz_cm, c_cm, prho_cm, rho_cm,
-                 xm_cm, alpha_cm, m_cm, cij, gate=None):
-        out = self._run(self._mom,
-                        base + [vx_cm, vy_cm, vz_cm, c_cm, prho_cm, rho_cm,
-                                xm_cm, alpha_cm, m_cm] + list(cij),
-                        gate=gate)
+                 xm_cm, alpha_cm, m_cm, cij, gradv=None, eta_crit_cm=None,
+                 gate=None):
+        """Under av_clean the six gradv rows and eta_crit follow cij
+        (PallasVE.momentum's row order); otherwise they are not read."""
+        rows = base + [vx_cm, vy_cm, vz_cm, c_cm, prho_cm, rho_cm, xm_cm,
+                       alpha_cm, m_cm] + list(cij)
+        if self.cfg.av_clean:
+            if gradv is None or eta_crit_cm is None:
+                raise ValueError("av_clean: momentum needs gradv and "
+                                 "eta_crit_cm")
+            rows += list(gradv) + [eta_crit_cm]
+        out = self._run(self._mom, rows, gate=gate)
         return out[0], out[1], out[2], out[3], out[4]

@@ -2,7 +2,9 @@
 
 Counterpart of sphexa_tpu/propagator/ve_bdt.py (BdtVE; reference:
 main/src/propagator/ve_hydro_bdt.hpp, sph/include/sph/ts_rungs.hpp:
-117-157). Single device, hydro only (gravG == 0), avClean off.
+117-157). Single device, hydro only (gravG == 0), avClean off; the
+moment-matmul options (mxu_moments, mxu_momentum) run their gated
+bodies.
 
   - Rungs are per cell: rung_i = clip(floor(log2(dt_i / dt_i_min)), 0,
     num_rungs - 1), min-reduced over each cell at the cycle start.
@@ -103,6 +105,7 @@ class BdtVE(ResidentVE):
                  num_rungs: int = 4, device=None):
         super().__init__(box, grid, cfg, device=device)
         self.num_rungs = num_rungs
+        # refuses av_clean, as the JAX substep asserts (ve_bdt.py:217)
         self.pve_gated = PairVE(grid, cfg, gated=True)
 
     # ---- global-reduction hooks: identity on one device (the sharded

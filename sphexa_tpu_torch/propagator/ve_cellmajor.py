@@ -11,8 +11,10 @@ Counterpart of sphexa_tpu/propagator/ve_pallas.py. Two entry points:
 
 Step choreography (ghost refreshes at the reference's exchangeHalos
 points, ve_hydro.hpp:132-205): xmass+h-iter -> [xm, h] -> gradh ->
-[kx, gradh] -> EOS -> IAD/divv -> [cij, divv, curlv] -> AV -> [alpha]
--> momentum+energy -> integrate -> [positions, velocities, ...].
+[kx, gradh] -> EOS -> IAD/divv -> [cij, divv, curlv (+ gradv under
+av_clean)] -> AV -> [alpha] -> momentum+energy -> integrate ->
+[positions, velocities, ...]. The pair bodies follow SphConfig's
+mxu_moments / mxu_momentum / av_clean as PairVE selects them.
 
 The rebin decision is a Python `if` on a device scalar: one host sync
 per step (the JAX engine branches in-graph with lax.cond).
@@ -23,6 +25,7 @@ with gravG != 0 raises NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -86,8 +89,13 @@ def _run_pipeline(pve: PairVE, refresh, base, m, vx, vy, vz, temp, alpha,
     c = torch.where(va, c, 1.0)
     prho = torch.where(va, prho, 0.0)
 
-    cij, divv, curlv, _ = pve.iad_divv(base, kx, xm, vx, vy, vz)
-    st = refresh(torch.stack(list(cij) + [divv, curlv]))
+    cij, divv, curlv, gradv = pve.iad_divv(base, kx, xm, vx, vy, vz)
+    if cfg.av_clean:
+        # the momentum stage reads the j-side gradv rows too
+        st = refresh(torch.stack(list(cij) + [divv, curlv] + list(gradv)))
+        gradv = tuple(st[8 + i] for i in range(6))
+    else:
+        st = refresh(torch.stack(list(cij) + [divv, curlv]))
     cij = tuple(st[i] for i in range(6))
     divv, curlv = st[6], st[7]
 
@@ -96,12 +104,22 @@ def _run_pipeline(pve: PairVE, refresh, base, m, vx, vy, vz, temp, alpha,
     alpha_new = torch.where(validint, alpha_out, alpha)
     alpha_new = refresh(alpha_new[None].contiguous())[0]
 
+    mom_kw = {}
+    if cfg.av_clean:
+        mom_kw = dict(gradv=gradv, eta_crit_cm=eta_crit(nc_sph))
     ax, ay, az, du, mvs = pve.momentum(base, vx, vy, vz, c, prho, rho, xm,
-                                       alpha_new, m, cij)
+                                       alpha_new, m, cij, **mom_kw)
     return dict(h=h_new, nc_sph=nc_sph, xm=xm, kx=kx, rho=rho, p=p, c=c,
                 prho=prho, divv=divv, curlv=curlv, alpha=alpha_new,
                 ax=ax, ay=ay, az=az, du=du, maxvsignal=mvs,
                 h_nonconv=nonconv)
+
+
+def eta_crit(nc_sph):
+    """The avClean critical eta, cbrt(32 pi / 3 / max(nc_sph, 1))
+    (ve_pallas.py:119)."""
+    return torch.pow(32.0 * math.pi / 3.0 / torch.clamp_min(nc_sph, 1.0),
+                     1.0 / 3.0)
 
 
 def _masked(x, mask, fill=0.0):

@@ -8,13 +8,23 @@ run them on a GPU host with
 need and a GPU host may lack.)
 
 Inputs: one resident step of a perturbed Sedov 12^3 frame on a cap-64
-grid, recorded on the CPU. Tolerances as tests/test_torch_pair_ve.py
-(nc and nonconv exact; rtol 1e-5 on h, xm, kx, gradh, alpha and
-maxvsignal; 1e-4 of the row's scale on the cancelling sums), and K1
-bit-equal. The gated stages (K2g) take the same inputs with a seeded
-activity pattern: the slots of active z-supercells hold those
-tolerances, and the interior slots of inactive ones equal prev bit for
-bit.
+grid, recorded on the CPU under each body configuration (direct, the
+moment-matmul bodies K8-K10, avClean K7c); K10 with mxu_bf16 takes the
+float32 run's inputs. Tolerances as tests/test_torch_pair_ve.py (nc and
+nonconv exact; rtol 1e-5 on h, xm, kx, gradh, alpha and maxvsignal;
+1e-4 of the row's scale on the cancelling sums), and K1 bit-equal. K10
+under mxu_bf16 is held against its plain version at a quarter of the
+plain version's own bf16-to-float32 distance per row, and must lie at
+least half that distance from float32: an operand one float32 ulp
+apart (FMA contraction, the cell-mean summation order) can round to
+the neighbouring bf16 value, and where a moment sum cancels one such
+flip moves it by a share of bf16's own error (on the card: 1.4e-3 of
+the row's scale against a bf16-to-float32 distance of 2.5e-2 at Sedov
+30^3 on CMGrid(n=8, cap=64), 9% of it at the 100^3 main-path inputs;
+2.3e-5 against 4.9e-3 here). The gated stages (K2g) take the same inputs
+with a seeded activity pattern: the slots of active z-supercells hold
+those tolerances, and the interior slots of inactive ones equal prev
+bit for bit.
 """
 
 import numpy as np
@@ -32,7 +42,15 @@ pytestmark = pytest.mark.gpu
 
 EXACT = {"pair_xh": (2, 3)}
 RELATIVE = {"pair_xh": (0, 1), "pair_gradh": (0, 1), "pair_av": (0,),
-            "pair_momentum": (4,)}
+            "pair_momentum": (4,), "pair_av_mm": (0,),
+            "pair_momentum_mm": (4,), "pair_momentum_avclean": (4,)}
+CONFIGS = (dict(), dict(mxu_moments=True, mxu_momentum=True),
+           dict(av_clean=True))
+STAGES = ["pair_xh", "pair_gradh", "pair_iad", "pair_av", "pair_momentum",
+          "pair_iad_mm", "pair_av_mm", "pair_momentum_mm",
+          "pair_momentum_mm_bf16", "pair_momentum_avclean"]
+GATED = ["pair_xh", "pair_gradh", "pair_iad", "pair_av", "pair_momentum",
+         "pair_iad_mm", "pair_av_mm", "pair_momentum_mm"]
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +62,8 @@ def cuda():
 
 @pytest.fixture(scope="module")
 def recorded(cuda):
-    """(kernel, J, I2) of every pair stage of one step, on the CPU."""
+    """{stage name: (kernel, J, I2, cfg)} of every pair stage of one step
+    under each configuration, on the CPU."""
     state, box, cfg = init_sedov(12, SphConfig(), dt0=3e-5, device="cpu")
     r = np.random.default_rng(0)
     n = 12 ** 3
@@ -55,26 +74,30 @@ def recorded(cuda):
                 for c in ("vx", "vy", "vz")})
     state = state.replace(p=state.p.replace(**upd))
     grid = CMGrid(n=4, cap=64)
-    eng = ResidentVE(box, grid, cfg, device="cpu")
-    calls = []
-    for k in pv.KERNELS[1:]:
-        def plain(J, I2, g, c, k=k, orig=k.plain):
-            calls.append((k, J.clone(), None if I2 is None else I2.clone()))
-            return orig(J, I2, g, c)
-        k.plain = plain
-    try:
-        eng.step(eng.bind(state))
-    finally:
-        for k in pv.KERNELS[1:]:
-            del k.plain
-    return calls, grid, cfg, eng.intmask
+    kerns = [k for k in pv.PAIR_KERNELS if not k.gated]
+    calls = {}
+    for flags in CONFIGS:
+        eng = ResidentVE(box, grid, cfg.replace(**flags), device="cpu")
+        for k in kerns:
+            def plain(J, I2, g, c, k=k, orig=k.plain):
+                calls[k.name] = (k, J.clone(),
+                                 None if I2 is None else I2.clone(), c)
+                return orig(J, I2, g, c)
+            k.plain = plain
+        try:
+            eng.step(eng.bind(state))
+        finally:
+            for k in kerns:
+                del k.plain
+    k, J, I2, c = calls["pair_momentum_mm"]
+    calls["pair_momentum_mm_bf16"] = (k, J, I2, c.replace(mxu_bf16=True))
+    return calls, grid, eng.intmask
 
 
-@pytest.mark.parametrize("name", ["pair_xh", "pair_gradh", "pair_iad",
-                                  "pair_av", "pair_momentum"])
+@pytest.mark.parametrize("name", STAGES)
 def test_pair_kernel_matches_plain(recorded, cuda, name):
-    calls, grid, cfg, intmask = recorded
-    k, J, I2 = next(c for c in calls if c[0].name == name)
+    calls, grid, intmask = recorded
+    k, J, I2, cfg = calls[name]
     J = J.to(cuda)
     I2 = None if I2 is None else I2.to(cuda)
     before = k.launches
@@ -82,11 +105,27 @@ def test_pair_kernel_matches_plain(recorded, cuda, name):
     assert k.launches == before + 1
     ref = k.plain(J, I2, grid, cfg)
     mask = (intmask.to(cuda) & (J[0] < 0.5 * pv.FILL_POS))
-    _check_rows(name, ref, out, mask)
+    if name.endswith("_bf16"):
+        _check_bf16(ref, out, k.plain(J, I2, grid,
+                                      cfg.replace(mxu_bf16=False)), mask)
+    else:
+        _check_rows(name, ref, out, mask)
+
+
+def _check_bf16(ref, out, ref32, mask):
+    a, b, f = (x[:, mask].cpu().double().numpy() for x in (ref, out, ref32))
+    assert np.isfinite(b).all()
+    for r in range(4):
+        scale = np.abs(f[r]).max()
+        d_ref = np.abs(a[r] - f[r]).max() / scale
+        assert np.abs(b[r] - a[r]).max() / scale <= 0.25 * d_ref, r
+        assert np.abs(b[r] - f[r]).max() / scale >= 0.5 * d_ref, r
+    np.testing.assert_allclose(b[4], a[4], rtol=1e-5)
 
 
 def _check_rows(name, ref, out, mask):
     a, b = ref[:, mask].cpu().numpy(), out[:, mask].cpu().numpy()
+    assert np.isfinite(b).all()
     for r in range(a.shape[0]):
         if r in EXACT.get(name, ()):
             np.testing.assert_array_equal(b[r], a[r])
@@ -98,11 +137,10 @@ def _check_rows(name, ref, out, mask):
 
 
 @pytest.mark.parametrize("zgroup", [0, 1], ids=["Z6", "Z1"])
-@pytest.mark.parametrize("name", ["pair_xh", "pair_gradh", "pair_iad",
-                                  "pair_av", "pair_momentum"])
+@pytest.mark.parametrize("name", GATED)
 def test_gated_kernel_matches_plain(recorded, cuda, name, zgroup):
-    calls, grid, cfg, intmask = recorded
-    k, J, I2 = next(c for c in calls if c[0].name == name)
+    calls, grid, intmask = recorded
+    k, J, I2, cfg = calls[name]
     kg = next(g for g in pv.GATED_KERNELS if g.name == name + "_gated")
     J = J.to(cuda)
     I2 = None if I2 is None else I2.to(cuda)

@@ -103,14 +103,19 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 
 
 def test_gravity_and_avclean_not_ported_raise():
+    """Gravity is not ported; avClean is, on the resident engine, but
+    not with block time-steps (the JAX BdtVE asserts it off)."""
     from sphexa_tpu_torch.ops.cellmajor import CMGrid
+    from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
     from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
 
     box = tbox.Box.cube(-0.5, 0.5, tbox.Boundary.periodic)
-    for kw in (dict(gravG=1.0), dict(av_clean=True)):
-        with pytest.raises(NotImplementedError):
-            ResidentVE(box, CMGrid(n=2, cap=128), tcfg.SphConfig(**kw),
-                       device="cpu")
+    grid = CMGrid(n=2, cap=128)
+    with pytest.raises(NotImplementedError):
+        ResidentVE(box, grid, tcfg.SphConfig(gravG=1.0), device="cpu")
+    with pytest.raises(NotImplementedError):
+        BdtVE(box, grid, tcfg.SphConfig(av_clean=True), device="cpu")
+    ResidentVE(box, grid, tcfg.SphConfig(av_clean=True), device="cpu")
 
 
 # ---------------------------------------------------------------------------
