@@ -35,7 +35,20 @@ Phases (any failure exits non-zero before the last line):
      bodies for one timed cycle (the gated K8-K10); (h) each new kernel
      timed at those inputs beside its direct counterpart (K5, K6, K7),
      its plain version and its bound;
-  8. the kernel table as one JSON line, then the device line.
+  8. (i) the column launch K11: at Sedov 30^3 (perturbed) under each of
+     the four configurations every column stage against its plain
+     version and against the cell launch on the same inputs in several
+     forms (interior slots bit-equal, the rest zero); at Sedov 100^3
+     under each configuration the resident step with a column-mode pve
+     for 3 steps against the cell-mode step from the same bound state
+     (counters zeroed before each run), then each column stage timed in
+     its form and in the others, beside the cell launch;
+  9. (j) the probes P1-P5: each swept at its script's sizes (counters
+     zeroed before, read after), each kernel against its plain version
+     (the TMA variants also through the libcuda build), the library
+     yardsticks (index_select of the windows, torch.matmul of the
+     products);
+  10. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -98,6 +111,26 @@ DIRECT = {"pair_iad_mm": "pair_iad", "pair_av_mm": "pair_av",
 MM = dict(mxu_moments=True, mxu_momentum=True)
 CONFIGS = {"mm": MM, "mm_bf16": dict(MM, mxu_bf16=True),
            "avclean": dict(av_clean=True)}
+# (i): K11, the column launch, and the stages each configuration adds
+COLUMN_REPLACES = "sphexa_tpu/ops/pallas_ve.py:273"
+COLUMN_STAGES = {None: ("pair_xh", "pair_gradh", "pair_iad", "pair_av",
+                        "pair_momentum"),
+                 "mm": ("pair_iad_mm", "pair_av_mm", "pair_momentum_mm"),
+                 "mm_bf16": ("pair_momentum_mm",),
+                 "avclean": ("pair_momentum_avclean",)}
+COLUMN_STEPS = 3
+# (j): tensor-core peaks of the H100 SXM data sheet (dense)
+TF32_PEAK = 495e12
+BF16_PEAK = 989e12
+PROBE_REPLACES = {
+    "fma_chains": "scripts/vpu_ceiling.py:26",
+    "staging_loads": "scripts/dma_lab.py:61",
+    "staging_many": "scripts/dma_lab.py:61",
+    "staging_many_tma": "scripts/dma_lab.py:61",
+    "staging_few_tma": "scripts/dma_lab.py:111",
+    "staging_pipe": "scripts/dma_lab.py:155",
+    "mma_cells": "scripts/mxu_micro.py:30",
+}
 
 # output rows compared as one group (a matrix or vector is compared at
 # its own scale: near-zero components such as curlv of a radial flow or
@@ -1023,6 +1056,401 @@ def mm_timing(report, eng, rst, grid, launches, bf16_launches=None):
     return rows
 
 
+def cell_kernel(kc):
+    """The cell-launch kernel of a column kernel."""
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    return next(k for k in pv.PAIR_KERNELS if not k.gated and not k.column
+                and k.name == kc.name.removesuffix("_column"))
+
+
+def launch_form(kc, args, zseg, ring):
+    """One K11 launch in the form (zseg, ring)."""
+    saved = kc.zseg, kc.ring
+    kc.zseg, kc.ring = zseg, ring
+    try:
+        return kc._launch(*args)
+    finally:
+        kc.zseg, kc.ring = saved
+
+
+def column_forms(kc, grid, zsegs):
+    """The forms of a column kernel on this grid: each zseg, streamed
+    and, where the ring fits, in the ring."""
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    forms, saved = [], (kc.zseg, kc.ring)
+    for zseg in zsegs:
+        for ring in (False, True):
+            kc.zseg, kc.ring = zseg, ring
+            if pv.column_form(kc, grid) == (zseg, ring):
+                forms.append((zseg, ring))
+    kc.zseg, kc.ring = saved
+    return forms
+
+
+def column_row_name(kc, cfg):
+    return kc.name + ("_bf16" if cfg.mxu_bf16 else "")
+
+
+def column_check(report):
+    """(i) K11 at Sedov 30^3 (perturbed), under each configuration: the
+    inputs of one column-mode step; every column stage against its plain
+    version (the cell stages' tolerances) and against the cell launch on
+    the same inputs in each form: interior slots bit-equal, the rest 0."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
+
+    errs = {}
+    for cname, stages in COLUMN_STAGES.items():
+        state, box, cfg, grid = sedov(CHECK_SIDE, DEVICE, perturb_seed=0,
+                                      flags=CONFIGS.get(cname))
+        eng = ResidentVE(box, grid, cfg, device=DEVICE)
+        eng.pve = pv.PairVE(grid, cfg, kernel_mode="column")
+        with Spy(pv.COLUMN_KERNELS) as spy:
+            eng.step(eng.bind(state))
+        torch.cuda.synchronize()
+        assert len(spy.calls) == 5, [k.name for k, _, _ in spy.calls]
+        inside = eng.intmask
+        for kc, args, out in spy.calls:
+            name = kc.name.removesuffix("_column")
+            if name not in stages:
+                continue
+            J, I2, g, c = args
+            mask = valid_slots(J) & inside
+            if c.mxu_bf16:
+                err, rel = bf16_compare(kc, args, out, mask)
+            else:
+                err, rel = compare(name, kc.plain(*args), out, mask,
+                                   per_row=True)
+            cell = cell_kernel(kc)._launch(*args)
+            forms = column_forms(kc, g, (1, 3, g.nz))
+            for zseg, ring in forms:
+                o = launch_form(kc, args, zseg, ring)
+                if not (torch.equal(o[:, inside], cell[:, inside])
+                        and not o[:, ~inside].any()):
+                    raise AssertionError(
+                        f"{kc.name} zseg {zseg} ring {ring}: not bit-equal "
+                        f"to the cell launch")
+            row = column_row_name(kc, c)
+            errs[row] = dict(max_abs_err=err, rel=rel, forms=forms)
+            log(f"  {CHECK_SIDE}^3 {row:30s} plain err {err:.3e} (rel "
+                f"{rel:.3e}); bit-equal to the cell launch in {len(forms)} "
+                f"forms {forms}")
+        del eng
+    report["check_30_column"] = errs
+
+
+def column_main_path(report, cname):
+    """(i) Sedov 100^3 under CONFIGS[cname] (None: the direct bodies):
+    the resident step with a column-mode pve for COLUMN_STEPS steps,
+    against the cell-mode step from the same bound state, counters zeroed
+    before each run and read after. Returns (column engine, state,
+    launches of the column run)."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.propagator.common import compute_energies
+    from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
+
+    state, box, cfg, grid = sedov(MAIN_SIDE, DEVICE, flags=CONFIGS.get(cname))
+    e0 = float(sum(compute_energies(state.p, cfg)))
+    kernels = all_kernels()
+    runs = {}
+    for mode in ("cell", "column"):
+        eng = ResidentVE(box, grid, cfg, device=DEVICE)
+        eng.pve = pv.PairVE(grid, cfg, kernel_mode=mode)
+        rst = eng.bind(state)
+        assert int(rst.overflow) == 0, "slot overflow at bind"
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(COLUMN_STEPS + 1)]
+        ev[0].record()
+        diags = []
+        for i in range(COLUMN_STEPS):
+            rst, d = eng.step(rst)
+            ev[i + 1].record()
+            diags.append({k: float(v) for k, v in d._asdict().items()})
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        used = {k.name for k in eng.pve.kernels}
+        want = {k.name: COLUMN_STEPS if k.name in used else 0
+                for k in kernels}
+        want["ghost_refresh"] = 5 * COLUMN_STEPS
+        assert launches == want, (mode, launches, want)
+        runs[mode] = dict(eng=eng, rst=rst, diags=diags, launches=launches,
+                          step_ms=[a.elapsed_time(b)
+                                   for a, b in zip(ev, ev[1:])])
+    a, b = runs["cell"]["diags"], runs["column"]["diags"]
+    for x, y in zip(a, b):
+        assert x["overflow"] == y["overflow"] == 0, "slot overflow"
+        np.testing.assert_allclose(y["dt"], x["dt"], rtol=1e-5)
+        np.testing.assert_allclose(y["eint"], x["eint"], rtol=1e-6)
+        np.testing.assert_allclose(y["ecin"], x["ecin"], rtol=1e-3,
+                                   atol=1e-12)
+    drift = abs(b[-1]["etot"] - e0) / e0
+    assert drift < 5e-3, f"energy drift {drift:.3e}"
+    rc, rl = runs["cell"]["rst"], runs["column"]["rst"]
+    fields = [f.name for f in dataclasses.fields(rl)
+              if isinstance(getattr(rl, f.name), torch.Tensor)]
+    for f in fields:
+        assert torch.isfinite(getattr(rl, f).float()).all(), f"non-finite {f}"
+    bit_equal = all(torch.equal(getattr(rc, f), getattr(rl, f))
+                    for f in fields)
+    key = "direct" if cname is None else cname
+    used = [k.name for k in runs["column"]["eng"].pve.kernels]
+    ms = {m: [round(x, 3) for x in runs[m]["step_ms"]] for m in runs}
+    log(f"  100^3 {key}: column step ms {ms['column']}, cell step ms "
+        f"{ms['cell']}; "
+        f"dt, eint, ecin within the resident bounds, overflow 0, drift "
+        f"{drift:.3e}, state bit-equal to the cell step: {bit_equal}; "
+        f"launches {used} {COLUMN_STEPS} each, cell pair kernels 0")
+    report.setdefault("column_main_path", {})[key] = dict(
+        cell_step_ms=runs["cell"]["step_ms"],
+        column_step_ms=runs["column"]["step_ms"], cell=a, column=b,
+        energy_drift=drift, bit_equal=bit_equal,
+        launches=runs["column"]["launches"])
+    del runs["cell"]
+    return runs["column"]["eng"], rl, runs["column"]["launches"]
+
+
+def column_timing(report, cname, eng, rst, launches):
+    """(i) each column stage of the config at the 100^3 inputs of one
+    column-mode step: ms in the chosen form and in every other form
+    tried, beside the cell launch, the plain version and the bound."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    grid = eng.grid
+    with Spy(pv.COLUMN_KERNELS) as spy:
+        eng.step(rst)
+    torch.cuda.synchronize()
+    calls = {k.name: (k, args, out) for k, args, out in spy.calls}
+    xh = calls["pair_xh_column"]
+    nc_sph = xh[2][2] + 1
+    xh_J, _, _, xh_cfg = xh[1]
+    cand, inside, per_slot = pair_counts(xh_J, eng, grid, nc_sph)
+    ok = valid_slots(xh_J) & eng.intmask
+    n_cells = grid.nx * grid.n * grid.nz
+    rows = []
+    for kc, args, out in spy.calls:
+        name = kc.name.removesuffix("_column")
+        if name not in COLUMN_STAGES[cname]:
+            continue
+        J, I2, g, c = args
+        if c.mxu_bf16:
+            err, rel = bf16_compare(kc, args, out, ok)
+        else:
+            err, rel = compare(name, kc.plain(*args), out, ok, per_row=False)
+        ms = cuda_ms(lambda: kc._launch(*args), 5)
+        forms = {}
+        for zseg, ring in column_forms(kc, g, (1, 2, 4, 8, g.nz)):
+            forms[f"S{zseg} {'ring' if ring else 'stream'}"] = cuda_ms(
+                lambda: launch_form(kc, args, zseg, ring), 3)
+        cell = cell_kernel(kc)
+        cell_ms = cuda_ms(lambda: cell._launch(*args), 5)
+        plain_ms = cuda_ms(lambda: kc.plain(*args), 1)
+        ops = (cand * GEO_FLOPS + inside * BODY_FLOPS[name]
+               + mm_extra_flops(name, J, g, c, ok, n_cells))
+        if name == "pair_xh":
+            ops += xh_recounts(J, out, g, c, per_slot)[0] * RECOUNT_FLOPS
+        nbytes = 4 * (J.numel() + (I2.numel() if I2 is not None else 0)
+                      + out.numel())
+        t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+        zseg, ring = pv.column_form(kc, g)
+        row_name = column_row_name(kc, c)
+        rows.append(dict(
+            name=row_name, route="cuda",
+            source="sphexa_tpu_torch/csrc/cell_pair.cu",
+            replaces=COLUMN_REPLACES, launches=launches[kc.name],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=None, cell_ms=cell_ms,
+            form=f"S{zseg} {'ring' if ring else 'stream'}"))
+        report.setdefault("column_forms_ms", {})[row_name] = forms
+        log(f"  {row_name:30s} {ms:9.3f} ms (S{zseg} "
+            f"{'ring' if ring else 'stream'})  cell {cell_ms:8.3f} ms  "
+            f"plain {plain_ms:10.3f} ms  bound {max(t_ops, t_bytes):.4f} ms "
+            f" err {err:.3e}")
+        log("    forms: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                      forms.items()))
+    report.setdefault("kernels_column", []).extend(rows)
+    return rows
+
+
+def probes_phase(report):
+    """(j) P1-P5: each probe's sweep at its script's sizes (counters
+    zeroed before, read after), then each kernel against its plain
+    version on the card, the TMA variants also through the libcuda
+    build, and the library yardsticks."""
+    import torch
+    from sphexa_tpu_torch.ops import _cuda
+    from sphexa_tpu_torch.probes import fma_ceiling as p1
+    from sphexa_tpu_torch.probes import mma_micro as p5
+    from sphexa_tpu_torch.probes import staging_lab as st
+
+    probes = [p1.fma_chains, *st.PROBES.values(), p5.mma_cells]
+    for p in probes:
+        p.launches = 0
+    s1 = p1.sweep()
+    for p in s1:
+        log(f"  P1 rows={p['rows']:<2d} chains={p['nchain']:<2d} "
+            f"{p['ms']:8.3f} ms  {p['gflops']:9.0f} Gflop/s (2 a step)  "
+            f"{p['fp32_pipe_gflops']:9.0f} Gflop/s (fp32 pipe)")
+    s5 = p5.sweep()
+    for q in s5:
+        log(f"  P5 {q['mode']:12s} vpu={q['vpu_flops']:<2d} {q['ms']:8.3f} ms"
+            f"  {q['card_cycles_per_cell']:7.1f} cyc/cell (card)  "
+            f"{q['sm_cycles_per_cell']:8.0f} cyc/cell (one SM) at "
+            f"{q['sm_mhz']:.0f} MHz")
+    s2 = st.sweep()
+    torch.cuda.synchronize()
+    launches = {p.name: p.launches for p in probes}
+    assert all(launches.values()), launches
+    report["probe_sweeps"] = dict(P1=s1, P2_P4=s2, P5=s5)
+    rows = []
+
+    # P1: every chain count at rows 8 against plain (seeded inputs); the
+    # row at rows 32 and the chain count of the highest rate
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.uniform(0.5, 2.0, (p1.NCELL * 8, p1.W)).astype(
+        np.float32)).to(DEVICE)
+    err1 = 0.0
+    for nchain in p1.CHAINS:
+        length = p1.STEPS // nchain
+        out = p1.fma_chains._launch(x, nchain, length)
+        ref = p1.fma_chains.plain(x, nchain, length)
+        torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
+        err1 = max(err1, float((out - ref).abs().max()))
+    best = max((p for p in s1 if p["rows"] == 32),
+               key=lambda p: p["fp32_pipe_gflops"])
+    n = p1.NCELL * 32 * p1.W
+    xb = torch.ones((n // p1.W, p1.W), dtype=torch.float32, device=DEVICE)
+    plain_ms = cuda_ms(lambda: p1.fma_chains.plain(xb, best["nchain"],
+                                                   best["length"]), 1)
+    t_ops = n * p1.STEPS * 2 / (FP32_PEAK / 2) * 1e3
+    t_bytes = 8 * n / HBM_BW * 1e3
+    rows.append(dict(name="fma_chains", route="cuda",
+                     source="sphexa_tpu_torch/csrc/probes.cu",
+                     replaces=PROBE_REPLACES["fma_chains"],
+                     launches=launches["fma_chains"], max_abs_err=err1,
+                     ms=best["ms"], plain_ms=plain_ms,
+                     bound_ms=max(t_ops, t_bytes),
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     library_ms=None, point=f"rows 32, chains "
+                     f"{best['nchain']}"))
+    plateau = max(p["fp32_pipe_gflops"] for p in s1)
+    log(f"  P1 plateau {plateau:.0f} Gflop/s on the fp32 pipe (data sheet "
+        f"67000); rows 32 best at {best['nchain']} chains")
+    report["fp32_plateau_gflops"] = plateau
+
+    # P2-P4 at the script's sizes, 4 reps summed
+    src, starts = (t.to(DEVICE) for t in st.inputs(st.K, st.F, st.NS,
+                                                   st.NPROG))
+    nprog = st.NPROG
+
+    def reps(fn):
+        out = torch.zeros((nprog * 8, 128), dtype=torch.float32,
+                          device=DEVICE)
+        for _ in range(st.REPS):
+            fn(out)
+        return out
+    refs = {}
+    for design, probe in st.PROBES.items():
+        fn = st.VARIANTS[design][1]
+        if fn not in refs:
+            refs[fn] = reps(lambda o: probe.plain(src, starts, o, st.K))
+        out = reps(lambda o: probe._launch(src, starts, o, st.K))
+        torch.testing.assert_close(out, refs[fn], rtol=1e-6, atol=0)
+    enc = {lib: _cuda.tma_encoder(lib) for lib in ("probes.cu",
+                                                     "probes_libcuda")}
+    for variant, fn in ((2, "many"), (3, "few")):
+        out = reps(lambda o: _cuda.staging_launch(
+            variant, src, starts, o, st.K, library="probes_libcuda"))
+        torch.testing.assert_close(out, refs[fn], rtol=1e-6, atol=0)
+    log(f"  P2-P4 outputs equal their plain versions (4 reps summed); TMA "
+        f"encoder reached {enc} (1: runtime entry point, 2: libcuda), the "
+        f"libcuda build's TMA variants equal too")
+    report["tma_encoder"] = enc
+    for p in s2:
+        design = p["design"]
+        probe = st.PROBES[design]
+        fn = st.VARIANTS[design][1]
+        idx = st._INDEX[fn](src, starts, st.K, nprog).reshape(-1)
+        buf = src.new_empty((src.shape[0], idx.numel()))
+        lib_ms = cuda_ms(lambda: torch.index_select(src, 1, idx, out=buf), 10)
+        o = torch.zeros((nprog * 8, 128), dtype=torch.float32, device=DEVICE)
+        plain_ms = cuda_ms(lambda: probe.plain(src, starts, o, st.K), 2)
+        touched = int(torch.unique(idx).numel())
+        st_bytes = {"many": st.K, "few": 1, "pipe": 0}[fn] * 4 * nprog
+        nbytes = 4 * st.F * touched + st_bytes + 2 * o.numel() * 4
+        rows.append(dict(name=probe.name, route="cuda",
+                         source="sphexa_tpu_torch/csrc/probes.cu",
+                         replaces=PROBE_REPLACES[probe.name],
+                         launches=launches[probe.name], max_abs_err=0.0,
+                         ms=p["ms"], plain_ms=plain_ms,
+                         bound_ms=nbytes / HBM_BW * 1e3, bound_by="bytes",
+                         library_ms=lib_ms))
+        log(f"  {design:9s} {p['ms']:8.3f} ms/call  "
+            f"{p['us_per_window'] * 1e3:8.2f} ns/window  {p['gbs']:8.1f} GB/s of windows  index_select "
+            f"{lib_ms:.3f} ms  bound {nbytes / HBM_BW * 1e3:.4f} ms")
+
+    # P5: each mode against plain (seeded x), vpu_flops 0 and 30
+    x5 = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1.0, 1.0, (p5.FJ, p5.RUNW)).astype(np.float32)).to(DEVICE)
+    tol = {"none": 1e-5, "f32": 5e-3, "f32_highest": 1e-5, "bf16": 1e-5}
+    err5 = {}
+    for mode in p5.MODES:
+        for vf in p5.VPU_FLOPS:
+            out = p5.mma_cells._launch(x5, mode, vf, p5.NCELL)
+            ref = p5.mma_cells.plain(x5, mode, vf, p5.NCELL)
+            e = float((out - ref).abs().max()) / float(ref.abs().max())
+            if e > tol[mode]:
+                raise AssertionError(f"P5 {mode} vpu={vf}: {e:.3e} of scale")
+            err5[(mode, vf)] = float((out - ref).abs().max())
+    vf = max(p5.VPU_FLOPS)
+    rows_w = []                 # one cell's 9 w blocks, as the kernel's
+    xr = x5[0:1, :p5.RUNW] + torch.arange(p5.CAP, dtype=torch.float32,
+                                          device=DEVICE)[:, None]
+    for g in range(9):
+        wg = xr * (1.0 + g)
+        for _ in range(vf):
+            wg = wg * 1.000001 + 0.5
+        rows_w.append(wg)
+    A = torch.cat(rows_w).repeat(p5.NCELL, 1)          # [NCELL*576, 192]
+    B = x5[0:p5.K, 0:p5.RUNW].T.contiguous()
+    lib = {}
+    for tf32 in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        lib["f32" if tf32 else "f32_highest"] = cuda_ms(lambda: A @ B, 5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Ab, Bb = A.bfloat16(), B.bfloat16()
+    lib["bf16"] = cuda_ms(lambda: Ab @ Bb, 5)
+    del A, Ab
+    plain5 = cuda_ms(lambda: p5.mma_cells.plain(x5, "f32", vf, p5.NCELL), 3)
+    t_vpu = p5.vpu_ops(vf) / (FP32_PEAK / 2) * 1e3
+    tc = {"none": 0.0, "f32": p5.dot_flops() / TF32_PEAK * 1e3,
+          "f32_highest": 3 * p5.dot_flops() / TF32_PEAK * 1e3,
+          "bf16": p5.dot_flops() / BF16_PEAK * 1e3}
+    for q in s5:
+        if q["vpu_flops"] != vf:
+            continue
+        mode = q["mode"]
+        rows.append(dict(name=f"mma_cells_{mode}", route="cuda",
+                         source="sphexa_tpu_torch/csrc/probes.cu",
+                         replaces=PROBE_REPLACES["mma_cells"],
+                         launches=launches["mma_cells"],
+                         max_abs_err=err5[(mode, vf)], ms=q["ms"],
+                         plain_ms=plain5, bound_ms=max(t_vpu, tc[mode]),
+                         bound_by="operations", library_ms=lib.get(mode)))
+    log(f"  P5 library (torch.matmul of the {9 * p5.NCELL} products, "
+        f"vpu={vf}): TF32 {lib['f32']:.3f} ms, float32 "
+        f"{lib['f32_highest']:.3f} ms, bf16 {lib['bf16']:.3f} ms")
+    report["kernels_probes"] = rows
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1088,6 +1516,18 @@ def main() -> int:
     log("(h) timing of the gated K8-K10:")
     rows += bdt_timing(report, beng, bst, blaunches, "mm")
     del beng, bst
+
+    log("(i) the column launch K11 against its plain version and the cell "
+        "launch at 30^3:")
+    column_check(report)
+    for cname in COLUMN_STAGES:
+        log(f"(i) 100^3 column-mode resident step, "
+            f"{'direct' if cname is None else cname}:")
+        eng, rst, launches = column_main_path(report, cname)
+        rows += column_timing(report, cname, eng, rst, launches)
+        del eng, rst
+    log("(j) hardware probes P1-P5:")
+    rows += probes_phase(report)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

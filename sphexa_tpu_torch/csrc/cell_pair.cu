@@ -42,9 +42,32 @@
 // gated stage is bounded by the pair work of the active supercells plus
 // that copy (bytes). It still launches a block for every interior cell:
 // inactive blocks cost a launch slot and one read of Z*cap act values.
+//
+// K11, the column launch (make_column_pair_call, pallas_ve.py:273, call
+// :330; PallasVE(kernel_mode="column")), runs the same bodies with a
+// block per z-segment of zseg consecutive cells of one interior (x, y)
+// column, walking z (pair_launch_column). Two forms:
+//   ring    the 27 neighbour cells of the current cell stay in shared
+//           memory as 3 z-planes of 9 cells; a z-step stages only the 9
+//           cells of the next plane (cell_pair_column). Stages 0-3 only:
+//           a moment column depends on the own cell's mean (stages
+//           5-7), and the momentum bodies (4, 8) inlined into the ring
+//           walk compiled to results not bit-equal to their cell launch
+//           on the card (27 * FJ * cap floats: 131 and 173 KB at cap
+//           64, one block an SM, so no form to keep anyway).
+//   stream  per z-step as the cell launch: each neighbour cell staged
+//           in turn (cell_pair_stream), or all 27 for the xmass body
+//           (cell_pair_resident); K10 streams (cell_pair_momentum_mm).
+// Each thread visits the 27 cells in the cell launch's order, so its
+// sums, and the outputs on interior slots, are those of the cell launch
+// bit for bit; the output rows are written on interior slots only.
+// A segment re-stages 18 cells at its start (ring form), so zseg trades
+// staging against the number of blocks in flight.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "sph_consts.h"
 
@@ -108,6 +131,18 @@ __device__ __forceinline__ float w_v2(float v2, int n_w)
 // J row r of this block's i-slot
 #define JI(r) J[(long long)(r) * ns + islot]
 
+// f(cell, k) for the 27 staged neighbour cells in nb order, cap slots
+// each; off(nb) is where cell nb's slots start in the staged rows
+template <class Off, class F>
+__device__ __forceinline__ void for_candidates(const float* sj, Off off,
+                                               int cap, F f)
+{
+    for (int nb = 0; nb < 27; ++nb) {
+        const float* cell = sj + off(nb);
+        for (int k = 0; k < cap; ++k) f(cell, k);
+    }
+}
+
 // --------------------------------------------------------------------------
 // stage 0: neighbour count, h iteration, xmass (resident candidates)
 // --------------------------------------------------------------------------
@@ -117,20 +152,24 @@ struct XhBody {
     static constexpr int NM = 0, NORIGIN = 0;          // no moments
     __device__ static int jrow(int s) { return s < 3 ? s : 5; }
 
+    // each(f) calls f(cells, k) for every staged candidate k in the cell
+    // launch's order: one flat run of 27 * cap when the cells are staged
+    // in order (cell_pair_resident: the compiler keeps one loop), or
+    // for_candidates over K11's ring
+    template <class Each>
     __device__ static void run(const float* J, const float*, float* out,
-                               const float* sj, int stride, int W,
-                               long long islot, long long ns,
-                               const PairParams& p)
+                               int stride, Each each, long long islot,
+                               long long ns, const PairParams& p)
     {
         const float xi = JI(0), yi = JI(1), zi = JI(2), mi = JI(5);
         float hi = JI(3);
         auto count = [&](float hinv2) {
             float nc = 0.0f;
-            for (int k = 0; k < W; ++k) {
+            each([&](const float* sj, int k) {
                 float d2 = dist2(__fsub_rn(xi, SJ(0)), __fsub_rn(yi, SJ(1)),
                                  __fsub_rn(zi, SJ(2)));
                 if (__fmul_rn(d2, hinv2) < 4.0f) nc += 1.0f;
-            }
+            });
             return nc;
         };
         float hinv = __fdiv_rn(1.0f, hi);
@@ -148,7 +187,7 @@ struct XhBody {
         }
         const float hinv2 = __fmul_rn(hinv, hinv);
         float ncm = 0.0f, acc = 0.0f;
-        for (int k = 0; k < W; ++k) {
+        each([&](const float* sj, int k) {
             float d2 = dist2(__fsub_rn(xi, SJ(0)), __fsub_rn(yi, SJ(1)),
                              __fsub_rn(zi, SJ(2)));
             float v2 = __fmul_rn(d2, hinv2);
@@ -156,7 +195,7 @@ struct XhBody {
                 acc += pow_int(sinc_poly(v2), p.n_w) * SJ(3);
                 ncm += 1.0f;
             }
-        }
+        });
         const float nc = ncm - 1.0f;                    // self excluded
         const float xm = mi * (hi * hi * hi) / (p.K3d * acc);
         const bool nonconv = nc + 1.0f < p.ngmin || nc > p.ngmax;
@@ -776,6 +815,28 @@ __device__ __forceinline__ long long nbr_cell(const PairGeom& g,
     return own + ((long long)dx * g.npd + dy) * g.npz + dz;
 }
 
+// The cells a block computes: one interior cell (the cell launch), or
+// for K11 (Column) the z-segment blockIdx.x % nseg of interior column
+// blockIdx.x / nseg, nseg = ceil(nz / zseg), columns in (cx, cy) order.
+struct Walk {
+    long long own0;   // padded id of the first cell; the others follow in z
+    int ncell;
+};
+
+template <bool Column>
+__device__ __forceinline__ Walk block_walk(const PairGeom& g, int zseg)
+{
+    if constexpr (!Column) {
+        return {own_cell(g), 1};
+    } else {
+        const int nseg = (g.nz + zseg - 1) / zseg;
+        const int col = blockIdx.x / nseg, z0 = (blockIdx.x % nseg) * zseg;
+        const int cx = col / g.n, cy = col % g.n;
+        return {((long long)(cx + 1) * g.npd + (cy + 1)) * g.npz + z0 + 1,
+                min(zseg, g.nz - z0)};
+    }
+}
+
 // K2g, the gate of the block-time-step pipeline: the block of interior
 // cell c belongs to the z-supercell of padded z-cells [t*Z, (t+1)*Z) of
 // its (x, y) column, t = cz / Z (make_cell_pair_call's program unit).
@@ -830,59 +891,129 @@ __device__ void cell_means(const float* J, long long first, int cap,
 
 // streams the 27 neighbour cells one at a time through shared memory;
 // a moment body (NM > 0) also builds NM columns per staged j-slot
-template <class Body, bool Gated>
+template <class Body, bool Gated, bool Column>
 __global__ void
 cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
                  float* __restrict__ out, PairGeom g, PairParams p,
-                 PairGate gt)
+                 PairGate gt, int zseg)
 {
     extern __shared__ float sj[];                  // [FJ + NM][cap]
     __shared__ float origin[Body::NORIGIN > 0 ? Body::NORIGIN : 1];
     const int cap = g.cap, i = threadIdx.x;
-    const long long own = own_cell(g);
-    if constexpr (Gated)
-        if (gate_closed<Body::FO>(gt, g, own, out)) return;
-    if constexpr (Body::NORIGIN > 0)
-        cell_means<Body>(J, own * cap, cap, g.n_slots, origin);
-    const long long islot = own * cap + i;
-    Body b;
-    b.load_i(J, I2, islot, g.n_slots, p);
-    if constexpr (Body::NORIGIN > 0) b.org = origin;
-    for (int nb = 0; nb < 27; ++nb) {
-        const long long jslot = nbr_cell(g, own, nb) * cap + i;
-        __syncthreads();
+    const Walk w = block_walk<Column>(g, zseg);
+    for (int q = 0; q < w.ncell; ++q) {
+        const long long own = w.own0 + q;
+        if constexpr (Gated)
+            if (gate_closed<Body::FO>(gt, g, own, out)) return;
+        if constexpr (Body::NORIGIN > 0) {
+            if (q) __syncthreads();          // the last cell's store read it
+            cell_means<Body>(J, own * cap, cap, g.n_slots, origin);
+        }
+        const long long islot = own * cap + i;
+        Body b;
+        b.load_i(J, I2, islot, g.n_slots, p);
+        if constexpr (Body::NORIGIN > 0) b.org = origin;
+        for (int nb = 0; nb < 27; ++nb) {
+            const long long jslot = nbr_cell(g, own, nb) * cap + i;
+            __syncthreads();
 #pragma unroll
-        for (int s = 0; s < Body::FJ; ++s)
-            sj[s * cap + i] = J[(long long)Body::jrow(s) * g.n_slots + jslot];
-        if constexpr (Body::NM > 0) Body::moments(sj, cap, i, origin);
-        __syncthreads();
-        for (int k = 0; k < cap; ++k) b.pair(sj, k, cap);
+            for (int s = 0; s < Body::FJ; ++s)
+                sj[s * cap + i] =
+                    J[(long long)Body::jrow(s) * g.n_slots + jslot];
+            if constexpr (Body::NM > 0) Body::moments(sj, cap, i, origin);
+            __syncthreads();
+            for (int k = 0; k < cap; ++k) b.pair(sj, k, cap);
+        }
+        b.store(J, I2, out, islot, g.n_slots, p);
     }
-    b.store(J, I2, out, islot, g.n_slots, p);
 }
 
 // stages all 27 neighbour cells at once, for bodies that iterate
-template <class Body, bool Gated>
+template <class Body, bool Gated, bool Column>
 __global__ void
 cell_pair_resident(const float* __restrict__ J, const float* __restrict__ I2,
                    float* __restrict__ out, PairGeom g, PairParams p,
-                   PairGate gt)
+                   PairGate gt, int zseg)
 {
     extern __shared__ float sj[];                  // [FJ][27 * cap]
     const int cap = g.cap, i = threadIdx.x;
     const int W = 27 * cap;
-    const long long own = own_cell(g);
-    if constexpr (Gated)
-        if (gate_closed<Body::FO>(gt, g, own, out)) return;
-    for (int nb = 0; nb < 27; ++nb) {
-        const long long jslot = nbr_cell(g, own, nb) * cap + i;
+    const Walk w = block_walk<Column>(g, zseg);
+    for (int q = 0; q < w.ncell; ++q) {
+        const long long own = w.own0 + q;
+        if constexpr (Gated)
+            if (gate_closed<Body::FO>(gt, g, own, out)) return;
+        if (q) __syncthreads();              // the last cell's candidates
+        for (int nb = 0; nb < 27; ++nb) {
+            const long long jslot = nbr_cell(g, own, nb) * cap + i;
 #pragma unroll
-        for (int s = 0; s < Body::FJ; ++s)
-            sj[s * W + nb * cap + i] =
-                J[(long long)Body::jrow(s) * g.n_slots + jslot];
+            for (int s = 0; s < Body::FJ; ++s)
+                sj[s * W + nb * cap + i] =
+                    J[(long long)Body::jrow(s) * g.n_slots + jslot];
+        }
+        __syncthreads();
+        Body::run(J, I2, out, W,
+                  [&](auto f) {
+                      for (int k = 0; k < W; ++k) f(sj, k);
+                  },
+                  own * cap + i, g.n_slots, p);
     }
-    __syncthreads();
-    Body::run(J, I2, out, sj, W, W, own * cap + i, g.n_slots, p);
+}
+
+// K11's ring form. Ring slot c9 * 3 + z % 3 holds neighbour column c9 =
+// (dx+1)*3 + (dy+1) at padded z-plane z; at the cell of plane z the
+// planes z-1, z, z+1 are resident, and the step to z+1 stages plane z+2
+// into the slot of plane z-1. Cell nb = c9 * 3 + (dz+1) of the cell
+// launch's order is slot c9 * 3 + (z+dz) % 3.
+template <class Body>
+__global__ void
+cell_pair_column(const float* __restrict__ J, const float* __restrict__ I2,
+                 float* __restrict__ out, PairGeom g, PairParams p, int zseg)
+{
+    static_assert(Body::NM == 0, "the ring holds j-rows, not moments");
+    extern __shared__ float ring[];                // [FJ][27 * cap]
+    const int cap = g.cap, i = threadIdx.x;
+    const int W = 27 * cap;
+    const long long ns = g.n_slots;
+    const Walk w = block_walk<true>(g, zseg);
+    const int z0 = (int)(w.own0 % g.npz);
+    auto stage_plane = [&](int z) {
+        const long long col = w.own0 + (z - z0);
+        for (int c9 = 0; c9 < 9; ++c9) {
+            const int dx = c9 / 3 - 1, dy = c9 % 3 - 1;
+            const long long jslot =
+                (col + ((long long)dx * g.npd + dy) * g.npz) * cap + i;
+            float* dst = ring + (c9 * 3 + z % 3) * cap + i;
+#pragma unroll
+            for (int s = 0; s < Body::FJ; ++s)
+                dst[s * W] = J[(long long)Body::jrow(s) * ns + jslot];
+        }
+    };
+    stage_plane(z0 - 1);
+    stage_plane(z0);
+    for (int q = 0; q < w.ncell; ++q) {
+        const int z = z0 + q;
+        if (q) __syncthreads();              // plane z-2 is read no more
+        stage_plane(z + 1);
+        __syncthreads();
+        auto off = [&](int nb) {
+            return ((nb / 3) * 3 + (z + nb % 3 - 1) % 3) * cap;
+        };
+        const long long islot = (w.own0 + q) * cap + i;
+        if constexpr (std::is_same<Body, XhBody>::value) {
+            XhBody::run(J, I2, out, W,
+                        [&](auto f) { for_candidates(ring, off, cap, f); },
+                        islot, ns, p);
+        } else {
+            Body b;
+            b.load_i(J, I2, islot, ns, p);
+            for_candidates(ring, off, cap,
+                           [&](const float* cell, int k) {
+                               b.pair(cell, k, W);
+                           });
+            b.store(J, I2, out, islot, ns, p);
+        }
+    }
 }
 
 // --------------------------------------------------------------------------
@@ -1148,10 +1279,13 @@ __device__ __forceinline__ void partial(int f, const float (&S)[NC],
 
 }  // namespace mm
 
-template <bool Gated>
+// Column: K11's stream form of K10, the cell launch per z-step of the
+// block's segment
+template <bool Gated, bool Column>
 __global__ void __launch_bounds__(mm::MAX_THREADS)
 cell_pair_momentum_mm(const float* __restrict__ J, float* __restrict__ out,
-                      PairGeom g, PairParams p, PairGate gt, int T, int nft)
+                      PairGeom g, PairParams p, PairGate gt, int T, int nft,
+                      int zseg)
 {
     using namespace mm;
     extern __shared__ float sm[];
@@ -1163,107 +1297,160 @@ cell_pair_momentum_mm(const float* __restrict__ J, float* __restrict__ out,
     float* Ls = Ms + NC * T;                 // [NF][T][cap] pair weights
     float* part = Ls + NF * T * cap;         // [9][cap] family shares
     float* vs = part + 9 * cap;              // [nft][cap] signal maxima
-    const long long own = own_cell(g);
-    if constexpr (Gated)
-        if (gate_closed<NF>(gt, g, own, out)) return;
-    cell_means<Rows>(J, own * cap, cap, ns, origin);
-    const long long islot = own * cap + i;
-    PairI pi;
-    pi.load(J, islot, ns);
-    float vsig = SPH_NEG;
-    for (int f0 = 0; f0 < NF; f0 += nft) {
-        const int f = f0 + grp;
-        float acc[NC];
+    const Walk w = block_walk<Column>(g, zseg);
+    for (int q = 0; q < w.ncell; ++q) {
+        const long long own = w.own0 + q;
+        if constexpr (Gated)
+            if (gate_closed<NF>(gt, g, own, out)) return;
+        if (q) __syncthreads();          // the last epilogue read part
+        cell_means<Rows>(J, own * cap, cap, ns, origin);
+        const long long islot = own * cap + i;
+        PairI pi;
+        pi.load(J, islot, ns);
+        float vsig = SPH_NEG;
+        for (int f0 = 0; f0 < NF; f0 += nft) {
+            const int f = f0 + grp;
+            float acc[NC];
 #pragma unroll
-        for (int k = 0; k < NC; ++k) acc[k] = 0.0f;
-        for (int nb = 0; nb < 27; ++nb) {
-            __syncthreads();
-            if (t < cap)
-                stage_j(J, nbr_cell(g, own, nb) * cap + t, ns, sj, cap, t);
-            __syncthreads();
-            for (int j0 = 0; j0 < cap; j0 += T) {
-                if (t < T)
-                    build_cols(sj, cap, j0 + t, Ms + t, T, origin,
-                               p.mxu_bf16 != 0);
-                for (int jj = grp; jj < T; jj += nft)
-                    pi.pair(sj, cap, j0 + jj, Ls + jj * cap + i, T * cap,
-                            vsig, p);
+            for (int k = 0; k < NC; ++k) acc[k] = 0.0f;
+            for (int nb = 0; nb < 27; ++nb) {
                 __syncthreads();
-                if (f < NF) {
-                    const float* Lf = Ls + f * T * cap + i;
-                    for (int jj = 0; jj < T; ++jj) {
-                        const float l = Lf[jj * cap];
-                        if (l != 0.0f) {
+                if (t < cap)
+                    stage_j(J, nbr_cell(g, own, nb) * cap + t, ns, sj, cap,
+                            t);
+                __syncthreads();
+                for (int j0 = 0; j0 < cap; j0 += T) {
+                    if (t < T)
+                        build_cols(sj, cap, j0 + t, Ms + t, T, origin,
+                                   p.mxu_bf16 != 0);
+                    for (int jj = grp; jj < T; jj += nft)
+                        pi.pair(sj, cap, j0 + jj, Ls + jj * cap + i, T * cap,
+                                vsig, p);
+                    __syncthreads();
+                    if (f < NF) {
+                        const float* Lf = Ls + f * T * cap + i;
+                        for (int jj = 0; jj < T; ++jj) {
+                            const float l = Lf[jj * cap];
+                            if (l != 0.0f) {
 #pragma unroll
-                            for (int k = 0; k < NC; ++k)
-                                acc[k] += l * Ms[k * T + jj];
+                                for (int k = 0; k < NC; ++k)
+                                    acc[k] += l * Ms[k * T + jj];
+                            }
                         }
                     }
+                    __syncthreads();
                 }
-                __syncthreads();
             }
+            if (f < NF)
+                partial(f, acc, EpiI(J, islot, ns, origin), part + i, cap);
         }
-        if (f < NF) partial(f, acc, EpiI(J, islot, ns, origin), part + i, cap);
-    }
-    vs[grp * cap + i] = vsig;
-    __syncthreads();
-    if (t >= cap) return;
-    float vmax = vs[i];
-    for (int q = 1; q < nft; ++q) vmax = fmaxf(vmax, vs[q * cap + i]);
-    const float prhoi = J[islot] < HALF_FILL ? J[9 * ns + islot] : 0.0f;
-    const float K3d = p.K3d;
-    const float ae = fmaxf(part[7 * cap + i] + part[8 * cap + i], 0.0f);
-    const float o[5] = {
-        -K3d * (part[0 * cap + i] + part[3 * cap + i]),
-        -K3d * (part[1 * cap + i] + part[4 * cap + i]),
-        -K3d * (part[2 * cap + i] + part[5 * cap + i]),
-        K3d * (prhoi * part[6 * cap + i] + 0.5f * ae),
-        fmaxf(vmax, 0.0f)};
+        vs[grp * cap + i] = vsig;
+        __syncthreads();
+        if (t < cap) {
+            float vmax = vs[i];
+            for (int f = 1; f < nft; ++f)
+                vmax = fmaxf(vmax, vs[f * cap + i]);
+            const float prhoi =
+                J[islot] < HALF_FILL ? J[9 * ns + islot] : 0.0f;
+            const float K3d = p.K3d;
+            const float ae =
+                fmaxf(part[7 * cap + i] + part[8 * cap + i], 0.0f);
+            const float o[5] = {
+                -K3d * (part[0 * cap + i] + part[3 * cap + i]),
+                -K3d * (part[1 * cap + i] + part[4 * cap + i]),
+                -K3d * (part[2 * cap + i] + part[5 * cap + i]),
+                K3d * (prhoi * part[6 * cap + i] + 0.5f * ae),
+                fmaxf(vmax, 0.0f)};
 #pragma unroll
-    for (int r = 0; r < 5; ++r) out[r * ns + islot] = o[r];
+            for (int r = 0; r < 5; ++r) out[r * ns + islot] = o[r];
+        }
+    }
 }
 
 constexpr size_t SMEM_MAX = 232448;   // 227 KB a block may opt into
 
-template <class Body, bool Resident>
-cudaError_t launch(const float* J, const float* I2, float* out,
-                   const PairGeom& g, const PairParams& p, const PairGate& gt,
-                   cudaStream_t st)
+// opts kern into `smem` bytes of dynamic shared memory and launches it
+template <class Kern, class... Args>
+cudaError_t start(Kern kern, unsigned nblk, int nthr, size_t smem,
+                  cudaStream_t st, Args... args)
 {
-    using Kern = void (*)(const float*, const float*, float*, PairGeom,
-                          PairParams, PairGate);
-    const bool gated = gt.act != nullptr;
-    Kern kern;
-    if constexpr (Resident)
-        kern = gated ? cell_pair_resident<Body, true>
-                     : cell_pair_resident<Body, false>;
-    else
-        kern = gated ? cell_pair_stream<Body, true>
-                     : cell_pair_stream<Body, false>;
-    const size_t smem = sizeof(float) * (Body::FJ + Body::NM) * g.cap
-        * (Resident ? 27 : 1);
-    if (smem > SMEM_MAX || g.cap > 1024 || g.cap % 32) return cudaErrorInvalidValue;
-    if (gated && (gt.prev == nullptr || gt.Z < 1 || g.npz % gt.Z))
-        return cudaErrorInvalidValue;
+    if (smem > SMEM_MAX) return cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return e;
     }
-    const unsigned ncell = (unsigned)g.nx * g.n * g.nz;
-    if (ncell) kern<<<ncell, g.cap, smem, st>>>(J, I2, out, g, p, gt);
+    if (nblk) kern<<<nblk, nthr, smem, st>>>(args...);
     return cudaSuccess;
+}
+
+// one block per interior cell, or (K11, zseg > 0) per z-segment of an
+// interior column
+unsigned n_blocks(const PairGeom& g, int zseg)
+{
+    const int per_col = zseg ? (g.nz + zseg - 1) / zseg : g.nz;
+    return (unsigned)g.nx * g.n * per_col;
+}
+
+bool bad_gate(const PairGeom& g, const PairGate& gt, int zseg)
+{
+    return gt.act != nullptr
+        && (zseg || gt.prev == nullptr || gt.Z < 1 || g.npz % gt.Z);
+}
+
+// the cell launch (zseg == 0; K2g when gt.act is set) and K11's stream
+// form (zseg > 0)
+template <class Body, bool Resident>
+cudaError_t launch(const float* J, const float* I2, float* out,
+                   const PairGeom& g, const PairParams& p, const PairGate& gt,
+                   int zseg, cudaStream_t st)
+{
+    if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
+        return cudaErrorInvalidValue;
+    const bool gated = gt.act != nullptr;
+    const size_t smem = sizeof(float) * (Body::FJ + Body::NM) * g.cap
+        * (Resident ? 27 : 1);
+    const unsigned nblk = n_blocks(g, zseg);
+    if constexpr (Resident) {
+        auto kern = zseg ? cell_pair_resident<Body, false, true>
+            : gated ? cell_pair_resident<Body, true, false>
+                    : cell_pair_resident<Body, false, false>;
+        return start(kern, nblk, g.cap, smem, st, J, I2, out, g, p, gt, zseg);
+    } else {
+        auto kern = zseg ? cell_pair_stream<Body, false, true>
+            : gated ? cell_pair_stream<Body, true, false>
+                    : cell_pair_stream<Body, false, false>;
+        return start(kern, nblk, g.cap, smem, st, J, I2, out, g, p, gt, zseg);
+    }
+}
+
+// K11's ring form: 27 * FJ * cap floats of shared memory a block
+template <class Body>
+cudaError_t launch_ring(const float* J, const float* I2, float* out,
+                        const PairGeom& g, const PairParams& p, int zseg,
+                        cudaStream_t st)
+{
+    if constexpr (Body::NM > 0) {
+        return cudaErrorInvalidValue;
+    } else {
+        if (g.cap > 1024 || g.cap % 32 || zseg < 1)
+            return cudaErrorInvalidValue;
+        const size_t smem = sizeof(float) * Body::FJ * 27 * g.cap;
+        return start(cell_pair_column<Body>, n_blocks(g, zseg), g.cap, smem,
+                     st, J, I2, out, g, p, zseg);
+    }
 }
 
 // K10: blocks of nft * cap threads; the sub-tile T shrinks until the
 // shared memory fits
 cudaError_t launch_momentum_mm(const float* J, float* out, const PairGeom& g,
                                const PairParams& p, const PairGate& gt,
-                               cudaStream_t st)
+                               int zseg, cudaStream_t st)
 {
     using namespace mm;
     const int cap = g.cap;
-    if (cap % 32 || cap > MAX_THREADS) return cudaErrorInvalidValue;
+    if (cap % 32 || cap > MAX_THREADS || zseg < 0 || bad_gate(g, gt, zseg))
+        return cudaErrorInvalidValue;
     const int nft = NF < MAX_THREADS / cap ? NF : MAX_THREADS / cap;
     int T = 32;
     auto bytes = [&](int tile) {
@@ -1271,48 +1458,75 @@ cudaError_t launch_momentum_mm(const float* J, float* out, const PairGeom& g,
                                 + (size_t)NF * tile * cap + (9 + nft) * cap);
     };
     while (T > 1 && bytes(T) > SMEM_MAX) T /= 2;
-    const size_t smem = bytes(T);
-    if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-    const bool gated = gt.act != nullptr;
-    if (gated && (gt.prev == nullptr || gt.Z < 1 || g.npz % gt.Z))
-        return cudaErrorInvalidValue;
-    auto kern = gated ? cell_pair_momentum_mm<true>
-                      : cell_pair_momentum_mm<false>;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
+    auto kern = zseg ? cell_pair_momentum_mm<false, true>
+        : gt.act != nullptr ? cell_pair_momentum_mm<true, false>
+                            : cell_pair_momentum_mm<false, false>;
+    return start(kern, n_blocks(g, zseg), nft * cap, bytes(T), st, J, out, g,
+                 p, gt, T, nft, zseg);
+}
+
+template <class Body, bool Resident>
+cudaError_t body_launch(const float* J, const float* I2, float* out,
+                        const PairGeom& g, const PairParams& p,
+                        const PairGate& gt, int zseg, bool ring,
+                        cudaStream_t st)
+{
+    if (ring) return launch_ring<Body>(J, I2, out, g, p, zseg, st);
+    return launch<Body, Resident>(J, I2, out, g, p, gt, zseg, st);
+}
+
+cudaError_t stage_launch(int stage, const float* J, const float* I2,
+                         float* out, const PairGeom& g, const PairParams& p,
+                         const PairGate& gt, int zseg, bool ring,
+                         cudaStream_t st)
+{
+#define BODY(B, R) body_launch<B, R>(J, I2, out, g, p, gt, zseg, ring, st)
+    switch (stage) {
+    case 0: return BODY(XhBody, true);
+    case 1: return BODY(GradhBody, false);
+    case 2: return BODY(IadBody, false);
+    case 3: return BODY(AvBody, false);
+    case 4:
+        if (ring) return cudaErrorInvalidValue;
+        return BODY(MomentumBody<false>, false);
+    case 5: return BODY(IadMmBody, false);
+    case 6: return BODY(AvMmBody, false);
+    case 7:
+        if (ring) return cudaErrorInvalidValue;
+        return launch_momentum_mm(J, out, g, p, gt, zseg, st);
+    case 8:
+        if (gt.act != nullptr || ring)          // no K2g form, no ring
+            return cudaErrorInvalidValue;
+        return BODY(MomentumBody<true>, false);
+    default: return cudaErrorInvalidValue;
     }
-    const unsigned ncell = (unsigned)g.nx * g.n * g.nz;
-    if (ncell) kern<<<ncell, nft * cap, smem, st>>>(J, out, g, p, gt, T, nft);
-    return cudaSuccess;
+#undef BODY
 }
 
 }  // namespace
 
-// gt.act == nullptr: the ungated stage (K2); else K2g with gt.prev, gt.Z
+// the cell launch. gt.act == nullptr: the ungated stage (K2); else K2g
+// with gt.prev, gt.Z
 extern "C" int pair_launch(int stage, const float* J, const float* I2,
                            float* out, PairGeom g, PairParams p, PairGate gt,
                            void* stream)
 {
-    cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t e;
-    switch (stage) {
-    case 0: e = launch<XhBody, true>(J, I2, out, g, p, gt, st); break;
-    case 1: e = launch<GradhBody, false>(J, I2, out, g, p, gt, st); break;
-    case 2: e = launch<IadBody, false>(J, I2, out, g, p, gt, st); break;
-    case 3: e = launch<AvBody, false>(J, I2, out, g, p, gt, st); break;
-    case 4: e = launch<MomentumBody<false>, false>(J, I2, out, g, p, gt, st);
-        break;
-    case 5: e = launch<IadMmBody, false>(J, I2, out, g, p, gt, st); break;
-    case 6: e = launch<AvMmBody, false>(J, I2, out, g, p, gt, st); break;
-    case 7: e = launch_momentum_mm(J, out, g, p, gt, st); break;
-    case 8:
-        if (gt.act != nullptr) { e = cudaErrorInvalidValue; break; }  // no K2g form
-        e = launch<MomentumBody<true>, false>(J, I2, out, g, p, gt, st);
-        break;
-    default: e = cudaErrorInvalidValue;
-    }
+    cudaError_t e = stage_launch(stage, J, I2, out, g, p, gt, 0, false,
+                                 (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+// K11, the column launch: segments of zseg >= 1 cells; ring != 0 takes
+// the ring form (stages 0-3), else the stream form
+extern "C" int pair_launch_column(int stage, const float* J, const float* I2,
+                                  float* out, PairGeom g, PairParams p,
+                                  int zseg, int ring, void* stream)
+{
+    if (zseg < 1) return (int)cudaErrorInvalidValue;
+    cudaError_t e = stage_launch(stage, J, I2, out, g, p,
+                                 PairGate{nullptr, nullptr, 0}, zseg,
+                                 ring != 0, (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

@@ -31,9 +31,14 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "sphexa_tpu_torch"
-SOURCES = ("ghost_refresh.cu", "cell_pair.cu")
+SOURCES = ("ghost_refresh.cu", "cell_pair.cu", "probes.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# a second build of a source, with more flags: probes.cu reaching the
+# driver's cuTensorMapEncodeTiled by linking libcuda (the toolkit's stub
+# library) instead of through the runtime's driver entry point
+VARIANTS = {"probes_libcuda": ("probes.cu", ["-DPROBES_LINK_LIBCUDA",
+                                             "-lcuda"])}
 
 _libs: dict = {}
 build_info: dict = {}   # source -> {"seconds": float, "ptxas": str}
@@ -78,15 +83,22 @@ def _nvcc() -> str:
     return found
 
 
-def _target(src: str, header: str) -> Path:
-    text = (_CSRC / src).read_text() + header + " ".join(NVCC_FLAGS)
+def _source(name: str):
+    """(source file, extra nvcc flags) of a library name."""
+    return VARIANTS.get(name, (name, []))
+
+
+def _target(name: str, header: str) -> Path:
+    src, extra = _source(name)
+    text = (_CSRC / src).read_text() + header + " ".join(NVCC_FLAGS + extra)
     digest = hashlib.sha1(text.encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{Path(src).stem}-{digest}.so"
+    return BUILD_DIR / f"{Path(name).stem}-{digest}.so"
 
 
 def build(sources=SOURCES) -> dict:
-    """Compile every given source whose library is missing, all nvcc
-    processes started together. Returns {source: library path}."""
+    """Compile every given source (or VARIANTS name) whose library is
+    missing, all nvcc processes started together. Returns {name: library
+    path}."""
     header = _consts_header()
     inc = BUILD_DIR / "include"
     inc.mkdir(parents=True, exist_ok=True)
@@ -96,13 +108,17 @@ def build(sources=SOURCES) -> dict:
     targets = {s: _target(s, header) for s in sources}
     procs = {}
     t0 = time.perf_counter()
-    for src, so in targets.items():
+    for name, so in targets.items():
         if so.exists():
             continue
+        src, extra = _source(name)
+        if extra:
+            stubs = Path(_nvcc()).resolve().parents[1] / "lib64" / "stubs"
+            extra = extra + ["-L", str(stubs)]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(inc), "-o", str(tmp),
-               str(_CSRC / src)]
-        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+               str(_CSRC / src), *extra]        # libraries after the source
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, so)
     failed = []
@@ -142,20 +158,31 @@ class PairGate(ctypes.Structure):
     _fields_ = [("act", _P), ("prev", _P), ("Z", _I)]
 
 
-def _bind(src: str, lib: ctypes.CDLL):
-    if src == "ghost_refresh.cu":
-        lib.ghost_refresh.restype = _I
-        lib.ghost_refresh.argtypes = [_P, _I, _LL, _P, _I, _I, _I, _I, _I,
-                                      _I, _I, _I, _F, _F, _F, _I, _I, _I,
-                                      _F, _P]
-    else:
-        lib.pair_launch.restype = _I
-        lib.pair_launch.argtypes = [_I, _P, _P, _P, PairGeom, PairParams,
-                                    PairGate, _P]
+_ARGTYPES = {
+    "ghost_refresh.cu": {
+        "ghost_refresh": [_P, _I, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _F, _F, _I, _I, _I, _F, _P]},
+    "cell_pair.cu": {
+        "pair_launch": [_I, _P, _P, _P, PairGeom, PairParams, PairGate, _P],
+        "pair_launch_column": [_I, _P, _P, _P, PairGeom, PairParams, _I, _I,
+                               _P]},
+    "probes.cu": {
+        "fma_ceiling": [_P, _P, _LL, _I, _I, _P],
+        "staging": [_I, _P, _P, _I, _P, _I, _LL, _I, _I, _P],
+        "mma_micro": [_I, _P, _P, _I, _I, _P],
+        "tma_encoder": []},
+}
+
+
+def _bind(name: str, lib: ctypes.CDLL):
+    for fn, argtypes in _ARGTYPES[_source(name)[0]].items():
+        getattr(lib, fn).restype = _I
+        getattr(lib, fn).argtypes = argtypes
 
 
 def lib(src: str) -> ctypes.CDLL:
-    """The loaded library of one source, built first if needed."""
+    """The loaded library of one source (or VARIANTS name), built first
+    if needed."""
     if src not in _libs:
         so = build([src])[src]
         handle = ctypes.CDLL(str(so))
@@ -184,8 +211,7 @@ def ghost_launch(stack, cells, grid, box, xyz_rows, fill_pos: float):
     _check(code, "ghost_refresh")
 
 
-def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None):
-    """gate=None: the ungated stage; else (act, prev, Z) for K2g."""
+def _pair_args(grid, cfg, K3d: float):
     geom = PairGeom(grid.nx, grid.n, grid.nz, grid.np_, grid.npz, grid.cap,
                     grid.n_slots)
     prm = PairParams(K3d, int(cfg.sinc_index), float(cfg.ng0 // 4),
@@ -193,6 +219,12 @@ def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None):
                      cfg.alphamax, cfg.decay_constant, cfg.atmin, cfg.atmax,
                      cfg.ramp, int(cfg.uniform_mass), 1023.0 * cfg.ng0,
                      int(cfg.mxu_bf16))
+    return geom, prm
+
+
+def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None):
+    """gate=None: the ungated stage; else (act, prev, Z) for K2g."""
+    geom, prm = _pair_args(grid, cfg, K3d)
     if gate is None:
         gt = PairGate(None, None, 0)
     else:
@@ -202,3 +234,45 @@ def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None):
         stage, J.data_ptr(), None if I2 is None else I2.data_ptr(),
         out.data_ptr(), geom, prm, gt, _stream(J))
     _check(code, f"pair stage {stage}")
+
+
+def pair_launch_column(stage: int, J, I2, out, grid, cfg, K3d: float,
+                       zseg: int, ring: bool):
+    """K11: the column launch in segments of zseg cells, ring or stream
+    form."""
+    geom, prm = _pair_args(grid, cfg, K3d)
+    code = lib("cell_pair.cu").pair_launch_column(
+        stage, J.data_ptr(), None if I2 is None else I2.data_ptr(),
+        out.data_ptr(), geom, prm, zseg, int(ring), _stream(J))
+    _check(code, f"column pair stage {stage}")
+
+
+def fma_ceiling_launch(x, out, nchain: int, length: int):
+    code = lib("probes.cu").fma_ceiling(x.data_ptr(), out.data_ptr(),
+                                        x.numel(), nchain, length,
+                                        _stream(x))
+    _check(code, f"fma_ceiling nchain={nchain}")
+
+
+def staging_launch(variant: int, src, starts, out, K: int,
+                   library: str = "probes.cu"):
+    """P2-P4: one call of staging variant `variant` adds its fold into
+    out."""
+    code = lib(library).staging(
+        variant, src.data_ptr(), starts.data_ptr(), starts.shape[1],
+        out.data_ptr(), src.shape[0], src.shape[1], out.shape[0] // 8, K,
+        _stream(src))
+    _check(code, f"staging variant {variant}")
+
+
+def mma_micro_launch(mode: int, x, out, ncell: int, vpu_flops: int):
+    code = lib("probes.cu").mma_micro(mode, x.data_ptr(), out.data_ptr(),
+                                      ncell, vpu_flops, _stream(x))
+    _check(code, f"mma_micro mode {mode}")
+
+
+def tma_encoder(library: str = "probes.cu") -> int:
+    """How a build of probes.cu reaches cuTensorMapEncodeTiled: 1
+    through the runtime's driver entry point, 2 linked against libcuda,
+    0 not at all."""
+    return lib(library).tma_encoder()

@@ -32,6 +32,12 @@ K2g, the gated driver (make_cell_pair_call(gated=True), pallas_ve.py:
 z-supercell (Z cells of one column) with no active slot keeps its
 previous outputs. Block time-steps (propagator/ve_bdt.py) run on it.
 
+K11, the column driver (make_column_pair_call, pallas_ve.py:273), is
+every stage as COLUMN_KERNELS, selected by PairVE(kernel_mode="column"):
+one thread block walks a z-segment of one interior (x, y) column. Its
+outputs equal the cell launch's on interior slots, bit for bit, and are
+zero elsewhere (the JAX driver zeroes the z-ghost lanes, :307-309).
+
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel (and counts the launch) or raises.
 
@@ -724,6 +730,28 @@ def _check_rows(name, t, rows, grid: CMGrid):
                          f"got {tuple(t.shape)}")
 
 
+# K11's launch form: the z-segment a thread block walks (zseg cells) and
+# whether it keeps the 27 neighbour cells in a ring of shared memory or
+# streams them per z-step. Of the forms chip_smoke.py times at the Sedov
+# 100^3 inputs (PERF.md), one cell a block, streamed, was the fastest for
+# every stage but K3 (its ring 5% ahead, before K3's candidate loop was
+# made one flat run again): longer segments leave fewer blocks in
+# flight, and a ring of 35-69 KB a block (cap 64) leaves few blocks an SM.
+COLUMN_ZSEG, COLUMN_RING = 1, False
+# j-rows a ring holds per cell (the bodies' FJ in cell_pair.cu), for the
+# stages with a ring form
+RING_ROWS = {0: 4, 1: 5, 2: 8, 3: 10}
+_SMEM_MAX = 232448            # shared memory a block may opt into (bytes)
+
+
+def column_form(kern: "PairKernel", grid: CMGrid):
+    """(zseg, ring) of a K11 launch: the kernel's form, with the ring
+    only where its 27 cells of j-rows fit a block's shared memory."""
+    rows = RING_ROWS.get(kern.stage)
+    fits = rows is not None and 4 * 27 * rows * grid.cap <= _SMEM_MAX
+    return kern.zseg, kern.ring and fits
+
+
 class PairKernel:
     """One pair stage: the CUDA kernel (stage `stage` of cell_pair.cu)
     and its plain PyTorch version. `launches` counts kernel launches.
@@ -734,13 +762,17 @@ class PairKernel:
     slots instead of the pair result."""
 
     def __init__(self, name: str, stage: int, fj: int, fo: int, fi2: int,
-                 body, gated: bool = False):
+                 body, gated: bool = False, column: bool = False):
         self.name = name
         self.stage = stage
         self.fj, self.fo, self.fi2 = fj, fo, fi2
         self.body = body
         self.gated = gated
+        self.column = column
         self.launches = 0
+        # K11's launch form (column_form); chip_smoke.py sweeps it
+        self.zseg, self.ring = (COLUMN_ZSEG, COLUMN_RING) if column \
+            else (0, False)
 
     def _body_kw(self, cfg: SphConfig):
         return dict(cfg=cfg, K3d=kernel_3d_k(cfg.sinc_index),
@@ -766,10 +798,15 @@ class PairKernel:
                 zgroup: int = 0) -> torch.Tensor:
         out = torch.zeros((self.fo, grid.n_slots), dtype=torch.float32,
                           device=J.device)
+        K3d = kernel_3d_k(cfg.sinc_index)
+        if self.column:
+            zseg, ring = column_form(self, grid)
+            _cuda.pair_launch_column(self.stage, J, I2, out, grid, cfg, K3d,
+                                     zseg, ring)
+            return out
         if gate is not None:
             gate = (*gate, resolve_zgroup(grid, zgroup))
-        _cuda.pair_launch(self.stage, J, I2, out, grid, cfg,
-                          kernel_3d_k(cfg.sinc_index), gate)
+        _cuda.pair_launch(self.stage, J, I2, out, grid, cfg, K3d, gate)
         return out
 
     def _check(self, J, I2, grid: CMGrid, gate):
@@ -921,8 +958,13 @@ GATED_KERNELS = tuple(
 (pair_xh_gated, pair_gradh_gated, pair_iad_gated, pair_av_gated,
  pair_momentum_gated, pair_iad_mm_gated, pair_av_mm_gated,
  pair_momentum_mm_gated) = GATED_KERNELS
+# K11: every stage under the column launch
+COLUMN_KERNELS = tuple(
+    PairKernel(k.name + "_column", k.stage, k.fj, k.fo, k.fi2, k.body,
+               column=True)
+    for k in KERNELS[1:] + MM_KERNELS + (pair_momentum_avclean,))
 PAIR_KERNELS = KERNELS[1:] + MM_KERNELS + (pair_momentum_avclean,) \
-    + GATED_KERNELS
+    + GATED_KERNELS + COLUMN_KERNELS
 # K10 runs one thread per (i-slot, family group) in a block of at most
 # 384 threads (cell_pair.cu, launch_momentum_mm)
 MM_MOMENTUM_MAX_CAP = 384
@@ -945,16 +987,29 @@ class PairVE:
     The bodies are chosen as PallasVE.__init__ does (pallas_ve.py:
     1427-1436): mxu_moments takes K8 and K9 for IAD and AV; the momentum
     stage is K7c under av_clean (also when mxu_momentum is set), else K10
-    under mxu_momentum, else K7. `kernels` lists the five chosen."""
+    under mxu_momentum, else K7. `kernels` lists the five chosen.
+
+    kernel_mode "column" launches the same bodies through K11 (the
+    column kernels, COLUMN_KERNELS), as PallasVE(kernel_mode="column"):
+    cubic grids only, and no gated form."""
 
     def __init__(self, grid: CMGrid, cfg: SphConfig, gated: bool = False,
-                 zgroup: int = 0):
+                 zgroup: int = 0, kernel_mode: str = "cell"):
         if grid.cap % 32 or grid.cap > 1024:
             raise ValueError(f"cap {grid.cap}: must be a multiple of 32, "
                              f"at most 1024")
         n_w = int(cfg.sinc_index)
         if float(n_w) != float(cfg.sinc_index) or n_w < 2:
             raise ValueError("the pair stages need an integer sinc index >= 2")
+        if kernel_mode not in ("cell", "column"):
+            raise ValueError(f"kernel_mode {kernel_mode!r}: 'cell' or "
+                             f"'column'")
+        if kernel_mode == "column":
+            if gated:
+                raise ValueError("the column launch has no gated form")
+            if not grid.nx == grid.n == grid.nz:
+                raise ValueError(f"the column launch takes cubic grids "
+                                 f"only, got {grid}")
         if gated and cfg.av_clean:
             raise NotImplementedError(
                 "the avClean momentum stage has no gated form (block "
@@ -979,6 +1034,11 @@ class PairVE:
         if gated:
             kerns = tuple(next(g for g in GATED_KERNELS
                                if g.name == k.name + "_gated") for k in kerns)
+        elif kernel_mode == "column":
+            kerns = tuple(next(c for c in COLUMN_KERNELS
+                               if c.name == k.name + "_column")
+                          for k in kerns)
+        self.kernel_mode = kernel_mode
         self.kernels = kerns
         (self._xh, self._gradh, self._iad, self._av,
          self._mom) = kerns

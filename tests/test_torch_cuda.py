@@ -24,7 +24,11 @@ the row's scale against a bf16-to-float32 distance of 2.5e-2 at Sedov
 2.3e-5 against 4.9e-3 here). The gated stages (K2g) take the same inputs
 with a seeded activity pattern: the slots of active z-supercells hold
 those tolerances, and the interior slots of inactive ones equal prev
-bit for bit.
+bit for bit. The column launch (K11) takes the same inputs and equals
+the cell launch bit for bit on interior slots in every form, zero
+elsewhere. The probe kernels (P1-P5) are held against their plain
+versions: P1-P4 rtol 1e-6 (the same float32 operations), P5 1e-5 of the
+output's scale (TF32: 5e-3).
 """
 
 import numpy as np
@@ -184,3 +188,100 @@ def test_ghost_refresh_matches_plain(cuda, boundary):
         ref = pv.ghost_refresh.plain(st.clone(), grid, box, rows)
         out = pv.ghost_refresh(st.clone(), grid, box, rows)
         assert torch.equal(ref, out)
+
+
+# K11: every column stage against the cell launch on the same inputs, in
+# each launch form it has (the moment stages have no ring), at
+# z-segments of 1, 3 (not a divisor of nz) and 4 (one segment a column):
+# interior slots bit-equal, others zero
+STAGE_NO = {k.name: k.stage for k in pv.PAIR_KERNELS}
+COLUMN_CASES = [
+    (name, zseg, ring) for name in STAGES for zseg in (1, 3, 4)
+    for ring in (False, True)
+    if not ring or STAGE_NO[name.removesuffix("_bf16")] in pv.RING_ROWS]
+
+
+@pytest.mark.parametrize("name,zseg,ring", COLUMN_CASES,
+                         ids=[f"{n}-S{z}-{'ring' if r else 'stream'}"
+                              for n, z, r in COLUMN_CASES])
+def test_column_launch_bit_equal_to_cell(recorded, cuda, name, zseg, ring):
+    calls, grid, intmask = recorded
+    k, J, I2, cfg = calls[name]
+    kc = next(c for c in pv.COLUMN_KERNELS if c.name == k.name + "_column")
+    J = J.to(cuda)
+    I2 = None if I2 is None else I2.to(cuda)
+    cell = k._launch(J, I2, grid, cfg)
+    saved = kc.zseg, kc.ring
+    kc.zseg, kc.ring = zseg, ring
+    try:
+        assert pv.column_form(kc, grid) == (zseg, ring)
+        before = kc.launches
+        col = kc(J, I2, grid, cfg)
+        assert kc.launches == before + 1
+    finally:
+        kc.zseg, kc.ring = saved
+    inside = intmask.to(cuda)
+    assert torch.equal(col[:, inside], cell[:, inside])
+    assert not col[:, ~inside].any()
+
+
+def test_column_resident_step_matches_cell(cuda):
+    """The resident step with K11 against the cell launch, 2 steps."""
+    state, box, cfg = init_sedov(12, SphConfig(), dt0=3e-5, device=cuda)
+    grid = CMGrid(n=4, cap=64)
+    out = {}
+    for mode in ("cell", "column"):
+        eng = ResidentVE(box, grid, cfg, device=cuda)
+        eng.pve = pv.PairVE(grid, cfg, kernel_mode=mode)
+        rst = eng.bind(state)
+        for _ in range(2):
+            rst, d = eng.step(rst)
+        out[mode] = (rst, d)
+    (a, da), (b, db) = out["cell"], out["column"]
+    assert float(da.dt) == float(db.dt) and float(da.eint) == float(db.eint)
+    for f in ("x", "vx", "h", "alpha", "temp"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("nchain", [1, 8, 32])
+def test_p1_kernel_matches_plain(cuda, nchain):
+    from sphexa_tpu_torch.probes import fma_ceiling as p1
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.5, 2.0, (64, p1.W)).astype(np.float32)).to(cuda)
+    length = p1.STEPS // nchain
+    out = p1.fma_chains(x, nchain, length)
+    ref = p1.fma_chains.plain(x, nchain, length)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("design", ["loads", "many", "many_tma", "few_tma",
+                                    "pipe"])
+def test_p2_p4_kernels_match_plain(cuda, design):
+    from sphexa_tpu_torch.probes import staging_lab as st
+    k, f, ns, nprog = 9, 24, 1 << 16, 64
+    src, starts = (t.to(cuda) for t in st.inputs(k, f, ns, nprog))
+    probe = st.PROBES[design]
+    before = probe.launches
+    out = torch.zeros((nprog * 8, 128), dtype=torch.float32, device=cuda)
+    for _ in range(4):
+        probe(src, starts, out, k)
+    assert probe.launches == before + 4
+    ref = torch.zeros_like(out)
+    for _ in range(4):
+        probe.plain(src, starts, ref, k)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("mode,tol", [("none", 1e-5), ("f32", 5e-3),
+                                      ("f32_highest", 1e-5),
+                                      ("bf16", 1e-5)])
+def test_p5_kernel_matches_plain(cuda, mode, tol):
+    from sphexa_tpu_torch.probes import mma_micro as p5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1.0, 1.0, (p5.FJ, p5.RUNW)).astype(np.float32)).to(cuda)
+    for vf in (0, 30):
+        out = p5.mma_cells(x, mode, vf, 64)
+        ref = p5.mma_cells.plain(x, mode, vf, 64)
+        err = float((out - ref).abs().max())
+        assert err <= tol * float(ref.abs().max()), (mode, vf, err)
