@@ -48,7 +48,20 @@ Phases (any failure exits non-zero before the last line):
      (the TMA variants also through the libcuda build), the library
      yardsticks (index_select of the windows, torch.matmul of the
      products);
-  10. the kernel table as one JSON line, then the device line.
+  10. (k) the slab-sharded engines, every shard a thread on the one
+     card: K1z (ghost_refresh_xy) against its plain version on the
+     100^3 D = 2 and D = 4 local grids and the 30^3 grid, 1-15 rows,
+     periodic and open x-y, bit-equal; the sharded step (2 steps) and a
+     ShardedBdtVE cycle on the card against the CPU at Sedov 12^3,
+     D = 2; the sharded step at Sedov 100^3 sized by plan_slab, D = 2
+     and D = 4, one warm-up then 5 timed steps (counters zeroed just
+     before, read just after), each pair launch of one more step
+     against its plain version on sampled cells (cap 256), the state
+     after 3 steps against make_ve_step_cellmajor on the same global
+     grid, and K1z, the z exchange, migration and the pair kernels
+     timed; ShardedBdtVE at 100^3, D = 2, 4 rungs, one warm-up and one
+     timed cycle, its rungs beside BdtVE's on the same global grid;
+  11. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -274,7 +287,7 @@ class Spy:
             orig = type(k)._launch
 
             def launch(*args, k=k, orig=orig):
-                if k.name == "ghost_refresh":
+                if k.name.startswith("ghost_refresh"):
                     before = args[0].clone()
                     out = orig(k, *args)
                     self.calls.append((k, (before,) + args[1:], out))
@@ -391,7 +404,7 @@ def engine_check(report, cname=None):
 def all_kernels():
     """Every kernel wrapper with a launch counter."""
     from sphexa_tpu_torch.ops import pair_ve as pv
-    return (pv.ghost_refresh,) + pv.PAIR_KERNELS
+    return (pv.ghost_refresh, pv.ghost_refresh_xy) + pv.PAIR_KERNELS
 
 
 def main_path(report, cname=None, steps=10, rebin_at=5):
@@ -519,7 +532,8 @@ def timing(report, eng, rst, grid, launches):
     torch.cuda.synchronize()
     rows = []
     ghost_calls = [c for c in spy.calls if c[0].name == "ghost_refresh"]
-    pair_calls = [c for c in spy.calls if c[0].name != "ghost_refresh"]
+    pair_calls = [c for c in spy.calls
+                  if not c[0].name.startswith("ghost_refresh")]
     xh_out = next(out for k, _, out in pair_calls if k.name == "pair_xh")
     nc_sph = xh_out[2] + 1
     xh_J, _, _, xh_cfg = next(a for k, a, _ in pair_calls
@@ -1451,6 +1465,434 @@ def probes_phase(report):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# (k): the slab-sharded engines on one card, and K1z
+# ---------------------------------------------------------------------------
+
+SHARD_SIDE = 12               # card against CPU (tests/test_torch_sharded*)
+SHARD_D = (2, 4)              # 100^3 resident runs
+SHARD_STEPS = 5               # timed steps after one warm-up step
+SHARD_CHECK_AT = 3            # steps from the bound state held against one card
+SHARD_SAMPLE_CELLS = 128      # cells of each pair call held against plain
+K1Z_REPLACES = "sphexa_tpu/ops/pallas_ve.py:397-403"
+# the z-exchanges of one resident sharded step: base rows, j rows, then
+# _run_pipeline's [xm, h], [kx, gradh], [cij, divv, curlv], [alpha]
+ZX_ROWS = ((5, 2), (6, -1), (2, -1), (2, -1), (8, -1), (1, -1))
+
+
+_SHARDED = {}
+
+
+def sharded_setup(D):
+    """Sedov 100^3 on the card, sized for D shards by the port's slab
+    planner (the JAX adapter's _slab_setup)."""
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.init.sedov import init_sedov
+    from sphexa_tpu_torch.propagator.ve_sharded import plan_slab
+
+    if D not in _SHARDED:
+        state, box, cfg = init_sedov(MAIN_SIDE, SphConfig(), dt0=3e-5,
+                                     device=DEVICE)
+        host = {c: getattr(state.p, c).cpu().numpy() for c in "xyz"}
+        grid, sc = plan_slab(host, box, float(state.p.h.max()), D)
+        assert sc.n_slabs == D, (sc, D)
+        _SHARDED[D] = (state, box, cfg, grid, sc)
+    return _SHARDED[D]
+
+
+def shard_states(state, box, sc, mesh):
+    from sphexa_tpu_torch.propagator.ve_sharded import distribute
+    from sphexa_tpu_torch.state import _FIELDS
+    alive = state.p.alive.cpu().numpy()
+    host = {f: getattr(state.p, f).cpu().numpy()[alive]
+            for f in _FIELDS[:-1]}
+    return [state.replace(p=p) for p in distribute(host, box, sc, mesh)]
+
+
+def k1z_check(report, grids):
+    """(k) K1z against its plain version on the card on `grids` (name ->
+    local grid): periodic and open x-y with z open (the sharded engines'
+    box), 1 to 15 rows, with and without coordinate rows; bit-equal."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.sfc.box import Box, Boundary
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    out = {}
+    for name, grid in grids.items():
+        cases = 0
+        for b in (Boundary.periodic, Boundary.open):
+            box = Box(-0.5, 0.5, -0.5, 0.5, -0.5, 0.5, b, b, Boundary.open)
+            for nrows in range(1, 16):
+                for rows in ((None, (0, 1, 2)) if nrows >= 3 else (None,)):
+                    st = torch.randn((nrows, grid.n_slots), device=DEVICE,
+                                     generator=gen)
+                    ref = pv.ghost_refresh_xy.plain(st.clone(), grid, box,
+                                                    rows)
+                    got = pv.ghost_refresh_xy._launch(st.clone(), grid, box,
+                                                      rows)
+                    if not torch.equal(ref, got):
+                        raise AssertionError(
+                            f"K1z {name} {b.name} rows {nrows} xyz {rows}: "
+                            f"not bit-equal")
+                    cases += 1
+        out[name] = dict(grid=str(grid), cases=cases)
+        log(f"  K1z {name} {grid}: {cases} cases (periodic and open x-y, "
+            f"1-15 rows, with and without coordinate rows) bit-equal")
+    report["k1z_check"] = out
+
+
+def sharded_engine_check(report):
+    """(k) card against CPU at Sedov 12^3, D = 2 (the tests' grid): the
+    sharded resident step for 2 steps at engine_check's bounds, and one
+    ShardedBdtVE cycle (2 rungs) with equal rung histograms."""
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.domain.mesh import SlabMesh
+    from sphexa_tpu_torch.domain.slab import SlabConfig
+    from sphexa_tpu_torch.init.sedov import init_sedov
+    from sphexa_tpu_torch.ops.cellmajor import CMGrid
+    from sphexa_tpu_torch.propagator.ve_bdt_sharded import ShardedBdtVE
+    from sphexa_tpu_torch.propagator.ve_pallas_sharded import (
+        make_ve_step_pallas_sharded)
+
+    D, n = 2, SHARD_SIDE ** 3
+    grid = CMGrid(n=4, cap=64, nzi=2)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        state, box, cfg = init_sedov(SHARD_SIDE, SphConfig(
+            cell_cap=256, ngpad=256), dt0=2e-4, device=dev)
+        mesh = SlabMesh(D, devices=[dev])
+        sc = SlabConfig(n_slabs=D, cap=int(n / D * 2.5) + 64, halo_cap=64,
+                        mig_cap=256)
+        step = make_ve_step_pallas_sharded(box, grid, cfg, sc, mesh)
+        states, ds = shard_states(state, box, sc, mesh), []
+        for _ in range(2):
+            states, d = step(states)
+            ds.append({k: float(v) for k, v in d._asdict().items()})
+        eng = ShardedBdtVE(box, grid, cfg, SlabConfig(
+            n_slabs=D, cap=(n // D) * 2 + 64, halo_cap=8, mig_cap=256), mesh,
+            num_rungs=2)
+        _, bd = eng.run_cycle(eng.distribute_bind(state))
+        res[dev] = (ds, [{k: np.asarray(v.cpu()).tolist()
+                          for k, v in x._asdict().items()} for x in bd])
+    (a, ba), (b, bb) = res["cpu"], res[DEVICE]
+    for x, y in zip(a, b):
+        assert y["lost"] == x["lost"] == 0 and y["overflow"] == 0
+        assert y["n_owned"] == x["n_owned"] == n
+        np.testing.assert_allclose(y["dt"], x["dt"], rtol=1e-5)
+        np.testing.assert_allclose(y["eint"], x["eint"], rtol=1e-6)
+        np.testing.assert_allclose(y["ecin"], x["ecin"], rtol=1e-3,
+                                   atol=1e-12)
+    for x, y in zip(ba, bb):
+        assert y["overflow"] == x["overflow"] == 0
+        assert y["rung_hist"] == x["rung_hist"], (y, x)
+        np.testing.assert_allclose(y["eint"], x["eint"], rtol=1e-6)
+    log(f"  {SHARD_SIDE}^3 D={D} {DEVICE} vs cpu: sharded step 2 steps dt "
+        f"{b[-1]['dt']:.6e} vs {a[-1]['dt']:.6e}, eint {b[-1]['eint']:.9f} "
+        f"vs {a[-1]['eint']:.9f}; ShardedBdtVE cycle rung_hist "
+        f"{[x['rung_hist'] for x in bb]} equal")
+    report["sharded_engine_12"] = dict(card=b, cpu=a, bdt_card=bb,
+                                       bdt_cpu=ba)
+
+
+def _sample_cells(grid, seed):
+    """Interior cells held against plain: the z-edge planes (they read
+    the exchanged ghost planes) and random others."""
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    cells = pv.interior_cells(grid)
+    cz = cells % grid.npz
+    r = np.random.default_rng(seed)
+    half = SHARD_SAMPLE_CELLS // 2
+    edge = cells[(cz == 1) | (cz == grid.nz)]
+    pick = np.concatenate([r.choice(edge, min(half, len(edge)), False),
+                           r.choice(cells, min(half, len(cells)), False)])
+    return np.unique(pick)
+
+
+def sharded_pair_check(grid, pair_calls):
+    """Each recorded pair launch of a sharded step (cap 256) against its
+    plain version on sampled cells. Returns {stage: max abs err}."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    errs = {}
+    for i, (k, (J, I2, g, c), out) in enumerate(pair_calls):
+        cells = torch.tensor(_sample_cells(g, i), device=DEVICE)
+        ref = pv._run_plain(k.body, J, I2, g, k.fo, cells=cells,
+                            **k._body_kw(c))
+        slots = torch.zeros(g.n_slots, dtype=torch.bool, device=DEVICE)
+        lane = torch.arange(g.cap, device=DEVICE)
+        slots[(cells[:, None] * g.cap + lane).reshape(-1)] = True
+        err, _ = compare(k.name, ref, out, valid_slots(J) & slots,
+                         per_row=False)
+        errs[k.name] = max(errs.get(k.name, 0.0), err)
+    return errs
+
+
+def sharded_main_path(report, D):
+    """(k) Sedov 100^3 on the resident sharded step, D shards on the one
+    card: one warm-up step, then SHARD_STEPS timed steps (counters
+    zeroed just before, read just after); every pair launch of one more
+    step against its plain version on sampled cells; the state after
+    SHARD_CHECK_AT steps against make_ve_step_cellmajor on the same
+    global grid; times of K1z, the z exchange, migration and the pair
+    kernels at the step's inputs. Returns K1z's kernel row."""
+    import torch
+    from scipy.spatial import cKDTree
+    from sphexa_tpu_torch.domain.mesh import SlabMesh
+    from sphexa_tpu_torch.domain.slab import migrate
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.ops.cellmajor import CMGrid
+    from sphexa_tpu_torch.propagator.common import compute_energies
+    from sphexa_tpu_torch.propagator.ve_cellmajor import make_ve_step_cellmajor
+    from sphexa_tpu_torch.propagator.ve_pallas_sharded import (
+        make_ve_step_pallas_sharded, make_zxchg)
+    from sphexa_tpu_torch.sfc.box import Boundary
+
+    t0 = time.perf_counter()
+    state, box, cfg, grid, sc = sharded_setup(D)
+    n = MAIN_SIDE ** 3
+    e0 = float(sum(compute_energies(state.p, cfg)))
+    mesh = SlabMesh(D, devices=[DEVICE])
+    step = make_ve_step_pallas_sharded(box, grid, cfg, sc, mesh)
+    states = shard_states(state, box, sc, mesh)
+    states, _ = step(states)                                   # warm-up
+    torch.cuda.synchronize()
+    log(f"  D={D}: plan {grid}, npz {grid.npz}, {sc}; setup + warm-up "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(SHARD_STEPS + 1)]
+    host_ms, diags, snap = [], [], None
+    ev[0].record()
+    for i in range(SHARD_STEPS):
+        h0 = time.perf_counter()
+        states, d = step(states)
+        ev[i + 1].record()
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        diags.append(d)
+        if i + 2 == SHARD_CHECK_AT:
+            snap = ({f: torch.cat([getattr(s.p, f) for s in states]).cpu()
+                     .numpy() for f in ("x", "y", "z", "vx", "alive")},
+                    {k: float(v) for k, v in d._asdict().items()})
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    step_ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+    used = {k.name for k in pv.PairVE(grid, cfg).kernels}
+    want = {k.name: D * SHARD_STEPS if k.name in used else 0
+            for k in kernels}
+    want["ghost_refresh_xy"] = len(ZX_ROWS) * D * SHARD_STEPS
+    assert launches == want, (launches, want)
+    dd = {k: [float(getattr(x, k)) for x in diags] for k in
+          ("dt", "etot", "ecin", "eint", "lost", "overflow", "n_owned",
+           "h_max", "max_nc")}
+    assert max(dd["lost"]) == 0 and max(dd["overflow"]) == 0, dd
+    assert min(dd["n_owned"]) == max(dd["n_owned"]) == n, dd["n_owned"]
+    for s in states:
+        for f in ("x", "y", "z", "h", "vx", "vy", "vz", "temp", "alpha",
+                  "du_m1"):
+            v = getattr(s.p, f)[s.p.alive]
+            assert torch.isfinite(v).all(), f"non-finite {f}"
+    drift = abs(dd["etot"][-1] - e0) / e0
+    assert drift < 5e-3, f"energy drift {drift:.3e}"
+    mean_ms = float(np.mean(step_ms))
+
+    # the same state after SHARD_CHECK_AT steps on one card
+    g1 = CMGrid(n=grid.n, cap=grid.cap, nzi=D * grid.nz)
+    step1 = make_ve_step_cellmajor(box, g1, cfg, device=DEVICE)
+    s1, ev1 = state, [torch.cuda.Event(enable_timing=True)
+                      for _ in range(SHARD_CHECK_AT + 1)]
+    ev1[0].record()
+    for i in range(SHARD_CHECK_AT):
+        s1, d1 = step1(s1)
+        ev1[i + 1].record()
+    torch.cuda.synchronize()
+    single_ms = [a.elapsed_time(b) for a, b in zip(ev1, ev1[1:])]
+    sf, sd = snap
+    np.testing.assert_allclose(sd["dt"], float(d1.dt), rtol=1e-5)
+    np.testing.assert_allclose(sd["eint"], float(d1.eint), rtol=1e-6)
+    np.testing.assert_allclose(sd["ecin"], float(d1.ecin), rtol=2e-3,
+                               atol=1e-9)
+    a = {f: getattr(s1.p, f).cpu().numpy() for f in ("x", "y", "z", "vx")}
+    al = sf["alive"]
+    dist, j = cKDTree(np.c_[a["x"], a["y"], a["z"]]).query(
+        np.c_[sf["x"][al], sf["y"][al], sf["z"][al]])
+    assert len(j) == n and len(np.unique(j)) == n
+    pos_err = float(dist.max())
+    vx_err = float(np.abs(sf["vx"][al] - a["vx"][j]).max()
+                   / np.abs(a["vx"]).max())
+    assert pos_err < 1e-5 and vx_err < 2e-3, (pos_err, vx_err)
+    del s1, step1
+
+    # every launch of one more step, recorded; pair launches against plain
+    with Spy((pv.ghost_refresh_xy,) + pv.KERNELS[1:]) as spy:
+        step(states)
+    torch.cuda.synchronize()
+    k1z_calls = [c for c in spy.calls if c[0] is pv.ghost_refresh_xy]
+    pair_calls = [c for c in spy.calls if c[0] is not pv.ghost_refresh_xy]
+    assert len(k1z_calls) == len(ZX_ROWS) * D
+    pair_errs = sharded_pair_check(grid, pair_calls)
+    pair_ms = {}
+    for k, args, _ in pair_calls:
+        pair_ms[k.name] = pair_ms.get(k.name, 0.0) + cuda_ms(
+            lambda: k._launch(*args), 3)
+
+    # K1z: every launch of the step, beside its plain version, the bound
+    # and an index_select of its sources into a ghost-sized buffer
+    gm = pv._ghost_maps(grid, dataclasses.replace(box, bz=Boundary.open),
+                        False)
+    src = torch.tensor(gm["src"], device=DEVICE)
+    k1z = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, err=0.0)
+    for k, (st, g, b, xyz), out in k1z_calls:
+        ref = k.plain(st.clone(), g, b, xyz)
+        if not torch.equal(ref, out):
+            raise AssertionError(f"K1z: kernel != plain at 100^3 D={D}")
+        k1z["err"] = max(k1z["err"], float((ref - out).abs().max()))
+        work = st.clone()
+        buf = st.new_empty((st.shape[0], src.numel()))
+        k1z["ms"] += cuda_ms(lambda: k._launch(work, g, b, xyz), 20)
+        k1z["plain_ms"] += cuda_ms(lambda: k.plain(st.clone(), g, b, xyz), 3)
+        k1z["library_ms"] += cuda_ms(
+            lambda: torch.index_select(st, 1, src, out=buf), 20)
+        k1z["bytes"] += 2 * 4 * st.shape[0] * src.numel()
+
+    # the z exchange and migration alone, in one mesh.run of 10 repeats
+    zx = make_zxchg(grid, box, mesh)
+    stacks = [[torch.zeros((r, grid.n_slots), device=DEVICE)
+               for r, _ in ZX_ROWS] for _ in range(D)]
+
+    def exchanges(comm, sts):
+        for _ in range(10):
+            for st, (_, zrow) in zip(sts, ZX_ROWS):
+                zx(comm, st, zrow)
+
+    def migrations(comm, s):
+        for _ in range(10):
+            migrate(comm, s.p, box, sc)
+
+    def timed(fn, args):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        mesh.run(fn, args)
+        torch.cuda.synchronize()
+        a.record()
+        mesh.run(fn, args)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / 10
+
+    zx_ms, mig_ms = timed(exchanges, stacks), timed(migrations, states)
+
+    log(f"  100^3 D={D}: {mean_ms:.3f} ms/step (CUDA events, mean of "
+        f"{SHARD_STEPS}; steps {[round(x, 3) for x in step_ms]}; host "
+        f"{[round(x, 1) for x in host_ms]} ms), "
+        f"{n / (mean_ms * 1e-3):.4e} particle-updates/s; one card, same "
+        f"global grid {g1}: {[round(x, 3) for x in single_ms]} ms/step")
+    log(f"  lost 0, overflow 0, n_owned {n}, rows finite, |etot - e0|/e0 = "
+        f"{drift:.3e}; after {SHARD_CHECK_AT} steps against one card: dt "
+        f"{sd['dt']:.6e} vs {float(d1.dt):.6e}, eint {sd['eint']:.9f} vs "
+        f"{float(d1.eint):.9f}, ecin {sd['ecin']:.6e} vs "
+        f"{float(d1.ecin):.6e}, max position distance {pos_err:.3e}, vx "
+        f"{vx_err:.3e} of scale")
+    log(f"  per step, all shards: K1z {k1z['ms']:.3f} ms ({len(k1z_calls)} "
+        f"launches; plain {k1z['plain_ms']:.3f}, index_select "
+        f"{k1z['library_ms']:.3f}, bound "
+        f"{k1z['bytes'] / HBM_BW * 1e3:.4f}), z exchange {zx_ms:.3f} ms, "
+        f"migration {mig_ms:.3f} ms, pair kernels "
+        f"{sum(pair_ms.values()):.3f} ms "
+        f"{dict((k, round(v, 3)) for k, v in pair_ms.items())}")
+    log(f"  pair launches at cap {grid.cap} against plain on "
+        f"{SHARD_SAMPLE_CELLS} sampled cells each: max abs err "
+        f"{dict((k, float(f'{v:.3e}')) for k, v in pair_errs.items())}; "
+        f"launches {dict((k, v) for k, v in launches.items() if v)}")
+    report.setdefault("sharded_main_path", {})[f"D{D}"] = dict(
+        grid=str(grid), slab=str(sc), global_grid=str(g1), step_ms=step_ms,
+        host_ms=host_ms, mean_step_ms=mean_ms,
+        particle_updates_per_s=n / (mean_ms * 1e-3), single_step_ms=single_ms,
+        energy_drift=drift, diags=dd, launches=launches, check=dict(
+            dt=[sd["dt"], float(d1.dt)], eint=[sd["eint"], float(d1.eint)],
+            ecin=[sd["ecin"], float(d1.ecin)], pos_err=pos_err,
+            vx_err=vx_err), k1z=k1z, zxchg_ms=zx_ms, migrate_ms=mig_ms,
+        pair_ms=pair_ms, pair_errs=pair_errs)
+    del states
+    return dict(
+        name="ghost_refresh_xy", route="cuda",
+        source="sphexa_tpu_torch/csrc/ghost_refresh.cu",
+        replaces=K1Z_REPLACES, launches=launches["ghost_refresh_xy"],
+        max_abs_err=k1z["err"], ms=k1z["ms"], plain_ms=k1z["plain_ms"],
+        bound_ms=k1z["bytes"] / HBM_BW * 1e3, bound_by="bytes",
+        library_ms=k1z["library_ms"])
+
+
+def sharded_bdt_main_path(report, D=2, nr=4):
+    """(k) ShardedBdtVE at Sedov 100^3, D shards, nr rungs: one warm-up
+    cycle, then one timed cycle (counters zeroed just before, read just
+    after); the warm-up cycle's rung histograms beside BdtVE's on the
+    same global grid, and the particles whose rung differs."""
+    import torch
+    from sphexa_tpu_torch.domain.mesh import SlabMesh
+    from sphexa_tpu_torch.ops.cellmajor import CMGrid
+    from sphexa_tpu_torch.propagator.common import compute_energies
+    from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
+    from sphexa_tpu_torch.propagator.ve_bdt_sharded import ShardedBdtVE
+
+    state, box, cfg, grid, sc = sharded_setup(D)
+    n = MAIN_SIDE ** 3
+    e0 = float(sum(compute_energies(state.p, cfg)))
+    eng = ShardedBdtVE(box, grid, cfg, sc, SlabMesh(D, devices=[DEVICE]),
+                       num_rungs=nr)
+    bsts = eng.distribute_bind(state)
+    bsts, warm = eng.run_cycle(bsts)
+    ck = eng.checkpoint_rungs(bsts, n)["fields"]["bdt_rung"]
+    torch.cuda.synchronize()
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    bsts, ds = eng.run_cycle(bsts)
+    b.record()
+    torch.cuda.synchronize()
+    cycle_ms = a.elapsed_time(b)
+    launches = {k.name: k.launches for k in kernels}
+    nsub = 1 << (nr - 1)
+    used = {k.name for k in eng.shards[0].pve_gated.kernels}
+    want = {k.name: D * nsub if k.name in used else 0 for k in kernels}
+    # five refreshes a substep, and the resync's 15-row local bind
+    want["ghost_refresh_xy"] = D * (5 * nsub + 1)
+    assert launches == want, (launches, want)
+    etot = float(ds[-1].etot)
+    drift = abs(etot - e0) / e0
+    assert drift < 5e-3, f"energy drift {drift:.3e}"
+    for bst in bsts:
+        for f in ("x", "y", "z", "h", "vx", "temp", "alpha"):
+            assert torch.isfinite(getattr(bst.rv, f)).all(), f
+    sim = sum(float(d.dt) for d in ds)
+
+    eng1 = BdtVE(box, CMGrid(n=grid.n, cap=grid.cap, nzi=D * grid.nz), cfg,
+                 num_rungs=nr, device=DEVICE)
+    b1, warm1 = eng1.run_cycle(eng1.bind_bdt(state))
+    ck1 = eng1.checkpoint_rungs(b1, n)["fields"]["bdt_rung"]
+    differ = int((ck != ck1).sum())
+    hist = [x.rung_hist.tolist() for x in warm]
+    hist1 = [x.rung_hist.tolist() for x in warm1]
+    assert differ <= 1e-3 * n, (differ, hist, hist1)
+    log(f"  100^3 ShardedBdtVE D={D}, {nr} rungs: {cycle_ms:.3f} ms/cycle, "
+        f"sim-time per wall-second {sim / (cycle_ms * 1e-3):.6e}; overflow "
+        f"0, lost 0, |etot - e0|/e0 = {drift:.3e}")
+    log(f"  warm-up cycle rung_hist sharded {hist[0]} vs one card "
+        f"{hist1[0]}; particles whose rung differs: {differ}; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}")
+    report["sharded_bdt_main_path"] = dict(
+        D=D, num_rungs=nr, cycle_ms=cycle_ms, sim_time_per_wall_s=sim / (
+            cycle_ms * 1e-3), energy_drift=drift, rung_hist=hist,
+        rung_hist_single=hist1, rung_differs=differ, launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1528,6 +1970,15 @@ def main() -> int:
         del eng, rst
     log("(j) hardware probes P1-P5:")
     rows += probes_phase(report)
+
+    log("(k) the slab-sharded engines, all shards on the one card:")
+    grids = {f"100^3 D={D}": sharded_setup(D)[3] for D in SHARD_D}
+    grids[f"{CHECK_SIDE}^3"] = sedov(CHECK_SIDE, DEVICE)[3]
+    k1z_check(report, grids)
+    sharded_engine_check(report)
+    k1z_rows = [sharded_main_path(report, D) for D in SHARD_D]
+    rows.append(k1z_rows[0])
+    sharded_bdt_main_path(report)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

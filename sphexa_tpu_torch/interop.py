@@ -3,7 +3,9 @@
 The inputs are plain numpy arrays, Python numbers and dicts (for
 example `dataclasses.asdict(cfg)` or `np.asarray` of each field), so
 this module imports nothing of JAX. The tests use it to run both
-packages on identical inputs.
+packages on identical inputs. The JAX package's slab-sharded state is
+one global array of D x (per-shard length) rows per field; the
+sharded_* functions cut it into the port's per-shard states.
 """
 
 from __future__ import annotations
@@ -86,3 +88,40 @@ def bdt_from_numpy(fields: dict, device=None) -> BDTState:
             a = a.astype(np.int32)
         kw[f.name] = _tensor(a, device)
     return BDTState(**kw)
+
+
+def _split(a, n_slabs: int) -> list:
+    """A global sharded array (length D x the per-shard length) cut into
+    its D shards; a 0-dim (replicated) value is repeated."""
+    a = np.asarray(a)
+    if a.ndim == 0:
+        return [a] * n_slabs
+    if a.shape[0] % n_slabs:
+        raise ValueError(f"length {a.shape[0]} does not split into "
+                         f"{n_slabs} shards")
+    return np.split(a, n_slabs)
+
+
+def sharded_states_from_numpy(fields: dict, ttot, dt, dt_m1, iteration,
+                              mesh) -> list:
+    """Per-shard SimStates from the JAX package's slab-sharded state:
+    each field of state._FIELDS a global array of D x cap rows (as
+    np.asarray gives it), cut at cap, shard i on mesh.devices[i]."""
+    D = mesh.n_slabs
+    parts = {f: _split(fields[f], D) for f in _FIELDS}
+    return [state_from_numpy({f: parts[f][i] for f in _FIELDS}, ttot, dt,
+                             dt_m1, iteration, device=mesh.devices[i])
+            for i in range(D)]
+
+
+def sharded_bdt_from_numpy(fields: dict, mesh) -> list:
+    """Per-shard BDTStates from the JAX package's ShardedBdtVE state
+    turned into numpy (as bdt_from_numpy takes it): every slot row a
+    global array of D x n_slots, cut at n_slots; the 0-dim scalars are
+    replicated."""
+    D = mesh.n_slabs
+    rv = {k: _split(v, D) for k, v in fields["rv"].items()}
+    rest = {k: _split(v, D) for k, v in fields.items() if k != "rv"}
+    return [bdt_from_numpy(dict({k: v[i] for k, v in rest.items()},
+                                rv={k: v[i] for k, v in rv.items()}),
+                           device=mesh.devices[i]) for i in range(D)]

@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -41,6 +42,7 @@ VARIANTS = {"probes_libcuda": ("probes.cu", ["-DPROBES_LINK_LIBCUDA",
                                              "-lcuda"])}
 
 _libs: dict = {}
+_LIB_LOCK = threading.Lock()
 build_info: dict = {}   # source -> {"seconds": float, "ptxas": str}
 
 
@@ -161,7 +163,7 @@ class PairGate(ctypes.Structure):
 _ARGTYPES = {
     "ghost_refresh.cu": {
         "ghost_refresh": [_P, _I, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _F, _F, _F, _I, _I, _I, _F, _P]},
+                          _F, _F, _F, _I, _I, _I, _F, _I, _P]},
     "cell_pair.cu": {
         "pair_launch": [_I, _P, _P, _P, PairGeom, PairParams, PairGate, _P],
         "pair_launch_column": [_I, _P, _P, _P, PairGeom, PairParams, _I, _I,
@@ -182,13 +184,15 @@ def _bind(name: str, lib: ctypes.CDLL):
 
 def lib(src: str) -> ctypes.CDLL:
     """The loaded library of one source (or VARIANTS name), built first
-    if needed."""
-    if src not in _libs:
-        so = build([src])[src]
-        handle = ctypes.CDLL(str(so))
-        _bind(src, handle)
-        _libs[src] = handle
-    return _libs[src]
+    if needed. Locked: the shards of a SlabMesh may first launch from
+    several threads at once."""
+    with _LIB_LOCK:
+        if src not in _libs:
+            so = build([src])[src]
+            handle = ctypes.CDLL(str(so))
+            _bind(src, handle)
+            _libs[src] = handle
+        return _libs[src]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -200,15 +204,17 @@ def _check(code: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {code}")
 
 
-def ghost_launch(stack, cells, grid, box, xyz_rows, fill_pos: float):
+def ghost_launch(stack, cells, grid, box, xyz_rows, fill_pos: float,
+                 refresh_z: bool = True):
+    """K1 (refresh_z) or K1z over the listed ghost cells."""
     ix, iy, iz = xyz_rows if xyz_rows is not None else (-1, -1, -1)
     px, py, pz = box.periodic
     code = lib("ghost_refresh.cu").ghost_refresh(
         stack.data_ptr(), stack.shape[0], grid.n_slots, cells.data_ptr(),
         cells.shape[0], grid.cap, grid.nx, grid.n, grid.nz, int(px), int(py),
         int(pz), box.lx, box.ly, box.lz, ix, iy, iz, fill_pos,
-        _stream(stack))
-    _check(code, "ghost_refresh")
+        int(refresh_z), _stream(stack))
+    _check(code, "ghost_refresh" if refresh_z else "ghost_refresh (K1z)")
 
 
 def _pair_args(grid, cfg, K3d: float):

@@ -6,6 +6,7 @@ csrc/ghost_refresh.cu) and, beside its wrapper here, a plain PyTorch
 version of the same function:
 
   K1 ghost_refresh   <- make_ghost_refresh          (pallas_ve.py:349)
+  K1z ghost_refresh_xy <- the same, refresh_z=False (:397-403, :419, :430)
   K3 pair_xh         <- _xh_body                    (pallas_ve.py:537)
   K4 pair_gradh      <- _gradh_body                 (pallas_ve.py:622)
   K5 pair_iad        <- _iad_direct_body            (pallas_ve.py:704)
@@ -39,7 +40,9 @@ outputs equal the cell launch's on interior slots, bit for bit, and are
 zero elsewhere (the JAX driver zeroes the z-ghost lanes, :307-309).
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel (and counts the launch) or raises.
+tensors it launches the kernel (and counts the launch) or raises. The
+counts are shared by the threads of the sharded engines
+(domain/mesh.py), so they are taken under a lock.
 
 Frame contract (kept from the JAX package): invalid slots carry FILL_POS
 positions and drop out of every pair sum through the distance overflow;
@@ -52,6 +55,7 @@ Row orders of the J matrices are those of the JAX package; the TPU's
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -78,6 +82,13 @@ _NEG = -1e30
 # pair candidates evaluated at once by a plain version (bounds its
 # temporaries to a few tens of MB each)
 _PAIR_BUDGET = 1 << 22
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(kernel):
+    with _COUNT_LOCK:
+        kernel.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -835,18 +846,26 @@ class PairKernel:
         if J.device.type != "cuda":
             raise ValueError(f"{self.name}: no kernel for device {J.device}")
         out = self._launch(*args)
-        self.launches += 1
+        _count_launch(self)
         return out
 
 
-@functools.lru_cache(maxsize=8)
-def _ghost_maps(grid: CMGrid, box: Box):
+@functools.lru_cache(maxsize=16)
+def _ghost_maps(grid: CMGrid, box: Box, refresh_z: bool = True):
     """Host maps of K1: ghost cell ids, and per ghost slot its source
     slot (column and z wrapped, as srcmap and the z-wrap of
-    make_ghost_refresh), its periodic shifts and its open-axis flag."""
+    make_ghost_refresh), its periodic shifts and its open-axis flag.
+
+    refresh_z=False (K1z): only the cells of the x-y ghost columns, every
+    z of them, each from the wrapped column at the same z (out = v,
+    pallas_ve.py:403), with no z shift (:419) and no z open-axis flag
+    (:430). The z-ghost cells of interior columns are not listed."""
     cap, npd, npz, npx = grid.cap, grid.np_, grid.npz, grid.npx
     cx, cy, cz = _cell_coords_all(grid)
-    ghost = ~_interior_cells_np(grid)
+    if refresh_z:
+        ghost = ~_interior_cells_np(grid)
+    else:
+        ghost = (cx == 0) | (cx == npx - 1) | (cy == 0) | (cy == npd - 1)
     cells = np.arange(grid.n_cells)[ghost]
     gx, gy, gz = cx[ghost], cy[ghost], cz[ghost]
 
@@ -856,14 +875,19 @@ def _ghost_maps(grid: CMGrid, box: Box):
     def side(c, last):
         return np.where(c == 0, -1.0, np.where(c == last - 1, 1.0, 0.0))
 
+    wz = wrap(gz, npz, grid.nz) if refresh_z else gz
     src_cell = (wrap(gx, npx, grid.nx) * npd + wrap(gy, npd, grid.n)) * npz \
-        + wrap(gz, npz, grid.nz)
+        + wz
     px, py, pz = box.periodic
+    pz = pz and refresh_z
     shift = np.stack([side(gx, npx) * box.lx * px,
                       side(gy, npd) * box.ly * py,
                       side(gz, npz) * box.lz * pz]).astype(np.float32)
     bad = np.zeros(cells.shape, bool)
-    for per, c, last in ((px, gx, npx), (py, gy, npd), (pz, gz, npz)):
+    axes = ((px, gx, npx), (py, gy, npd))
+    if refresh_z:
+        axes += ((pz, gz, npz),)
+    for per, c, last in axes:
         if not per:
             bad |= (c == 0) | (c == last - 1)
     lane = np.arange(cap)
@@ -883,16 +907,24 @@ class GhostRefresh:
     n_slots] row stack from its interior source cell, in place.
     xyz_rows=(ix, iy, iz) marks coordinate rows: they get the +-L
     periodic shifts, and open-axis ghosts get FILL_POS there and 0 in
-    the other rows. With xyz_rows=None every ghost is a plain copy."""
+    the other rows. With xyz_rows=None every ghost is a plain copy.
 
-    name = "ghost_refresh"
+    refresh_z=False is K1z (the instance ghost_refresh_xy), the
+    slab-sharded engines' refresh: only the x-y ghost columns are
+    rewritten, each whole column (its z-ghost lanes too) from the
+    wrapped interior column at the same z, with no z shift and no z
+    FILL_POS. The z-ghost lanes of interior columns stay as they are:
+    the z-plane exchange has just written them. One kernel serves both,
+    with its own launch count per instance."""
 
-    def __init__(self):
+    def __init__(self, refresh_z: bool = True):
+        self.refresh_z = refresh_z
+        self.name = "ghost_refresh" if refresh_z else "ghost_refresh_xy"
         self.launches = 0
         self._cells = {}
 
     def plain(self, stack, grid: CMGrid, box: Box, xyz_rows=None):
-        mp = _ghost_maps(grid, box)
+        mp = _ghost_maps(grid, box, self.refresh_z)
         dev = stack.device
         slots = torch.tensor(mp["slots"], device=dev)
         vals = stack[:, torch.tensor(mp["src"], device=dev)]
@@ -912,9 +944,10 @@ class GhostRefresh:
         key = (grid, box, stack.device)
         if key not in self._cells:
             self._cells[key] = torch.tensor(
-                _ghost_maps(grid, box)["cells"], device=stack.device)
+                _ghost_maps(grid, box, self.refresh_z)["cells"],
+                device=stack.device)
         _cuda.ghost_launch(stack, self._cells[key], grid, box, xyz_rows,
-                           FILL_POS)
+                           FILL_POS, self.refresh_z)
         return stack
 
     def __call__(self, stack, grid: CMGrid, box: Box, xyz_rows=None):
@@ -925,11 +958,12 @@ class GhostRefresh:
             raise ValueError(f"{self.name}: no kernel for device "
                              f"{stack.device}")
         self._launch(stack, grid, box, xyz_rows)
-        self.launches += 1
+        _count_launch(self)
         return stack
 
 
 ghost_refresh = GhostRefresh()
+ghost_refresh_xy = GhostRefresh(refresh_z=False)     # K1z
 pair_xh = PairKernel("pair_xh", 0, NBASE + 1, 4, 0, _xh_body)
 pair_gradh = PairKernel("pair_gradh", 1, NBASE + 2, 2, 0, _gradh_body)
 pair_iad = PairKernel("pair_iad", 2, NBASE + 5, 14, 0, _iad_body)

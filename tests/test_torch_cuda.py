@@ -28,7 +28,11 @@ bit for bit. The column launch (K11) takes the same inputs and equals
 the cell launch bit for bit on interior slots in every form, zero
 elsewhere. The probe kernels (P1-P5) are held against their plain
 versions: P1-P4 rtol 1e-6 (the same float32 operations), P5 1e-5 of the
-output's scale (TF32: 5e-3).
+output's scale (TF32: 5e-3). K1z (the ghost refresh with refresh_z=False)
+is bit-equal to its plain version, and the slab-sharded resident step
+(two shards on the one card) holds the CPU run's diagnostics at the
+tolerances of chip_smoke.py's engine check (dt rtol 1e-5, eint 1e-6,
+ecin 1e-3) after two Sedov 12^3 steps.
 """
 
 import numpy as np
@@ -188,6 +192,61 @@ def test_ghost_refresh_matches_plain(cuda, boundary):
         ref = pv.ghost_refresh.plain(st.clone(), grid, box, rows)
         out = pv.ghost_refresh(st.clone(), grid, box, rows)
         assert torch.equal(ref, out)
+
+
+@pytest.mark.parametrize("bxy", ["periodic", "open"])
+@pytest.mark.parametrize("grid", [CMGrid(n=4, cap=64, nzi=2),
+                                  CMGrid(n=22, cap=256, nzi=11)],
+                         ids=["12cube_D2", "100cube_D2"])
+def test_k1z_matches_plain(cuda, bxy, grid):
+    """K1z on the sharded engines' box (z open), random stacks of 1 to
+    15 rows, with and without coordinate rows: bit-equal, and the
+    interior columns untouched."""
+    b = Boundary[bxy]
+    box = Box(-0.5, 0.5, -0.5, 0.5, -0.5, 0.5, b, b, Boundary.open)
+    r = np.random.default_rng(2)
+    for nrows, rows in ((1, None), (5, None), (12, (0, 1, 2)),
+                        (15, (0, 1, 2))):
+        st = torch.from_numpy(r.normal(0, 1, (nrows, grid.n_slots)).astype(
+            np.float32)).to(cuda)
+        ref = pv.ghost_refresh_xy.plain(st.clone(), grid, box, rows)
+        before = pv.ghost_refresh_xy.launches
+        out = pv.ghost_refresh_xy(st.clone(), grid, box, rows)
+        assert pv.ghost_refresh_xy.launches == before + 1
+        assert torch.equal(ref, out)
+        assert not torch.equal(out, st)
+
+
+def test_sharded_step_matches_cpu(cuda):
+    """make_ve_step_pallas_sharded with two shards on the card against
+    the same run on the CPU (plain versions), Sedov 12^3, 2 steps."""
+    from sphexa_tpu_torch.domain.mesh import SlabMesh
+    from sphexa_tpu_torch.domain.slab import SlabConfig
+    from sphexa_tpu_torch.propagator.ve_pallas_sharded import (
+        make_ve_step_pallas_sharded)
+    from sphexa_tpu_torch.propagator.ve_sharded import distribute
+    from sphexa_tpu_torch.state import _FIELDS
+
+    diags = {}
+    for dev in (cuda, torch.device("cpu")):
+        state, box, cfg = init_sedov(12, SphConfig(cell_cap=256, ngpad=256),
+                                     dt0=2e-4, device=dev)
+        host = {f: getattr(state.p, f).cpu().numpy() for f in _FIELDS[:-1]}
+        mesh = SlabMesh(2, devices=[dev])
+        sc = SlabConfig(n_slabs=2, cap=2224, halo_cap=64, mig_cap=256)
+        states = [state.replace(p=p) for p in distribute(host, box, sc, mesh)]
+        step = make_ve_step_pallas_sharded(box, CMGrid(n=4, cap=64, nzi=2),
+                                           cfg, sc, mesh)
+        for _ in range(2):
+            states, d = step(states)
+        diags[dev.type] = {k: float(v) for k, v in d._asdict().items()}
+    a, b = diags["cpu"], diags["cuda"]
+    assert b["lost"] == a["lost"] == 0 and b["overflow"] == 0
+    assert b["n_owned"] == a["n_owned"] == 12 ** 3
+    assert b["max_nc"] == a["max_nc"]
+    np.testing.assert_allclose(b["dt"], a["dt"], rtol=1e-5)
+    np.testing.assert_allclose(b["eint"], a["eint"], rtol=1e-6)
+    np.testing.assert_allclose(b["ecin"], a["ecin"], rtol=1e-3)
 
 
 # K11: every column stage against the cell launch on the same inputs, in
