@@ -17,7 +17,11 @@ Phases (any failure exits non-zero before the last line):
      one warm-up step, then 10 timed steps with a forced rebin; launch
      counters are zeroed just before and read just after;
   5. each kernel timed at the main path's own inputs, beside its plain
-     version, its bound and (K1) a library gather;
+     version, its bound and (K1) a library gather; K1 and the gather
+     also split into device time (a CUDA graph of the launches) and
+     host dispatch; K7's in-support pairs, warp body executions and
+     lane efficiency counted on the card from its inputs, and its
+     registers and spills from the build's ptxas output;
   6. (c) the block-time-step path: BdtVE at Sedov 100^3, 4 rungs, one
      warm-up cycle, then 2 timed cycles of 8 substeps (counters zeroed
      just before, read just after); (d) each gated stage timed at the
@@ -58,11 +62,16 @@ Phases (any failure exits non-zero before the last line):
      before, read just after), each pair launch of one more step
      against its plain version on sampled cells (cap 256), the state
      after 3 steps against make_ve_step_cellmajor on the same global
-     grid, and K1z, the z exchange, migration and the pair kernels
-     timed; ShardedBdtVE at 100^3, D = 2, 4 rungs, one warm-up and one
-     timed cycle, its rungs beside BdtVE's on the same global grid;
+     grid, and K1z (split as K1), the z exchange, migration and the
+     pair kernels timed, K7's lane counts at cap 256; ShardedBdtVE at
+     100^3, D = 2, 4 rungs, one warm-up and one timed cycle, its rungs
+     beside BdtVE's on the same global grid;
   11. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
+
+python3 chip_smoke.py --compare [tag] times K1, K1z and K7, 3 resident
+steps and 2 BdtVE cycles at Sedov 100^3 only (see compare_main), to
+compare two checkouts of the repository in one call.
 """
 
 from __future__ import annotations
@@ -205,6 +214,69 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def split_ms(fn, reps: int = 20):
+    """One call's time three ways, in ms: CUDA events around `reps`
+    back-to-back calls (what cuda_ms reports); the replay of the same
+    `reps` calls captured in one CUDA graph, which leaves out the host's
+    dispatch (device time); and the host's time to enqueue one call
+    (dispatch time, no sync inside the loop)."""
+    import torch
+    events = cuda_ms(fn, reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return dict(events_ms=events, device_ms=a.elapsed_time(b) / reps,
+                host_ms=host)
+
+
+def ghost_split(calls, src):
+    """K1 or K1z over recorded calls [(kernel, (stack, grid, box, xyz))]
+    beside one index_select of its sources into a ghost-sized buffer
+    (the same bytes, no shift, no FILL_POS), each split by split_ms and
+    summed over the calls: the kernel's and the library call's events,
+    device and host times."""
+    import torch
+    tot = {f"{who}_{m}": 0.0 for who in ("kernel", "index_select")
+           for m in ("events_ms", "device_ms", "host_ms")}
+    for k, (st, g, b, xyz) in calls:
+        work = st.clone()
+        buf = st.new_empty((st.shape[0], src.numel()))
+        for who, fn in (("kernel", lambda: k._launch(work, g, b, xyz)),
+                        ("index_select", lambda: torch.index_select(
+                            st, 1, src, out=buf))):
+            for m, v in split_ms(fn).items():
+                tot[f"{who}_{m}"] += v
+    return tot
+
+
+def log_split(what, sp):
+    log(f"  {what}: kernel events {sp['kernel_events_ms']:.4f} ms, device "
+        f"{sp['kernel_device_ms']:.4f} ms (CUDA graph), host dispatch "
+        f"{sp['kernel_host_ms']:.4f} ms; index_select events "
+        f"{sp['index_select_events_ms']:.4f}, device "
+        f"{sp['index_select_device_ms']:.4f}, host "
+        f"{sp['index_select_host_ms']:.4f} ms")
 
 
 def compare(name, ref, out, mask, per_row: bool):
@@ -503,6 +575,106 @@ def pair_counts(J, eng, grid, nc_sph):
     return cand, inside, per_slot
 
 
+def k7_lane_counts(J, grid, intmask, batch_pairs=2 ** 28):
+    """K7's work on these inputs, counted on the card from J (rows x, y,
+    z, h), with the kernel's own support test: in-support pairs (valid
+    interior i, valid j), and the lane efficiency of two designs. Old
+    (a thread per i-slot walking every j-slot): a warp runs the
+    body for each (warp, j-slot) where any lane is in support. New
+    (csrc/cell_pair.cu mom::momentum_cell): per warp of 32 i-slots and
+    chunk of 32 staged j-slots, the in-support pairs run in rounds of 32
+    lanes. Lane efficiency = pairs / (32 * body executions). Also the
+    support tests each design issues per warp: old every slot of the 27
+    cells for every warp; new, warps with a valid i-slot over each
+    j-tile's slots up to its last valid one."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    cap = grid.cap
+    cells = torch.tensor(pv.interior_cells(grid), device=J.device)
+    offs = torch.tensor(pv._nbr_offsets(grid), device=J.device)
+    lane = torch.arange(cap, device=J.device)
+    valid = valid_slots(J)
+    hinv = 1.0 / J[3]
+    hinv2 = hinv * hinv
+    T = min(cap, 128)
+    cnt = dict(pairs=0, old_bodies=0, new_rounds=0, old_tests=0,
+               new_tests=0)
+    chunk = max(1, batch_pairs // (27 * cap * cap))
+    for c0 in range(0, cells.numel(), chunk):
+        cc = cells[c0:c0 + chunk]
+        C = cc.numel()
+        own = cc[:, None] * cap + lane                        # [C, cap]
+        nb = (cc[:, None] + offs)[:, :, None] * cap + lane     # [C, 27, cap]
+        vi = valid[own] & intmask[own]
+        vj = valid[nb]
+        d2 = sum((J[r][own][:, :, None, None] - J[r][nb][:, None]) ** 2
+                 for r in range(3))
+        ins = (d2 * hinv2[own][:, :, None, None] < 4.0) \
+            & vi[:, :, None, None] & vj[:, None]               # [C,cap,27,cap]
+        cnt["pairs"] += int(ins.sum())
+        w = ins.view(C, cap // 32, 32, 27, cap)
+        cnt["old_bodies"] += int(w.any(2).sum())
+        per_chunk = w.view(C, cap // 32, 32, 27, cap // 32, 32).sum((2, 5))
+        cnt["new_rounds"] += int(((per_chunk + 31) // 32).sum())
+        cnt["old_tests"] += C * (cap // 32) * 27 * cap
+        active = vi.view(C, cap // 32, 32).any(-1).sum(1)     # [C]
+        last = torch.where(vj, lane + 1, 0).view(C, 27, cap // T, T) \
+            - (torch.arange(cap // T, device=J.device) * T)[:, None]
+        kmax = last.clamp_min(0).amax(-1).sum((1, 2))          # [C]
+        cnt["new_tests"] += int((active * kmax).sum())
+    pairs = max(cnt["pairs"], 1)
+    cnt["old_lane_eff"] = pairs / (32 * max(cnt["old_bodies"], 1))
+    cnt["new_lane_eff"] = pairs / (32 * max(cnt["new_rounds"], 1))
+    return cnt
+
+
+def log_lanes(what, lc):
+    log(f"  {what}: {lc['pairs']:.4e} in-support pairs; old design "
+        f"{lc['old_bodies']:.4e} warp body executions (lane efficiency "
+        f"{lc['old_lane_eff']:.4f}), {lc['old_tests']:.4e} warp tests; "
+        f"new {lc['new_rounds']:.4e} rounds ({lc['new_lane_eff']:.4f}), "
+        f"{lc['new_tests']:.4e} warp tests")
+
+
+def momentum_ptxas():
+    """Registers and spills of K7's kernels from the build's ptxas -v
+    output: the new routine and its launch forms (mom::momentum_cell,
+    mom::cell_momentum<AvClean, Gated, Column>), or the former
+    cell_pair_stream<MomentumBody<AvClean>, Gated, Column>."""
+    import re
+    from sphexa_tpu_torch.ops import _cuda
+
+    out, name = {"raw": []}, None
+    text = _cuda.build_info.get("cell_pair.cu", {}).get("ptxas", "")
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w.$]+)", line)
+        if m:
+            name = m.group(1)
+        if name is None or not re.search(r"momentum_cell|cell_momentum|"
+                                         r"MomentumBody", name):
+            continue
+        out["raw"].append(line.strip())
+        if m:
+            continue
+        t = re.search(r"cell_momentumILb(\d)ELb(\d)ELb(\d)E", name) or \
+            re.search(r"MomentumBodyILb(\d)E+Lb(\d)ELb(\d)E", name)
+        key = ("cell_momentum<%s,%s,%s>" % t.groups() if "cell_momentum"
+               in name else "stream<MomentumBody<%s>,%s,%s>" % t.groups()) \
+            if t else ("momentum_cell<%s>" % name.split("ILb")[1][0]
+                       if "momentum_cell" in name else name[:60])
+        rec = out.setdefault(key, {})
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rec["spill_stores"], rec["spill_loads"] = map(int, m.groups())
+    return out
+
+
 def xh_recounts(J, out, grid, cfg, per_slot):
     """Candidates K3 must count again on these inputs: d2 is computed
     once, and a slot needs one more count over its candidates for each
@@ -546,6 +718,14 @@ def timing(report, eng, rst, grid, launches):
         f"xmass: h moved on {moved} slots, {recount:.4e} candidates "
         f"counted again")
 
+    mom_J = next(a[0] for k, a, _ in pair_calls
+                 if k.name == "pair_momentum")
+    lanes = k7_lane_counts(mom_J, grid, eng.intmask)
+    log_lanes(f"K7 at cap {grid.cap}", lanes)
+    regs = momentum_ptxas()
+    log(f"  K7 registers and spills (ptxas): "
+        f"{dict((k, v) for k, v in regs.items() if k != 'raw')}")
+    report["k7_lanes"], report["k7_ptxas"] = lanes, regs
     for k, (J, I2, g, c), out in pair_calls:
         ref = k.plain(J, I2, g, c)
         err, rel = compare(k.name, ref, out, valid_slots(J) & eng.intmask,
@@ -584,6 +764,12 @@ def timing(report, eng, rst, grid, launches):
         plain_ms += cuda_ms(lambda: k.plain(st.clone(), g, b, xyz), 3)
         lib_ms += cuda_ms(lambda: torch.index_select(st, 1, src, out=buf), 20)
         nbytes += 2 * 4 * st.shape[0] * src.numel()
+    sp = ghost_split([c[:2] for c in ghost_calls], src)
+    log_split(f"K1 device/dispatch split, sums over the "
+              f"{len(ghost_calls)} refreshes", sp)
+    log(f"  K1 target (no slower than index_select, events): "
+        f"{'met' if ms <= lib_ms else 'missed'}")
+    report["k1_split"] = sp
     rows.insert(0, dict(
         name="ghost_refresh", route="cuda",
         source="sphexa_tpu_torch/csrc/ghost_refresh.cu",
@@ -1642,7 +1828,7 @@ def sharded_main_path(report, D):
     from sphexa_tpu_torch.domain.mesh import SlabMesh
     from sphexa_tpu_torch.domain.slab import migrate
     from sphexa_tpu_torch.ops import pair_ve as pv
-    from sphexa_tpu_torch.ops.cellmajor import CMGrid
+    from sphexa_tpu_torch.ops.cellmajor import CMGrid, interior_mask
     from sphexa_tpu_torch.propagator.common import compute_energies
     from sphexa_tpu_torch.propagator.ve_cellmajor import make_ve_step_cellmajor
     from sphexa_tpu_torch.propagator.ve_pallas_sharded import (
@@ -1736,6 +1922,10 @@ def sharded_main_path(report, D):
     pair_calls = [c for c in spy.calls if c[0] is not pv.ghost_refresh_xy]
     assert len(k1z_calls) == len(ZX_ROWS) * D
     pair_errs = sharded_pair_check(grid, pair_calls)
+    mom_J = next(a[0] for k, a, _ in pair_calls
+                 if k.name == "pair_momentum")
+    lanes = k7_lane_counts(mom_J, grid, interior_mask(grid, mom_J.device))
+    log_lanes(f"K7 at cap {grid.cap} (shard 0 of D={D})", lanes)
     pair_ms = {}
     for k, args, _ in pair_calls:
         pair_ms[k.name] = pair_ms.get(k.name, 0.0) + cuda_ms(
@@ -1759,6 +1949,7 @@ def sharded_main_path(report, D):
         k1z["library_ms"] += cuda_ms(
             lambda: torch.index_select(st, 1, src, out=buf), 20)
         k1z["bytes"] += 2 * 4 * st.shape[0] * src.numel()
+    k1z["split"] = ghost_split([c[:2] for c in k1z_calls], src)
 
     # the z exchange and migration alone, in one mesh.run of 10 repeats
     zx = make_zxchg(grid, box, mesh)
@@ -1804,6 +1995,10 @@ def sharded_main_path(report, D):
         f"migration {mig_ms:.3f} ms, pair kernels "
         f"{sum(pair_ms.values()):.3f} ms "
         f"{dict((k, round(v, 3)) for k, v in pair_ms.items())}")
+    log_split(f"K1z D={D} device/dispatch split, sums over the step's "
+              f"{len(k1z_calls)} launches", k1z["split"])
+    log(f"  K1z D={D} target (no slower than index_select, events): "
+        f"{'met' if k1z['ms'] <= k1z['library_ms'] else 'missed'}")
     log(f"  pair launches at cap {grid.cap} against plain on "
         f"{SHARD_SAMPLE_CELLS} sampled cells each: max abs err "
         f"{dict((k, float(f'{v:.3e}')) for k, v in pair_errs.items())}; "
@@ -1816,7 +2011,7 @@ def sharded_main_path(report, D):
             dt=[sd["dt"], float(d1.dt)], eint=[sd["eint"], float(d1.eint)],
             ecin=[sd["ecin"], float(d1.ecin)], pos_err=pos_err,
             vx_err=vx_err), k1z=k1z, zxchg_ms=zx_ms, migrate_ms=mig_ms,
-        pair_ms=pair_ms, pair_errs=pair_errs)
+        pair_ms=pair_ms, pair_errs=pair_errs, k7_lanes=lanes)
     del states
     return dict(
         name="ghost_refresh_xy", route="cuda",
@@ -1893,8 +2088,86 @@ def sharded_bdt_main_path(report, D=2, nr=4):
         rung_hist_single=hist1, rung_differs=differ, launches=launches)
 
 
+def compare_main(tag: str) -> int:
+    """--compare [tag]: K1, K1z and K7 alone, so that two checkouts can
+    be compared in one call. K1 over the five refreshes of one Sedov
+    100^3 resident step and K7 at that step's inputs (events time,
+    in-support pairs and lane efficiency, registers), then 3 timed
+    resident steps and 2 timed BdtVE cycles (4 rungs); K1z over the
+    6 * D launches of a 100^3 sharded step (stacks of ZX_ROWS' row
+    counts, on the plan_slab local grids, z open); K1 and K1z split by
+    ghost_split. Writes chiprun_out/compare<tag>.json."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
+    from sphexa_tpu_torch.sfc.box import Boundary
+
+    smi = smi_line()
+    log(smi)
+    state, box, cfg, grid = sedov(MAIN_SIDE, DEVICE)
+    eng = ResidentVE(box, grid, cfg, device=DEVICE)
+    rst = eng.bind(state)
+    with Spy((pv.ghost_refresh, pv.pair_momentum)) as spy:
+        eng.step(rst)
+    torch.cuda.synchronize()
+    ghost = [c[:2] for c in spy.calls if c[0] is pv.ghost_refresh]
+    k, args, _ = next(c for c in spy.calls if c[0] is pv.pair_momentum)
+    src = torch.tensor(pv._ghost_maps(grid, box)["src"], device=DEVICE)
+    out = {"smi": smi, "K1": ghost_split(ghost, src),
+           "K7_ms": [cuda_ms(lambda: k._launch(*args), 5) for _ in range(3)],
+           "K7_lanes": k7_lane_counts(args[0], grid, eng.intmask),
+           "K7_ptxas": momentum_ptxas()}
+    step_ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    step_ev[0].record()
+    for i in range(3):
+        rst, _ = eng.step(rst)
+        step_ev[i + 1].record()
+    state_b, beng = bdt_setup(MAIN_SIDE, DEVICE, 4)
+    bst, _ = beng.run_cycle(beng.bind_bdt(state_b))      # warm-up
+    cyc = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cyc[0].record()
+    for i in range(2):
+        bst, _ = beng.run_cycle(bst)
+        cyc[i + 1].record()
+    torch.cuda.synchronize()
+    out["step_ms"] = [a.elapsed_time(b) for a, b in zip(step_ev, step_ev[1:])]
+    out["bdt_cycle_ms"] = [a.elapsed_time(b) for a, b in zip(cyc, cyc[1:])]
+    del beng, bst, state_b
+    log_split(f"K1 {grid}, {len(ghost)} refreshes", out["K1"])
+    log(f"  K7 {grid}: {out['K7_ms']} ms (events, 3 x 5 launches)")
+    log(f"  resident step {out['step_ms']} ms, BdtVE cycle "
+        f"{out['bdt_cycle_ms']} ms (4 rungs, after a warm-up cycle)")
+    log_lanes("K7", out["K7_lanes"])
+    log(f"  K7 ptxas: "
+        f"{dict((k, v) for k, v in out['K7_ptxas'].items() if k != 'raw')}")
+    del eng, rst, spy, args
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    for D in SHARD_D:
+        _, gbox, _, lgrid, _ = sharded_setup(D)
+        lbox = dataclasses.replace(gbox, bz=Boundary.open)
+        src = torch.tensor(pv._ghost_maps(lgrid, lbox, False)["src"],
+                           device=DEVICE)
+        calls = [(pv.ghost_refresh_xy, (torch.randn(
+            (r, lgrid.n_slots), device=DEVICE, generator=gen), lgrid, lbox,
+            None)) for _ in range(D) for r, _ in ZX_ROWS]
+        out[f"K1z_D{D}"] = ghost_split(calls, src)
+        log_split(f"K1z D={D} {lgrid}, {len(calls)} launches",
+                  out[f"K1z_D{D}"])
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"compare{tag}.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--compare"]:
+        return compare_main(sys.argv[2] if len(sys.argv) > 2 else "")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2

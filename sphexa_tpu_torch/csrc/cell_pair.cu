@@ -6,21 +6,23 @@
 //   stage 1  GradhBody     <- _gradh_body       (pallas_ve.py:622)
 //   stage 2  IadBody       <- _iad_direct_body  (pallas_ve.py:704)
 //   stage 3  AvBody        <- _av_direct_body   (pallas_ve.py:900, :865, :884)
-//   stage 4  MomentumBody<false> <- _momentum_body (pallas_ve.py:1022), avClean off
+//   stage 4  mom::momentum_cell<false> <- _momentum_body (pallas_ve.py:1022), avClean off
 //   stage 5  IadMmBody     <- _iad_hybrid_body  (pallas_ve.py:769)     K8
 //   stage 6  AvMmBody      <- _av_mm_body       (pallas_ve.py:949)     K9
 //   stage 7  momentum_mm   <- _momentum_mm_body (pallas_ve.py:1190)    K10
-//   stage 8  MomentumBody<true> <- _momentum_body, avClean branch     K7c
+//   stage 8  mom::momentum_cell<true> <- _momentum_body, avClean branch K7c
 //            (pallas_ve.py:1031-1033, :1057-1060, :1094-1116)
 //
-// Launch skeleton: one thread block per interior cell, one thread per
-// i-slot (blockDim = cap; K10 has its own, see cell_pair_momentum_mm). The block walks the 27 neighbour cells,
-// stages each cell's [FJ, cap] j-rows in shared memory, and every thread
-// accumulates its pair sums in registers; all threads read the same j
-// value at once (a shared-memory broadcast). The xmass stage iterates
-// its h controller over the same candidates several times, so it stages
-// all 27 cells' x, y, z, m at once (27 * 4 * cap floats of dynamic
-// shared memory) and loops there.
+// Launch skeleton of stages 0-3 and 5-6: one thread block per interior
+// cell, one thread per i-slot (blockDim = cap; K10 has its own, see
+// cell_pair_momentum_mm; K7 and K7c theirs, see mom::momentum_cell:
+// occupied slots only, pairs compacted across lanes). The block walks
+// the 27 neighbour cells, stages each cell's [FJ, cap] j-rows in shared
+// memory, and every thread accumulates its pair sums in registers; all
+// threads read the same j value at once (a shared-memory broadcast).
+// The xmass stage iterates its h controller over the same candidates
+// several times, so it stages all 27 cells' x, y, z, m at once (27 * 4
+// * cap floats of dynamic shared memory) and loops there.
 //
 // Frame contract (as the Pallas kernels): invalid slots carry FILL_POS
 // positions and drop out through the distance overflow; self-pairs are
@@ -57,7 +59,9 @@
 //           64, one block an SM, so no form to keep anyway).
 //   stream  per z-step as the cell launch: each neighbour cell staged
 //           in turn (cell_pair_stream), or all 27 for the xmass body
-//           (cell_pair_resident); K10 streams (cell_pair_momentum_mm).
+//           (cell_pair_resident); K10 streams (cell_pair_momentum_mm);
+//           K7 and K7c call the cell launch's routine for each cell
+//           (mom::cell_momentum).
 // Each thread visits the 27 cells in the cell launch's order, so its
 // sums, and the outputs on interior slots, are those of the cell launch
 // bit for bit; the output rows are written on interior slots only.
@@ -646,154 +650,6 @@ __device__ __forceinline__ void exp_pair(float x, float& ep, float& em)
     em = even - odd;
 }
 
-// K7c, AvClean = true (stage 8): the avClean rv correction of
-// _momentum_body (pallas_ve.py:1094-1116, momentum_energy_kern.hpp:
-// 44-63) on six more staged j-rows (the symmetrised gradv d11..d33);
-// eta_crit is read on the i side only. It adds two quadratic forms, an
-// exp below eta_crit and a guarded divide per in-support pair (~40
-// flops); the bound stays arithmetic.
-template <bool AvClean>
-struct MomentumBody {
-    // x y z h vx vy vz c prho rho xm alpha m c11 c12 c13 c22 c23 c33
-    // [+ d11 d12 d13 d22 d23 d33]
-    static constexpr int FJ = AvClean ? 25 : 19;
-    static constexpr int FO = 5;
-    static constexpr int NM = 0, NORIGIN = 0;
-    __device__ static int jrow(int s) { return s < 4 ? s : s + 1; }
-
-    float xi, yi, zi, hinv, hinv2, hi3inv, ci, alphai, rhoi, rhoi_inv, prhoi,
-        xmi, lxmi, vxi, vyi, vzi;
-    float ic[6];
-    float dvi[AvClean ? 6 : 1];
-    float eta_crit;
-    float mx, my, mz, energy, avisc, vsig;
-    int n_w;
-    bool uniform;
-    float ramp, atmin, atmax;
-
-    __device__ void load_i(const float* J, const float*, long long islot,
-                           long long ns, const PairParams& p)
-    {
-        xi = JI(0); yi = JI(1); zi = JI(2);
-        float hi = JI(3);
-        vxi = JI(5); vyi = JI(6); vzi = JI(7); ci = JI(8); prhoi = JI(9);
-        rhoi = JI(10); xmi = JI(11); alphai = JI(12);
-        for (int r = 0; r < 6; ++r) ic[r] = JI(14 + r);
-        if constexpr (AvClean) {
-            for (int r = 0; r < 6; ++r) dvi[r] = JI(20 + r);
-            eta_crit = JI(26);
-        }
-        hinv = __fdiv_rn(1.0f, hi);
-        hinv2 = __fmul_rn(hinv, hinv);
-        hi3inv = hinv * hinv2;
-        rhoi_inv = 1.0f / rhoi;
-        lxmi = logf(xmi);
-        mx = my = mz = energy = avisc = 0.0f;
-        vsig = SPH_NEG;
-        n_w = p.n_w;
-        uniform = p.uniform_mass != 0;
-        ramp = p.ramp; atmin = p.atmin; atmax = p.atmax;
-    }
-
-    __device__ void pair(const float* sj, int k, int stride)
-    {
-        float rx = __fsub_rn(xi, SJ(0)), ry = __fsub_rn(yi, SJ(1)),
-              rz = __fsub_rn(zi, SJ(2));
-        float d2 = dist2(rx, ry, rz);
-        float v2i = __fmul_rn(d2, hinv2);
-        if (!(v2i < 4.0f)) return;
-        float hj_inv = 1.0f / SJ(3);
-        float v2j = d2 * (hj_inv * hj_inv);
-        float Wi = w_v2(v2i, n_w) * hi3inv;
-        float Wj = w_v2(v2j, n_w) * (hj_inv * hj_inv * hj_inv);
-
-        float tAi0 = -(ic[0] * rx + ic[1] * ry + ic[2] * rz) * Wi;
-        float tAi1 = -(ic[1] * rx + ic[3] * ry + ic[4] * rz) * Wi;
-        float tAi2 = -(ic[2] * rx + ic[4] * ry + ic[5] * rz) * Wi;
-        float tAj0 = -(SJ(13) * rx + SJ(14) * ry + SJ(15) * rz) * Wj;
-        float tAj1 = -(SJ(14) * rx + SJ(16) * ry + SJ(17) * rz) * Wj;
-        float tAj2 = -(SJ(15) * rx + SJ(17) * ry + SJ(18) * rz) * Wj;
-
-        float vx_ij = vxi - SJ(4), vy_ij = vyi - SJ(5), vz_ij = vzi - SJ(6);
-        float rv = rx * vx_ij + ry * vy_ij + rz * vz_ij;
-        const float inv_d = rsqrtf(fmaxf(d2, 1e-30f));
-        if constexpr (AvClean) {
-            // the quadratic forms as the JAX body writes them: the gradv
-            // off-diagonals are symmetrised sums (q2 = d22 ry + d23 rz,
-            // q3 = d33 rz)
-            auto quad = [&](float d11, float d12, float d13, float d22,
-                            float d23, float d33) {
-                float q1 = d11 * rx + d12 * ry + d13 * rz;
-                float q2 = d22 * ry + d23 * rz;
-                float q3 = d33 * rz;
-                return rx * q1 + ry * q2 + rz * q3;
-            };
-            float dmy1 = quad(dvi[0], dvi[1], dvi[2], dvi[3], dvi[4], dvi[5]);
-            float dmy2 = quad(SJ(19), SJ(20), SJ(21), SJ(22), SJ(23), SJ(24));
-            float dist = d2 * inv_d;
-            float eta_ab = dist * fminf(hinv, hj_inv);
-            float eta_diff = 5.0f * (eta_ab - eta_crit);
-            float dmy3 = eta_ab < eta_crit ? expf(-eta_diff * eta_diff) : 1.0f;
-            float A_ab = dmy2 != 0.0f ? dmy1 / dmy2 : 0.0f;
-            float A_abp1 = 1.0f + A_ab;
-            float phi = 0.5f * dmy3
-                * fminf(fmaxf(4.0f * A_ab / (A_abp1 * A_abp1), 0.0f), 1.0f);
-            rv = rv - phi * (dmy1 + dmy2);
-        }
-        float wij = rv * inv_d;
-        float csum = ci + SJ(7);
-        float vij_signal = (alphai + SJ(11)) * 0.25f * csum - 2.0f * wij;
-        float visc = wij < 0.0f ? -vij_signal * wij : 0.0f;
-        if (d2 > 0.0f) vsig = fmaxf(vsig, 0.5f * csum - 2.0f * wij);
-
-        float mj = SJ(12), xmj = SJ(10), rhoj = SJ(9);
-        float drho = fabsf(rhoi - rhoj);
-        float srho = rhoi + rhoj;
-        float sigma = ramp * (drho / srho - atmin);
-        float lxmj = logf(xmj);
-        float prod = xmi * xmj;
-        float a_mom, b_mom;
-        if (uniform) {
-            float sc = fminf(fmaxf(sigma, 0.0f), 1.0f);
-            float ep, em;
-            exp_pair((1.0f - sc) * (lxmj - lxmi), ep, em);
-            a_mom = prod * em;
-            b_mom = prod * ep;
-        } else {
-            bool is_lo = drho < atmin * srho;
-            bool is_hi = drho > atmax * srho;
-            float t = expf((sigma - 1.0f) * (lxmj - lxmi));
-            a_mom = is_lo ? xmi * xmi : (is_hi ? prod : prod * t);
-            b_mom = is_lo ? xmj * xmj : (is_hi ? prod : prod / t);
-        }
-
-        float a_visc = (mj * rhoi_inv) * visc;
-        float b_visc = (mj / rhoj) * visc;
-        float avx = 0.5f * (a_visc * tAi0 + b_visc * tAj0);
-        float avy = 0.5f * (a_visc * tAi1 + b_visc * tAj1);
-        float avz = 0.5f * (a_visc * tAi2 + b_visc * tAj2);
-        avisc += avx * vx_ij + avy * vy_ij + avz * vz_ij;
-        energy += mj * a_mom * (vx_ij * tAi0 + vy_ij * tAi1 + vz_ij * tAi2);
-        float mom_i = mj * prhoi * a_mom;
-        float mom_j = mj * SJ(8) * b_mom;
-        mx += mom_i * tAi0 + mom_j * tAj0 + avx;
-        my += mom_i * tAi1 + mom_j * tAj1 + avy;
-        mz += mom_i * tAi2 + mom_j * tAj2 + avz;
-    }
-
-    __device__ void store(const float* J, const float*, float* out,
-                          long long islot, long long ns, const PairParams& p)
-    {
-        const float K3d = p.K3d;
-        float du = K3d * (prhoi * energy + 0.5f * fmaxf(avisc, 0.0f));
-        const float o[5] = {-K3d * mx, -K3d * my, -K3d * mz, du,
-                            fmaxf(vsig, 0.0f)};
-        const bool ok = xi < HALF_FILL;
-#pragma unroll
-        for (int r = 0; r < 5; ++r) out[r * ns + islot] = ok ? o[r] : 0.0f;
-    }
-};
-
 #undef SJ
 #undef JI
 
@@ -846,10 +702,13 @@ __device__ __forceinline__ Walk block_walk(const PairGeom& g, int zseg)
 // an active supercell is recomputed, as on the TPU (its fresh outputs
 // are what its active neighbours read in the next stage). Any block
 // size works: the threads stride over the Z*cap flags and cap slots.
+// A block that computes only some i-slots of its cell (K7's i-tiles)
+// copies slots [s0, s0 + nslot) of it.
 template <int FO>
 __device__ __forceinline__ bool gate_closed(const PairGate& gt,
                                             const PairGeom& g,
-                                            long long own, float* out)
+                                            long long own, float* out,
+                                            int s0 = 0, int nslot = -1)
 {
     const int cap = g.cap;
     const int cz = (int)(own % g.npz);
@@ -858,7 +717,8 @@ __device__ __forceinline__ bool gate_closed(const PairGate& gt,
     for (int s = threadIdx.x; s < gt.Z * cap; s += blockDim.x)
         any |= gt.act[first + s] > 0.5f;
     if (__syncthreads_or(any)) return false;
-    for (int s = threadIdx.x; s < cap; s += blockDim.x) {
+    if (nslot < 0) nslot = cap;
+    for (int s = s0 + threadIdx.x; s < s0 + nslot; s += blockDim.x) {
         const long long islot = own * cap + s;
 #pragma unroll
         for (int r = 0; r < FO; ++r)
@@ -1015,6 +875,490 @@ cell_pair_column(const float* __restrict__ J, const float* __restrict__ I2,
         }
     }
 }
+
+// --------------------------------------------------------------------------
+// stage 4 (K7) and stage 8 (K7c, AvClean): momentum and energy.
+// Replaces _momentum_body (pallas_ve.py:1022; avClean branch :1031-1033,
+// :1057-1060, :1094-1116, momentum_energy_kern.hpp:44-63): per i-slot
+// the pair sums of the momentum, energy, AV heating and max signal
+// velocity over the in-support pairs of its 27 neighbour cells, with
+// the Atwood-ramped VE terms; K7c adds the avClean rv correction on six
+// more j-rows (the symmetrised gradv) and eta_crit on the i side.
+//
+// Bound: arithmetic, ~170 flops a pair inside the i-support (K7c ~220)
+// plus the 9-flop distance test of every candidate.
+//
+// One device routine, momentum_cell, computes one interior cell for
+// every launch form: the cell launch (stage 4 and 8), K2g's gated form
+// of stage 4 and K11's stream form of both (cell_momentum below). It is
+// __noinline__, so every form calls one compiled routine of the same
+// arithmetic (ptxas allocates its registers per kernel), and K11 and
+// K2g equal the cell launch bit for bit on the card.
+//
+// A block of T = min(cap, 128) threads takes the T i-slots of one i-tile
+// of its cell (cap > 128: ceil(cap / 128) blocks a cell, blockIdx.y);
+// a tile with no valid i-slot stores zeros and returns before staging.
+// From cap 128 a block has 4 warps; at cap 64 the cell's i-slots fill
+// only 2, and the latency is hidden by the ~10 blocks an SM instead.
+// The 27 neighbour cells are walked in the cell launch's order as units
+// of one j-tile (T slots) each:
+//  1. Occupied slots only. Warp w stages the 32 slots [32w, 32w+32) of
+//     a j-tile only where its ballot on x < HALF_FILL finds a valid
+//     slot, and records the tile's last valid slot; the support tests
+//     then run over slots [0, last valid + 1) only. The layout fills a
+//     cell's valid slots as a prefix (ops/cellmajor.build_layout), so
+//     this stages exactly the occupied 32-slot groups; a slot left
+//     invalid inside the range fails the support test (FILL_POS) as
+//     before. Warps whose i-slots are all invalid run no tests.
+//  2. j-only terms once per staged slot: 1/h, 1/h^2, 1/h^3, logf(xm),
+//     m / rho and m * prho are written as extra rows when a slot is
+//     staged, with the expressions and association the pair body used.
+//  3. Pair compaction across lanes. Per warp and chunk of 32 staged
+//     j-slots, each lane runs the support test (dist2 and __fmul_rn(d2,
+//     hinv2) < 4, unchanged) of its own i against the chunk into a
+//     32-bit mask; a warp scan of the popcounts places each lane's
+//     in-support (i, k) pairs in (i, k) order. The warp then evaluates
+//     the body 64 pairs at a time, two rounds of full lanes: lane q
+//     takes pairs p0 + q and p0 + 32 + q, finds each one's owner lane
+//     and j-slot by binary search over the offsets and the owner's mask,
+//     reads the owner's i-terms from shared memory and writes the pair's
+//     six contributions (mx, my, mz, energy, avisc, vsig) to shared
+//     memory. Each owner lane then adds its own pairs in k order (four
+//     entries' loads in flight), so every per-i sum takes its pairs in
+//     the order of the cell launch before it (nb, then slot), one at a
+//     time. Two rounds a batch took K7 from 5.26 to 4.89 ms at Sedov
+//     100^3 (one round a batch, or four, were slower; chip_smoke.py
+//     --compare on NVIDIA H100 80GB HBM3, 700 W).
+//  4. Staging overlaps compute: two j-tile buffers; the next unit is
+//     copied with 16-byte cp.async (4-byte where J is not 16-byte
+//     aligned) while the current one is computed, its x row read two
+//     units ahead, its j-only terms written from registers after the
+//     compute, so one barrier a unit suffices.
+// Shared memory: 2 * NROW * T floats of tiles (NROW 23, K7c 29), the
+// NI i-terms of the block's T i-slots (NI 21, K7c 29) and 6 * 64
+// contributions a warp: 20.2 KB at cap 64 (K7c 25.4 KB), 40.5 KB (K7c
+// 50.7 KB) from cap 128, so about 10 (K7c 8) blocks fit an SM at cap
+// 64 and 5 (4) from cap 128. Keeping the i-terms there rather than in
+// registers (shuffled to the evaluating lane) cut the register count
+// by about 40 and K7 from 5.90 to 5.24 ms (same runs as above).
+// --------------------------------------------------------------------------
+namespace mom {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int TILE = 128;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p)
+{
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src)
+{
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src)
+{
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all()
+{
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// staged rows of a j-tile: NCOPY copied from J (J row jrow(r)), then the
+// j-only terms
+template <bool AvClean>
+struct Rows {
+    static constexpr int X = 0, Y = 1, Z = 2, VX = 3, VY = 4, VZ = 5, C = 6,
+                         RHO = 7, XM = 8, AL = 9, M = 10, C11 = 11, D11 = 17;
+    static constexpr int NCOPY = AvClean ? 23 : 17;
+    static constexpr int HINV = NCOPY, HINV2 = NCOPY + 1, HINV3 = NCOPY + 2,
+                         LXM = NCOPY + 3, MRHO = NCOPY + 4,
+                         MPRHO = NCOPY + 5;
+    static constexpr int NROW = NCOPY + 6;
+    // x y z vx vy vz c rho xm alpha m c11..c33 [d11..d33]
+    __device__ static int jrow(int r)
+    {
+        return r < 3 ? r : (r < 6 ? r + 2 : (r == 6 ? 8 : r + 3));
+    }
+};
+
+// i-terms: the rows of shared memory that the lane evaluating a pair
+// reads at its owner's column
+enum : int {
+    I_X, I_Y, I_Z, I_HINV2, I_HI3, I_C, I_AL, I_RHO, I_RHOINV, I_PRHO,
+    I_XM, I_LXM, I_VX, I_VY, I_VZ, I_C11, I_HINV = I_C11 + 6, I_D11,
+    I_ETA = I_D11 + 6
+};
+
+// the six contributions of pair (i, k): mx, my, mz, energy, avisc, vsig
+// (arithmetic of the former per-pair body, on the staged j-only terms)
+template <bool AvClean>
+__device__ __forceinline__ void pair_terms(const float* a, const float* sb,
+                                           int T, int k, const PairParams& p,
+                                           float* c)
+{
+    using R = Rows<AvClean>;
+#define S(r) sb[(r) * T + k]
+#define A(q) a[(q) * T]
+    const float rx = __fsub_rn(A(I_X), S(R::X)),
+                ry = __fsub_rn(A(I_Y), S(R::Y)),
+                rz = __fsub_rn(A(I_Z), S(R::Z));
+    const float d2 = dist2(rx, ry, rz);
+    const float v2i = __fmul_rn(d2, A(I_HINV2));
+    const float hj_inv = S(R::HINV);
+    const float v2j = d2 * S(R::HINV2);
+    const float Wi = w_v2(v2i, p.n_w) * A(I_HI3);
+    const float Wj = w_v2(v2j, p.n_w) * S(R::HINV3);
+
+    const float tAi0 = -(A(I_C11 + 0) * rx + A(I_C11 + 1) * ry
+                         + A(I_C11 + 2) * rz) * Wi;
+    const float tAi1 = -(A(I_C11 + 1) * rx + A(I_C11 + 3) * ry
+                         + A(I_C11 + 4) * rz) * Wi;
+    const float tAi2 = -(A(I_C11 + 2) * rx + A(I_C11 + 4) * ry
+                         + A(I_C11 + 5) * rz) * Wi;
+    const float tAj0 = -(S(R::C11) * rx + S(R::C11 + 1) * ry
+                         + S(R::C11 + 2) * rz) * Wj;
+    const float tAj1 = -(S(R::C11 + 1) * rx + S(R::C11 + 3) * ry
+                         + S(R::C11 + 4) * rz) * Wj;
+    const float tAj2 = -(S(R::C11 + 2) * rx + S(R::C11 + 4) * ry
+                         + S(R::C11 + 5) * rz) * Wj;
+
+    const float vx_ij = A(I_VX) - S(R::VX), vy_ij = A(I_VY) - S(R::VY),
+                vz_ij = A(I_VZ) - S(R::VZ);
+    float rv = rx * vx_ij + ry * vy_ij + rz * vz_ij;
+    const float inv_d = rsqrtf(fmaxf(d2, 1e-30f));
+    if constexpr (AvClean) {
+        // the quadratic forms as the JAX body writes them: the gradv
+        // off-diagonals are symmetrised sums (q2 = d22 ry + d23 rz,
+        // q3 = d33 rz)
+        auto quad = [&](float d11, float d12, float d13, float d22,
+                        float d23, float d33) {
+            float q1 = d11 * rx + d12 * ry + d13 * rz;
+            float q2 = d22 * ry + d23 * rz;
+            float q3 = d33 * rz;
+            return rx * q1 + ry * q2 + rz * q3;
+        };
+        float dmy1 = quad(A(I_D11), A(I_D11 + 1), A(I_D11 + 2), A(I_D11 + 3),
+                          A(I_D11 + 4), A(I_D11 + 5));
+        float dmy2 = quad(S(R::D11), S(R::D11 + 1), S(R::D11 + 2),
+                          S(R::D11 + 3), S(R::D11 + 4), S(R::D11 + 5));
+        float dist = d2 * inv_d;
+        float eta_ab = dist * fminf(A(I_HINV), hj_inv);
+        float eta_diff = 5.0f * (eta_ab - A(I_ETA));
+        float dmy3 = eta_ab < A(I_ETA) ? expf(-eta_diff * eta_diff) : 1.0f;
+        float A_ab = dmy2 != 0.0f ? dmy1 / dmy2 : 0.0f;
+        float A_abp1 = 1.0f + A_ab;
+        float phi = 0.5f * dmy3
+            * fminf(fmaxf(4.0f * A_ab / (A_abp1 * A_abp1), 0.0f), 1.0f);
+        rv = rv - phi * (dmy1 + dmy2);
+    }
+    const float wij = rv * inv_d;
+    const float ci = A(I_C), csum = ci + S(R::C);
+    const float vij_signal =
+        (A(I_AL) + S(R::AL)) * 0.25f * csum - 2.0f * wij;
+    const float visc = wij < 0.0f ? -vij_signal * wij : 0.0f;
+    c[5] = d2 > 0.0f ? 0.5f * csum - 2.0f * wij : SPH_NEG;
+
+    const float rhoi = A(I_RHO), xmi = A(I_XM);
+    const float mj = S(R::M), xmj = S(R::XM), rhoj = S(R::RHO);
+    const float drho = fabsf(rhoi - rhoj);
+    const float srho = rhoi + rhoj;
+    const float sigma = p.ramp * (drho / srho - p.atmin);
+    const float lxmj = S(R::LXM), lxmi = A(I_LXM);
+    const float prod = xmi * xmj;
+    float a_mom, b_mom;
+    if (p.uniform_mass) {
+        float sc = fminf(fmaxf(sigma, 0.0f), 1.0f);
+        float ep, em;
+        exp_pair((1.0f - sc) * (lxmj - lxmi), ep, em);
+        a_mom = prod * em;
+        b_mom = prod * ep;
+    } else {
+        bool is_lo = drho < p.atmin * srho;
+        bool is_hi = drho > p.atmax * srho;
+        float t = expf((sigma - 1.0f) * (lxmj - lxmi));
+        a_mom = is_lo ? xmi * xmi : (is_hi ? prod : prod * t);
+        b_mom = is_lo ? xmj * xmj : (is_hi ? prod : prod / t);
+    }
+
+    const float a_visc = (mj * A(I_RHOINV)) * visc;
+    const float b_visc = S(R::MRHO) * visc;
+    const float avx = 0.5f * (a_visc * tAi0 + b_visc * tAj0);
+    const float avy = 0.5f * (a_visc * tAi1 + b_visc * tAj1);
+    const float avz = 0.5f * (a_visc * tAi2 + b_visc * tAj2);
+    c[4] = avx * vx_ij + avy * vy_ij + avz * vz_ij;
+    c[3] = mj * a_mom * (vx_ij * tAi0 + vy_ij * tAi1 + vz_ij * tAi2);
+    const float mom_i = mj * A(I_PRHO) * a_mom;
+    const float mom_j = S(R::MPRHO) * b_mom;
+    c[0] = mom_i * tAi0 + mom_j * tAj0 + avx;
+    c[1] = mom_i * tAi1 + mom_j * tAj1 + avy;
+    c[2] = mom_i * tAi2 + mom_j * tAj2 + avz;
+#undef S
+#undef A
+}
+
+// one interior cell `own`, the i-tile blockIdx.y, blockDim.x == T
+template <bool AvClean>
+__device__ __noinline__ void momentum_cell(const float* __restrict__ J,
+                                           float* __restrict__ out,
+                                           const PairGeom g,
+                                           const PairParams p,
+                                           const long long own,
+                                           const int vec)
+{
+    using R = Rows<AvClean>;
+    constexpr int NI = AvClean ? I_ETA + 1 : I_HINV;   // i-terms
+    extern __shared__ __align__(16) float msm[];
+    const int cap = g.cap;
+    const long long ns = g.n_slots;
+    const int T = cap < TILE ? cap : TILE;
+    const int nt = (cap + T - 1) / T;
+    const int t = threadIdx.x, lane = t & 31, w = t >> 5, nw = T >> 5;
+    float* const tiles = msm;                         // [2][NROW][T]
+    float* const C = msm + 2 * R::NROW * T + w * 6 * 64;   // [6][64]
+    int* const lastv = reinterpret_cast<int*>(msm + 2 * R::NROW * T
+                                              + nw * 6 * 64);  // [2][nw]
+    float* const ist = msm + 2 * R::NROW * T + nw * 6 * 64 + 2 * nw;
+
+    // the i side
+    const int ti = blockIdx.y * T + t;
+    const bool ihas = ti < cap;
+    const long long islot = own * cap + (ihas ? ti : 0);
+#define JI(r) J[(long long)(r) * ns + islot]
+    float iv[NI];
+    {
+        const float hi = JI(3);
+        const float hinv = __fdiv_rn(1.0f, hi);
+        const float hinv2 = __fmul_rn(hinv, hinv);
+        iv[I_X] = ihas ? JI(0) : SPH_FILL_POS;
+        iv[I_Y] = JI(1);
+        iv[I_Z] = JI(2);
+        iv[I_HINV2] = hinv2;
+        iv[I_HI3] = hinv * hinv2;
+        iv[I_C] = JI(8);
+        iv[I_AL] = JI(12);
+        iv[I_RHO] = JI(10);
+        iv[I_RHOINV] = 1.0f / iv[I_RHO];
+        iv[I_PRHO] = JI(9);
+        iv[I_XM] = JI(11);
+        iv[I_LXM] = logf(iv[I_XM]);
+        iv[I_VX] = JI(5);
+        iv[I_VY] = JI(6);
+        iv[I_VZ] = JI(7);
+#pragma unroll
+        for (int r = 0; r < 6; ++r) iv[I_C11 + r] = JI(14 + r);
+        if constexpr (AvClean) {
+            iv[I_HINV] = hinv;
+#pragma unroll
+            for (int r = 0; r < 6; ++r) iv[I_D11 + r] = JI(20 + r);
+            iv[I_ETA] = JI(26);
+        }
+    }
+#undef JI
+    // the i-terms to shared memory ([NI][T]; a warp reads only its own
+    // lanes' columns, so the next cell of K11 may overwrite them before
+    // the barrier), the support test's and the store's kept in registers
+#pragma unroll
+    for (int q = 0; q < NI; ++q) ist[q * T + t] = iv[q];
+    const float xi = iv[I_X], yi = iv[I_Y], zi = iv[I_Z],
+                hinv2 = iv[I_HINV2], prhoi = iv[I_PRHO];
+    const bool ivalid = xi < HALF_FILL;
+    // also the barrier after the previous cell's last unit (K11)
+    if (!__syncthreads_or(ivalid)) {
+        if (ihas)
+            for (int r = 0; r < 5; ++r) out[r * ns + islot] = 0.0f;
+        return;
+    }
+    const bool wactive = __ballot_sync(FULL, ivalid) != 0;
+
+    // the units: neighbour cell nb = v / nt, its j-tile q = v % nt
+    const int U = 27 * nt;
+    auto tile_base = [&](int v) {
+        const int nb = v / nt, q = v - nb * nt;
+        return nbr_cell(g, own, nb) * cap + q * T;
+    };
+    auto tile_len = [&](int v) {
+        const int q = v % nt;
+        return min(T, cap - q * T);
+    };
+    auto xload = [&](int v) {
+        return t < tile_len(v) ? J[tile_base(v) + t] : SPH_FILL_POS;
+    };
+    // stage unit v into its buffer: warp w's slot group, if occupied
+    // (cp.async, committed as one group), and the sources of its j-only
+    // terms into e; returns the warp's validity ballot
+    auto issue = [&](int v, float xv, float* e) {
+        const unsigned vm = __ballot_sync(FULL, xv < HALF_FILL);
+        if (lane == 0)
+            lastv[(v & 1) * nw + w] = vm ? 32 * w + 31 - __clz(vm) : -1;
+        if (vm) {
+            const long long b = tile_base(v) + 32 * w;
+            float* dst = tiles + (v & 1) * R::NROW * T + 32 * w;
+            if (vec) {
+                const int seg = (lane & 7) * 4;
+                for (int r = lane >> 3; r < R::NCOPY; r += 4)
+                    cp_async16(dst + r * T + seg,
+                               J + (long long)R::jrow(r) * ns + b + seg);
+            } else {
+                for (int r = 0; r < R::NCOPY; ++r)
+                    cp_async4(dst + r * T + lane,
+                              J + (long long)R::jrow(r) * ns + b + lane);
+            }
+            const long long s = b + lane;
+            e[0] = J[3 * ns + s];        // h
+            e[1] = J[9 * ns + s];        // prho
+            e[2] = J[11 * ns + s];       // xm
+            e[3] = J[13 * ns + s];       // m
+            e[4] = J[10 * ns + s];       // rho
+        }
+        cp_async_commit();
+        return vm;
+    };
+    // the j-only terms of unit v (the pair body's former expressions)
+    auto finish = [&](int v, unsigned vm, const float* e) {
+        if (!vm) return;
+        float* d = tiles + (v & 1) * R::NROW * T + 32 * w + lane;
+        const float hj_inv = 1.0f / e[0];
+        d[R::HINV * T] = hj_inv;
+        d[R::HINV2 * T] = hj_inv * hj_inv;
+        d[R::HINV3 * T] = hj_inv * hj_inv * hj_inv;
+        d[R::LXM * T] = logf(e[2]);
+        d[R::MRHO * T] = e[3] / e[4];
+        d[R::MPRHO * T] = e[3] * e[1];
+    };
+
+    float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, SPH_NEG};
+    float e[5];
+    {
+        const float x0 = xload(0);
+        finish(0, issue(0, x0, e), e);
+    }
+    float xn1 = U > 1 ? xload(1) : SPH_FILL_POS;
+    for (int v = 0; v < U; ++v) {
+        cp_async_wait_all();
+        __syncthreads();
+        unsigned vmn = 0;
+        if (v + 1 < U) vmn = issue(v + 1, xn1, e);
+        const float xn2 = v + 2 < U ? xload(v + 2) : SPH_FILL_POS;
+        const float* sb = tiles + (v & 1) * R::NROW * T;
+        int kmax = -1;
+        for (int q = 0; q < nw; ++q) kmax = max(kmax, lastv[(v & 1) * nw + q]);
+        ++kmax;
+        for (int k0 = 0; wactive && k0 < kmax; k0 += 32) {
+            const int kn = min(32, kmax - k0);
+            unsigned m = 0;
+            if (ivalid) {
+#pragma unroll 4
+                for (int b = 0; b < kn; ++b) {
+                    const int k = k0 + b;
+                    const float d2 = dist2(__fsub_rn(xi, sb[R::X * T + k]),
+                                           __fsub_rn(yi, sb[R::Y * T + k]),
+                                           __fsub_rn(zi, sb[R::Z * T + k]));
+                    if (__fmul_rn(d2, hinv2) < 4.0f) m |= 1u << b;
+                }
+            }
+            const int cnt = __popc(m);
+            int incl = cnt;
+#pragma unroll
+            for (int s = 1; s < 32; s <<= 1) {
+                const int y = __shfl_up_sync(FULL, incl, s);
+                if (lane >= s) incl += y;
+            }
+            const int total = __shfl_sync(FULL, incl, 31);
+            const int off = incl - cnt;
+            for (int p0 = 0; p0 < total; p0 += 64) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int pi = p0 + 32 * h + lane;
+                    int l = 0;            // owner: last lane with off <= pi
+#pragma unroll
+                    for (int s = 16; s > 0; s >>= 1) {
+                        const int o = __shfl_sync(FULL, off, l + s);
+                        if (o <= pi) l += s;
+                    }
+                    const int r = pi - __shfl_sync(FULL, off, l);
+                    const unsigned mm = __shfl_sync(FULL, m, l);
+                    int bit = 0;          // the r-th set bit of mm
+#pragma unroll
+                    for (int s = 16; s > 0; s >>= 1)
+                        if (__popc(mm & ((1u << (bit + s)) - 1u)) <= r)
+                            bit += s;
+                    if (pi < total) {
+                        float c[6];
+                        pair_terms<AvClean>(ist + 32 * w + l, sb, T, k0 + bit,
+                                            p, c);
+#pragma unroll
+                        for (int q = 0; q < 6; ++q)
+                            C[q * 64 + 32 * h + lane] = c[q];
+                    }
+                }
+                __syncwarp();
+                const int lo = max(off, p0) - p0;
+                const int hi = min(off + cnt, p0 + 64) - p0;
+                // four entries' loads in flight, then their adds in order
+                for (int s = lo; s < hi; s += 4) {
+                    float v[4][6];
+#pragma unroll
+                    for (int u = 0; u < 4; ++u)
+#pragma unroll
+                        for (int q = 0; q < 6; ++q)
+                            v[u][q] = s + u < hi ? C[q * 64 + s + u] : 0.0f;
+#pragma unroll
+                    for (int u = 0; u < 4; ++u)
+                        if (s + u < hi) {
+#pragma unroll
+                            for (int q = 0; q < 5; ++q) acc[q] += v[u][q];
+                            acc[5] = fmaxf(acc[5], v[u][5]);
+                        }
+                }
+                __syncwarp();
+            }
+        }
+        if (v + 1 < U) finish(v + 1, vmn, e);
+        xn1 = xn2;
+    }
+
+    if (ihas) {
+        const float K3d = p.K3d;
+        const float du = K3d * (prhoi * acc[3]
+                                + 0.5f * fmaxf(acc[4], 0.0f));
+        const float o[5] = {-K3d * acc[0], -K3d * acc[1], -K3d * acc[2], du,
+                            fmaxf(acc[5], 0.0f)};
+#pragma unroll
+        for (int r = 0; r < 5; ++r) out[r * ns + islot] = ivalid ? o[r] : 0.0f;
+    }
+}
+
+// the cell launch (stage 4, 8), K2g (Gated: stage 4) and K11's stream
+// form (Column); blockIdx.y is the i-tile
+template <bool AvClean, bool Gated, bool Column>
+__global__ void __launch_bounds__(TILE)
+cell_momentum(const float* __restrict__ J, float* __restrict__ out,
+              PairGeom g, PairParams p, PairGate gt, int zseg, int vec)
+{
+    const Walk w = block_walk<Column>(g, zseg);
+    const int T = g.cap < TILE ? g.cap : TILE;
+    const int s0 = blockIdx.y * T;
+    for (int q = 0; q < w.ncell; ++q) {
+        const long long own = w.own0 + q;
+        if constexpr (Gated)
+            if (gate_closed<5>(gt, g, own, out, s0, min(T, g.cap - s0)))
+                return;
+        momentum_cell<AvClean>(J, out, g, p, own, vec);
+    }
+}
+
+}  // namespace mom
 
 // --------------------------------------------------------------------------
 // stage 7 (K10): the momentum stage as five pair-weight families
@@ -1371,7 +1715,7 @@ constexpr size_t SMEM_MAX = 232448;   // 227 KB a block may opt into
 
 // opts kern into `smem` bytes of dynamic shared memory and launches it
 template <class Kern, class... Args>
-cudaError_t start(Kern kern, unsigned nblk, int nthr, size_t smem,
+cudaError_t start(Kern kern, dim3 grid, int nthr, size_t smem,
                   cudaStream_t st, Args... args)
 {
     if (smem > SMEM_MAX) return cudaErrorInvalidValue;
@@ -1380,7 +1724,7 @@ cudaError_t start(Kern kern, unsigned nblk, int nthr, size_t smem,
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return e;
     }
-    if (nblk) kern<<<nblk, nthr, smem, st>>>(args...);
+    if (grid.x && grid.y) kern<<<grid, nthr, smem, st>>>(args...);
     return cudaSuccess;
 }
 
@@ -1441,6 +1785,29 @@ cudaError_t launch_ring(const float* J, const float* I2, float* out,
     }
 }
 
+// K7 and K7c (stage 4, 8): blocks of T = min(cap, 128) threads, one a
+// (cell, i-tile); the cell launch (K2g when gt.act is set) or K11's
+// stream form (zseg > 0)
+template <bool AvClean>
+cudaError_t launch_momentum(const float* J, float* out, const PairGeom& g,
+                            const PairParams& p, const PairGate& gt,
+                            int zseg, cudaStream_t st)
+{
+    using R = mom::Rows<AvClean>;
+    if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
+        return cudaErrorInvalidValue;
+    const int T = g.cap < mom::TILE ? g.cap : mom::TILE;
+    constexpr int NI = AvClean ? mom::I_ETA + 1 : mom::I_HINV;
+    const size_t smem = sizeof(float)
+        * (2 * R::NROW * T + (T / 32) * 6 * 64 + 2 * (T / 32) + NI * T);
+    const dim3 grid(n_blocks(g, zseg), (g.cap + T - 1) / T);
+    const int vec = reinterpret_cast<size_t>(J) % 16 == 0;
+    auto kern = zseg ? mom::cell_momentum<AvClean, false, true>
+        : gt.act != nullptr ? mom::cell_momentum<AvClean, true, false>
+                            : mom::cell_momentum<AvClean, false, false>;
+    return start(kern, grid, T, smem, st, J, out, g, p, gt, zseg, vec);
+}
+
 // K10: blocks of nft * cap threads; the sub-tile T shrinks until the
 // shared memory fits
 cudaError_t launch_momentum_mm(const float* J, float* out, const PairGeom& g,
@@ -1488,7 +1855,7 @@ cudaError_t stage_launch(int stage, const float* J, const float* I2,
     case 3: return BODY(AvBody, false);
     case 4:
         if (ring) return cudaErrorInvalidValue;
-        return BODY(MomentumBody<false>, false);
+        return launch_momentum<false>(J, out, g, p, gt, zseg, st);
     case 5: return BODY(IadMmBody, false);
     case 6: return BODY(AvMmBody, false);
     case 7:
@@ -1497,7 +1864,7 @@ cudaError_t stage_launch(int stage, const float* J, const float* I2,
     case 8:
         if (gt.act != nullptr || ring)          // no K2g form, no ring
             return cudaErrorInvalidValue;
-        return BODY(MomentumBody<true>, false);
+        return launch_momentum<true>(J, out, g, p, gt, zseg, st);
     default: return cudaErrorInvalidValue;
     }
 #undef BODY

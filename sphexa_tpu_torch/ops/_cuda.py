@@ -160,10 +160,15 @@ class PairGate(ctypes.Structure):
     _fields_ = [("act", _P), ("prev", _P), ("Z", _I)]
 
 
+class GhostArgs(ctypes.Structure):
+    """The fixed arguments of one ghost-refresh table (ghost_refresh.cu)."""
+    _fields_ = [("table", _P), ("n_ghost", _I), ("cap", _I), ("lx", _F),
+                ("ly", _F), ("lz", _F), ("periodic", _I), ("fill_pos", _F)]
+
+
 _ARGTYPES = {
     "ghost_refresh.cu": {
-        "ghost_refresh": [_P, _I, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _F, _F, _F, _I, _I, _I, _F, _I, _P]},
+        "ghost_refresh": [_P, _I, _LL, _I, _I, _I, _I, _P, _P]},
     "cell_pair.cu": {
         "pair_launch": [_I, _P, _P, _P, PairGeom, PairParams, PairGate, _P],
         "pair_launch_column": [_I, _P, _P, _P, PairGeom, PairParams, _I, _I,
@@ -184,8 +189,12 @@ def _bind(name: str, lib: ctypes.CDLL):
 
 def lib(src: str) -> ctypes.CDLL:
     """The loaded library of one source (or VARIANTS name), built first
-    if needed. Locked: the shards of a SlabMesh may first launch from
-    several threads at once."""
+    if needed. A loaded library is returned without the lock; loading
+    takes it, since the shards of a SlabMesh may first launch from
+    several threads at once. A library enters _libs only once bound."""
+    handle = _libs.get(src)
+    if handle is not None:
+        return handle
     with _LIB_LOCK:
         if src not in _libs:
             so = build([src])[src]
@@ -196,7 +205,8 @@ def lib(src: str) -> ctypes.CDLL:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on the tensor's device, as a handle."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _check(code: int, what: str):
@@ -204,17 +214,32 @@ def _check(code: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {code}")
 
 
-def ghost_launch(stack, cells, grid, box, xyz_rows, fill_pos: float,
-                 refresh_z: bool = True):
-    """K1 (refresh_z) or K1z over the listed ghost cells."""
-    ix, iy, iz = xyz_rows if xyz_rows is not None else (-1, -1, -1)
-    px, py, pz = box.periodic
-    code = lib("ghost_refresh.cu").ghost_refresh(
-        stack.data_ptr(), stack.shape[0], grid.n_slots, cells.data_ptr(),
-        cells.shape[0], grid.cap, grid.nx, grid.n, grid.nz, int(px), int(py),
-        int(pz), box.lx, box.ly, box.lz, ix, iy, iz, fill_pos,
-        int(refresh_z), _stream(stack))
-    _check(code, "ghost_refresh" if refresh_z else "ghost_refresh (K1z)")
+class GhostLaunch:
+    """K1 or K1z bound to one ghost table (int32 [n_ghost, 4] on the
+    card, see ghost_refresh.cu): the argument block and the C function
+    are made once, so a launch converts only the stack pointer, its row
+    count, the coordinate rows, the form and the stream. The float4 form
+    is taken where cap % 4 == 0 and the stack is 16-byte aligned, the
+    scalar form elsewhere."""
+
+    def __init__(self, table, cap: int, box, fill_pos: float, name: str):
+        self.table = table                     # kept alive for the pointer
+        self.args = GhostArgs(table.data_ptr(), table.shape[0], cap, box.lx,
+                              box.ly, box.lz,
+                              sum(int(p) << k for k, p in
+                                  enumerate(box.periodic)), fill_pos)
+        self.addr = ctypes.addressof(self.args)
+        self.fn = lib("ghost_refresh.cu").ghost_refresh
+        self.vec_cap = cap % 4 == 0
+        self.name = name
+
+    def __call__(self, stack, xyz_rows):
+        ix, iy, iz = xyz_rows if xyz_rows is not None else (-1, -1, -1)
+        ptr = stack.data_ptr()
+        code = self.fn(ptr, stack.shape[0], stack.shape[1], ix, iy, iz,
+                       self.vec_cap and ptr % 16 == 0, self.addr,
+                       _stream(stack))
+        _check(code, self.name)
 
 
 def _pair_args(grid, cfg, K3d: float):

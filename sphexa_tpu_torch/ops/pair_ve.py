@@ -26,7 +26,9 @@ tensor cores.
 K3-K10 share the driver make_cell_pair_call (pallas_ve.py:103), which in
 the port is the launch skeleton of cell_pair.cu: one thread block per
 interior cell, one thread per i-slot, the 27 neighbour cells streamed
-through shared memory.
+through shared memory. K7 and K7c stream only the occupied slots and
+evaluate their in-support pairs compacted across a warp's lanes (one
+routine for the cell, gated and column launches).
 
 K2g, the gated driver (make_cell_pair_call(gated=True), pallas_ve.py:
 162-172, :242-251), is the same stages but K7c as GATED_KERNELS: a
@@ -852,9 +854,12 @@ class PairKernel:
 
 @functools.lru_cache(maxsize=16)
 def _ghost_maps(grid: CMGrid, box: Box, refresh_z: bool = True):
-    """Host maps of K1: ghost cell ids, and per ghost slot its source
-    slot (column and z wrapped, as srcmap and the z-wrap of
-    make_ghost_refresh), its periodic shifts and its open-axis flag.
+    """Host maps of K1: the kernel's table (csrc/ghost_refresh.cu: per
+    ghost cell its destination and source cell and a code of its sides
+    on the axes whose shift applies and of its open flag), and for the
+    plain version per ghost slot its source slot (column and z wrapped,
+    as srcmap and the z-wrap of make_ghost_refresh), its periodic shifts
+    and its open-axis flag.
 
     refresh_z=False (K1z): only the cells of the x-y ghost columns, every
     z of them, each from the wrapped column at the same z (out = v,
@@ -880,9 +885,10 @@ def _ghost_maps(grid: CMGrid, box: Box, refresh_z: bool = True):
         + wz
     px, py, pz = box.periodic
     pz = pz and refresh_z
-    shift = np.stack([side(gx, npx) * box.lx * px,
-                      side(gy, npd) * box.ly * py,
-                      side(gz, npz) * box.lz * pz]).astype(np.float32)
+    sides = np.stack([side(gx, npx) * px, side(gy, npd) * py,
+                      side(gz, npz) * pz])
+    shift = (sides * np.array([box.lx, box.ly, box.lz])[:, None]).astype(
+        np.float32)
     bad = np.zeros(cells.shape, bool)
     axes = ((px, gx, npx), (py, gy, npd))
     if refresh_z:
@@ -891,8 +897,11 @@ def _ghost_maps(grid: CMGrid, box: Box, refresh_z: bool = True):
         if not per:
             bad |= (c == 0) | (c == last - 1)
     lane = np.arange(cap)
+    code = sum((s.astype(np.int64) + 1) << (2 * k) for k, s in
+               enumerate(sides)) | (bad.astype(np.int64) << 6)
     maps = dict(
-        cells=cells.astype(np.int32),
+        table=np.stack([cells, src_cell, code, np.zeros_like(code)],
+                       axis=1).astype(np.int32),
         slots=(cells[:, None] * cap + lane).ravel(),
         src=(src_cell[:, None] * cap + lane).ravel(),
         shift=np.repeat(shift, cap, axis=1),
@@ -921,7 +930,8 @@ class GhostRefresh:
         self.refresh_z = refresh_z
         self.name = "ghost_refresh" if refresh_z else "ghost_refresh_xy"
         self.launches = 0
-        self._cells = {}
+        self._launchers = {}
+        self._last = None
 
     def plain(self, stack, grid: CMGrid, box: Box, xyz_rows=None):
         mp = _ghost_maps(grid, box, self.refresh_z)
@@ -940,14 +950,29 @@ class GhostRefresh:
         stack[:, slots] = vals
         return stack
 
+    def _launcher(self, stack, grid: CMGrid, box: Box):
+        """The bound launch of (grid, box) on the stack's device: its
+        table on the device and its ready argument block, built once.
+        The last one used is checked by identity first, so a launch on
+        the engines' path hashes nothing."""
+        dev = stack.get_device()
+        last = self._last
+        if last is not None and last[0] is grid and last[1] is box \
+                and last[2] == dev:
+            return last[3]
+        key = (grid, box, dev)
+        launcher = self._launchers.get(key)
+        if launcher is None:
+            table = torch.tensor(_ghost_maps(grid, box, self.refresh_z)[
+                "table"], device=stack.device)
+            launcher = _cuda.GhostLaunch(table, grid.cap, box, FILL_POS,
+                                         self.name)
+            self._launchers[key] = launcher
+        self._last = (grid, box, dev, launcher)
+        return launcher
+
     def _launch(self, stack, grid: CMGrid, box: Box, xyz_rows):
-        key = (grid, box, stack.device)
-        if key not in self._cells:
-            self._cells[key] = torch.tensor(
-                _ghost_maps(grid, box, self.refresh_z)["cells"],
-                device=stack.device)
-        _cuda.ghost_launch(stack, self._cells[key], grid, box, xyz_rows,
-                           FILL_POS, self.refresh_z)
+        self._launcher(stack, grid, box)(stack, xyz_rows)
         return stack
 
     def __call__(self, stack, grid: CMGrid, box: Box, xyz_rows=None):

@@ -217,6 +217,137 @@ def test_k1z_matches_plain(cuda, bxy, grid):
         assert not torch.equal(out, st)
 
 
+# K1 and K1z in each form of csrc/ghost_refresh.cu: float4 (cap % 4 == 0,
+# 16-byte aligned stack), scalar by shape (cap 6) and scalar by pointer
+# (a contiguous stack 4 bytes past an aligned allocation)
+GHOST_FORMS = {"float4": (CMGrid(n=4, cap=64, nzi=3, nxi=5), 0),
+               "scalar_cap": (CMGrid(n=3, cap=6, nzi=4, nxi=2), 0),
+               "scalar_ptr": (CMGrid(n=4, cap=64, nzi=3, nxi=5), 1)}
+
+
+@pytest.mark.parametrize("form", sorted(GHOST_FORMS))
+@pytest.mark.parametrize("boundary", ["periodic", "open", "mixed"])
+@pytest.mark.parametrize("refresh_z", [True, False], ids=["K1", "K1z"])
+def test_ghost_refresh_forms_match_plain(cuda, form, boundary, refresh_z):
+    """1 to 15 rows, with and without coordinate rows: bit-equal to the
+    plain version, one launch counted each."""
+    grid, skew = GHOST_FORMS[form]
+    bx = {"periodic": Boundary.periodic, "open": Boundary.open,
+          "mixed": Boundary.periodic}[boundary]
+    by = Boundary.open if boundary == "mixed" else bx
+    bz = Boundary.open if not refresh_z else bx
+    box = Box(-0.5, 0.5, -0.5, 0.4, -0.5, 0.7, bx, by, bz)
+    kern = pv.ghost_refresh if refresh_z else pv.ghost_refresh_xy
+    r = np.random.default_rng(9)
+    for nrows in range(1, 16):
+        for rows in ((None, (0, 1, 2), (2, 0, 1)) if nrows >= 3
+                     else (None,)):
+            st = torch.from_numpy(r.normal(0, 1, (nrows, grid.n_slots))
+                                  .astype(np.float32))
+            buf = torch.empty(st.numel() + skew, device=cuda)
+            dev = buf[skew:].view(st.shape)
+            dev.copy_(st)
+            assert (dev.data_ptr() % 16 == 0) == (skew == 0)
+            ref = kern.plain(st.clone(), grid, box, rows)
+            before = kern.launches
+            out = kern(dev, grid, box, rows)
+            assert kern.launches == before + 1 and out is dev
+            assert torch.equal(out.cpu(), ref), (nrows, rows)
+
+
+# K7, K7c, K2g/K7 and K11's stream form of stages 4 and 8 on synthetic
+# frames at caps 64, 128 and 256: every padded cell empty, partly filled
+# or full (valid slots a prefix, as build_layout fills them)
+MOMENTUM_CAPS = (64, 128, 256)
+
+
+def _momentum_frame(grid, av_clean, seed):
+    """J rows of the momentum stage (PairVE.momentum's order) on `grid`,
+    seeded: particles uniform in their padded cell, h 0.35-0.45 of a
+    cell, the other rows in ranges the step produces; invalid slots
+    carry FILL_POS positions and the engine's finite fills."""
+    r = np.random.default_rng(seed)
+    cap, nc = grid.cap, grid.n_cells
+    kind = np.arange(nc) % 3
+    r.shuffle(kind)
+    count = np.where(kind == 0, 0, np.where(kind == 2, cap,
+                                            r.integers(1, cap, nc)))
+    valid = (np.arange(cap)[None] < count[:, None]).reshape(-1)
+    dx = 1.0 / grid.n
+    cx, cy, cz = (np.repeat(c, cap) for c in
+                  np.unravel_index(np.arange(nc),
+                                   (grid.npx, grid.np_, grid.npz)))
+    ns = grid.n_slots
+    u = lambda lo, hi: r.uniform(lo, hi, ns)          # noqa: E731
+    pos = [-0.5 + (c - 1 + u(0, 1)) * dx for c in (cx, cy, cz)]
+    fill = np.where(valid, 0.0, pv.FILL_POS)
+    rows = [np.where(valid, p, 0.0) + fill for p in pos]
+    rows += [np.where(valid, u(0.35, 0.45) * dx, 1.0),
+             np.where(valid, np.arange(ns), -1.0)]            # h, gid
+    rows += [r.normal(0, 1, ns) for _ in range(3)]            # v
+    rows += [np.where(valid, u(0.5, 1.5), 1.0),               # c
+             np.where(valid, u(0.1, 1.0), 0.0),               # prho
+             np.where(valid, u(0.5, 2.0), 1.0),               # rho
+             u(0.5, 1.5) * dx ** 3,                           # xm
+             u(0.05, 1.0), u(0.5, 1.5) * dx ** 3]             # alpha, m
+    rows += [r.normal(0, 1, ns) for _ in range(6)]            # cij
+    if av_clean:
+        rows += [r.normal(0, 1, ns) for _ in range(6)]        # gradv
+        rows += [u(0.5, 1.5)]                                 # eta_crit
+    J = np.stack(rows).astype(np.float32)
+    return J, valid
+
+
+@pytest.mark.parametrize("cap", MOMENTUM_CAPS)
+@pytest.mark.parametrize("av_clean", [False, True], ids=["K7", "K7c"])
+def test_momentum_forms_match_plain(cuda, cap, av_clean):
+    """K7 (K7c) against plain on full, partial and empty cells; K2g/K7
+    against its gated plain version (inactive slots equal prev); K11's
+    stream form bit-equal to the cell launch on interior slots."""
+    grid = CMGrid(n=3, cap=cap)
+    cfg = SphConfig(av_clean=av_clean)
+    k = pv.pair_momentum_avclean if av_clean else pv.pair_momentum
+    J, valid = _momentum_frame(grid, av_clean, seed=cap + av_clean)
+    J = torch.from_numpy(J).to(cuda)
+    intmask = torch.tensor(np.repeat(_interior_cells_np(grid), cap),
+                           device=cuda)
+    mask = intmask & torch.from_numpy(valid).to(cuda)
+    before = k.launches
+    out = k(J, None, grid, cfg)
+    assert k.launches == before + 1
+    ref = k.plain(J, None, grid, cfg)
+    _check_rows(k.name, ref, out, mask)
+    assert not out[:, intmask & ~mask].any()
+
+    kc = next(c for c in pv.COLUMN_KERNELS if c.name == k.name + "_column")
+    saved = kc.zseg, kc.ring
+    try:
+        for zseg in (1, 2, 3):
+            kc.zseg, kc.ring = zseg, False
+            col = kc(J, None, grid, cfg)
+            assert torch.equal(col[:, intmask], out[:, intmask]), zseg
+            assert not col[:, ~intmask].any()
+    finally:
+        kc.zseg, kc.ring = saved
+    if av_clean:
+        return
+
+    kg = pv.pair_momentum_gated
+    r = np.random.default_rng(cap)
+    act = torch.from_numpy((r.uniform(0, 1, (grid.npx, grid.np_, grid.npz,
+                                              1)) < 0.5).repeat(cap, -1)
+                           .reshape(-1).astype(np.float32)).to(cuda)
+    prev = torch.from_numpy(r.normal(0, 1, (5, grid.n_slots)).astype(
+        np.float32)).to(cuda)
+    gout = kg(J, None, grid, cfg, (act, prev), 1)
+    gref = kg.plain(J, None, grid, cfg, (act, prev), 1)
+    on = pv.supercell_active(act, grid, 1).repeat_interleave(cap)
+    assert (intmask & on).any() and (intmask & ~on).any()
+    assert torch.equal(gout[:, intmask & ~on], prev[:, intmask & ~on])
+    _check_rows(kg.name.removesuffix("_gated"), gref, gout, mask & on)
+    assert torch.equal(gout[:, mask & on], out[:, mask & on])
+
+
 def test_sharded_step_matches_cpu(cuda):
     """make_ve_step_pallas_sharded with two shards on the card against
     the same run on the CPU (plain versions), Sedov 12^3, 2 steps."""
