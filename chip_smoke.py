@@ -19,9 +19,12 @@ Phases (any failure exits non-zero before the last line):
   5. each kernel timed at the main path's own inputs, beside its plain
      version, its bound and (K1) a library gather; K1 and the gather
      also split into device time (a CUDA graph of the launches) and
-     host dispatch; K7's in-support pairs, warp body executions and
-     lane efficiency counted on the card from its inputs, and its
-     registers and spills from the build's ptxas output;
+     host dispatch; K5's and K7's in-support pairs, warp body
+     executions and lane efficiency counted on the card from their
+     inputs; K3's walks counted by the kernel on the card and held
+     equal to the count its inputs predict (one a slot, one more a
+     controller round that moved its h); the registers and spills of
+     K3, K5 and K7 from the build's ptxas output;
   6. (c) the block-time-step path: BdtVE at Sedov 100^3, 4 rungs, one
      warm-up cycle, then 2 timed cycles of 8 substeps (counters zeroed
      just before, read just after); (d) each gated stage timed at the
@@ -63,15 +66,17 @@ Phases (any failure exits non-zero before the last line):
      against its plain version on sampled cells (cap 256), the state
      after 3 steps against make_ve_step_cellmajor on the same global
      grid, and K1z (split as K1), the z exchange, migration and the
-     pair kernels timed, K7's lane counts at cap 256; ShardedBdtVE at
+     pair kernels timed, K5's and K7's lane counts and K3's walks at
+     cap 256; ShardedBdtVE at
      100^3, D = 2, 4 rungs, one warm-up and one timed cycle, its rungs
      beside BdtVE's on the same global grid;
   11. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
-python3 chip_smoke.py --compare [tag] times K1, K1z and K7, 3 resident
-steps and 2 BdtVE cycles at Sedov 100^3 only (see compare_main), to
-compare two checkouts of the repository in one call.
+python3 chip_smoke.py --compare [tag] times K1, K1z, K3, K5 and K7, 3
+resident steps and 2 BdtVE cycles at Sedov 100^3, and K3, K5 and K7 in a
+D = 2 sharded step at cap 256, only (see compare_main), to compare two
+checkouts of the repository in one call.
 """
 
 from __future__ import annotations
@@ -575,18 +580,21 @@ def pair_counts(J, eng, grid, nc_sph):
     return cand, inside, per_slot
 
 
-def k7_lane_counts(J, grid, intmask, batch_pairs=2 ** 28):
-    """K7's work on these inputs, counted on the card from J (rows x, y,
-    z, h), with the kernel's own support test: in-support pairs (valid
-    interior i, valid j), and the lane efficiency of two designs. Old
-    (a thread per i-slot walking every j-slot): a warp runs the
-    body for each (warp, j-slot) where any lane is in support. New
-    (csrc/cell_pair.cu mom::momentum_cell): per warp of 32 i-slots and
-    chunk of 32 staged j-slots, the in-support pairs run in rounds of 32
-    lanes. Lane efficiency = pairs / (32 * body executions). Also the
-    support tests each design issues per warp: old every slot of the 27
-    cells for every warp; new, warps with a valid i-slot over each
-    j-tile's slots up to its last valid one."""
+def lane_counts(J, grid, intmask, batch_pairs=2 ** 28):
+    """The work of the tiled pair routine (csrc/cell_pair.cu
+    tile::pair_cell: K5, K7, K7c) on these inputs, counted on the card
+    from J (rows x, y, z, h), with the kernels' own support test:
+    in-support pairs (valid interior i, valid j), and the lane
+    efficiency (pairs / (32 * warp body executions)) of three designs.
+    Old (a thread per i-slot walking every j-slot, cell_pair_stream): a
+    warp runs the body for each (warp, j-slot) where any lane is in
+    support. Compacted (K7, K7c): per warp of 32 i-slots and chunk of 32
+    staged j-slots, the in-support pairs run in rounds of 32 lanes.
+    Per lane (K5): per warp and chunk, each lane walks its own
+    in-support pairs, so the warp runs the body as often as its busiest
+    lane. Also the support tests each design issues per warp: old every
+    slot of the 27 cells for every warp; new, warps with a valid i-slot
+    over each j-tile's slots up to its last valid one."""
     import torch
     from sphexa_tpu_torch.ops import pair_ve as pv
 
@@ -598,8 +606,8 @@ def k7_lane_counts(J, grid, intmask, batch_pairs=2 ** 28):
     hinv = 1.0 / J[3]
     hinv2 = hinv * hinv
     T = min(cap, 128)
-    cnt = dict(pairs=0, old_bodies=0, new_rounds=0, old_tests=0,
-               new_tests=0)
+    cnt = dict(pairs=0, old_bodies=0, new_rounds=0, lane_bodies=0,
+               old_tests=0, new_tests=0)
     chunk = max(1, batch_pairs // (27 * cap * cap))
     for c0 in range(0, cells.numel(), chunk):
         cc = cells[c0:c0 + chunk]
@@ -615,8 +623,9 @@ def k7_lane_counts(J, grid, intmask, batch_pairs=2 ** 28):
         cnt["pairs"] += int(ins.sum())
         w = ins.view(C, cap // 32, 32, 27, cap)
         cnt["old_bodies"] += int(w.any(2).sum())
-        per_chunk = w.view(C, cap // 32, 32, 27, cap // 32, 32).sum((2, 5))
-        cnt["new_rounds"] += int(((per_chunk + 31) // 32).sum())
+        per_lane = w.view(C, cap // 32, 32, 27, cap // 32, 32).sum(5)
+        cnt["new_rounds"] += int(((per_lane.sum(2) + 31) // 32).sum())
+        cnt["lane_bodies"] += int(per_lane.amax(2).sum())
         cnt["old_tests"] += C * (cap // 32) * 27 * cap
         active = vi.view(C, cap // 32, 32).any(-1).sum(1)     # [C]
         last = torch.where(vj, lane + 1, 0).view(C, 27, cap // T, T) \
@@ -626,6 +635,7 @@ def k7_lane_counts(J, grid, intmask, batch_pairs=2 ** 28):
     pairs = max(cnt["pairs"], 1)
     cnt["old_lane_eff"] = pairs / (32 * max(cnt["old_bodies"], 1))
     cnt["new_lane_eff"] = pairs / (32 * max(cnt["new_rounds"], 1))
+    cnt["lane_lane_eff"] = pairs / (32 * max(cnt["lane_bodies"], 1))
     return cnt
 
 
@@ -633,38 +643,63 @@ def log_lanes(what, lc):
     log(f"  {what}: {lc['pairs']:.4e} in-support pairs; old design "
         f"{lc['old_bodies']:.4e} warp body executions (lane efficiency "
         f"{lc['old_lane_eff']:.4f}), {lc['old_tests']:.4e} warp tests; "
-        f"new {lc['new_rounds']:.4e} rounds ({lc['new_lane_eff']:.4f}), "
-        f"{lc['new_tests']:.4e} warp tests")
+        f"new {lc['new_tests']:.4e} warp tests, compacted "
+        f"{lc['new_rounds']:.4e} rounds ({lc['new_lane_eff']:.4f}), per "
+        f"lane {lc['lane_bodies']:.4e} warp bodies "
+        f"({lc['lane_lane_eff']:.4f})")
 
 
-def momentum_ptxas():
-    """Registers and spills of K7's kernels from the build's ptxas -v
-    output: the new routine and its launch forms (mom::momentum_cell,
-    mom::cell_momentum<AvClean, Gated, Column>), or the former
-    cell_pair_stream<MomentumBody<AvClean>, Gated, Column>."""
+def routine_ptxas():
+    """Registers and spills of the redesigned pair kernels from the
+    build's ptxas -v output: the routines (xh::xh_cell of K3,
+    tile::pair_cell<Stage> of K5, K7, K7c) and their launch forms
+    (xh::cell_xh<Gated, Column>, tile::cell_tile<Stage, Gated,
+    Column>); in a parent checkout the former K7 routine
+    (mom::momentum_cell, mom::cell_momentum) and the thread-a-slot
+    skeletons of K3 and K5 (cell_pair_resident<XhBody>,
+    cell_pair_stream<IadBody>)."""
     import re
     from sphexa_tpu_torch.ops import _cuda
 
-    out, name = {"raw": []}, None
+    def key(name):
+        m = re.search(r"(xh_cell|cell_xh|pair_cell|cell_tile|momentum_cell|"
+                      r"cell_momentum|cell_pair_resident|cell_pair_stream|"
+                      r"cell_pair_column)(\w*?)E?PKf", name)
+        if m is None or name.startswith("_ZZ"):
+            return None
+        tmpl = m.group(2)
+        args = re.findall(r"Lb(\d)E", tmpl)
+        stage = re.search(r"(IadStage|MomStage|XhBody|IadBody|"
+                          r"MomentumBody)", tmpl)
+        if stage is None:
+            if m.group(1).startswith("cell_pair"):
+                return None                  # K4, K6, K8, K9 bodies
+        else:
+            s = stage.group(1)
+            if s in ("MomStage", "MomentumBody"):
+                s, args = f"{s}<{args[0]}>", args[1:]
+            args = [s] + args
+        return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+    # ptxas compiles a routine once for each kernel that calls it and
+    # prints its properties after that kernel's: each copy is keyed
+    # "routine in kernel"
+    out, name, entry = {"raw": []}, None, None
     text = _cuda.build_info.get("cell_pair.cu", {}).get("ptxas", "")
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?([\w.$]+)", line)
         if m:
             name = m.group(1)
-        if name is None or not re.search(r"momentum_cell|cell_momentum|"
-                                         r"MomentumBody", name):
+            if "Compiling entry function" in line:
+                entry = name
+        k = key(name) if name else None
+        if k is None:
             continue
+        if name != entry and entry is not None and key(entry):
+            k = f"{k} in {key(entry)}"
         out["raw"].append(line.strip())
-        if m:
-            continue
-        t = re.search(r"cell_momentumILb(\d)ELb(\d)ELb(\d)E", name) or \
-            re.search(r"MomentumBodyILb(\d)E+Lb(\d)ELb(\d)E", name)
-        key = ("cell_momentum<%s,%s,%s>" % t.groups() if "cell_momentum"
-               in name else "stream<MomentumBody<%s>,%s,%s>" % t.groups()) \
-            if t else ("momentum_cell<%s>" % name.split("ILb")[1][0]
-                       if "momentum_cell" in name else name[:60])
-        rec = out.setdefault(key, {})
+        rec = out.setdefault(k, {})
         m = re.search(r"Used (\d+) registers", line)
         if m:
             rec["registers"] = int(m.group(1))
@@ -675,23 +710,58 @@ def momentum_ptxas():
     return out
 
 
-def xh_recounts(J, out, grid, cfg, per_slot):
+def xh_recounts(J, grid, cfg, per_slot):
     """Candidates K3 must count again on these inputs: d2 is computed
     once, and a slot needs one more count over its candidates for each
     controller round that changed its h (read off the plain version run
-    with 1..h_iter-1 rounds; round h_iter gives the kernel's own h)."""
+    with 1..h_iter rounds).
+    Returns (recount candidates, slots whose h moved, walks the kernel
+    must run: one a slot with candidates, one more a round that moved
+    its h; csrc/cell_pair.cu xh::xh_cell)."""
     import dataclasses
     import torch
     from sphexa_tpu_torch.ops import pair_ve as pv
 
     hs = [J[pv.RH]]
-    for t in range(1, cfg.h_iter):
+    for t in range(1, cfg.h_iter + 1):
         hs.append(pv.pair_xh.plain(J, None, grid,
                                    dataclasses.replace(cfg, h_iter=t))[1])
-    hs.append(out[1])
     rounds = sum((a != b).double() for a, b in zip(hs, hs[1:]))
-    return float((rounds * per_slot).sum()), int((rounds > 0)[
-        per_slot > 0].sum())
+    has = per_slot > 0
+    return (float((rounds * per_slot).sum()), int((rounds > 0)[has].sum()),
+            int((1 + rounds)[has].sum()))
+
+
+def xh_walks(k, args):
+    """K3's walks on the card: one launch with a stats buffer
+    (csrc/cell_pair.cu xh::xh_cell) counts the walks its lanes ran, its
+    warp walks and the candidates those walked. None for a kernel
+    without the counter (a parent checkout in --compare)."""
+    import inspect
+    import torch
+    if "stats" not in inspect.signature(k._launch).parameters:
+        return None
+    st = torch.zeros(3, dtype=torch.int64, device=DEVICE)
+    k._launch(*args, stats=st)
+    torch.cuda.synchronize()
+    return dict(zip(("slot_walks", "warp_walks", "warp_tests"),
+                    (int(v) for v in st.tolist())))
+
+
+def check_walks(what, call, predicted, slots):
+    """K3's walks counted on the card beside xh_recounts' prediction for
+    the same inputs; they must be equal (a lane walks once, and once
+    more a controller round that moved its h)."""
+    k, args, _ = call
+    got = xh_walks(k, args)
+    log(f"  {what}: {got['slot_walks']} walks on the card for {slots} "
+        f"valid interior slots ({got['slot_walks'] / max(slots, 1):.4f} a "
+        f"slot; predicted {predicted}); {got['warp_walks']} warp walks, "
+        f"{got['warp_tests']:.4e} candidates walked by warps")
+    if got["slot_walks"] != predicted:
+        raise AssertionError(f"K3 walks {got['slot_walks']} != predicted "
+                             f"{predicted}")
+    return dict(got, predicted=predicted, slots=slots)
 
 
 def timing(report, eng, rst, grid, launches):
@@ -711,21 +781,29 @@ def timing(report, eng, rst, grid, launches):
     xh_J, _, _, xh_cfg = next(a for k, a, _ in pair_calls
                               if k.name == "pair_xh")
     cand, inside, per_slot = pair_counts(xh_J, eng, grid, nc_sph)
-    recount, moved = xh_recounts(xh_J, xh_out, grid, xh_cfg, per_slot)
+    recount, moved, walks = xh_recounts(xh_J, grid, xh_cfg, per_slot)
     report["pairs"] = dict(candidates=cand, in_support=inside,
                            xh_recount_candidates=recount, xh_h_moved=moved)
     log(f"  pairs: {cand:.4e} valid candidates, {inside:.4e} in support; "
         f"xmass: h moved on {moved} slots, {recount:.4e} candidates "
         f"counted again")
+    report["k3_walks"] = check_walks(
+        "K3 at the main path's inputs",
+        next(c for c in pair_calls if c[0].name == "pair_xh"), walks,
+        int((per_slot > 0).sum()))
 
-    mom_J = next(a[0] for k, a, _ in pair_calls
-                 if k.name == "pair_momentum")
-    lanes = k7_lane_counts(mom_J, grid, eng.intmask)
-    log_lanes(f"K7 at cap {grid.cap}", lanes)
-    regs = momentum_ptxas()
-    log(f"  K7 registers and spills (ptxas): "
+    for kname, key in (("pair_iad", "k5_lanes"), ("pair_momentum",
+                                                  "k7_lanes")):
+        J_k = next(a[0] for k, a, _ in pair_calls if k.name == kname)
+        report[key] = lane_counts(J_k, grid, eng.intmask)
+        log_lanes(f"{kname} at cap {grid.cap}", report[key])
+    regs = routine_ptxas()
+    log(f"  K3, K5, K7 registers and spills (ptxas): "
         f"{dict((k, v) for k, v in regs.items() if k != 'raw')}")
-    report["k7_lanes"], report["k7_ptxas"] = lanes, regs
+    spilled = [k for k, v in regs.items() if k != "raw"
+               and (v.get("spill_stores") or v.get("spill_loads"))]
+    log(f"  spills in K3, K5, K7 and their copies: {spilled or 'none'}")
+    report["tile_ptxas"] = regs
     for k, (J, I2, g, c), out in pair_calls:
         ref = k.plain(J, I2, g, c)
         err, rel = compare(k.name, ref, out, valid_slots(J) & eng.intmask,
@@ -1038,8 +1116,7 @@ def bdt_timing(report, eng, bst, launches, cname=None):
     acf = float(d.active_cell_frac)
     assert acf < 1.0, acf
     calls = spy.calls
-    xh_args, xh_out = next((a, o) for k, a, o in calls
-                           if k.name == "pair_xh_gated")
+    xh_args = next(a for k, a, _ in calls if k.name == "pair_xh_gated")
     J = xh_args[0]
     act = xh_args[4][0]
     on = pv.supercell_active(act, grid, eng.pve_gated.zgroup)
@@ -1052,7 +1129,7 @@ def bdt_timing(report, eng, bst, launches, cname=None):
     cand_a = float(per_act.sum())
     inside_a = float(torch.where(on_slot & valid_slots(J) & eng.intmask,
                                  nc_sph, 0.0).double().sum())
-    recount, moved = xh_recounts(J, xh_out, grid, xh_args[3], per_act)
+    recount, moved, _ = xh_recounts(J, grid, xh_args[3], per_act)
     # cells whose J rows an active cell reads: active cells and their
     # 26 neighbours
     shape = (grid.npx, grid.np_, grid.npz)
@@ -1453,7 +1530,7 @@ def column_timing(report, cname, eng, rst, launches):
         ops = (cand * GEO_FLOPS + inside * BODY_FLOPS[name]
                + mm_extra_flops(name, J, g, c, ok, n_cells))
         if name == "pair_xh":
-            ops += xh_recounts(J, out, g, c, per_slot)[0] * RECOUNT_FLOPS
+            ops += xh_recounts(J, g, c, per_slot)[0] * RECOUNT_FLOPS
         nbytes = 4 * (J.numel() + (I2.numel() if I2 is not None else 0)
                       + out.numel())
         t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
@@ -1922,10 +1999,19 @@ def sharded_main_path(report, D):
     pair_calls = [c for c in spy.calls if c[0] is not pv.ghost_refresh_xy]
     assert len(k1z_calls) == len(ZX_ROWS) * D
     pair_errs = sharded_pair_check(grid, pair_calls)
-    mom_J = next(a[0] for k, a, _ in pair_calls
-                 if k.name == "pair_momentum")
-    lanes = k7_lane_counts(mom_J, grid, interior_mask(grid, mom_J.device))
-    log_lanes(f"K7 at cap {grid.cap} (shard 0 of D={D})", lanes)
+    lanes = {}
+    for kname in ("pair_iad", "pair_momentum"):
+        J_k = next(a[0] for k, a, _ in pair_calls if k.name == kname)
+        lanes[kname] = lane_counts(J_k, grid, interior_mask(grid,
+                                                             J_k.device))
+        log_lanes(f"{kname} at cap {grid.cap} (shard 0 of D={D})",
+                  lanes[kname])
+    xh_call = next(c for c in pair_calls if c[0].name == "pair_xh")
+    xh_J, _, _, xh_cfg = xh_call[1]
+    own = (valid_slots(xh_J) & interior_mask(grid, xh_J.device)).double()
+    walks = check_walks(f"K3 at cap {grid.cap} (shard 0 of D={D})", xh_call,
+                        xh_recounts(xh_J, grid, xh_cfg, own)[2],
+                        int(own.sum()))
     pair_ms = {}
     for k, args, _ in pair_calls:
         pair_ms[k.name] = pair_ms.get(k.name, 0.0) + cuda_ms(
@@ -2011,7 +2097,8 @@ def sharded_main_path(report, D):
             dt=[sd["dt"], float(d1.dt)], eint=[sd["eint"], float(d1.eint)],
             ecin=[sd["ecin"], float(d1.ecin)], pos_err=pos_err,
             vx_err=vx_err), k1z=k1z, zxchg_ms=zx_ms, migrate_ms=mig_ms,
-        pair_ms=pair_ms, pair_errs=pair_errs, k7_lanes=lanes)
+        pair_ms=pair_ms, pair_errs=pair_errs, k5_lanes=lanes["pair_iad"],
+        k7_lanes=lanes["pair_momentum"], k3_walks=walks)
     del states
     return dict(
         name="ghost_refresh_xy", route="cuda",
@@ -2089,38 +2176,57 @@ def sharded_bdt_main_path(report, D=2, nr=4):
 
 
 def compare_main(tag: str) -> int:
-    """--compare [tag]: K1, K1z and K7 alone, so that two checkouts can
-    be compared in one call. K1 over the five refreshes of one Sedov
-    100^3 resident step and K7 at that step's inputs (events time,
-    in-support pairs and lane efficiency, registers), then 3 timed
-    resident steps and 2 timed BdtVE cycles (4 rungs); K1z over the
-    6 * D launches of a 100^3 sharded step (stacks of ZX_ROWS' row
-    counts, on the plan_slab local grids, z open); K1 and K1z split by
-    ghost_split. Writes chiprun_out/compare<tag>.json."""
+    """--compare [tag]: K1, K1z and the redesigned pair kernels (K3, K5,
+    K7) alone, so that two checkouts can be compared in one call. K1
+    over the five refreshes of one Sedov 100^3 resident step, and K3, K5
+    and K7 at that step's inputs (events time; K3's walks counted on the
+    card where the checkout has the counter; K5's and K7's in-support
+    pairs and lane efficiency; registers), then 3 timed resident steps
+    and 2 timed BdtVE cycles (4 rungs); K3, K5 and K7 at the inputs of a
+    100^3 sharded step at D = 2 (cap 256, both shards' launches); K1z
+    over the 6 * D launches of a 100^3 sharded step (stacks of ZX_ROWS'
+    row counts, on the plan_slab local grids, z open); K1 and K1z split
+    by ghost_split. Writes chiprun_out/compare<tag>.json."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.domain.mesh import SlabMesh
     from sphexa_tpu_torch.ops import pair_ve as pv
     from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
+    from sphexa_tpu_torch.propagator.ve_pallas_sharded import (
+        make_ve_step_pallas_sharded)
     from sphexa_tpu_torch.sfc.box import Boundary
 
     smi = smi_line()
     log(smi)
+    redone = (pv.pair_xh, pv.pair_iad, pv.pair_momentum)
     state, box, cfg, grid = sedov(MAIN_SIDE, DEVICE)
     eng = ResidentVE(box, grid, cfg, device=DEVICE)
     rst = eng.bind(state)
-    with Spy((pv.ghost_refresh, pv.pair_momentum)) as spy:
+    with Spy((pv.ghost_refresh,) + redone) as spy:
         eng.step(rst)
     torch.cuda.synchronize()
     ghost = [c[:2] for c in spy.calls if c[0] is pv.ghost_refresh]
-    k, args, _ = next(c for c in spy.calls if c[0] is pv.pair_momentum)
+    calls = {c[0].name: c for c in spy.calls if c[0] in redone}
     src = torch.tensor(pv._ghost_maps(grid, box)["src"], device=DEVICE)
     out = {"smi": smi, "K1": ghost_split(ghost, src),
-           "K7_ms": [cuda_ms(lambda: k._launch(*args), 5) for _ in range(3)],
-           "K7_lanes": k7_lane_counts(args[0], grid, eng.intmask),
-           "K7_ptxas": momentum_ptxas()}
+           "K3_walks": xh_walks(*calls["pair_xh"][:2]),
+           "ptxas": routine_ptxas()}
+    for name, (k, args, _) in calls.items():
+        out[f"{name}_ms"] = [cuda_ms(lambda: k._launch(*args), 5)
+                             for _ in range(3)]
+        log(f"  {name} {grid}: {out[f'{name}_ms']} ms (events, 3 x 5 "
+            f"launches)")
+    for name in ("pair_iad", "pair_momentum"):
+        out[f"{name}_lanes"] = lane_counts(calls[name][1][0], grid,
+                                           eng.intmask)
+        log_lanes(name, out[f"{name}_lanes"])
+    log(f"  K3 walks: {out['K3_walks']}")
+    log(f"  ptxas: "
+        f"{dict((k, v) for k, v in out['ptxas'].items() if k != 'raw')}")
+    del calls, spy
     step_ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     step_ev[0].record()
     for i in range(3):
@@ -2138,13 +2244,22 @@ def compare_main(tag: str) -> int:
     out["bdt_cycle_ms"] = [a.elapsed_time(b) for a, b in zip(cyc, cyc[1:])]
     del beng, bst, state_b
     log_split(f"K1 {grid}, {len(ghost)} refreshes", out["K1"])
-    log(f"  K7 {grid}: {out['K7_ms']} ms (events, 3 x 5 launches)")
     log(f"  resident step {out['step_ms']} ms, BdtVE cycle "
         f"{out['bdt_cycle_ms']} ms (4 rungs, after a warm-up cycle)")
-    log_lanes("K7", out["K7_lanes"])
-    log(f"  K7 ptxas: "
-        f"{dict((k, v) for k, v in out['K7_ptxas'].items() if k != 'raw')}")
-    del eng, rst, spy, args
+    del eng, rst
+    sstate, sbox, scfg, sgrid, sc = sharded_setup(2)
+    mesh = SlabMesh(2, devices=[DEVICE])
+    sstep = make_ve_step_pallas_sharded(sbox, sgrid, scfg, sc, mesh)
+    states, _ = sstep(shard_states(sstate, sbox, sc, mesh))
+    with Spy(redone) as spy:
+        sstep(states)
+    torch.cuda.synchronize()
+    for k, args, _ in spy.calls:
+        key = f"{k.name}_D2_ms"
+        out[key] = out.get(key, 0.0) + cuda_ms(lambda: k._launch(*args), 3)
+    log(f"  D = 2 step, cap {sgrid.cap}, both shards: "
+        f"{dict((k, round(v, 3)) for k, v in out.items() if 'D2' in k)} ms")
+    del states, spy, sstep, mesh
     gen = torch.Generator(device=DEVICE).manual_seed(8)
     for D in SHARD_D:
         _, gbox, _, lgrid, _ = sharded_setup(D)

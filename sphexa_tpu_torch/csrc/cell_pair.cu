@@ -2,27 +2,32 @@
 //
 // Replaces the Pallas driver make_cell_pair_call (sphexa_tpu/ops/
 // pallas_ve.py:103, call :260) and its stage bodies:
-//   stage 0  XhBody        <- _xh_body          (pallas_ve.py:537)
-//   stage 1  GradhBody     <- _gradh_body       (pallas_ve.py:622)
-//   stage 2  IadBody       <- _iad_direct_body  (pallas_ve.py:704)
-//   stage 3  AvBody        <- _av_direct_body   (pallas_ve.py:900, :865, :884)
-//   stage 4  mom::momentum_cell<false> <- _momentum_body (pallas_ve.py:1022), avClean off
-//   stage 5  IadMmBody     <- _iad_hybrid_body  (pallas_ve.py:769)     K8
-//   stage 6  AvMmBody      <- _av_mm_body       (pallas_ve.py:949)     K9
-//   stage 7  momentum_mm   <- _momentum_mm_body (pallas_ve.py:1190)    K10
-//   stage 8  mom::momentum_cell<true> <- _momentum_body, avClean branch K7c
-//            (pallas_ve.py:1031-1033, :1057-1060, :1094-1116)
+//   stage 0  K3   xh::xh_cell     <- _xh_body          (pallas_ve.py:537)
+//   stage 1  K4   GradhBody       <- _gradh_body       (pallas_ve.py:622)
+//   stage 2  K5   tile::IadStage  <- _iad_direct_body  (pallas_ve.py:704)
+//   stage 3  K6   AvBody          <- _av_direct_body   (pallas_ve.py:900,
+//                                    :865, :884)
+//   stage 4  K7   tile::MomStage<false> <- _momentum_body (pallas_ve.py:
+//                                    1022), avClean off
+//   stage 5  K8   IadMmBody       <- _iad_hybrid_body  (pallas_ve.py:769)
+//   stage 6  K9   AvMmBody        <- _av_mm_body       (pallas_ve.py:949)
+//   stage 7  K10  momentum_mm     <- _momentum_mm_body (pallas_ve.py:1190)
+//   stage 8  K7c  tile::MomStage<true> <- _momentum_body, avClean branch
+//                                    (pallas_ve.py:1031-1033, :1057-1060,
+//                                    :1094-1116)
 //
-// Launch skeleton of stages 0-3 and 5-6: one thread block per interior
-// cell, one thread per i-slot (blockDim = cap; K10 has its own, see
-// cell_pair_momentum_mm; K7 and K7c theirs, see mom::momentum_cell:
-// occupied slots only, pairs compacted across lanes). The block walks
-// the 27 neighbour cells, stages each cell's [FJ, cap] j-rows in shared
-// memory, and every thread accumulates its pair sums in registers; all
-// threads read the same j value at once (a shared-memory broadcast).
-// The xmass stage iterates its h controller over the same candidates
-// several times, so it stages all 27 cells' x, y, z, m at once (27 * 4
-// * cap floats of dynamic shared memory) and loops there.
+// Launch skeletons. Stages 1, 3, 5 and 6 (cell_pair_stream): one thread
+// block per interior cell, one thread per i-slot (blockDim = cap); the
+// block walks the 27 neighbour cells, stages each cell's [FJ, cap]
+// j-rows in shared memory, and every thread accumulates its pair sums in
+// registers; all threads read the same j value at once (a shared-memory
+// broadcast). Stages 2, 4 and 8 (tile::pair_cell): blocks of min(cap,
+// 128) threads a cell's i-tile, occupied slots only, double-buffered
+// cp.async staging; K7's in-support pairs compacted across lanes, K5's
+// evaluated by their own lanes. Stage 0 (xh::xh_cell): the same blocks,
+// the occupied slots of the 27 cells in one flat run, walked again only
+// where the h controller moved h. K10 has its own
+// (cell_pair_momentum_mm).
 //
 // Frame contract (as the Pallas kernels): invalid slots carry FILL_POS
 // positions and drop out through the distance overflow; self-pairs are
@@ -40,7 +45,7 @@
 // K2g, the gated form (make_cell_pair_call(gated=True), pallas_ve.py:
 // 162-172 and :242-251), launches the same five bodies with an activity
 // row and the previous outputs (PairGate below). A block whose
-// z-supercell is inactive only copies FO rows of its cap slots, so the
+// z-supercell is inactive only copies FO rows of its slots, so the
 // gated stage is bounded by the pair work of the active supercells plus
 // that copy (bytes). It still launches a block for every interior cell:
 // inactive blocks cost a launch slot and one read of Z*cap act values.
@@ -51,17 +56,17 @@
 // column, walking z (pair_launch_column). Two forms:
 //   ring    the 27 neighbour cells of the current cell stay in shared
 //           memory as 3 z-planes of 9 cells; a z-step stages only the 9
-//           cells of the next plane (cell_pair_column). Stages 0-3 only:
-//           a moment column depends on the own cell's mean (stages
-//           5-7), and the momentum bodies (4, 8) inlined into the ring
-//           walk compiled to results not bit-equal to their cell launch
-//           on the card (27 * FJ * cap floats: 131 and 173 KB at cap
-//           64, one block an SM, so no form to keep anyway).
+//           cells of the next plane (cell_pair_column). Stages 1 and 3
+//           only: a moment column depends on the own cell's mean (stages
+//           5-7); the ring form of stages 0 and 2 is their stream form
+//           (their routines stage occupied slot groups only, which whole
+//           planes would undo); and the momentum bodies (4, 8) inlined
+//           into the ring walk compiled to results not bit-equal to
+//           their cell launch on the card.
 //   stream  per z-step as the cell launch: each neighbour cell staged
-//           in turn (cell_pair_stream), or all 27 for the xmass body
-//           (cell_pair_resident); K10 streams (cell_pair_momentum_mm);
-//           K7 and K7c call the cell launch's routine for each cell
-//           (mom::cell_momentum).
+//           in turn (cell_pair_stream); K10 streams
+//           (cell_pair_momentum_mm); K3, K5, K7 and K7c call the cell
+//           launch's routine for each cell (xh::cell_xh, tile::cell_tile).
 // Each thread visits the 27 cells in the cell launch's order, so its
 // sums, and the outputs on interior slots, are those of the cell launch
 // bit for bit; the output rows are written on interior slots only.
@@ -70,8 +75,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "sph_consts.h"
 
@@ -89,6 +92,7 @@ struct PairParams {
     int uniform_mass;
     float hcoef;   // 1023 * ng0 of the nc -> h controller
     int mxu_bf16;  // K10: round both contraction operands to bf16
+    unsigned long long* stats;   // K3: walk counts (xh::xh_cell), or null
 };
 
 // K2g's gate (see gate_closed); act == nullptr for the ungated stage
@@ -116,6 +120,16 @@ __device__ __forceinline__ float pow_int(float x, int n)
         n >>= 1;
     }
     return result;
+}
+
+// pow_int without the loop at the default sinc index 6: the same products
+__device__ __forceinline__ float pow_nw(float x, int n)
+{
+    if (n == 6) {
+        const float x2 = x * x;
+        return x2 * (x2 * x2);
+    }
+    return pow_int(x, n);
 }
 
 // squared distance without FMA contraction
@@ -146,70 +160,6 @@ __device__ __forceinline__ void for_candidates(const float* sj, Off off,
         for (int k = 0; k < cap; ++k) f(cell, k);
     }
 }
-
-// --------------------------------------------------------------------------
-// stage 0: neighbour count, h iteration, xmass (resident candidates)
-// --------------------------------------------------------------------------
-struct XhBody {
-    static constexpr int FJ = 4;                       // x y z m
-    static constexpr int FO = 4;
-    static constexpr int NM = 0, NORIGIN = 0;          // no moments
-    __device__ static int jrow(int s) { return s < 3 ? s : 5; }
-
-    // each(f) calls f(cells, k) for every staged candidate k in the cell
-    // launch's order: one flat run of 27 * cap when the cells are staged
-    // in order (cell_pair_resident: the compiler keeps one loop), or
-    // for_candidates over K11's ring
-    template <class Each>
-    __device__ static void run(const float* J, const float*, float* out,
-                               int stride, Each each, long long islot,
-                               long long ns, const PairParams& p)
-    {
-        const float xi = JI(0), yi = JI(1), zi = JI(2), mi = JI(5);
-        float hi = JI(3);
-        auto count = [&](float hinv2) {
-            float nc = 0.0f;
-            each([&](const float* sj, int k) {
-                float d2 = dist2(__fsub_rn(xi, SJ(0)), __fsub_rn(yi, SJ(1)),
-                                 __fsub_rn(zi, SJ(2)));
-                if (__fmul_rn(d2, hinv2) < 4.0f) nc += 1.0f;
-            });
-            return nc;
-        };
-        float hinv = __fdiv_rn(1.0f, hi);
-        float nc_sph = count(__fmul_rn(hinv, hinv));
-        for (int it = 0; it < p.h_iter; ++it) {
-            bool need = nc_sph < p.ngmin || nc_sph - 1.0f > p.ngmax;
-            float h_new = __fmul_rn(
-                __fmul_rn(hi, 0.5f),
-                powf(__fadd_rn(1.0f, __fdiv_rn(p.hcoef, fmaxf(nc_sph, 1.0f))),
-                     0.1f));
-            if (p.h_cap > 0.0f) h_new = fminf(h_new, p.h_cap);
-            hi = need ? h_new : hi;
-            hinv = __fdiv_rn(1.0f, hi);
-            if (it < p.h_iter - 1) nc_sph = count(__fmul_rn(hinv, hinv));
-        }
-        const float hinv2 = __fmul_rn(hinv, hinv);
-        float ncm = 0.0f, acc = 0.0f;
-        each([&](const float* sj, int k) {
-            float d2 = dist2(__fsub_rn(xi, SJ(0)), __fsub_rn(yi, SJ(1)),
-                             __fsub_rn(zi, SJ(2)));
-            float v2 = __fmul_rn(d2, hinv2);
-            if (v2 < 4.0f) {
-                acc += pow_int(sinc_poly(v2), p.n_w) * SJ(3);
-                ncm += 1.0f;
-            }
-        });
-        const float nc = ncm - 1.0f;                    // self excluded
-        const float xm = mi * (hi * hi * hi) / (p.K3d * acc);
-        const bool nonconv = nc + 1.0f < p.ngmin || nc > p.ngmax;
-        const bool ok = xi < HALF_FILL;
-        out[0 * ns + islot] = ok ? xm : 1.0f;
-        out[1 * ns + islot] = hi;
-        out[2 * ns + islot] = ok ? nc : 0.0f;
-        out[3 * ns + islot] = ok && nonconv ? 1.0f : 0.0f;
-    }
-};
 
 // --------------------------------------------------------------------------
 // stage 1: VE normalization kx and grad-h
@@ -268,110 +218,47 @@ struct GradhBody {
 };
 
 // --------------------------------------------------------------------------
-// stage 2: IAD tau and inverse, divv, curlv, velocity gradients
+// stage 2 (K5, tile::IadStage below) and stage 5 (K8): the IAD inverse of
+// the h-scaled tau and the outputs
 // --------------------------------------------------------------------------
-struct IadBody {
-    static constexpr int FJ = 8;        // x y z kx xm vx vy vz
-    static constexpr int FO = 14;
-    static constexpr int NM = 0, NORIGIN = 0;
-    __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
 
-    float xi, yi, zi, hi, hinv, hinv2, kfac, vxi, vyi, vzi;
-    float t11, t12, t13, t22, t23, t33;
-    float Q[3][3];
-    int n_w;
+// the IAD inverse of the h-scaled tau (_iad_tail, pallas_ve.py:672)
+__device__ void iad_tail(float t11, float t12, float t13, float t22,
+                         float t23, float t33, float hi, float (&C)[3][3])
+{
+    float det = t11 * t22 * t33 + 2.0f * t12 * t23 * t13
+        - t11 * t23 * t23 - t22 * t13 * t13 - t33 * t12 * t12;
+    float fac = 1.0f / (det * hi * hi);
+    C[0][0] = (t22 * t33 - t23 * t23) * fac;
+    C[0][1] = C[1][0] = (t13 * t23 - t33 * t12) * fac;
+    C[0][2] = C[2][0] = (t12 * t23 - t22 * t13) * fac;
+    C[1][1] = (t11 * t33 - t13 * t13) * fac;
+    C[1][2] = C[2][1] = (t13 * t12 - t11 * t23) * fac;
+    C[2][2] = (t11 * t22 - t12 * t12) * fac;
+}
 
-    __device__ void load_i(const float* J, const float*, long long islot,
-                           long long ns, const PairParams& p)
-    {
-        xi = JI(0); yi = JI(1); zi = JI(2); hi = JI(3);
-        vxi = JI(7); vyi = JI(8); vzi = JI(9);
-        hinv = __fdiv_rn(1.0f, hi);
-        hinv2 = __fmul_rn(hinv, hinv);
-        kfac = p.K3d * (hinv * hinv2);
-        t11 = t12 = t13 = t22 = t23 = t33 = 0.0f;
-        for (int a = 0; a < 3; ++a)
-            for (int b = 0; b < 3; ++b) Q[a][b] = 0.0f;
-        n_w = p.n_w;
-    }
-
-    __device__ void pair(const float* sj, int k, int stride)
-    {
-        float rx = __fsub_rn(xi, SJ(0)), ry = __fsub_rn(yi, SJ(1)),
-              rz = __fsub_rn(zi, SJ(2));
-        float v2 = __fmul_rn(dist2(rx, ry, rz), hinv2);
-        if (!(v2 < 4.0f)) return;
-        float w = pow_int(sinc_poly(v2), n_w);
-        float wn = (SJ(4) / SJ(3) * w) * kfac;
-        float sx = rx * hinv, sy = ry * hinv, sz = rz * hinv;
-        t11 += sx * sx * wn; t12 += sx * sy * wn; t13 += sx * sz * wn;
-        t22 += sy * sy * wn; t23 += sy * sz * wn; t33 += sz * sz * wn;
-        float wxm = w * SJ(4);
-        float vji[3] = {SJ(5) - vxi, SJ(6) - vyi, SJ(7) - vzi};
-        float rr[3] = {rx, ry, rz};
+// cij, divv, curlv and the six gradv rows (_iad_outputs, :684)
+__device__ void iad_store(const float (&C)[3][3], const float (&dV)[3][3],
+                          float nk, bool ok, float* out, long long islot,
+                          long long ns)
+{
+    float cx = dV[2][1] - dV[1][2], cy = dV[0][2] - dV[2][0],
+          cz = dV[1][0] - dV[0][1];
+    const float o[14] = {
+        C[0][0], C[0][1], C[0][2], C[1][1], C[1][2], C[2][2],
+        nk * (dV[0][0] + dV[1][1] + dV[2][2]),
+        nk * sqrtf(cx * cx + cy * cy + cz * cz),
+        nk * dV[0][0], nk * (dV[0][1] + dV[1][0]),
+        nk * (dV[0][2] + dV[2][0]), nk * dV[1][1],
+        nk * (dV[1][2] + dV[2][1]), nk * dV[2][2]};
 #pragma unroll
-        for (int a = 0; a < 3; ++a) {
-            float va = wxm * vji[a];
-#pragma unroll
-            for (int b = 0; b < 3; ++b) Q[a][b] += va * rr[b];
-        }
-    }
-
-    __device__ void store(const float* J, const float*, float* out,
-                          long long islot, long long ns, const PairParams& p)
-    {
-        float C[3][3];
-        iad_tail(t11, t12, t13, t22, t23, t33, hi, C);
-        float dV[3][3];   // dV[a][b] = -(C Q_a)_b
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-#pragma unroll
-            for (int b = 0; b < 3; ++b)
-                dV[a][b] = -(C[b][0] * Q[a][0] + C[b][1] * Q[a][1]
-                             + C[b][2] * Q[a][2]);
-        iad_store(C, dV, kfac / JI(5), xi < HALF_FILL, out, islot, ns);
-    }
-
-    // the IAD inverse of the h-scaled tau (_iad_tail, pallas_ve.py:672)
-    __device__ static void iad_tail(float t11, float t12, float t13,
-                                    float t22, float t23, float t33,
-                                    float hi, float (&C)[3][3])
-    {
-        float det = t11 * t22 * t33 + 2.0f * t12 * t23 * t13
-            - t11 * t23 * t23 - t22 * t13 * t13 - t33 * t12 * t12;
-        float fac = 1.0f / (det * hi * hi);
-        C[0][0] = (t22 * t33 - t23 * t23) * fac;
-        C[0][1] = C[1][0] = (t13 * t23 - t33 * t12) * fac;
-        C[0][2] = C[2][0] = (t12 * t23 - t22 * t13) * fac;
-        C[1][1] = (t11 * t33 - t13 * t13) * fac;
-        C[1][2] = C[2][1] = (t13 * t12 - t11 * t23) * fac;
-        C[2][2] = (t11 * t22 - t12 * t12) * fac;
-    }
-
-    // cij, divv, curlv and the six gradv rows (_iad_outputs, :684)
-    __device__ static void iad_store(const float (&C)[3][3],
-                                     const float (&dV)[3][3], float nk,
-                                     bool ok, float* out, long long islot,
-                                     long long ns)
-    {
-        float cx = dV[2][1] - dV[1][2], cy = dV[0][2] - dV[2][0],
-              cz = dV[1][0] - dV[0][1];
-        const float o[14] = {
-            C[0][0], C[0][1], C[0][2], C[1][1], C[1][2], C[2][2],
-            nk * (dV[0][0] + dV[1][1] + dV[2][2]),
-            nk * sqrtf(cx * cx + cy * cy + cz * cz),
-            nk * dV[0][0], nk * (dV[0][1] + dV[1][0]),
-            nk * (dV[0][2] + dV[2][0]), nk * dV[1][1],
-            nk * (dV[1][2] + dV[2][1]), nk * dV[2][2]};
-#pragma unroll
-        for (int r = 0; r < 14; ++r) out[r * ns + islot] = ok ? o[r] : 0.0f;
-    }
-};
+    for (int r = 0; r < 14; ++r) out[r * ns + islot] = ok ? o[r] : 0.0f;
+}
 
 // --------------------------------------------------------------------------
 // stage 5 (K8): IAD with the velocity gradients from 16 cell-centred
 // j-moments. Replaces _iad_hybrid_body (pallas_ve.py:769, dot :832).
-// tau is accumulated per pair as in IadBody. When a j-cell is staged,
+// tau is accumulated per pair as in K5. When a j-cell is staged,
 // each thread builds the 16 moment columns of its own j-slot in shared
 // memory (xm_j (1, x_jc) and xm_j (v_j - o_v)(1, x_jc), centred on the
 // i-cell's mean, cell_means); every in-support pair then adds w_ij
@@ -445,7 +332,7 @@ struct IadMmBody {
                           long long islot, long long ns, const PairParams& p)
     {
         float C[3][3];
-        IadBody::iad_tail(t11, t12, t13, t22, t23, t33, hi, C);
+        iad_tail(t11, t12, t13, t22, t23, t33, hi, C);
         const float xib[3] = {xi - org[0], yi - org[1], zi - org[2]};
         const float S0 = mom[0];
         float dV[3][3];   // dV[a][b] = -(C F_a)_b
@@ -464,8 +351,7 @@ struct IadMmBody {
                 dV[a][b] = -(C[b][0] * F[0] + C[b][1] * F[1]
                              + C[b][2] * F[2]);
         }
-        IadBody::iad_store(C, dV, kfac / JI(5), xi < HALF_FILL, out, islot,
-                           ns);
+        iad_store(C, dV, kfac / JI(5), xi < HALF_FILL, out, islot, ns);
     }
 };
 
@@ -788,38 +674,6 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
     }
 }
 
-// stages all 27 neighbour cells at once, for bodies that iterate
-template <class Body, bool Gated, bool Column>
-__global__ void
-cell_pair_resident(const float* __restrict__ J, const float* __restrict__ I2,
-                   float* __restrict__ out, PairGeom g, PairParams p,
-                   PairGate gt, int zseg)
-{
-    extern __shared__ float sj[];                  // [FJ][27 * cap]
-    const int cap = g.cap, i = threadIdx.x;
-    const int W = 27 * cap;
-    const Walk w = block_walk<Column>(g, zseg);
-    for (int q = 0; q < w.ncell; ++q) {
-        const long long own = w.own0 + q;
-        if constexpr (Gated)
-            if (gate_closed<Body::FO>(gt, g, own, out)) return;
-        if (q) __syncthreads();              // the last cell's candidates
-        for (int nb = 0; nb < 27; ++nb) {
-            const long long jslot = nbr_cell(g, own, nb) * cap + i;
-#pragma unroll
-            for (int s = 0; s < Body::FJ; ++s)
-                sj[s * W + nb * cap + i] =
-                    J[(long long)Body::jrow(s) * g.n_slots + jslot];
-        }
-        __syncthreads();
-        Body::run(J, I2, out, W,
-                  [&](auto f) {
-                      for (int k = 0; k < W; ++k) f(sj, k);
-                  },
-                  own * cap + i, g.n_slots, p);
-    }
-}
-
 // K11's ring form. Ring slot c9 * 3 + z % 3 holds neighbour column c9 =
 // (dx+1)*3 + (dy+1) at padded z-plane z; at the cell of plane z the
 // planes z-1, z, z+1 are resident, and the step to z+1 stages plane z+2
@@ -860,40 +714,41 @@ cell_pair_column(const float* __restrict__ J, const float* __restrict__ I2,
             return ((nb / 3) * 3 + (z + nb % 3 - 1) % 3) * cap;
         };
         const long long islot = (w.own0 + q) * cap + i;
-        if constexpr (std::is_same<Body, XhBody>::value) {
-            XhBody::run(J, I2, out, W,
-                        [&](auto f) { for_candidates(ring, off, cap, f); },
-                        islot, ns, p);
-        } else {
-            Body b;
-            b.load_i(J, I2, islot, ns, p);
-            for_candidates(ring, off, cap,
-                           [&](const float* cell, int k) {
-                               b.pair(cell, k, W);
-                           });
-            b.store(J, I2, out, islot, ns, p);
-        }
+        Body b;
+        b.load_i(J, I2, islot, ns, p);
+        for_candidates(ring, off, cap,
+                       [&](const float* cell, int k) { b.pair(cell, k, W); });
+        b.store(J, I2, out, islot, ns, p);
     }
 }
 
 // --------------------------------------------------------------------------
-// stage 4 (K7) and stage 8 (K7c, AvClean): momentum and energy.
-// Replaces _momentum_body (pallas_ve.py:1022; avClean branch :1031-1033,
-// :1057-1060, :1094-1116, momentum_energy_kern.hpp:44-63): per i-slot
-// the pair sums of the momentum, energy, AV heating and max signal
-// velocity over the in-support pairs of its 27 neighbour cells, with
-// the Atwood-ramped VE terms; K7c adds the avClean rv correction on six
-// more j-rows (the symmetrised gradv) and eta_crit on the i side.
+// The tiled pair routine: stage 2 (K5, IAD), stage 4 (K7, momentum and
+// energy) and stage 8 (K7c, AvClean).
+// K5 replaces _iad_direct_body (pallas_ve.py:704): per i-slot the
+// h-scaled IAD tau (six sums) and the velocity-gradient sums Q_ab =
+// sum_j w xm_j (v_j - v_i)_a r_b (nine) over the in-support pairs of its
+// 27 neighbour cells, then the 3x3 inverse and the 14 outputs
+// (iad_tail, iad_store).
+// K7 replaces _momentum_body (pallas_ve.py:1022; avClean branch
+// :1031-1033, :1057-1060, :1094-1116, momentum_energy_kern.hpp:44-63):
+// per i-slot the pair sums of the momentum, energy, AV heating and max
+// signal velocity, with the Atwood-ramped VE terms; K7c adds the
+// avClean rv correction on six more j-rows (the symmetrised gradv) and
+// eta_crit on the i side.
 //
-// Bound: arithmetic, ~170 flops a pair inside the i-support (K7c ~220)
-// plus the 9-flop distance test of every candidate.
+// Bound: arithmetic, the 9-flop distance test of every candidate plus,
+// a pair inside the i-support, ~62 flops (K5), ~170 (K7), ~220 (K7c).
 //
-// One device routine, momentum_cell, computes one interior cell for
-// every launch form: the cell launch (stage 4 and 8), K2g's gated form
-// of stage 4 and K11's stream form of both (cell_momentum below). It is
-// __noinline__, so every form calls one compiled routine of the same
-// arithmetic (ptxas allocates its registers per kernel), and K11 and
-// K2g equal the cell launch bit for bit on the card.
+// One device routine, pair_cell<Stage>, computes one interior cell for
+// every launch form: the cell launch, K2g's gated form (stages 2 and 4)
+// and K11's stream form (cell_tile below; K11's ring form of stage 2
+// is its stream form). It is __noinline__, so every form calls one
+// compiled routine of the same arithmetic (ptxas allocates its
+// registers per kernel), and K11 and K2g equal the cell launch bit for
+// bit on the card. A Stage (IadStage, MomStage) names its staged j-rows,
+// its j-only terms, its i-terms, the NC contributions of a pair, how its
+// pairs are evaluated (COMPACT) and the store.
 //
 // A block of T = min(cap, 128) threads takes the T i-slots of one i-tile
 // of its cell (cap > 128: ceil(cap / 128) blocks a cell, blockIdx.y);
@@ -910,39 +765,50 @@ cell_pair_column(const float* __restrict__ J, const float* __restrict__ I2,
 //     this stages exactly the occupied 32-slot groups; a slot left
 //     invalid inside the range fails the support test (FILL_POS) as
 //     before. Warps whose i-slots are all invalid run no tests.
-//  2. j-only terms once per staged slot: 1/h, 1/h^2, 1/h^3, logf(xm),
-//     m / rho and m * prho are written as extra rows when a slot is
-//     staged, with the expressions and association the pair body used.
-//  3. Pair compaction across lanes. Per warp and chunk of 32 staged
-//     j-slots, each lane runs the support test (dist2 and __fmul_rn(d2,
-//     hinv2) < 4, unchanged) of its own i against the chunk into a
-//     32-bit mask; a warp scan of the popcounts places each lane's
-//     in-support (i, k) pairs in (i, k) order. The warp then evaluates
-//     the body 64 pairs at a time, two rounds of full lanes: lane q
-//     takes pairs p0 + q and p0 + 32 + q, finds each one's owner lane
-//     and j-slot by binary search over the offsets and the owner's mask,
-//     reads the owner's i-terms from shared memory and writes the pair's
-//     six contributions (mx, my, mz, energy, avisc, vsig) to shared
-//     memory. Each owner lane then adds its own pairs in k order (four
-//     entries' loads in flight), so every per-i sum takes its pairs in
-//     the order of the cell launch before it (nb, then slot), one at a
-//     time. Two rounds a batch took K7 from 5.26 to 4.89 ms at Sedov
-//     100^3 (one round a batch, or four, were slower; chip_smoke.py
-//     --compare on NVIDIA H100 80GB HBM3, 700 W).
+//  2. j-only terms once per staged slot, written as extra rows when a
+//     slot is staged, with the expressions and association the pair
+//     body used: K5 vol_j = xm_j / kx_j; K7 1/h, 1/h^2, 1/h^3, logf(xm),
+//     m / rho and m * prho.
+//  3. The support tests, per warp and chunk of 32 staged j-slots: each
+//     lane tests its own i against the chunk (dist2 and __fmul_rn(d2,
+//     hinv2) < 4, unchanged) into a 32-bit mask. Then the in-support
+//     pairs:
+//     K7, K7c (COMPACT): compacted across lanes. A warp scan of the
+//     popcounts places each lane's in-support (i, k) pairs in (i, k)
+//     order; the warp evaluates the body 64 pairs at a time, two rounds
+//     of full lanes: lane q takes pairs p0 + q and p0 + 32 + q, finds
+//     each one's owner lane and j-slot by binary search over the
+//     offsets and the owner's mask, reads the owner's i-terms from
+//     shared memory and writes the pair's six contributions (mx, my, mz,
+//     energy, avisc, vsig) to shared memory. Each owner lane then adds
+//     its own pairs in k order (four entries' loads in flight). Two
+//     rounds a batch took K7 from 5.26 to 4.89 ms at Sedov 100^3 (one
+//     round a batch, or four, were slower); a lane evaluating only its
+//     own pairs took K7 6.19 ms (4.87 compacted).
+//     K5: each lane evaluates its own in-support pairs, walking its
+//     mask's set bits, and adds each pair's 15 terms as it goes. The
+//     cross-lane compaction took K5 4.60 ms (the rounds' search,
+//     i-term loads and 15 shared stores a pair ~2.8 ms of it, the
+//     owners' adds ~0.4) against 2.61 this way (2.86 with the tests
+//     unrolled by 2, see IadStage) and 3.61 for the former
+//     thread-a-slot kernel: a 62-flop body does not repay it.
+//     Either way every per-i sum takes its pairs one at a time in the
+//     order of the cell launch before it (nb, then slot).
+//     (chip_smoke.py --compare and trial variants of this file, NVIDIA
+//     H100 80GB HBM3, 700 W.)
 //  4. Staging overlaps compute: two j-tile buffers; the next unit is
 //     copied with 16-byte cp.async (4-byte where J is not 16-byte
 //     aligned) while the current one is computed, its x row read two
 //     units ahead, its j-only terms written from registers after the
 //     compute, so one barrier a unit suffices.
-// Shared memory: 2 * NROW * T floats of tiles (NROW 23, K7c 29), the
-// NI i-terms of the block's T i-slots (NI 21, K7c 29) and 6 * 64
-// contributions a warp: 20.2 KB at cap 64 (K7c 25.4 KB), 40.5 KB (K7c
-// 50.7 KB) from cap 128, so about 10 (K7c 8) blocks fit an SM at cap
-// 64 and 5 (4) from cap 128. Keeping the i-terms there rather than in
-// registers (shuffled to the evaluating lane) cut the register count
-// by about 40 and K7 from 5.90 to 5.24 ms (same runs as above).
+// Shared memory: 2 * NROW * T floats of tiles (NROW: K5 8, K7 23, K7c
+// 29), the NI i-terms of the block's T i-slots (NI 9, 21, 29) and, for
+// K7 and K7c, 6 * 64 contributions a warp: at cap 64 K5 6.4 KB, K7 20.2
+// KB, K7c 25.4 KB; from cap 128 12.8, 40.5 and 50.7 KB. Keeping the
+// i-terms there rather than in registers (shuffled to the evaluating
+// lane) cut K7's register count by about 40 and K7 from 5.90 to 5.24 ms.
 // --------------------------------------------------------------------------
-namespace mom {
+namespace tile {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int TILE = 128;
@@ -974,10 +840,130 @@ __device__ __forceinline__ void cp_async_wait_all()
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// staged rows of a j-tile: NCOPY copied from J (J row jrow(r)), then the
-// j-only terms
+// A Stage's interface (IadStage, MomStage):
+//   staged rows: X, Y, Z = 0, 1, 2, NCOPY rows copied from J (J row
+//     jrow(r)), NROW in all with the j-only terms;
+//   i-terms: NI of them, I_X, I_Y, I_Z, I_HINV2 = 0, 1, 2, 3 first
+//     (the support test's, kept in registers too);
+//   NE J values a staged slot reads for its j-only terms (load_e), which
+//     finish writes; NC contributions a pair (terms), added into the
+//     lane's sums (add); COMPACT: pairs compacted across lanes, NLOAD
+//     entries in flight when an owner adds; TEST_UNROLL: the support
+//     tests' unroll; FO output rows (store).
+#define JI(r) J[(long long)(r) * ns + islot]
+#define S(r) sb[(r) * T + k]
+#define A(q) a[(q) * T]
+
+// stage 2 (K5): IAD tau, divv, curlv, velocity gradients
+struct IadStage {
+    // x y z xm vx vy vz (J rows 0-2, 6-9), then vol_j
+    static constexpr int X = 0, Y = 1, Z = 2, XM = 3, VX = 4, VY = 5,
+                         VZ = 6;
+    static constexpr int NCOPY = 7, VOLJ = 7, NROW = 8;
+    __device__ static int jrow(int r) { return r < 3 ? r : r + 3; }
+    enum : int { I_X, I_Y, I_Z, I_HINV2, I_HINV, I_KFAC, I_VX, I_VY, I_VZ,
+                 NI };
+    // each lane evaluates its own in-support pairs (COMPACT false); the
+    // support tests unrolled by 2: by 4 (K7's) the cell launch spilled
+    // 8 bytes at 96 registers (2.62 ms), by 2 it takes 115 registers and
+    // no spill (2.86 ms; ptxas -v and chip_smoke.py's timing, H100)
+    static constexpr bool COMPACT = false;
+    static constexpr int NE = 2, NC = 15, NLOAD = 0, FO = 14,
+                         TEST_UNROLL = 2;
+
+    __device__ static void load_i(const float* J, long long ns,
+                                  long long islot, bool ihas,
+                                  const PairParams& p, float (&iv)[NI])
+    {
+        const float hinv = __fdiv_rn(1.0f, JI(3));
+        const float hinv2 = __fmul_rn(hinv, hinv);
+        iv[I_X] = ihas ? JI(0) : SPH_FILL_POS;
+        iv[I_Y] = JI(1);
+        iv[I_Z] = JI(2);
+        iv[I_HINV2] = hinv2;
+        iv[I_HINV] = hinv;
+        iv[I_KFAC] = p.K3d * (hinv * hinv2);
+        iv[I_VX] = JI(7);
+        iv[I_VY] = JI(8);
+        iv[I_VZ] = JI(9);
+    }
+
+    __device__ static void load_e(const float* J, long long ns, long long s,
+                                  float (&e)[NE])
+    {
+        e[0] = J[5 * ns + s];        // kx
+        e[1] = J[6 * ns + s];        // xm
+    }
+
+    __device__ static void finish(float* d, int T, const float (&e)[NE])
+    {
+        d[VOLJ * T] = e[1] / e[0];
+    }
+
+    __device__ static void init(float (&acc)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) acc[q] = 0.0f;
+    }
+
+    __device__ static void add(float (&acc)[NC], const float (&v)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) acc[q] += v[q];
+    }
+
+    // t11 t12 t13 t22 t23 t33, then Q[a][b] at 6 + 3a + b
+    __device__ static void terms(const float* a, const float* sb, int T,
+                                 int k, const PairParams& p,
+                                 float (&c)[NC])
+    {
+        const float rx = __fsub_rn(A(I_X), S(X)),
+                    ry = __fsub_rn(A(I_Y), S(Y)),
+                    rz = __fsub_rn(A(I_Z), S(Z));
+        const float v2 = __fmul_rn(dist2(rx, ry, rz), A(I_HINV2));
+        const float w = pow_nw(sinc_poly(v2), p.n_w);
+        const float wn = (S(VOLJ) * w) * A(I_KFAC);
+        const float hinv = A(I_HINV);
+        const float sx = rx * hinv, sy = ry * hinv, sz = rz * hinv;
+        c[0] = sx * sx * wn; c[1] = sx * sy * wn; c[2] = sx * sz * wn;
+        c[3] = sy * sy * wn; c[4] = sy * sz * wn; c[5] = sz * sz * wn;
+        const float wxm = w * S(XM);
+        const float vji[3] = {S(VX) - A(I_VX), S(VY) - A(I_VY),
+                              S(VZ) - A(I_VZ)};
+        const float rr[3] = {rx, ry, rz};
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+            const float va = wxm * vji[q];
+#pragma unroll
+            for (int b = 0; b < 3; ++b) c[6 + 3 * q + b] = va * rr[b];
+        }
+    }
+
+    // mine: this slot's i-terms (stride T)
+    __device__ static void store(const float* J, long long ns,
+                                 long long islot, const float* mine, int T,
+                                 const float (&acc)[NC], bool ok,
+                                 const PairParams&, float* out)
+    {
+        float C[3][3];
+        iad_tail(acc[0], acc[1], acc[2], acc[3], acc[4], acc[5], JI(3), C);
+        float dV[3][3];   // dV[a][b] = -(C Q_a)_b
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                dV[q][b] = -(C[b][0] * acc[6 + 3 * q]
+                             + C[b][1] * acc[6 + 3 * q + 1]
+                             + C[b][2] * acc[6 + 3 * q + 2]);
+        iad_store(C, dV, mine[I_KFAC * T] / JI(5), ok, out, islot, ns);
+    }
+};
+
+// stages 4 and 8 (K7, K7c): momentum and energy
 template <bool AvClean>
-struct Rows {
+struct MomStage {
+    // x y z vx vy vz c rho xm alpha m c11..c33 [d11..d33], then the
+    // j-only terms
     static constexpr int X = 0, Y = 1, Z = 2, VX = 3, VY = 4, VZ = 5, C = 6,
                          RHO = 7, XM = 8, AL = 9, M = 10, C11 = 11, D11 = 17;
     static constexpr int NCOPY = AvClean ? 23 : 17;
@@ -985,157 +971,24 @@ struct Rows {
                          LXM = NCOPY + 3, MRHO = NCOPY + 4,
                          MPRHO = NCOPY + 5;
     static constexpr int NROW = NCOPY + 6;
-    // x y z vx vy vz c rho xm alpha m c11..c33 [d11..d33]
     __device__ static int jrow(int r)
     {
         return r < 3 ? r : (r < 6 ? r + 2 : (r == 6 ? 8 : r + 3));
     }
-};
+    enum : int {
+        I_X, I_Y, I_Z, I_HINV2, I_HI3, I_C, I_AL, I_RHO, I_RHOINV, I_PRHO,
+        I_XM, I_LXM, I_VX, I_VY, I_VZ, I_C11, I_HINV = I_C11 + 6, I_D11,
+        I_ETA = I_D11 + 6
+    };
+    static constexpr int NI = AvClean ? I_ETA + 1 : I_HINV;
+    // pairs compacted across lanes; mx my mz energy avisc (sums), vsig
+    // (a max)
+    static constexpr bool COMPACT = true;
+    static constexpr int NE = 5, NC = 6, NLOAD = 4, FO = 5, TEST_UNROLL = 4;
 
-// i-terms: the rows of shared memory that the lane evaluating a pair
-// reads at its owner's column
-enum : int {
-    I_X, I_Y, I_Z, I_HINV2, I_HI3, I_C, I_AL, I_RHO, I_RHOINV, I_PRHO,
-    I_XM, I_LXM, I_VX, I_VY, I_VZ, I_C11, I_HINV = I_C11 + 6, I_D11,
-    I_ETA = I_D11 + 6
-};
-
-// the six contributions of pair (i, k): mx, my, mz, energy, avisc, vsig
-// (arithmetic of the former per-pair body, on the staged j-only terms)
-template <bool AvClean>
-__device__ __forceinline__ void pair_terms(const float* a, const float* sb,
-                                           int T, int k, const PairParams& p,
-                                           float* c)
-{
-    using R = Rows<AvClean>;
-#define S(r) sb[(r) * T + k]
-#define A(q) a[(q) * T]
-    const float rx = __fsub_rn(A(I_X), S(R::X)),
-                ry = __fsub_rn(A(I_Y), S(R::Y)),
-                rz = __fsub_rn(A(I_Z), S(R::Z));
-    const float d2 = dist2(rx, ry, rz);
-    const float v2i = __fmul_rn(d2, A(I_HINV2));
-    const float hj_inv = S(R::HINV);
-    const float v2j = d2 * S(R::HINV2);
-    const float Wi = w_v2(v2i, p.n_w) * A(I_HI3);
-    const float Wj = w_v2(v2j, p.n_w) * S(R::HINV3);
-
-    const float tAi0 = -(A(I_C11 + 0) * rx + A(I_C11 + 1) * ry
-                         + A(I_C11 + 2) * rz) * Wi;
-    const float tAi1 = -(A(I_C11 + 1) * rx + A(I_C11 + 3) * ry
-                         + A(I_C11 + 4) * rz) * Wi;
-    const float tAi2 = -(A(I_C11 + 2) * rx + A(I_C11 + 4) * ry
-                         + A(I_C11 + 5) * rz) * Wi;
-    const float tAj0 = -(S(R::C11) * rx + S(R::C11 + 1) * ry
-                         + S(R::C11 + 2) * rz) * Wj;
-    const float tAj1 = -(S(R::C11 + 1) * rx + S(R::C11 + 3) * ry
-                         + S(R::C11 + 4) * rz) * Wj;
-    const float tAj2 = -(S(R::C11 + 2) * rx + S(R::C11 + 4) * ry
-                         + S(R::C11 + 5) * rz) * Wj;
-
-    const float vx_ij = A(I_VX) - S(R::VX), vy_ij = A(I_VY) - S(R::VY),
-                vz_ij = A(I_VZ) - S(R::VZ);
-    float rv = rx * vx_ij + ry * vy_ij + rz * vz_ij;
-    const float inv_d = rsqrtf(fmaxf(d2, 1e-30f));
-    if constexpr (AvClean) {
-        // the quadratic forms as the JAX body writes them: the gradv
-        // off-diagonals are symmetrised sums (q2 = d22 ry + d23 rz,
-        // q3 = d33 rz)
-        auto quad = [&](float d11, float d12, float d13, float d22,
-                        float d23, float d33) {
-            float q1 = d11 * rx + d12 * ry + d13 * rz;
-            float q2 = d22 * ry + d23 * rz;
-            float q3 = d33 * rz;
-            return rx * q1 + ry * q2 + rz * q3;
-        };
-        float dmy1 = quad(A(I_D11), A(I_D11 + 1), A(I_D11 + 2), A(I_D11 + 3),
-                          A(I_D11 + 4), A(I_D11 + 5));
-        float dmy2 = quad(S(R::D11), S(R::D11 + 1), S(R::D11 + 2),
-                          S(R::D11 + 3), S(R::D11 + 4), S(R::D11 + 5));
-        float dist = d2 * inv_d;
-        float eta_ab = dist * fminf(A(I_HINV), hj_inv);
-        float eta_diff = 5.0f * (eta_ab - A(I_ETA));
-        float dmy3 = eta_ab < A(I_ETA) ? expf(-eta_diff * eta_diff) : 1.0f;
-        float A_ab = dmy2 != 0.0f ? dmy1 / dmy2 : 0.0f;
-        float A_abp1 = 1.0f + A_ab;
-        float phi = 0.5f * dmy3
-            * fminf(fmaxf(4.0f * A_ab / (A_abp1 * A_abp1), 0.0f), 1.0f);
-        rv = rv - phi * (dmy1 + dmy2);
-    }
-    const float wij = rv * inv_d;
-    const float ci = A(I_C), csum = ci + S(R::C);
-    const float vij_signal =
-        (A(I_AL) + S(R::AL)) * 0.25f * csum - 2.0f * wij;
-    const float visc = wij < 0.0f ? -vij_signal * wij : 0.0f;
-    c[5] = d2 > 0.0f ? 0.5f * csum - 2.0f * wij : SPH_NEG;
-
-    const float rhoi = A(I_RHO), xmi = A(I_XM);
-    const float mj = S(R::M), xmj = S(R::XM), rhoj = S(R::RHO);
-    const float drho = fabsf(rhoi - rhoj);
-    const float srho = rhoi + rhoj;
-    const float sigma = p.ramp * (drho / srho - p.atmin);
-    const float lxmj = S(R::LXM), lxmi = A(I_LXM);
-    const float prod = xmi * xmj;
-    float a_mom, b_mom;
-    if (p.uniform_mass) {
-        float sc = fminf(fmaxf(sigma, 0.0f), 1.0f);
-        float ep, em;
-        exp_pair((1.0f - sc) * (lxmj - lxmi), ep, em);
-        a_mom = prod * em;
-        b_mom = prod * ep;
-    } else {
-        bool is_lo = drho < p.atmin * srho;
-        bool is_hi = drho > p.atmax * srho;
-        float t = expf((sigma - 1.0f) * (lxmj - lxmi));
-        a_mom = is_lo ? xmi * xmi : (is_hi ? prod : prod * t);
-        b_mom = is_lo ? xmj * xmj : (is_hi ? prod : prod / t);
-    }
-
-    const float a_visc = (mj * A(I_RHOINV)) * visc;
-    const float b_visc = S(R::MRHO) * visc;
-    const float avx = 0.5f * (a_visc * tAi0 + b_visc * tAj0);
-    const float avy = 0.5f * (a_visc * tAi1 + b_visc * tAj1);
-    const float avz = 0.5f * (a_visc * tAi2 + b_visc * tAj2);
-    c[4] = avx * vx_ij + avy * vy_ij + avz * vz_ij;
-    c[3] = mj * a_mom * (vx_ij * tAi0 + vy_ij * tAi1 + vz_ij * tAi2);
-    const float mom_i = mj * A(I_PRHO) * a_mom;
-    const float mom_j = S(R::MPRHO) * b_mom;
-    c[0] = mom_i * tAi0 + mom_j * tAj0 + avx;
-    c[1] = mom_i * tAi1 + mom_j * tAj1 + avy;
-    c[2] = mom_i * tAi2 + mom_j * tAj2 + avz;
-#undef S
-#undef A
-}
-
-// one interior cell `own`, the i-tile blockIdx.y, blockDim.x == T
-template <bool AvClean>
-__device__ __noinline__ void momentum_cell(const float* __restrict__ J,
-                                           float* __restrict__ out,
-                                           const PairGeom g,
-                                           const PairParams p,
-                                           const long long own,
-                                           const int vec)
-{
-    using R = Rows<AvClean>;
-    constexpr int NI = AvClean ? I_ETA + 1 : I_HINV;   // i-terms
-    extern __shared__ __align__(16) float msm[];
-    const int cap = g.cap;
-    const long long ns = g.n_slots;
-    const int T = cap < TILE ? cap : TILE;
-    const int nt = (cap + T - 1) / T;
-    const int t = threadIdx.x, lane = t & 31, w = t >> 5, nw = T >> 5;
-    float* const tiles = msm;                         // [2][NROW][T]
-    float* const C = msm + 2 * R::NROW * T + w * 6 * 64;   // [6][64]
-    int* const lastv = reinterpret_cast<int*>(msm + 2 * R::NROW * T
-                                              + nw * 6 * 64);  // [2][nw]
-    float* const ist = msm + 2 * R::NROW * T + nw * 6 * 64 + 2 * nw;
-
-    // the i side
-    const int ti = blockIdx.y * T + t;
-    const bool ihas = ti < cap;
-    const long long islot = own * cap + (ihas ? ti : 0);
-#define JI(r) J[(long long)(r) * ns + islot]
-    float iv[NI];
+    __device__ static void load_i(const float* J, long long ns,
+                                  long long islot, bool ihas,
+                                  const PairParams&, float (&iv)[NI])
     {
         const float hi = JI(3);
         const float hinv = __fdiv_rn(1.0f, hi);
@@ -1164,19 +1017,208 @@ __device__ __noinline__ void momentum_cell(const float* __restrict__ J,
             iv[I_ETA] = JI(26);
         }
     }
-#undef JI
+
+    __device__ static void load_e(const float* J, long long ns, long long s,
+                                  float (&e)[NE])
+    {
+        e[0] = J[3 * ns + s];        // h
+        e[1] = J[9 * ns + s];        // prho
+        e[2] = J[11 * ns + s];       // xm
+        e[3] = J[13 * ns + s];       // m
+        e[4] = J[10 * ns + s];       // rho
+    }
+
+    __device__ static void finish(float* d, int T, const float (&e)[NE])
+    {
+        const float hj_inv = 1.0f / e[0];
+        d[HINV * T] = hj_inv;
+        d[HINV2 * T] = hj_inv * hj_inv;
+        d[HINV3 * T] = hj_inv * hj_inv * hj_inv;
+        d[LXM * T] = logf(e[2]);
+        d[MRHO * T] = e[3] / e[4];
+        d[MPRHO * T] = e[3] * e[1];
+    }
+
+    __device__ static void init(float (&acc)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < 5; ++q) acc[q] = 0.0f;
+        acc[5] = SPH_NEG;
+    }
+
+    __device__ static void add(float (&acc)[NC], const float (&v)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < 5; ++q) acc[q] += v[q];
+        acc[5] = fmaxf(acc[5], v[5]);
+    }
+
+    // the six contributions of pair (i, k): mx, my, mz, energy, avisc,
+    // vsig (arithmetic of the former per-pair body, on the staged j-only
+    // terms)
+    __device__ static void terms(const float* a, const float* sb, int T,
+                                 int k, const PairParams& p,
+                                 float (&c)[NC])
+    {
+        const float rx = __fsub_rn(A(I_X), S(X)),
+                    ry = __fsub_rn(A(I_Y), S(Y)),
+                    rz = __fsub_rn(A(I_Z), S(Z));
+        const float d2 = dist2(rx, ry, rz);
+        const float v2i = __fmul_rn(d2, A(I_HINV2));
+        const float hj_inv = S(HINV);
+        const float v2j = d2 * S(HINV2);
+        const float Wi = w_v2(v2i, p.n_w) * A(I_HI3);
+        const float Wj = w_v2(v2j, p.n_w) * S(HINV3);
+
+        const float tAi0 = -(A(I_C11 + 0) * rx + A(I_C11 + 1) * ry
+                             + A(I_C11 + 2) * rz) * Wi;
+        const float tAi1 = -(A(I_C11 + 1) * rx + A(I_C11 + 3) * ry
+                             + A(I_C11 + 4) * rz) * Wi;
+        const float tAi2 = -(A(I_C11 + 2) * rx + A(I_C11 + 4) * ry
+                             + A(I_C11 + 5) * rz) * Wi;
+        const float tAj0 = -(S(C11) * rx + S(C11 + 1) * ry
+                             + S(C11 + 2) * rz) * Wj;
+        const float tAj1 = -(S(C11 + 1) * rx + S(C11 + 3) * ry
+                             + S(C11 + 4) * rz) * Wj;
+        const float tAj2 = -(S(C11 + 2) * rx + S(C11 + 4) * ry
+                             + S(C11 + 5) * rz) * Wj;
+
+        const float vx_ij = A(I_VX) - S(VX), vy_ij = A(I_VY) - S(VY),
+                    vz_ij = A(I_VZ) - S(VZ);
+        float rv = rx * vx_ij + ry * vy_ij + rz * vz_ij;
+        const float inv_d = rsqrtf(fmaxf(d2, 1e-30f));
+        if constexpr (AvClean) {
+            // the quadratic forms as the JAX body writes them: the gradv
+            // off-diagonals are symmetrised sums (q2 = d22 ry + d23 rz,
+            // q3 = d33 rz)
+            auto quad = [&](float d11, float d12, float d13, float d22,
+                            float d23, float d33) {
+                float q1 = d11 * rx + d12 * ry + d13 * rz;
+                float q2 = d22 * ry + d23 * rz;
+                float q3 = d33 * rz;
+                return rx * q1 + ry * q2 + rz * q3;
+            };
+            float dmy1 = quad(A(I_D11), A(I_D11 + 1), A(I_D11 + 2),
+                              A(I_D11 + 3), A(I_D11 + 4), A(I_D11 + 5));
+            float dmy2 = quad(S(D11), S(D11 + 1), S(D11 + 2), S(D11 + 3),
+                              S(D11 + 4), S(D11 + 5));
+            float dist = d2 * inv_d;
+            float eta_ab = dist * fminf(A(I_HINV), hj_inv);
+            float eta_diff = 5.0f * (eta_ab - A(I_ETA));
+            float dmy3 = eta_ab < A(I_ETA) ? expf(-eta_diff * eta_diff)
+                                           : 1.0f;
+            float A_ab = dmy2 != 0.0f ? dmy1 / dmy2 : 0.0f;
+            float A_abp1 = 1.0f + A_ab;
+            float phi = 0.5f * dmy3
+                * fminf(fmaxf(4.0f * A_ab / (A_abp1 * A_abp1), 0.0f), 1.0f);
+            rv = rv - phi * (dmy1 + dmy2);
+        }
+        const float wij = rv * inv_d;
+        const float ci = A(I_C), csum = ci + S(C);
+        const float vij_signal =
+            (A(I_AL) + S(AL)) * 0.25f * csum - 2.0f * wij;
+        const float visc = wij < 0.0f ? -vij_signal * wij : 0.0f;
+        c[5] = d2 > 0.0f ? 0.5f * csum - 2.0f * wij : SPH_NEG;
+
+        const float rhoi = A(I_RHO), xmi = A(I_XM);
+        const float mj = S(M), xmj = S(XM), rhoj = S(RHO);
+        const float drho = fabsf(rhoi - rhoj);
+        const float srho = rhoi + rhoj;
+        const float sigma = p.ramp * (drho / srho - p.atmin);
+        const float lxmj = S(LXM), lxmi = A(I_LXM);
+        const float prod = xmi * xmj;
+        float a_mom, b_mom;
+        if (p.uniform_mass) {
+            float sc = fminf(fmaxf(sigma, 0.0f), 1.0f);
+            float ep, em;
+            exp_pair((1.0f - sc) * (lxmj - lxmi), ep, em);
+            a_mom = prod * em;
+            b_mom = prod * ep;
+        } else {
+            bool is_lo = drho < p.atmin * srho;
+            bool is_hi = drho > p.atmax * srho;
+            float t = expf((sigma - 1.0f) * (lxmj - lxmi));
+            a_mom = is_lo ? xmi * xmi : (is_hi ? prod : prod * t);
+            b_mom = is_lo ? xmj * xmj : (is_hi ? prod : prod / t);
+        }
+
+        const float a_visc = (mj * A(I_RHOINV)) * visc;
+        const float b_visc = S(MRHO) * visc;
+        const float avx = 0.5f * (a_visc * tAi0 + b_visc * tAj0);
+        const float avy = 0.5f * (a_visc * tAi1 + b_visc * tAj1);
+        const float avz = 0.5f * (a_visc * tAi2 + b_visc * tAj2);
+        c[4] = avx * vx_ij + avy * vy_ij + avz * vz_ij;
+        c[3] = mj * a_mom * (vx_ij * tAi0 + vy_ij * tAi1 + vz_ij * tAi2);
+        const float mom_i = mj * A(I_PRHO) * a_mom;
+        const float mom_j = S(MPRHO) * b_mom;
+        c[0] = mom_i * tAi0 + mom_j * tAj0 + avx;
+        c[1] = mom_i * tAi1 + mom_j * tAj1 + avy;
+        c[2] = mom_i * tAi2 + mom_j * tAj2 + avz;
+    }
+
+    __device__ static void store(const float*, long long ns, long long islot,
+                                 const float* mine, int T,
+                                 const float (&acc)[NC], bool ok,
+                                 const PairParams& p, float* out)
+    {
+        const float K3d = p.K3d;
+        const float du = K3d * (mine[I_PRHO * T] * acc[3]
+                                + 0.5f * fmaxf(acc[4], 0.0f));
+        const float o[5] = {-K3d * acc[0], -K3d * acc[1], -K3d * acc[2], du,
+                            fmaxf(acc[5], 0.0f)};
+#pragma unroll
+        for (int r = 0; r < 5; ++r) out[r * ns + islot] = ok ? o[r] : 0.0f;
+    }
+};
+#undef S
+#undef A
+
+// floats of shared memory a block of T threads takes
+template <class St>
+__host__ __device__ constexpr int smem_floats(int T)
+{
+    return 2 * St::NROW * T + (T / 32) * (St::COMPACT ? St::NC * 64 : 0)
+        + 2 * (T / 32) + St::NI * T;
+}
+
+// one interior cell `own`, the i-tile blockIdx.y, blockDim.x == T
+template <class St>
+__device__ __noinline__ void pair_cell(const float* __restrict__ J,
+                                       float* __restrict__ out,
+                                       const PairGeom g, const PairParams p,
+                                       const long long own, const int vec)
+{
+    constexpr int NROW = St::NROW, NI = St::NI, NC = St::NC;
+    constexpr int NCS = St::COMPACT ? NC * 64 : 0;   // contributions a warp
+    extern __shared__ __align__(16) float msm[];
+    const int cap = g.cap;
+    const long long ns = g.n_slots;
+    const int T = cap < TILE ? cap : TILE;
+    const int nt = (cap + T - 1) / T;
+    const int t = threadIdx.x, lane = t & 31, w = t >> 5, nw = T >> 5;
+    float* const tiles = msm;                             // [2][NROW][T]
+    float* const C = msm + 2 * NROW * T + w * NCS;        // [NC][64]
+    int* const lastv = reinterpret_cast<int*>(msm + 2 * NROW * T
+                                              + nw * NCS);       // [2][nw]
+    float* const ist = msm + 2 * NROW * T + nw * NCS + 2 * nw;
+
+    // the i side
+    const int ti = blockIdx.y * T + t;
+    const bool ihas = ti < cap;
+    const long long islot = own * cap + (ihas ? ti : 0);
+    float iv[NI];
+    St::load_i(J, ns, islot, ihas, p, iv);
     // the i-terms to shared memory ([NI][T]; a warp reads only its own
     // lanes' columns, so the next cell of K11 may overwrite them before
-    // the barrier), the support test's and the store's kept in registers
+    // the barrier), the support test's kept in registers
 #pragma unroll
     for (int q = 0; q < NI; ++q) ist[q * T + t] = iv[q];
-    const float xi = iv[I_X], yi = iv[I_Y], zi = iv[I_Z],
-                hinv2 = iv[I_HINV2], prhoi = iv[I_PRHO];
+    const float xi = iv[0], yi = iv[1], zi = iv[2], hinv2 = iv[3];
     const bool ivalid = xi < HALF_FILL;
     // also the barrier after the previous cell's last unit (K11)
     if (!__syncthreads_or(ivalid)) {
         if (ihas)
-            for (int r = 0; r < 5; ++r) out[r * ns + islot] = 0.0f;
+            for (int r = 0; r < St::FO; ++r) out[r * ns + islot] = 0.0f;
         return;
     }
     const bool wactive = __ballot_sync(FULL, ivalid) != 0;
@@ -1197,48 +1239,37 @@ __device__ __noinline__ void momentum_cell(const float* __restrict__ J,
     // stage unit v into its buffer: warp w's slot group, if occupied
     // (cp.async, committed as one group), and the sources of its j-only
     // terms into e; returns the warp's validity ballot
-    auto issue = [&](int v, float xv, float* e) {
+    auto issue = [&](int v, float xv, float (&e)[St::NE]) {
         const unsigned vm = __ballot_sync(FULL, xv < HALF_FILL);
         if (lane == 0)
             lastv[(v & 1) * nw + w] = vm ? 32 * w + 31 - __clz(vm) : -1;
         if (vm) {
             const long long b = tile_base(v) + 32 * w;
-            float* dst = tiles + (v & 1) * R::NROW * T + 32 * w;
+            float* dst = tiles + (v & 1) * NROW * T + 32 * w;
             if (vec) {
                 const int seg = (lane & 7) * 4;
-                for (int r = lane >> 3; r < R::NCOPY; r += 4)
+                for (int r = lane >> 3; r < St::NCOPY; r += 4)
                     cp_async16(dst + r * T + seg,
-                               J + (long long)R::jrow(r) * ns + b + seg);
+                               J + (long long)St::jrow(r) * ns + b + seg);
             } else {
-                for (int r = 0; r < R::NCOPY; ++r)
+                for (int r = 0; r < St::NCOPY; ++r)
                     cp_async4(dst + r * T + lane,
-                              J + (long long)R::jrow(r) * ns + b + lane);
+                              J + (long long)St::jrow(r) * ns + b + lane);
             }
-            const long long s = b + lane;
-            e[0] = J[3 * ns + s];        // h
-            e[1] = J[9 * ns + s];        // prho
-            e[2] = J[11 * ns + s];       // xm
-            e[3] = J[13 * ns + s];       // m
-            e[4] = J[10 * ns + s];       // rho
+            St::load_e(J, ns, b + lane, e);
         }
         cp_async_commit();
         return vm;
     };
-    // the j-only terms of unit v (the pair body's former expressions)
-    auto finish = [&](int v, unsigned vm, const float* e) {
-        if (!vm) return;
-        float* d = tiles + (v & 1) * R::NROW * T + 32 * w + lane;
-        const float hj_inv = 1.0f / e[0];
-        d[R::HINV * T] = hj_inv;
-        d[R::HINV2 * T] = hj_inv * hj_inv;
-        d[R::HINV3 * T] = hj_inv * hj_inv * hj_inv;
-        d[R::LXM * T] = logf(e[2]);
-        d[R::MRHO * T] = e[3] / e[4];
-        d[R::MPRHO * T] = e[3] * e[1];
+    // the j-only terms of unit v
+    auto finish = [&](int v, unsigned vm, const float (&e)[St::NE]) {
+        if (vm)
+            St::finish(tiles + (v & 1) * NROW * T + 32 * w + lane, T, e);
     };
 
-    float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, SPH_NEG};
-    float e[5];
+    float acc[NC];
+    St::init(acc);
+    float e[St::NE];
     {
         const float x0 = xload(0);
         finish(0, issue(0, x0, e), e);
@@ -1250,7 +1281,7 @@ __device__ __noinline__ void momentum_cell(const float* __restrict__ J,
         unsigned vmn = 0;
         if (v + 1 < U) vmn = issue(v + 1, xn1, e);
         const float xn2 = v + 2 < U ? xload(v + 2) : SPH_FILL_POS;
-        const float* sb = tiles + (v & 1) * R::NROW * T;
+        const float* sb = tiles + (v & 1) * NROW * T;
         int kmax = -1;
         for (int q = 0; q < nw; ++q) kmax = max(kmax, lastv[(v & 1) * nw + q]);
         ++kmax;
@@ -1258,93 +1289,92 @@ __device__ __noinline__ void momentum_cell(const float* __restrict__ J,
             const int kn = min(32, kmax - k0);
             unsigned m = 0;
             if (ivalid) {
-#pragma unroll 4
+                constexpr int UT = St::TEST_UNROLL;
+#pragma unroll UT
                 for (int b = 0; b < kn; ++b) {
                     const int k = k0 + b;
-                    const float d2 = dist2(__fsub_rn(xi, sb[R::X * T + k]),
-                                           __fsub_rn(yi, sb[R::Y * T + k]),
-                                           __fsub_rn(zi, sb[R::Z * T + k]));
+                    const float d2 = dist2(__fsub_rn(xi, sb[St::X * T + k]),
+                                           __fsub_rn(yi, sb[St::Y * T + k]),
+                                           __fsub_rn(zi, sb[St::Z * T + k]));
                     if (__fmul_rn(d2, hinv2) < 4.0f) m |= 1u << b;
                 }
             }
-            const int cnt = __popc(m);
-            int incl = cnt;
-#pragma unroll
-            for (int s = 1; s < 32; s <<= 1) {
-                const int y = __shfl_up_sync(FULL, incl, s);
-                if (lane >= s) incl += y;
-            }
-            const int total = __shfl_sync(FULL, incl, 31);
-            const int off = incl - cnt;
-            for (int p0 = 0; p0 < total; p0 += 64) {
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    const int pi = p0 + 32 * h + lane;
-                    int l = 0;            // owner: last lane with off <= pi
-#pragma unroll
-                    for (int s = 16; s > 0; s >>= 1) {
-                        const int o = __shfl_sync(FULL, off, l + s);
-                        if (o <= pi) l += s;
-                    }
-                    const int r = pi - __shfl_sync(FULL, off, l);
-                    const unsigned mm = __shfl_sync(FULL, m, l);
-                    int bit = 0;          // the r-th set bit of mm
-#pragma unroll
-                    for (int s = 16; s > 0; s >>= 1)
-                        if (__popc(mm & ((1u << (bit + s)) - 1u)) <= r)
-                            bit += s;
-                    if (pi < total) {
-                        float c[6];
-                        pair_terms<AvClean>(ist + 32 * w + l, sb, T, k0 + bit,
-                                            p, c);
-#pragma unroll
-                        for (int q = 0; q < 6; ++q)
-                            C[q * 64 + 32 * h + lane] = c[q];
-                    }
+            if constexpr (!St::COMPACT) {
+                // the lane's own pairs, in k order
+                for (unsigned mm = m; mm; mm &= mm - 1) {
+                    float c[NC];
+                    St::terms(ist + t, sb, T, k0 + __ffs(mm) - 1, p, c);
+                    St::add(acc, c);
                 }
-                __syncwarp();
-                const int lo = max(off, p0) - p0;
-                const int hi = min(off + cnt, p0 + 64) - p0;
-                // four entries' loads in flight, then their adds in order
-                for (int s = lo; s < hi; s += 4) {
-                    float v[4][6];
+            } else {
+                const int cnt = __popc(m);
+                int incl = cnt;
 #pragma unroll
-                    for (int u = 0; u < 4; ++u)
+                for (int s = 1; s < 32; s <<= 1) {
+                    const int y = __shfl_up_sync(FULL, incl, s);
+                    if (lane >= s) incl += y;
+                }
+                const int total = __shfl_sync(FULL, incl, 31);
+                const int off = incl - cnt;
+                for (int p0 = 0; p0 < total; p0 += 64) {
 #pragma unroll
-                        for (int q = 0; q < 6; ++q)
-                            v[u][q] = s + u < hi ? C[q * 64 + s + u] : 0.0f;
+                    for (int h = 0; h < 2; ++h) {
+                        const int pi = p0 + 32 * h + lane;
+                        int l = 0;        // owner: last lane with off <= pi
 #pragma unroll
-                    for (int u = 0; u < 4; ++u)
-                        if (s + u < hi) {
-#pragma unroll
-                            for (int q = 0; q < 5; ++q) acc[q] += v[u][q];
-                            acc[5] = fmaxf(acc[5], v[u][5]);
+                        for (int s = 16; s > 0; s >>= 1) {
+                            const int o = __shfl_sync(FULL, off, l + s);
+                            if (o <= pi) l += s;
                         }
+                        const int r = pi - __shfl_sync(FULL, off, l);
+                        const unsigned mm = __shfl_sync(FULL, m, l);
+                        int bit = 0;          // the r-th set bit of mm
+#pragma unroll
+                        for (int s = 16; s > 0; s >>= 1)
+                            if (__popc(mm & ((1u << (bit + s)) - 1u)) <= r)
+                                bit += s;
+                        if (pi < total) {
+                            float c[NC];
+                            St::terms(ist + 32 * w + l, sb, T, k0 + bit, p, c);
+#pragma unroll
+                            for (int q = 0; q < NC; ++q)
+                                C[q * 64 + 32 * h + lane] = c[q];
+                        }
+                    }
+                    __syncwarp();
+                    const int lo = max(off, p0) - p0;
+                    const int hi = min(off + cnt, p0 + 64) - p0;
+                    // NLOAD entries' loads in flight, then their adds in
+                    // order
+                    for (int s = lo; s < hi; s += St::NLOAD) {
+                        float vv[St::NLOAD][NC];
+#pragma unroll
+                        for (int u = 0; u < St::NLOAD; ++u)
+#pragma unroll
+                            for (int q = 0; q < NC; ++q)
+                                vv[u][q] = s + u < hi ? C[q * 64 + s + u]
+                                                      : 0.0f;
+#pragma unroll
+                        for (int u = 0; u < St::NLOAD; ++u)
+                            if (s + u < hi) St::add(acc, vv[u]);
+                    }
+                    __syncwarp();
                 }
-                __syncwarp();
             }
         }
         if (v + 1 < U) finish(v + 1, vmn, e);
         xn1 = xn2;
     }
 
-    if (ihas) {
-        const float K3d = p.K3d;
-        const float du = K3d * (prhoi * acc[3]
-                                + 0.5f * fmaxf(acc[4], 0.0f));
-        const float o[5] = {-K3d * acc[0], -K3d * acc[1], -K3d * acc[2], du,
-                            fmaxf(acc[5], 0.0f)};
-#pragma unroll
-        for (int r = 0; r < 5; ++r) out[r * ns + islot] = ivalid ? o[r] : 0.0f;
-    }
+    if (ihas) St::store(J, ns, islot, ist + t, T, acc, ivalid, p, out);
 }
 
-// the cell launch (stage 4, 8), K2g (Gated: stage 4) and K11's stream
-// form (Column); blockIdx.y is the i-tile
-template <bool AvClean, bool Gated, bool Column>
+// the cell launch, K2g (Gated) and K11's stream form (Column);
+// blockIdx.y is the i-tile
+template <class St, bool Gated, bool Column>
 __global__ void __launch_bounds__(TILE)
-cell_momentum(const float* __restrict__ J, float* __restrict__ out,
-              PairGeom g, PairParams p, PairGate gt, int zseg, int vec)
+cell_tile(const float* __restrict__ J, float* __restrict__ out, PairGeom g,
+          PairParams p, PairGate gt, int zseg, int vec)
 {
     const Walk w = block_walk<Column>(g, zseg);
     const int T = g.cap < TILE ? g.cap : TILE;
@@ -1352,13 +1382,272 @@ cell_momentum(const float* __restrict__ J, float* __restrict__ out,
     for (int q = 0; q < w.ncell; ++q) {
         const long long own = w.own0 + q;
         if constexpr (Gated)
-            if (gate_closed<5>(gt, g, own, out, s0, min(T, g.cap - s0)))
+            if (gate_closed<St::FO>(gt, g, own, out, s0, min(T, g.cap - s0)))
                 return;
-        momentum_cell<AvClean>(J, out, g, p, own, vec);
+        pair_cell<St>(J, out, g, p, own, vec);
     }
 }
 
-}  // namespace mom
+}  // namespace tile
+
+// --------------------------------------------------------------------------
+// stage 0 (K3): neighbour count, the nc -> h controller, xmass.
+// Replaces _xh_body (pallas_ve.py:537): per i-slot the count of
+// candidates inside its support, h_iter rounds of the controller (a
+// slot outside [ng0/4, ngmax] takes h 0.5 (1 + 1023 ng0 / nc)^0.1, capped
+// at h_cap), a count at each new h but the last, and the final count and
+// xmass sum (W(v)^n_w m_j over the support) at the last h.
+//
+// Bound: arithmetic, 9 flops a candidate for the distance and the
+// support test, 18 more inside the support; a recount at a new h is one
+// multiply and a compare a candidate where d2 is kept (the bound of
+// chip_smoke.py counts one distance pass and the recounts).
+//
+// One device routine, xh_cell, computes the interior cells of a block
+// for every launch form (the cell launch and K2g one cell, K11 a
+// z-segment; K11's ring form of stage 0 is its stream form), so those
+// equal each other bit for bit. A block of T = min(cap, 128) threads
+// takes one i-tile of the cell (blockIdx.y):
+//  1. Occupied slots, one flat run. Each warp ballots x < HALF_FILL over
+//     the 32-slot groups of the 27 neighbour cells; warp 0 lists the
+//     occupied groups in nb-then-slot order, and the block stages their
+//     x, y, z, m as float4 into one run in shared memory, a window of 27
+//     groups (13.8 KB) at a time: a run that fits stays resident across
+//     the walks, a longer one is staged and walked window after window,
+//     in order. At Sedov 100^3 (cap 64, ~2 groups a cell) the run takes
+//     two windows; a window of 54 groups (the whole run, 27.6 KB a
+//     block) took K3 2.13 ms against 1.46 (half the blocks an SM), one
+//     of 18 groups 1.42 (trial variants, chip_smoke.py's timing on
+//     NVIDIA H100 80GB HBM3, 700 W). A slot left invalid in a staged
+//     group fails the support test (FILL_POS).
+//  2. Walks only where h moved. A walk computes a lane's count and its
+//     xmass sum (in run order, the cell launch's nb-then-slot order) at
+//     its current h. The count depends only on the bits of 1/h^2, and a
+//     lane whose `need` is false keeps its h, so a lane walks at the
+//     first count and then only at the count after a round that changed
+//     the bits of its h; the final pass is the last walk's count and
+//     sum. A warp with no such lane skips the walk. With no h moving
+//     (the Sedov 100^3 main path) each lane walks once, not 1 + h_iter
+//     times. The xmass body stays a branch on the support test: testing
+//     a chunk of 32 into a mask and then walking the mask's bits took
+//     1.61 ms against 1.46 (same runs).
+//  3. Invalid i-slots walk nothing. The frame puts every invalid slot at
+//     FILL_POS (a periodic image's shift under 4 rounds back to it in
+//     float32), so an invalid i counts exactly the invalid slots of its
+//     27 cells at any h, 27 cap minus the ballots' valid slots; its h
+//     follows the controller on that count, as in the plain version
+//     (the engines keep their own h on invalid slots; xm, nc and nonconv
+//     are masked there). A tile with no valid i-slot stages nothing.
+// With p.stats set, each warp adds its lanes' walks, its warp walks and
+// the candidates those walked (chip_smoke.py's count of the card's
+// walks against xh_recounts).
+// --------------------------------------------------------------------------
+namespace xh {
+
+using tile::FULL;
+using tile::TILE;
+
+constexpr int WIN_GROUPS = 27;   // 32-slot groups a window holds
+
+__host__ __device__ constexpr int smem_bytes(int cap)
+{
+    return 16 * 32 * WIN_GROUPS + 4 * 2 * 27 * (cap / 32) + 4 * (1 + 4);
+}
+
+// one interior cell `own`, the i-tile blockIdx.y, blockDim.x == T
+__device__ __forceinline__ void xh_one(const float* __restrict__ J,
+                                       float* __restrict__ out,
+                                       const PairGeom& g, const PairParams& p,
+                                       const long long own)
+{
+    extern __shared__ __align__(16) float xsm[];
+    const int cap = g.cap;
+    const long long ns = g.n_slots;
+    const int T = cap < TILE ? cap : TILE;
+    const int t = threadIdx.x, lane = t & 31, w = t >> 5, nw = T >> 5;
+    const int G = cap >> 5, NG = 27 * G;
+    float4* const run = reinterpret_cast<float4*>(xsm);  // [32 WIN_GROUPS]
+    unsigned* const vm = reinterpret_cast<unsigned*>(xsm + 4 * 32
+                                                     * WIN_GROUPS);  // [NG]
+    int* const list = reinterpret_cast<int*>(vm + NG);   // [NG]
+    int* const cnt = list + NG;    // occupied groups, valid slots a warp
+
+    const int ti = blockIdx.y * T + t;
+    const bool ihas = ti < cap;
+    const long long islot = own * cap + (ihas ? ti : 0);
+    const float xi = ihas ? JI(0) : SPH_FILL_POS, yi = JI(1), zi = JI(2),
+                mi = JI(5);
+    float hi = JI(3);
+    const bool ivalid = xi < HALF_FILL;
+
+    // 1. ballots, the list of occupied groups, the run
+    __syncthreads();             // K11: the previous cell is done
+    int nv = 0;
+    for (int q = w; q < NG; q += nw) {
+        const int nb = q / G;
+        const unsigned m = __ballot_sync(
+            FULL, J[nbr_cell(g, own, nb) * cap + 32 * (q - nb * G) + lane]
+                      < HALF_FILL);
+        if (lane == 0) vm[q] = m;
+        nv += __popc(m);
+    }
+    if (lane == 0) cnt[1 + w] = nv;
+    const bool anyi = __syncthreads_or(ivalid);
+    if (anyi && w == 0) {
+        int base = 0;
+        for (int c0 = 0; c0 < NG; c0 += 32) {
+            const int q = c0 + lane;
+            const bool f = q < NG && vm[q] != 0u;
+            const unsigned b = __ballot_sync(FULL, f);
+            if (f) list[base + __popc(b & ((1u << lane) - 1u))] = q;
+            base += __popc(b);
+        }
+        if (lane == 0) cnt[0] = base;
+    }
+    __syncthreads();
+    const int nocc = cnt[0];
+    int nvalid = 0;
+    for (int u = 0; u < nw; ++u) nvalid += cnt[1 + u];
+    const float ninv = (float)(27 * cap - nvalid);
+
+    // groups [o0, o1) of the list into run[0, 32 (o1 - o0))
+    auto stage = [&](int o0, int o1) {
+        for (int o = o0 + w; o < o1; o += nw) {
+            const int q = list[o], nb = q / G;
+            const long long s = nbr_cell(g, own, nb) * cap
+                + 32 * (q - nb * G) + lane;
+            run[32 * (o - o0) + lane] =
+                make_float4(J[s], J[ns + s], J[2 * ns + s], J[5 * ns + s]);
+        }
+    };
+    const bool resident = nocc <= WIN_GROUPS;
+    if (anyi && resident) {
+        stage(0, nocc);
+        __syncthreads();
+    }
+
+    // 2. the walks: count and xmass sum over run[0, n) at hinv2
+    auto walk_run = [&](int n, float hinv2, float& nc, float& acc) {
+#pragma unroll 4
+        for (int k = 0; k < n; ++k) {
+            const float4 c = run[k];
+            const float v2 = __fmul_rn(dist2(__fsub_rn(xi, c.x),
+                                             __fsub_rn(yi, c.y),
+                                             __fsub_rn(zi, c.z)), hinv2);
+            if (v2 < 4.0f) {
+                acc += pow_nw(sinc_poly(v2), p.n_w) * c.w;
+                nc += 1.0f;
+            }
+        }
+    };
+    float ncnt = ninv, acc = 0.0f;     // valid lanes: their last walk's
+    bool stale = ivalid;               // h moved since the last walk
+    int nwalk = 0;
+    unsigned long long wwalk = 0, wtests = 0;
+    auto walk = [&](float hinv2) {
+        if (!anyi) return;
+        if (resident) {
+            if (__any_sync(FULL, stale)) {
+                ++wwalk;
+                wtests += 32ull * nocc;
+                if (stale) {
+                    float c = 0.0f, a = 0.0f;
+                    walk_run(32 * nocc, hinv2, c, a);
+                    ncnt = c;
+                    acc = a;
+                    ++nwalk;
+                }
+            }
+        } else if (__syncthreads_or(stale)) {
+            if (__any_sync(FULL, stale)) {
+                ++wwalk;
+                wtests += 32ull * nocc;
+            }
+            float c = 0.0f, a = 0.0f;
+            for (int o0 = 0; o0 < nocc; o0 += WIN_GROUPS) {
+                const int o1 = min(nocc, o0 + WIN_GROUPS);
+                stage(o0, o1);
+                __syncthreads();
+                if (stale) walk_run(32 * (o1 - o0), hinv2, c, a);
+                __syncthreads();
+            }
+            if (stale) {
+                ncnt = c;
+                acc = a;
+                ++nwalk;
+            }
+        }
+        stale = false;
+    };
+
+    float hinv = __fdiv_rn(1.0f, hi);
+    walk(__fmul_rn(hinv, hinv));
+    float nc_sph = ncnt;
+    for (int it = 0; it < p.h_iter; ++it) {
+        const bool need = nc_sph < p.ngmin || nc_sph - 1.0f > p.ngmax;
+        float h_new = __fmul_rn(
+            __fmul_rn(hi, 0.5f),
+            powf(__fadd_rn(1.0f, __fdiv_rn(p.hcoef, fmaxf(nc_sph, 1.0f))),
+                 0.1f));
+        if (p.h_cap > 0.0f) h_new = fminf(h_new, p.h_cap);
+        const float h_old = hi;
+        hi = need ? h_new : hi;
+        hinv = __fdiv_rn(1.0f, hi);
+        if (__float_as_uint(hi) != __float_as_uint(h_old)) stale = ivalid;
+        if (it < p.h_iter - 1) {
+            walk(__fmul_rn(hinv, hinv));
+            nc_sph = ncnt;
+        }
+    }
+    walk(__fmul_rn(hinv, hinv));       // lanes whose h moved last round
+    const float nc = ncnt - 1.0f;                   // self excluded
+    const float xm = mi * (hi * hi * hi) / (p.K3d * acc);
+    const bool nonconv = nc + 1.0f < p.ngmin || nc > p.ngmax;
+    if (ihas) {
+        out[0 * ns + islot] = ivalid ? xm : 1.0f;
+        out[1 * ns + islot] = hi;
+        out[2 * ns + islot] = ivalid ? nc : 0.0f;
+        out[3 * ns + islot] = ivalid && nonconv ? 1.0f : 0.0f;
+    }
+    if (p.stats != nullptr) {
+        const unsigned lw = __reduce_add_sync(FULL, (unsigned)nwalk);
+        if (lane == 0) {
+            atomicAdd(p.stats, (unsigned long long)lw);
+            atomicAdd(p.stats + 1, wwalk);
+            atomicAdd(p.stats + 2, wtests);
+        }
+    }
+}
+
+// cells own0 .. own0 + ncell - 1 of a z-column (the cell launch and K2g
+// one cell); the loop is inside the routine, so K11 keeps nothing live
+// across the call
+__device__ __noinline__ void xh_cell(const float* __restrict__ J,
+                                     float* __restrict__ out,
+                                     const PairGeom g, const PairParams p,
+                                     const long long own0, const int ncell)
+{
+    for (int q = 0; q < ncell; ++q) xh_one(J, out, g, p, own0 + q);
+}
+
+// the cell launch, K2g (Gated) and K11 (Column); blockIdx.y is the i-tile
+template <bool Gated, bool Column>
+__global__ void __launch_bounds__(TILE)
+cell_xh(const float* __restrict__ J, float* __restrict__ out, PairGeom g,
+        PairParams p, PairGate gt, int zseg)
+{
+    const Walk w = block_walk<Column>(g, zseg);
+    if constexpr (Gated) {
+        const int T = g.cap < TILE ? g.cap : TILE;
+        const int s0 = blockIdx.y * T;
+        if (gate_closed<4>(gt, g, w.own0, out, s0, min(T, g.cap - s0)))
+            return;
+    }
+    xh_cell(J, out, g, p, w.own0, w.ncell);
+}
+
+}  // namespace xh
+#undef JI
 
 // --------------------------------------------------------------------------
 // stage 7 (K10): the momentum stage as five pair-weight families
@@ -1742,30 +2031,21 @@ bool bad_gate(const PairGeom& g, const PairGate& gt, int zseg)
         && (zseg || gt.prev == nullptr || gt.Z < 1 || g.npz % gt.Z);
 }
 
-// the cell launch (zseg == 0; K2g when gt.act is set) and K11's stream
-// form (zseg > 0)
-template <class Body, bool Resident>
+// stages 1, 3, 5 and 6: the cell launch (zseg == 0; K2g when gt.act is
+// set) and K11's stream form (zseg > 0)
+template <class Body>
 cudaError_t launch(const float* J, const float* I2, float* out,
                    const PairGeom& g, const PairParams& p, const PairGate& gt,
                    int zseg, cudaStream_t st)
 {
     if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
         return cudaErrorInvalidValue;
-    const bool gated = gt.act != nullptr;
-    const size_t smem = sizeof(float) * (Body::FJ + Body::NM) * g.cap
-        * (Resident ? 27 : 1);
-    const unsigned nblk = n_blocks(g, zseg);
-    if constexpr (Resident) {
-        auto kern = zseg ? cell_pair_resident<Body, false, true>
-            : gated ? cell_pair_resident<Body, true, false>
-                    : cell_pair_resident<Body, false, false>;
-        return start(kern, nblk, g.cap, smem, st, J, I2, out, g, p, gt, zseg);
-    } else {
-        auto kern = zseg ? cell_pair_stream<Body, false, true>
-            : gated ? cell_pair_stream<Body, true, false>
-                    : cell_pair_stream<Body, false, false>;
-        return start(kern, nblk, g.cap, smem, st, J, I2, out, g, p, gt, zseg);
-    }
+    const size_t smem = sizeof(float) * (Body::FJ + Body::NM) * g.cap;
+    auto kern = zseg ? cell_pair_stream<Body, false, true>
+        : gt.act != nullptr ? cell_pair_stream<Body, true, false>
+                            : cell_pair_stream<Body, false, false>;
+    return start(kern, n_blocks(g, zseg), g.cap, smem, st, J, I2, out, g, p,
+                 gt, zseg);
 }
 
 // K11's ring form: 27 * FJ * cap floats of shared memory a block
@@ -1785,27 +2065,40 @@ cudaError_t launch_ring(const float* J, const float* I2, float* out,
     }
 }
 
-// K7 and K7c (stage 4, 8): blocks of T = min(cap, 128) threads, one a
-// (cell, i-tile); the cell launch (K2g when gt.act is set) or K11's
+// K5, K7 and K7c (stage 2, 4, 8): blocks of T = min(cap, 128) threads,
+// one a (cell, i-tile); the cell launch (K2g when gt.act is set) or K11's
 // stream form (zseg > 0)
-template <bool AvClean>
-cudaError_t launch_momentum(const float* J, float* out, const PairGeom& g,
-                            const PairParams& p, const PairGate& gt,
-                            int zseg, cudaStream_t st)
+template <class St>
+cudaError_t launch_tile(const float* J, float* out, const PairGeom& g,
+                        const PairParams& p, const PairGate& gt, int zseg,
+                        cudaStream_t st)
 {
-    using R = mom::Rows<AvClean>;
     if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
         return cudaErrorInvalidValue;
-    const int T = g.cap < mom::TILE ? g.cap : mom::TILE;
-    constexpr int NI = AvClean ? mom::I_ETA + 1 : mom::I_HINV;
-    const size_t smem = sizeof(float)
-        * (2 * R::NROW * T + (T / 32) * 6 * 64 + 2 * (T / 32) + NI * T);
+    const int T = g.cap < tile::TILE ? g.cap : tile::TILE;
+    const size_t smem = sizeof(float) * tile::smem_floats<St>(T);
     const dim3 grid(n_blocks(g, zseg), (g.cap + T - 1) / T);
     const int vec = reinterpret_cast<size_t>(J) % 16 == 0;
-    auto kern = zseg ? mom::cell_momentum<AvClean, false, true>
-        : gt.act != nullptr ? mom::cell_momentum<AvClean, true, false>
-                            : mom::cell_momentum<AvClean, false, false>;
+    auto kern = zseg ? tile::cell_tile<St, false, true>
+        : gt.act != nullptr ? tile::cell_tile<St, true, false>
+                            : tile::cell_tile<St, false, false>;
     return start(kern, grid, T, smem, st, J, out, g, p, gt, zseg, vec);
+}
+
+// K3 (stage 0): the same blocks; K11's ring form is its stream form
+cudaError_t launch_xh(const float* J, float* out, const PairGeom& g,
+                      const PairParams& p, const PairGate& gt, int zseg,
+                      cudaStream_t st)
+{
+    if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
+        return cudaErrorInvalidValue;
+    const int T = g.cap < xh::TILE ? g.cap : xh::TILE;
+    const dim3 grid(n_blocks(g, zseg), (g.cap + T - 1) / T);
+    auto kern = zseg ? xh::cell_xh<false, true>
+        : gt.act != nullptr ? xh::cell_xh<true, false>
+                            : xh::cell_xh<false, false>;
+    return start(kern, grid, T, xh::smem_bytes(g.cap), st, J, out, g, p, gt,
+                 zseg);
 }
 
 // K10: blocks of nft * cap threads; the sub-tile T shrinks until the
@@ -1832,14 +2125,14 @@ cudaError_t launch_momentum_mm(const float* J, float* out, const PairGeom& g,
                  p, gt, T, nft, zseg);
 }
 
-template <class Body, bool Resident>
+template <class Body>
 cudaError_t body_launch(const float* J, const float* I2, float* out,
                         const PairGeom& g, const PairParams& p,
                         const PairGate& gt, int zseg, bool ring,
                         cudaStream_t st)
 {
     if (ring) return launch_ring<Body>(J, I2, out, g, p, zseg, st);
-    return launch<Body, Resident>(J, I2, out, g, p, gt, zseg, st);
+    return launch<Body>(J, I2, out, g, p, gt, zseg, st);
 }
 
 cudaError_t stage_launch(int stage, const float* J, const float* I2,
@@ -1847,24 +2140,24 @@ cudaError_t stage_launch(int stage, const float* J, const float* I2,
                          const PairGate& gt, int zseg, bool ring,
                          cudaStream_t st)
 {
-#define BODY(B, R) body_launch<B, R>(J, I2, out, g, p, gt, zseg, ring, st)
+#define BODY(B) body_launch<B>(J, I2, out, g, p, gt, zseg, ring, st)
     switch (stage) {
-    case 0: return BODY(XhBody, true);
-    case 1: return BODY(GradhBody, false);
-    case 2: return BODY(IadBody, false);
-    case 3: return BODY(AvBody, false);
+    case 0: return launch_xh(J, out, g, p, gt, zseg, st);
+    case 1: return BODY(GradhBody);
+    case 2: return launch_tile<tile::IadStage>(J, out, g, p, gt, zseg, st);
+    case 3: return BODY(AvBody);
     case 4:
         if (ring) return cudaErrorInvalidValue;
-        return launch_momentum<false>(J, out, g, p, gt, zseg, st);
-    case 5: return BODY(IadMmBody, false);
-    case 6: return BODY(AvMmBody, false);
+        return launch_tile<tile::MomStage<false>>(J, out, g, p, gt, zseg, st);
+    case 5: return BODY(IadMmBody);
+    case 6: return BODY(AvMmBody);
     case 7:
         if (ring) return cudaErrorInvalidValue;
         return launch_momentum_mm(J, out, g, p, gt, zseg, st);
     case 8:
         if (gt.act != nullptr || ring)          // no K2g form, no ring
             return cudaErrorInvalidValue;
-        return launch_momentum<true>(J, out, g, p, gt, zseg, st);
+        return launch_tile<tile::MomStage<true>>(J, out, g, p, gt, zseg, st);
     default: return cudaErrorInvalidValue;
     }
 #undef BODY

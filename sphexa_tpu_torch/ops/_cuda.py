@@ -3,8 +3,9 @@ kernels are compiled by XLA).
 
 Each source in sphexa_tpu_torch/csrc/ is compiled by nvcc for sm_90a
 into its own shared library with a plain C interface, at first use,
-under build/sphexa_tpu_torch/ of the checkout; the sources build in
-parallel. The libraries are loaded with ctypes and launch on PyTorch's
+under build/sphexa_tpu_torch/ of the checkout, with nvcc's output
+(ptxas -v: registers and spills) beside each library; the sources build
+in parallel. The libraries are loaded with ctypes and launch on PyTorch's
 current stream. Every C entry returns cudaGetLastError(); a non-zero
 code raises here.
 
@@ -112,6 +113,10 @@ def build(sources=SOURCES) -> dict:
     t0 = time.perf_counter()
     for name, so in targets.items():
         if so.exists():
+            log = so.with_suffix(".log")
+            if name not in build_info and log.exists():
+                build_info[name] = {"seconds": 0.0,
+                                    "ptxas": log.read_text()}
             continue
         src, extra = _source(name)
         if extra:
@@ -130,6 +135,7 @@ def build(sources=SOURCES) -> dict:
         if proc.returncode != 0:
             failed.append(f"{src}:\n{log}")
             continue
+        so.with_suffix(".log").write_text(log)
         os.replace(tmp, so)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -152,7 +158,7 @@ class PairParams(ctypes.Structure):
                 ("h_cap", _F), ("h_iter", _I), ("alphamin", _F),
                 ("alphamax", _F), ("decay_constant", _F), ("atmin", _F),
                 ("atmax", _F), ("ramp", _F), ("uniform_mass", _I),
-                ("hcoef", _F), ("mxu_bf16", _I)]
+                ("hcoef", _F), ("mxu_bf16", _I), ("stats", _P)]
 
 
 class PairGate(ctypes.Structure):
@@ -242,20 +248,24 @@ class GhostLaunch:
         _check(code, self.name)
 
 
-def _pair_args(grid, cfg, K3d: float):
+def _pair_args(grid, cfg, K3d: float, stats=None):
     geom = PairGeom(grid.nx, grid.n, grid.nz, grid.np_, grid.npz, grid.cap,
                     grid.n_slots)
     prm = PairParams(K3d, int(cfg.sinc_index), float(cfg.ng0 // 4),
                      float(cfg.ngmax), cfg.h_cap, cfg.h_iter, cfg.alphamin,
                      cfg.alphamax, cfg.decay_constant, cfg.atmin, cfg.atmax,
                      cfg.ramp, int(cfg.uniform_mass), 1023.0 * cfg.ng0,
-                     int(cfg.mxu_bf16))
+                     int(cfg.mxu_bf16),
+                     None if stats is None else stats.data_ptr())
     return geom, prm
 
 
-def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None):
-    """gate=None: the ungated stage; else (act, prev, Z) for K2g."""
-    geom, prm = _pair_args(grid, cfg, K3d)
+def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None,
+                stats=None):
+    """gate=None: the ungated stage; else (act, prev, Z) for K2g. stats:
+    an int64 [3] tensor on the card that K3 adds its walk counts to
+    (cell_pair.cu, xh::xh_cell), or None."""
+    geom, prm = _pair_args(grid, cfg, K3d, stats)
     if gate is None:
         gt = PairGate(None, None, 0)
     else:
@@ -268,10 +278,10 @@ def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None):
 
 
 def pair_launch_column(stage: int, J, I2, out, grid, cfg, K3d: float,
-                       zseg: int, ring: bool):
+                       zseg: int, ring: bool, stats=None):
     """K11: the column launch in segments of zseg cells, ring or stream
     form."""
-    geom, prm = _pair_args(grid, cfg, K3d)
+    geom, prm = _pair_args(grid, cfg, K3d, stats)
     code = lib("cell_pair.cu").pair_launch_column(
         stage, J.data_ptr(), None if I2 is None else I2.data_ptr(),
         out.data_ptr(), geom, prm, zseg, int(ring), _stream(J))

@@ -26,9 +26,11 @@ tensor cores.
 K3-K10 share the driver make_cell_pair_call (pallas_ve.py:103), which in
 the port is the launch skeleton of cell_pair.cu: one thread block per
 interior cell, one thread per i-slot, the 27 neighbour cells streamed
-through shared memory. K7 and K7c stream only the occupied slots and
-evaluate their in-support pairs compacted across a warp's lanes (one
-routine for the cell, gated and column launches).
+through shared memory (K4, K6, K8, K9). K5, K7 and K7c stream only the
+occupied slots (K7 and K7c evaluate their in-support pairs compacted
+across a warp's lanes); K3 stages the occupied slots of the 27 cells as
+one run and walks it again only for slots whose h the controller moved.
+Each has one routine for the cell, gated and column launches.
 
 K2g, the gated driver (make_cell_pair_call(gated=True), pallas_ve.py:
 162-172, :242-251), is the same stages but K7c as GATED_KERNELS: a
@@ -752,7 +754,9 @@ def _check_rows(name, t, rows, grid: CMGrid):
 # flight, and a ring of 35-69 KB a block (cap 64) leaves few blocks an SM.
 COLUMN_ZSEG, COLUMN_RING = 1, False
 # j-rows a ring holds per cell (the bodies' FJ in cell_pair.cu), for the
-# stages with a ring form
+# stages with a ring form; the ring form of K3 and K5 (stages 0, 2) runs
+# as their stream form, since their routines stage only the occupied
+# slot groups
 RING_ROWS = {0: 4, 1: 5, 2: 8, 3: 10}
 _SMEM_MAX = 232448            # shared memory a block may opt into (bytes)
 
@@ -808,18 +812,23 @@ class PairKernel:
         return out
 
     def _launch(self, J, I2, grid: CMGrid, cfg: SphConfig, gate=None,
-                zgroup: int = 0) -> torch.Tensor:
+                zgroup: int = 0, stats=None) -> torch.Tensor:
+        """stats: K3 only, an int64 [3] tensor on the card that the
+        launch adds its lanes' walks, warp walks and the candidates those
+        walked to (chip_smoke.py counts them); None on the engines'
+        path."""
         out = torch.zeros((self.fo, grid.n_slots), dtype=torch.float32,
                           device=J.device)
         K3d = kernel_3d_k(cfg.sinc_index)
         if self.column:
             zseg, ring = column_form(self, grid)
             _cuda.pair_launch_column(self.stage, J, I2, out, grid, cfg, K3d,
-                                     zseg, ring)
+                                     zseg, ring, stats)
             return out
         if gate is not None:
             gate = (*gate, resolve_zgroup(grid, zgroup))
-        _cuda.pair_launch(self.stage, J, I2, out, grid, cfg, K3d, gate)
+        _cuda.pair_launch(self.stage, J, I2, out, grid, cfg, K3d, gate,
+                          stats)
         return out
 
     def _check(self, J, I2, grid: CMGrid, gate):

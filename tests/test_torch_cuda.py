@@ -26,8 +26,12 @@ with a seeded activity pattern: the slots of active z-supercells hold
 those tolerances, and the interior slots of inactive ones equal prev
 bit for bit. The column launch (K11) takes the same inputs and equals
 the cell launch bit for bit on interior slots in every form, zero
-elsewhere. The probe kernels (P1-P5) are held against their plain
-versions: P1-P4 rtol 1e-6 (the same float32 operations), P5 1e-5 of the
+elsewhere. K3, K5, K7 and K7c are also held on synthetic frames at
+caps 64, 128 and 256 (empty, partial and full cells), with their K2g
+and K11 forms; K3's nc, h and nonconv bit-equal to plain on every
+interior slot, under controllers whose h moves in the first round, a
+later one or never. The probe kernels (P1-P5) are held against their
+plain versions: P1-P4 rtol 1e-6 (the same float32 operations), P5 1e-5 of the
 output's scale (TF32: 5e-3). K1z (the ghost refresh with refresh_z=False)
 is bit-equal to its plain version, and the slab-sharded resident step
 (two shards on the one card) holds the CPU run's diagnostics at the
@@ -255,18 +259,17 @@ def test_ghost_refresh_forms_match_plain(cuda, form, boundary, refresh_z):
             assert torch.equal(out.cpu(), ref), (nrows, rows)
 
 
-# K7, K7c, K2g/K7 and K11's stream form of stages 4 and 8 on synthetic
-# frames at caps 64, 128 and 256: every padded cell empty, partly filled
-# or full (valid slots a prefix, as build_layout fills them)
+# K3, K5, K7, K7c, their K2g forms and K11's forms on synthetic frames at
+# caps 64, 128 and 256: every padded cell empty, partly filled or full
+# (valid slots a prefix, as build_layout fills them)
 MOMENTUM_CAPS = (64, 128, 256)
 
 
-def _momentum_frame(grid, av_clean, seed):
-    """J rows of the momentum stage (PairVE.momentum's order) on `grid`,
-    seeded: particles uniform in their padded cell, h 0.35-0.45 of a
-    cell, the other rows in ranges the step produces; invalid slots
-    carry FILL_POS positions and the engine's finite fills."""
-    r = np.random.default_rng(seed)
+def _base_frame(grid, r, h_lo, h_hi):
+    """Rows x, y, z, h, gid on `grid` from the generator r: particles
+    uniform in their padded cell, h uniform in [h_lo, h_hi) of a cell;
+    invalid slots carry FILL_POS positions and the engine's fills. Also
+    returns the validity row and a uniform sampler over the slots."""
     cap, nc = grid.cap, grid.n_cells
     kind = np.arange(nc) % 3
     r.shuffle(kind)
@@ -282,8 +285,18 @@ def _momentum_frame(grid, av_clean, seed):
     pos = [-0.5 + (c - 1 + u(0, 1)) * dx for c in (cx, cy, cz)]
     fill = np.where(valid, 0.0, pv.FILL_POS)
     rows = [np.where(valid, p, 0.0) + fill for p in pos]
-    rows += [np.where(valid, u(0.35, 0.45) * dx, 1.0),
+    rows += [np.where(valid, u(h_lo, h_hi) * dx, 1.0),
              np.where(valid, np.arange(ns), -1.0)]            # h, gid
+    return rows, valid, u, dx
+
+
+def _momentum_frame(grid, av_clean, seed):
+    """J rows of the momentum stage (PairVE.momentum's order) on `grid`,
+    seeded: h 0.35-0.45 of a cell, the other rows in ranges the step
+    produces."""
+    r = np.random.default_rng(seed)
+    rows, valid, u, dx = _base_frame(grid, r, 0.35, 0.45)
+    ns = grid.n_slots
     rows += [r.normal(0, 1, ns) for _ in range(3)]            # v
     rows += [np.where(valid, u(0.5, 1.5), 1.0),               # c
              np.where(valid, u(0.1, 1.0), 0.0),               # prho
@@ -296,6 +309,45 @@ def _momentum_frame(grid, av_clean, seed):
         rows += [u(0.5, 1.5)]                                 # eta_crit
     J = np.stack(rows).astype(np.float32)
     return J, valid
+
+
+def _check_forms(k, J, grid, cfg, out, intmask, mask, seed, gated=True):
+    """K11's stream and (where the stage has one) ring forms at zseg 1-3
+    bit-equal to the cell launch `out` on interior slots and zero
+    elsewhere; K2g (gated) against its gated plain version, inactive
+    slots equal to prev, active valid slots bit-equal to the cell
+    launch."""
+    kc = next(c for c in pv.COLUMN_KERNELS if c.name == k.name + "_column")
+    saved = kc.zseg, kc.ring
+    try:
+        for zseg in (1, 2, 3):
+            for ring in (False, True):
+                kc.zseg, kc.ring = zseg, ring
+                if pv.column_form(kc, grid) != (zseg, ring):
+                    continue
+                col = kc(J, None, grid, cfg)
+                assert torch.equal(col[:, intmask], out[:, intmask]), \
+                    (zseg, ring)
+                assert not col[:, ~intmask].any()
+    finally:
+        kc.zseg, kc.ring = saved
+    if not gated:
+        return
+    kg = next(g for g in pv.GATED_KERNELS if g.name == k.name + "_gated")
+    cap = grid.cap
+    r = np.random.default_rng(seed)
+    act = torch.from_numpy((r.uniform(0, 1, (grid.npx, grid.np_, grid.npz,
+                                              1)) < 0.5).repeat(cap, -1)
+                           .reshape(-1).astype(np.float32)).to(J.device)
+    prev = torch.from_numpy(r.normal(0, 1, (kg.fo, grid.n_slots)).astype(
+        np.float32)).to(J.device)
+    gout = kg(J, None, grid, cfg, (act, prev), 1)
+    gref = kg.plain(J, None, grid, cfg, (act, prev), 1)
+    on = pv.supercell_active(act, grid, 1).repeat_interleave(cap)
+    assert (intmask & on).any() and (intmask & ~on).any()
+    assert torch.equal(gout[:, intmask & ~on], prev[:, intmask & ~on])
+    _check_rows(k.name, gref, gout, mask & on)
+    assert torch.equal(gout[:, mask & on], out[:, mask & on])
 
 
 @pytest.mark.parametrize("cap", MOMENTUM_CAPS)
@@ -318,34 +370,88 @@ def test_momentum_forms_match_plain(cuda, cap, av_clean):
     ref = k.plain(J, None, grid, cfg)
     _check_rows(k.name, ref, out, mask)
     assert not out[:, intmask & ~mask].any()
+    _check_forms(k, J, grid, cfg, out, intmask, mask, seed=cap,
+                 gated=not av_clean)
 
-    kc = next(c for c in pv.COLUMN_KERNELS if c.name == k.name + "_column")
-    saved = kc.zseg, kc.ring
-    try:
-        for zseg in (1, 2, 3):
-            kc.zseg, kc.ring = zseg, False
-            col = kc(J, None, grid, cfg)
-            assert torch.equal(col[:, intmask], out[:, intmask]), zseg
-            assert not col[:, ~intmask].any()
-    finally:
-        kc.zseg, kc.ring = saved
-    if av_clean:
-        return
 
-    kg = pv.pair_momentum_gated
-    r = np.random.default_rng(cap)
-    act = torch.from_numpy((r.uniform(0, 1, (grid.npx, grid.np_, grid.npz,
-                                              1)) < 0.5).repeat(cap, -1)
-                           .reshape(-1).astype(np.float32)).to(cuda)
-    prev = torch.from_numpy(r.normal(0, 1, (5, grid.n_slots)).astype(
-        np.float32)).to(cuda)
-    gout = kg(J, None, grid, cfg, (act, prev), 1)
-    gref = kg.plain(J, None, grid, cfg, (act, prev), 1)
-    on = pv.supercell_active(act, grid, 1).repeat_interleave(cap)
-    assert (intmask & on).any() and (intmask & ~on).any()
-    assert torch.equal(gout[:, intmask & ~on], prev[:, intmask & ~on])
-    _check_rows(kg.name.removesuffix("_gated"), gref, gout, mask & on)
-    assert torch.equal(gout[:, mask & on], out[:, mask & on])
+def _xh_iad_frame(grid, stage, seed):
+    """J rows of K3 (x y z h gid m; h 0.15-0.6 of a cell, so that some
+    slots' h moves in the controller's first round, some in a later one
+    and some never) or K5 (x y z h gid kx xm vx vy vz; h 0.35-0.45)."""
+    r = np.random.default_rng(seed)
+    lo, hi = (0.15, 0.6) if stage == "pair_xh" else (0.35, 0.45)
+    rows, valid, u, dx = _base_frame(grid, r, lo, hi)
+    ns = grid.n_slots
+    if stage == "pair_xh":
+        rows += [np.where(valid, u(0.5, 1.5) * dx ** 3, 0.0)]     # m
+    else:
+        rows += [np.where(valid, u(0.5, 2.0), 1.0),               # kx
+                 u(0.5, 1.5) * dx ** 3]                           # xm
+        rows += [r.normal(0, 1, ns) for _ in range(3)]            # v
+    return np.stack(rows).astype(np.float32), valid
+
+
+# K3 under three controllers: h_iter 2 (the default), 3, and 3 with h
+# capped (h_cap a quarter of a cell: the cap binds on some slots)
+XH_CASES = {"it2": dict(), "it3": dict(h_iter=3),
+            "it3_hcap": dict(h_iter=3, h_cap=0.25 / 3)}
+
+
+@pytest.mark.parametrize("cap", MOMENTUM_CAPS)
+@pytest.mark.parametrize("case", sorted(XH_CASES))
+def test_xh_forms_match_plain(cuda, cap, case):
+    """K3 on full, partial and empty cells against plain: nc, h and
+    nonconv bit-equal on every interior slot (on invalid slots too: the
+    kernel counts their candidates without walking them), xm at rtol
+    1e-5; the inputs hold slots whose h moves in round 0 only, in a
+    later round, and never. K11 (stream and ring form) and K2g as in
+    _check_forms."""
+    grid = CMGrid(n=3, cap=cap)
+    cfg = SphConfig(**XH_CASES[case])
+    k = pv.pair_xh
+    J, valid = _xh_iad_frame(grid, k.name, seed=cap)
+    J = torch.from_numpy(J).to(cuda)
+    intmask = torch.tensor(np.repeat(_interior_cells_np(grid), cap),
+                           device=cuda)
+    mask = intmask & torch.from_numpy(valid).to(cuda)
+    before = k.launches
+    out = k(J, None, grid, cfg)
+    assert k.launches == before + 1
+    ref = k.plain(J, None, grid, cfg)
+    assert torch.equal(out[1:, intmask], ref[1:, intmask])
+    np.testing.assert_allclose(out[0, mask].cpu().numpy(),
+                               ref[0, mask].cpu().numpy(), rtol=1e-5)
+    assert torch.equal(out[0, intmask & ~mask],
+                       torch.ones_like(out[0, intmask & ~mask]))
+    hs = [J[3]] + [k.plain(J, None, grid, cfg.replace(h_iter=t))[1]
+                   for t in range(1, cfg.h_iter + 1)]
+    moved = torch.stack([a != b for a, b in zip(hs, hs[1:])])[:, mask]
+    assert (moved[0] & ~moved[1:].any(0)).any()      # round 0 only
+    assert moved[1:].any(0).any()                    # a later round
+    assert (~moved.any(0)).any()                     # never
+    _check_forms(k, J, grid, cfg, out, intmask, mask, seed=cap)
+
+
+@pytest.mark.parametrize("cap", MOMENTUM_CAPS)
+def test_iad_forms_match_plain(cuda, cap):
+    """K5 on full, partial and empty cells against plain (the cancelling
+    sums at 1e-4 of their row's scale), zero on invalid interior slots;
+    K11 (stream and ring form) and K2g as in _check_forms."""
+    grid = CMGrid(n=3, cap=cap)
+    cfg = SphConfig()
+    k = pv.pair_iad
+    J, valid = _xh_iad_frame(grid, k.name, seed=cap + 1)
+    J = torch.from_numpy(J).to(cuda)
+    intmask = torch.tensor(np.repeat(_interior_cells_np(grid), cap),
+                           device=cuda)
+    mask = intmask & torch.from_numpy(valid).to(cuda)
+    before = k.launches
+    out = k(J, None, grid, cfg)
+    assert k.launches == before + 1
+    ref = k.plain(J, None, grid, cfg)
+    _check_rows(k.name, ref, out, mask)
+    assert not out[:, intmask & ~mask].any()
+    _check_forms(k, J, grid, cfg, out, intmask, mask, seed=cap)
 
 
 def test_sharded_step_matches_cpu(cuda):
