@@ -19,12 +19,13 @@ Phases (any failure exits non-zero before the last line):
   5. each kernel timed at the main path's own inputs, beside its plain
      version, its bound and (K1) a library gather; K1 and the gather
      also split into device time (a CUDA graph of the launches) and
-     host dispatch; K5's and K7's in-support pairs, warp body
-     executions and lane efficiency counted on the card from their
+     host dispatch; K4's, K5's, K6's and K7's in-support pairs, warp
+     body executions and lane efficiency counted on the card from their
      inputs; K3's walks counted by the kernel on the card and held
      equal to the count its inputs predict (one a slot, one more a
      controller round that moved its h); the registers and spills of
-     K3, K5 and K7 from the build's ptxas output;
+     K3-K7 from the build's ptxas output; the invalid interior slots of
+     K4-K7 hold their fill values exactly (K4 1.0, the others 0);
   6. (c) the block-time-step path: BdtVE at Sedov 100^3, 4 rungs, one
      warm-up cycle, then 2 timed cycles of 8 substeps (counters zeroed
      just before, read just after); (d) each gated stage timed at the
@@ -44,12 +45,13 @@ Phases (any failure exits non-zero before the last line):
      its plain version and its bound;
   8. (i) the column launch K11: at Sedov 30^3 (perturbed) under each of
      the four configurations every column stage against its plain
-     version and against the cell launch on the same inputs in several
-     forms (interior slots bit-equal, the rest zero); at Sedov 100^3
-     under each configuration the resident step with a column-mode pve
-     for 3 steps against the cell-mode step from the same bound state
-     (counters zeroed before each run), then each column stage timed in
-     its form and in the others, beside the cell launch;
+     version and against the cell launch on the same inputs at several
+     z-segments (interior slots bit-equal, the rest zero); at Sedov
+     100^3 under each configuration the resident step with a
+     column-mode pve for 3 steps against the cell-mode step from the
+     same bound state (counters zeroed before each run), then each
+     column stage timed at its z-segment and at the others, beside the
+     cell launch;
   9. (j) the probes P1-P5: each swept at its script's sizes (counters
      zeroed before, read after), each kernel against its plain version
      (the TMA variants also through the libcuda build), the library
@@ -66,17 +68,17 @@ Phases (any failure exits non-zero before the last line):
      against its plain version on sampled cells (cap 256), the state
      after 3 steps against make_ve_step_cellmajor on the same global
      grid, and K1z (split as K1), the z exchange, migration and the
-     pair kernels timed, K5's and K7's lane counts and K3's walks at
-     cap 256; ShardedBdtVE at
+     pair kernels timed, K4-K7's lane counts, fill values and K3's
+     walks at cap 256; ShardedBdtVE at
      100^3, D = 2, 4 rungs, one warm-up and one timed cycle, its rungs
      beside BdtVE's on the same global grid;
   11. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
-python3 chip_smoke.py --compare [tag] times K1, K1z, K3, K5 and K7, 3
-resident steps and 2 BdtVE cycles at Sedov 100^3, and K3, K5 and K7 in a
-D = 2 sharded step at cap 256, only (see compare_main), to compare two
-checkouts of the repository in one call.
+python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
+steps and 2 BdtVE cycles at Sedov 100^3, and K3-K7 in a D = 2 sharded
+step at cap 256, only (see compare_main), to compare two checkouts of
+the repository in one call.
 """
 
 from __future__ import annotations
@@ -188,6 +190,15 @@ NOISY_AT_REST = {"pair_av_mm"}
 # of it at 12^3, 5.7% at 30^3, 9.2% at the 100^3 main-path inputs; a
 # kernel that rounded wrongly would sit near 100%)
 BF16_SHARE = 0.25
+# the value a tiled pair stage stores on an invalid i-slot (csrc/
+# cell_pair.cu, St::fill; K4 1.0: kx is a divisor downstream,
+# pallas_ve.py:667), held exactly on the invalid interior slots
+FILL = {"pair_gradh": 1.0, "pair_iad": 0.0, "pair_av": 0.0,
+        "pair_momentum": 0.0, "pair_momentum_avclean": 0.0}
+# the stages on the tiled routine whose lane counts are reported, and
+# their report keys
+LANE_STAGES = {"pair_gradh": "k4_lanes", "pair_iad": "k5_lanes",
+               "pair_av": "k6_lanes", "pair_momentum": "k7_lanes"}
 
 
 def stage_of(name: str) -> str:
@@ -197,6 +208,18 @@ def stage_of(name: str) -> str:
 
 def log(*a):
     print(*a, flush=True)
+
+
+def check_fill(k, J, out, intmask):
+    """The invalid interior slots of a tiled stage's cell launch hold its
+    FILL value exactly. Returns how many slots were held."""
+    if k.name not in FILL:
+        return 0
+    bad = intmask & ~valid_slots(J)
+    if not bool((out[:, bad] == FILL[k.name]).all()):
+        raise AssertionError(f"{k.name}: invalid interior slots differ from "
+                             f"{FILL[k.name]}")
+    return int(bad.sum())
 
 
 def smi_line() -> str:
@@ -425,9 +448,13 @@ def kernel_check(report):
         ref = k.plain(J, I2, g, c)
         mask = valid_slots(J) & eng.intmask
         err, rel = compare(k.name, ref, out, mask, per_row=True)
-        errs[k.name] = dict(max_abs_err=err, max_rel_err=rel)
+        nfill = check_fill(k, J, out, eng.intmask)
+        errs[k.name] = dict(max_abs_err=err, max_rel_err=rel,
+                            fill_slots=nfill)
         log(f"  {CHECK_SIDE}^3 {k.name:14s} max abs err {err:.3e}, "
-            f"max rel err (to row scale) {rel:.3e}")
+            f"max rel err (to row scale) {rel:.3e}"
+            + (f"; {nfill} invalid interior slots at {FILL[k.name]}"
+               if nfill else ""))
     r = np.random.default_rng(1)
     for bnd in (Boundary.periodic, Boundary.open):
         gbox = Box(-0.5, 0.5, -0.5, 0.5, -0.5, 0.5, bnd, bnd, bnd)
@@ -582,7 +609,7 @@ def pair_counts(J, eng, grid, nc_sph):
 
 def lane_counts(J, grid, intmask, batch_pairs=2 ** 28):
     """The work of the tiled pair routine (csrc/cell_pair.cu
-    tile::pair_cell: K5, K7, K7c) on these inputs, counted on the card
+    tile::pair_cell: K4-K7, K7c) on these inputs, counted on the card
     from J (rows x, y, z, h), with the kernels' own support test:
     in-support pairs (valid interior i, valid j), and the lane
     efficiency (pairs / (32 * warp body executions)) of three designs.
@@ -590,7 +617,7 @@ def lane_counts(J, grid, intmask, batch_pairs=2 ** 28):
     warp runs the body for each (warp, j-slot) where any lane is in
     support. Compacted (K7, K7c): per warp of 32 i-slots and chunk of 32
     staged j-slots, the in-support pairs run in rounds of 32 lanes.
-    Per lane (K5): per warp and chunk, each lane walks its own
+    Per lane (K4, K5, K6): per warp and chunk, each lane walks its own
     in-support pairs, so the warp runs the body as often as its busiest
     lane. Also the support tests each design issues per warp: old every
     slot of the 27 cells for every warp; new, warps with a valid i-slot
@@ -649,34 +676,48 @@ def log_lanes(what, lc):
         f"({lc['lane_lane_eff']:.4f})")
 
 
+def stage_lanes(calls, grid, intmask):
+    """lane_counts of each LANE_STAGES stage's J from (kernel, args,
+    out) calls; stages reading the same x, y, z, h rows (K4-K7 of one
+    step) share one count."""
+    import torch
+    done, out = [], {}
+    for name in LANE_STAGES:
+        J = next(a[0] for k, a, _ in calls if k.name == name)
+        lc = next((c for J0, c in done if torch.equal(J0[:4], J[:4])), None)
+        if lc is None:
+            lc = lane_counts(J, grid, intmask)
+            done.append((J, lc))
+        out[name] = lc
+    return out
+
+
 def routine_ptxas():
     """Registers and spills of the redesigned pair kernels from the
     build's ptxas -v output: the routines (xh::xh_cell of K3,
-    tile::pair_cell<Stage> of K5, K7, K7c) and their launch forms
+    tile::pair_cell<Stage> of K4-K7, K7c) and their launch forms
     (xh::cell_xh<Gated, Column>, tile::cell_tile<Stage, Gated,
-    Column>); in a parent checkout the former K7 routine
-    (mom::momentum_cell, mom::cell_momentum) and the thread-a-slot
-    skeletons of K3 and K5 (cell_pair_resident<XhBody>,
-    cell_pair_stream<IadBody>)."""
+    Column>); in a parent checkout the thread-a-slot skeleton of K4 and
+    K6 (cell_pair_stream<GradhBody|AvBody, Gated, Column>, the ring
+    form cell_pair_column<Body>)."""
     import re
     from sphexa_tpu_torch.ops import _cuda
 
     def key(name):
-        m = re.search(r"(xh_cell|cell_xh|pair_cell|cell_tile|momentum_cell|"
-                      r"cell_momentum|cell_pair_resident|cell_pair_stream|"
-                      r"cell_pair_column)(\w*?)E?PKf", name)
+        m = re.search(r"(xh_cell|cell_xh|pair_cell|cell_tile|"
+                      r"cell_pair_stream|cell_pair_column)(\w*?)E?PKf", name)
         if m is None or name.startswith("_ZZ"):
             return None
         tmpl = m.group(2)
         args = re.findall(r"Lb(\d)E", tmpl)
-        stage = re.search(r"(IadStage|MomStage|XhBody|IadBody|"
-                          r"MomentumBody)", tmpl)
+        stage = re.search(r"(GradhStage|IadStage|AvStage|MomStage|"
+                          r"GradhBody|AvBody)", tmpl)
         if stage is None:
             if m.group(1).startswith("cell_pair"):
-                return None                  # K4, K6, K8, K9 bodies
+                return None                  # K8, K9 bodies
         else:
             s = stage.group(1)
-            if s in ("MomStage", "MomentumBody"):
+            if s == "MomStage":
                 s, args = f"{s}<{args[0]}>", args[1:]
             args = [s] + args
         return m.group(1) + (f"<{','.join(args)}>" if args else "")
@@ -792,22 +833,22 @@ def timing(report, eng, rst, grid, launches):
         next(c for c in pair_calls if c[0].name == "pair_xh"), walks,
         int((per_slot > 0).sum()))
 
-    for kname, key in (("pair_iad", "k5_lanes"), ("pair_momentum",
-                                                  "k7_lanes")):
-        J_k = next(a[0] for k, a, _ in pair_calls if k.name == kname)
-        report[key] = lane_counts(J_k, grid, eng.intmask)
-        log_lanes(f"{kname} at cap {grid.cap}", report[key])
+    lanes = stage_lanes(pair_calls, grid, eng.intmask)
+    for kname, lc in lanes.items():
+        report[LANE_STAGES[kname]] = lc
+        log_lanes(f"{kname} at cap {grid.cap}", lc)
     regs = routine_ptxas()
-    log(f"  K3, K5, K7 registers and spills (ptxas): "
+    log(f"  K3-K7 registers and spills (ptxas): "
         f"{dict((k, v) for k, v in regs.items() if k != 'raw')}")
     spilled = [k for k, v in regs.items() if k != "raw"
                and (v.get("spill_stores") or v.get("spill_loads"))]
-    log(f"  spills in K3, K5, K7 and their copies: {spilled or 'none'}")
+    log(f"  spills in K3-K7 and their copies: {spilled or 'none'}")
     report["tile_ptxas"] = regs
     for k, (J, I2, g, c), out in pair_calls:
         ref = k.plain(J, I2, g, c)
         err, rel = compare(k.name, ref, out, valid_slots(J) & eng.intmask,
                            per_row=False)
+        check_fill(k, J, out, eng.intmask)
         ms = cuda_ms(lambda: k._launch(J, I2, g, c), 5)
         plain_ms = cuda_ms(lambda: k.plain(J, I2, g, c), 1)
         ops = cand * GEO_FLOPS + inside * BODY_FLOPS[k.name]
@@ -1340,28 +1381,14 @@ def cell_kernel(kc):
                 and k.name == kc.name.removesuffix("_column"))
 
 
-def launch_form(kc, args, zseg, ring):
-    """One K11 launch in the form (zseg, ring)."""
-    saved = kc.zseg, kc.ring
-    kc.zseg, kc.ring = zseg, ring
+def launch_zseg(kc, args, zseg):
+    """One K11 launch at z-segment zseg."""
+    saved = kc.zseg
+    kc.zseg = zseg
     try:
         return kc._launch(*args)
     finally:
-        kc.zseg, kc.ring = saved
-
-
-def column_forms(kc, grid, zsegs):
-    """The forms of a column kernel on this grid: each zseg, streamed
-    and, where the ring fits, in the ring."""
-    from sphexa_tpu_torch.ops import pair_ve as pv
-    forms, saved = [], (kc.zseg, kc.ring)
-    for zseg in zsegs:
-        for ring in (False, True):
-            kc.zseg, kc.ring = zseg, ring
-            if pv.column_form(kc, grid) == (zseg, ring):
-                forms.append((zseg, ring))
-    kc.zseg, kc.ring = saved
-    return forms
+        kc.zseg = saved
 
 
 def column_row_name(kc, cfg):
@@ -1372,7 +1399,8 @@ def column_check(report):
     """(i) K11 at Sedov 30^3 (perturbed), under each configuration: the
     inputs of one column-mode step; every column stage against its plain
     version (the cell stages' tolerances) and against the cell launch on
-    the same inputs in each form: interior slots bit-equal, the rest 0."""
+    the same inputs at z-segments 1, 3 and nz: interior slots bit-equal,
+    the rest 0."""
     import torch
     from sphexa_tpu_torch.ops import pair_ve as pv
     from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
@@ -1400,19 +1428,19 @@ def column_check(report):
                 err, rel = compare(name, kc.plain(*args), out, mask,
                                    per_row=True)
             cell = cell_kernel(kc)._launch(*args)
-            forms = column_forms(kc, g, (1, 3, g.nz))
-            for zseg, ring in forms:
-                o = launch_form(kc, args, zseg, ring)
+            forms = (1, 3, g.nz)
+            for zseg in forms:
+                o = launch_zseg(kc, args, zseg)
                 if not (torch.equal(o[:, inside], cell[:, inside])
                         and not o[:, ~inside].any()):
                     raise AssertionError(
-                        f"{kc.name} zseg {zseg} ring {ring}: not bit-equal "
-                        f"to the cell launch")
+                        f"{kc.name} zseg {zseg}: not bit-equal to the cell "
+                        f"launch")
             row = column_row_name(kc, c)
-            errs[row] = dict(max_abs_err=err, rel=rel, forms=forms)
+            errs[row] = dict(max_abs_err=err, rel=rel, zsegs=forms)
             log(f"  {CHECK_SIDE}^3 {row:30s} plain err {err:.3e} (rel "
-                f"{rel:.3e}); bit-equal to the cell launch in {len(forms)} "
-                f"forms {forms}")
+                f"{rel:.3e}); bit-equal to the cell launch at z-segments "
+                f"{forms}")
         del eng
     report["check_30_column"] = errs
 
@@ -1493,8 +1521,8 @@ def column_main_path(report, cname):
 
 def column_timing(report, cname, eng, rst, launches):
     """(i) each column stage of the config at the 100^3 inputs of one
-    column-mode step: ms in the chosen form and in every other form
-    tried, beside the cell launch, the plain version and the bound."""
+    column-mode step: ms at its z-segment and at the others tried,
+    beside the cell launch, the plain version and the bound."""
     import torch
     from sphexa_tpu_torch.ops import pair_ve as pv
 
@@ -1520,10 +1548,8 @@ def column_timing(report, cname, eng, rst, launches):
         else:
             err, rel = compare(name, kc.plain(*args), out, ok, per_row=False)
         ms = cuda_ms(lambda: kc._launch(*args), 5)
-        forms = {}
-        for zseg, ring in column_forms(kc, g, (1, 2, 4, 8, g.nz)):
-            forms[f"S{zseg} {'ring' if ring else 'stream'}"] = cuda_ms(
-                lambda: launch_form(kc, args, zseg, ring), 3)
+        forms = {f"S{zseg}": cuda_ms(lambda: launch_zseg(kc, args, zseg), 3)
+                 for zseg in (1, 2, 4, 8, g.nz)}
         cell = cell_kernel(kc)
         cell_ms = cuda_ms(lambda: cell._launch(*args), 5)
         plain_ms = cuda_ms(lambda: kc.plain(*args), 1)
@@ -1534,7 +1560,6 @@ def column_timing(report, cname, eng, rst, launches):
         nbytes = 4 * (J.numel() + (I2.numel() if I2 is not None else 0)
                       + out.numel())
         t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
-        zseg, ring = pv.column_form(kc, g)
         row_name = column_row_name(kc, c)
         rows.append(dict(
             name=row_name, route="cuda",
@@ -1543,11 +1568,10 @@ def column_timing(report, cname, eng, rst, launches):
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None, cell_ms=cell_ms,
-            form=f"S{zseg} {'ring' if ring else 'stream'}"))
+            library_ms=None, cell_ms=cell_ms, form=f"S{kc.zseg}"))
         report.setdefault("column_forms_ms", {})[row_name] = forms
-        log(f"  {row_name:30s} {ms:9.3f} ms (S{zseg} "
-            f"{'ring' if ring else 'stream'})  cell {cell_ms:8.3f} ms  "
+        log(f"  {row_name:30s} {ms:9.3f} ms (S{kc.zseg})  cell "
+            f"{cell_ms:8.3f} ms  "
             f"plain {plain_ms:10.3f} ms  bound {max(t_ops, t_bytes):.4f} ms "
             f" err {err:.3e}")
         log("    forms: " + ", ".join(f"{k} {v:.3f}" for k, v in
@@ -1874,9 +1898,12 @@ def _sample_cells(grid, seed):
 
 def sharded_pair_check(grid, pair_calls):
     """Each recorded pair launch of a sharded step (cap 256) against its
-    plain version on sampled cells. Returns {stage: max abs err}."""
+    plain version on sampled cells, and the fill values of its invalid
+    interior slots (every cell: at cap 256 most cells' second i-tile is
+    empty). Returns {stage: max abs err}."""
     import torch
     from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.ops.cellmajor import interior_mask
 
     errs = {}
     for i, (k, (J, I2, g, c), out) in enumerate(pair_calls):
@@ -1888,6 +1915,7 @@ def sharded_pair_check(grid, pair_calls):
         slots[(cells[:, None] * g.cap + lane).reshape(-1)] = True
         err, _ = compare(k.name, ref, out, valid_slots(J) & slots,
                          per_row=False)
+        check_fill(k, J, out, interior_mask(g, J.device))
         errs[k.name] = max(errs.get(k.name, 0.0), err)
     return errs
 
@@ -1999,13 +2027,9 @@ def sharded_main_path(report, D):
     pair_calls = [c for c in spy.calls if c[0] is not pv.ghost_refresh_xy]
     assert len(k1z_calls) == len(ZX_ROWS) * D
     pair_errs = sharded_pair_check(grid, pair_calls)
-    lanes = {}
-    for kname in ("pair_iad", "pair_momentum"):
-        J_k = next(a[0] for k, a, _ in pair_calls if k.name == kname)
-        lanes[kname] = lane_counts(J_k, grid, interior_mask(grid,
-                                                             J_k.device))
-        log_lanes(f"{kname} at cap {grid.cap} (shard 0 of D={D})",
-                  lanes[kname])
+    lanes = stage_lanes(pair_calls, grid, interior_mask(grid, DEVICE))
+    for kname, lc in lanes.items():
+        log_lanes(f"{kname} at cap {grid.cap} (shard 0 of D={D})", lc)
     xh_call = next(c for c in pair_calls if c[0].name == "pair_xh")
     xh_J, _, _, xh_cfg = xh_call[1]
     own = (valid_slots(xh_J) & interior_mask(grid, xh_J.device)).double()
@@ -2097,8 +2121,8 @@ def sharded_main_path(report, D):
             dt=[sd["dt"], float(d1.dt)], eint=[sd["eint"], float(d1.eint)],
             ecin=[sd["ecin"], float(d1.ecin)], pos_err=pos_err,
             vx_err=vx_err), k1z=k1z, zxchg_ms=zx_ms, migrate_ms=mig_ms,
-        pair_ms=pair_ms, pair_errs=pair_errs, k5_lanes=lanes["pair_iad"],
-        k7_lanes=lanes["pair_momentum"], k3_walks=walks)
+        pair_ms=pair_ms, pair_errs=pair_errs, k3_walks=walks,
+        **{LANE_STAGES[n]: lc for n, lc in lanes.items()})
     del states
     return dict(
         name="ghost_refresh_xy", route="cuda",
@@ -2176,14 +2200,14 @@ def sharded_bdt_main_path(report, D=2, nr=4):
 
 
 def compare_main(tag: str) -> int:
-    """--compare [tag]: K1, K1z and the redesigned pair kernels (K3, K5,
-    K7) alone, so that two checkouts can be compared in one call. K1
-    over the five refreshes of one Sedov 100^3 resident step, and K3, K5
-    and K7 at that step's inputs (events time; K3's walks counted on the
-    card where the checkout has the counter; K5's and K7's in-support
-    pairs and lane efficiency; registers), then 3 timed resident steps
-    and 2 timed BdtVE cycles (4 rungs); K3, K5 and K7 at the inputs of a
-    100^3 sharded step at D = 2 (cap 256, both shards' launches); K1z
+    """--compare [tag]: K1, K1z and the redesigned pair kernels (K3-K7)
+    alone, so that two checkouts can be compared in one call. K1 over
+    the five refreshes of one Sedov 100^3 resident step, and K3-K7 at
+    that step's inputs (events time; K3's walks counted on the card
+    where the checkout has the counter; K4-K7's in-support pairs and
+    lane efficiency; registers), then 3 timed resident steps and 2
+    timed BdtVE cycles (4 rungs); K3-K7 at the inputs of a 100^3
+    sharded step at D = 2 (cap 256, both shards' launches); K1z
     over the 6 * D launches of a 100^3 sharded step (stacks of ZX_ROWS'
     row counts, on the plan_slab local grids, z open); K1 and K1z split
     by ghost_split. Writes chiprun_out/compare<tag>.json."""
@@ -2201,7 +2225,8 @@ def compare_main(tag: str) -> int:
 
     smi = smi_line()
     log(smi)
-    redone = (pv.pair_xh, pv.pair_iad, pv.pair_momentum)
+    redone = (pv.pair_xh, pv.pair_gradh, pv.pair_iad, pv.pair_av,
+              pv.pair_momentum)
     state, box, cfg, grid = sedov(MAIN_SIDE, DEVICE)
     eng = ResidentVE(box, grid, cfg, device=DEVICE)
     rst = eng.bind(state)
@@ -2219,10 +2244,9 @@ def compare_main(tag: str) -> int:
                              for _ in range(3)]
         log(f"  {name} {grid}: {out[f'{name}_ms']} ms (events, 3 x 5 "
             f"launches)")
-    for name in ("pair_iad", "pair_momentum"):
-        out[f"{name}_lanes"] = lane_counts(calls[name][1][0], grid,
-                                           eng.intmask)
-        log_lanes(name, out[f"{name}_lanes"])
+    for name, lc in stage_lanes(calls.values(), grid, eng.intmask).items():
+        out[f"{name}_lanes"] = lc
+        log_lanes(name, lc)
     log(f"  K3 walks: {out['K3_walks']}")
     log(f"  ptxas: "
         f"{dict((k, v) for k, v in out['ptxas'].items() if k != 'raw')}")

@@ -3,9 +3,9 @@
 // Replaces the Pallas driver make_cell_pair_call (sphexa_tpu/ops/
 // pallas_ve.py:103, call :260) and its stage bodies:
 //   stage 0  K3   xh::xh_cell     <- _xh_body          (pallas_ve.py:537)
-//   stage 1  K4   GradhBody       <- _gradh_body       (pallas_ve.py:622)
+//   stage 1  K4   tile::GradhStage <- _gradh_body      (pallas_ve.py:622)
 //   stage 2  K5   tile::IadStage  <- _iad_direct_body  (pallas_ve.py:704)
-//   stage 3  K6   AvBody          <- _av_direct_body   (pallas_ve.py:900,
+//   stage 3  K6   tile::AvStage   <- _av_direct_body   (pallas_ve.py:900,
 //                                    :865, :884)
 //   stage 4  K7   tile::MomStage<false> <- _momentum_body (pallas_ve.py:
 //                                    1022), avClean off
@@ -16,18 +16,18 @@
 //                                    (pallas_ve.py:1031-1033, :1057-1060,
 //                                    :1094-1116)
 //
-// Launch skeletons. Stages 1, 3, 5 and 6 (cell_pair_stream): one thread
-// block per interior cell, one thread per i-slot (blockDim = cap); the
-// block walks the 27 neighbour cells, stages each cell's [FJ, cap]
-// j-rows in shared memory, and every thread accumulates its pair sums in
+// Launch skeletons. Stages 5 and 6 (cell_pair_stream): one thread block
+// per interior cell, one thread per i-slot (blockDim = cap); the block
+// walks the 27 neighbour cells, stages each cell's [FJ, cap] j-rows in
+// shared memory, and every thread accumulates its pair sums in
 // registers; all threads read the same j value at once (a shared-memory
-// broadcast). Stages 2, 4 and 8 (tile::pair_cell): blocks of min(cap,
-// 128) threads a cell's i-tile, occupied slots only, double-buffered
-// cp.async staging; K7's in-support pairs compacted across lanes, K5's
-// evaluated by their own lanes. Stage 0 (xh::xh_cell): the same blocks,
-// the occupied slots of the 27 cells in one flat run, walked again only
-// where the h controller moved h. K10 has its own
-// (cell_pair_momentum_mm).
+// broadcast). Stages 1, 2, 3, 4 and 8 (tile::pair_cell): blocks of
+// min(cap, 128) threads a cell's i-tile, occupied slots only,
+// double-buffered cp.async staging; K7's in-support pairs compacted
+// across lanes, K4's, K5's and K6's evaluated by their own lanes. Stage
+// 0 (xh::xh_cell): the same blocks, the occupied slots of the 27 cells
+// in one flat run, walked again only where the h controller moved h. K10
+// has its own (cell_pair_momentum_mm).
 //
 // Frame contract (as the Pallas kernels): invalid slots carry FILL_POS
 // positions and drop out through the distance overflow; self-pairs are
@@ -43,35 +43,24 @@
 // from L2), so its floor is pair work over the card's fp32 rate.
 //
 // K2g, the gated form (make_cell_pair_call(gated=True), pallas_ve.py:
-// 162-172 and :242-251), launches the same five bodies with an activity
-// row and the previous outputs (PairGate below). A block whose
-// z-supercell is inactive only copies FO rows of its slots, so the
-// gated stage is bounded by the pair work of the active supercells plus
-// that copy (bytes). It still launches a block for every interior cell:
-// inactive blocks cost a launch slot and one read of Z*cap act values.
+// 162-172 and :242-251), launches the same bodies with an activity row
+// and the previous outputs (PairGate below). A block whose z-supercell
+// is inactive only copies FO rows of its slots, so the gated stage is
+// bounded by the pair work of the active supercells plus that copy
+// (bytes). It still launches a block for every interior cell: inactive
+// blocks cost a launch slot and one read of Z*cap act values.
 //
 // K11, the column launch (make_column_pair_call, pallas_ve.py:273, call
 // :330; PallasVE(kernel_mode="column")), runs the same bodies with a
 // block per z-segment of zseg consecutive cells of one interior (x, y)
-// column, walking z (pair_launch_column). Two forms:
-//   ring    the 27 neighbour cells of the current cell stay in shared
-//           memory as 3 z-planes of 9 cells; a z-step stages only the 9
-//           cells of the next plane (cell_pair_column). Stages 1 and 3
-//           only: a moment column depends on the own cell's mean (stages
-//           5-7); the ring form of stages 0 and 2 is their stream form
-//           (their routines stage occupied slot groups only, which whole
-//           planes would undo); and the momentum bodies (4, 8) inlined
-//           into the ring walk compiled to results not bit-equal to
-//           their cell launch on the card.
-//   stream  per z-step as the cell launch: each neighbour cell staged
-//           in turn (cell_pair_stream); K10 streams
-//           (cell_pair_momentum_mm); K3, K5, K7 and K7c call the cell
-//           launch's routine for each cell (xh::cell_xh, tile::cell_tile).
-// Each thread visits the 27 cells in the cell launch's order, so its
-// sums, and the outputs on interior slots, are those of the cell launch
-// bit for bit; the output rows are written on interior slots only.
-// A segment re-stages 18 cells at its start (ring form), so zseg trades
-// staging against the number of blocks in flight.
+// column, walking z (pair_launch_column), each cell as the cell launch
+// computes it: K8 and K9 stage each neighbour cell in turn
+// (cell_pair_stream), K10 streams (cell_pair_momentum_mm), and K3-K7
+// and K7c call the cell launch's routine for each cell (xh::xh_cell,
+// tile::cell_tile). So each thread visits the 27 cells in the cell
+// launch's order, its sums, and the outputs on interior slots, are
+// those of the cell launch bit for bit; the output rows are written on
+// interior slots only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,12 +111,17 @@ __device__ __forceinline__ float pow_int(float x, int n)
     return result;
 }
 
-// pow_int without the loop at the default sinc index 6: the same products
+// pow_int without the loop at the default sinc index 6 (and at 5, K4's
+// n_w - 1): the same products
 __device__ __forceinline__ float pow_nw(float x, int n)
 {
     if (n == 6) {
         const float x2 = x * x;
         return x2 * (x2 * x2);
+    }
+    if (n == 5) {
+        const float x2 = x * x;
+        return x * (x2 * x2);
     }
     return pow_int(x, n);
 }
@@ -148,74 +142,6 @@ __device__ __forceinline__ float w_v2(float v2, int n_w)
 #define SJ(s) sj[(s) * stride + k]
 // J row r of this block's i-slot
 #define JI(r) J[(long long)(r) * ns + islot]
-
-// f(cell, k) for the 27 staged neighbour cells in nb order, cap slots
-// each; off(nb) is where cell nb's slots start in the staged rows
-template <class Off, class F>
-__device__ __forceinline__ void for_candidates(const float* sj, Off off,
-                                               int cap, F f)
-{
-    for (int nb = 0; nb < 27; ++nb) {
-        const float* cell = sj + off(nb);
-        for (int k = 0; k < cap; ++k) f(cell, k);
-    }
-}
-
-// --------------------------------------------------------------------------
-// stage 1: VE normalization kx and grad-h
-// --------------------------------------------------------------------------
-struct GradhBody {
-    static constexpr int FJ = 5;                       // x y z m xm
-    static constexpr int FO = 2;
-    static constexpr int NM = 0, NORIGIN = 0;
-    __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
-
-    float xi, yi, zi, hi, hinv, hinv2, kx, whomega, wrho0;
-    int n_w;
-
-    __device__ void load_i(const float* J, const float*, long long islot,
-                           long long ns, const PairParams& p)
-    {
-        xi = JI(0); yi = JI(1); zi = JI(2); hi = JI(3);
-        hinv = __fdiv_rn(1.0f, hi);
-        hinv2 = __fmul_rn(hinv, hinv);
-        kx = whomega = wrho0 = 0.0f;
-        n_w = p.n_w;
-    }
-
-    __device__ void pair(const float* sj, int k, int stride)
-    {
-        float d2 = dist2(__fsub_rn(xi, SJ(0)), __fsub_rn(yi, SJ(1)),
-                         __fsub_rn(zi, SJ(2)));
-        float v2 = __fmul_rn(d2, hinv2);
-        if (!(v2 < 4.0f)) return;
-        float sinc = sinc_poly(v2);
-        float wnm1 = pow_int(sinc, n_w - 1);
-        float w = wnm1 * sinc;
-        float vdw = (float)n_w * wnm1 * (v2 * dsinc_over_v_poly(v2));
-        float dterh = -(3.0f * w + vdw);
-        kx += w * SJ(4);
-        whomega += dterh * SJ(4);
-        wrho0 += dterh * SJ(3);
-    }
-
-    __device__ void store(const float* J, const float*, float* out,
-                          long long islot, long long ns, const PairParams& p)
-    {
-        const float mi = JI(5), xmi = JI(6);
-        const float K3d = p.K3d;
-        const float h3inv = hinv * hinv2;
-        float kxs = kx * K3d * h3inv;
-        float who = whomega * K3d * h3inv * hinv;
-        float wr0 = wrho0 * K3d * h3inv * hinv;
-        who = who * mi / xmi + (kxs - K3d * xmi * h3inv) * wr0;
-        float rho = kxs * mi / xmi;
-        float gradh = 1.0f + hi / (rho * 3.0f) * who;
-        const bool ok = xi < HALF_FILL;
-        out[0 * ns + islot] = ok ? kxs : 1.0f;
-        out[1 * ns + islot] = ok ? gradh : 1.0f;
-    }
-};
 
 // --------------------------------------------------------------------------
 // stage 2 (K5, tile::IadStage below) and stage 5 (K8): the IAD inverse of
@@ -355,82 +281,22 @@ struct IadMmBody {
     }
 };
 
-// --------------------------------------------------------------------------
-// stage 3: AV switches (signal speed, graddivv, alpha update)
-// --------------------------------------------------------------------------
-struct AvBody {
-    static constexpr int FJ = 10;   // x y z c kx xm divv vx vy vz
-    static constexpr int FO = 1;
-    static constexpr int NM = 0, NORIGIN = 0;
-    __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
-
-    float xi, yi, zi, hi, hinv2, kfac, ci, divvi, vxi, vyi, vzi;
-    float c11, c12, c13, c22, c23, c33;
-    float vsig, gx, gy, gz;
-    int n_w;
-
-    __device__ void load_i(const float* J, const float* I2, long long islot,
-                           long long ns, const PairParams& p)
-    {
-        xi = JI(0); yi = JI(1); zi = JI(2); hi = JI(3);
-        ci = JI(5); divvi = JI(8); vxi = JI(9); vyi = JI(10); vzi = JI(11);
-        c11 = I2[0 * ns + islot]; c12 = I2[1 * ns + islot];
-        c13 = I2[2 * ns + islot]; c22 = I2[3 * ns + islot];
-        c23 = I2[4 * ns + islot]; c33 = I2[5 * ns + islot];
-        float hinv = __fdiv_rn(1.0f, hi);
-        hinv2 = __fmul_rn(hinv, hinv);
-        kfac = p.K3d * (hinv * hinv2);
-        vsig = SPH_NEG;
-        gx = gy = gz = 0.0f;
-        n_w = p.n_w;
-    }
-
-    __device__ void pair(const float* sj, int k, int stride)
-    {
-        float rx = __fsub_rn(xi, SJ(0)), ry = __fsub_rn(yi, SJ(1)),
-              rz = __fsub_rn(zi, SJ(2));
-        float d2 = dist2(rx, ry, rz);
-        float v2 = __fmul_rn(d2, hinv2);
-        if (!(v2 < 4.0f)) return;
-        float rv = rx * (vxi - SJ(7)) + ry * (vyi - SJ(8)) + rz * (vzi - SJ(9));
-        if (rv < 0.0f)
-            vsig = fmaxf(vsig, ci + SJ(3) - 3.0f * rv * rsqrtf(fmaxf(d2, 1e-30f)));
-        float w = pow_int(sinc_poly(v2), n_w) * kfac;
-        float tA1 = -(c11 * rx + c12 * ry + c13 * rz) * w;
-        float tA2 = -(c12 * rx + c22 * ry + c23 * rz) * w;
-        float tA3 = -(c13 * rx + c23 * ry + c33 * rz) * w;
-        float factor = (SJ(5) / SJ(4)) * (divvi - SJ(6));
-        gx += factor * tA1;
-        gy += factor * tA2;
-        gz += factor * tA3;
-    }
-
-    __device__ void store(const float* J, const float* I2, float* out,
-                          long long islot, long long ns, const PairParams& p)
-    {
-        float alpha = alpha_tail(I2, islot, ns, p, sqrtf(gx * gx + gy * gy
-                                                         + gz * gz),
-                                 fmaxf(vsig, 1e-30f * ci), divvi, hi, ci);
-        out[islot] = xi < HALF_FILL ? alpha : 0.0f;
-    }
-
-    // Cullen-Dehnen alpha evolution (_av_alpha_tail, pallas_ve.py:865)
-    __device__ static float alpha_tail(const float* I2, long long islot,
-                                       long long ns, const PairParams& p,
-                                       float graddivv, float vijsignal,
-                                       float divvi, float hi, float ci)
-    {
-        const float alpha_i = I2[6 * ns + islot], dt = I2[7 * ns + islot];
-        float a_const = hi * hi * graddivv;
-        float alphaloc = divvi < 0.0f
-            ? p.alphamax * a_const / (a_const + hi * fabsf(divvi) + 0.05f * ci)
-            : 0.0f;
-        float decay = hi / (p.decay_constant * vijsignal);
-        float alphadot = alphaloc >= p.alphamin
-            ? (alphaloc - alpha_i) / decay : (p.alphamin - alpha_i) / decay;
-        return alphaloc >= alpha_i ? alphaloc : alpha_i + alphadot * dt;
-    }
-};
+// Cullen-Dehnen alpha evolution of stages 3 and 6 (_av_alpha_tail,
+// pallas_ve.py:865); I2 rows 6 and 7 are alpha_i and dt
+__device__ float alpha_tail(const float* I2, long long islot, long long ns,
+                            const PairParams& p, float graddivv,
+                            float vijsignal, float divvi, float hi, float ci)
+{
+    const float alpha_i = I2[6 * ns + islot], dt = I2[7 * ns + islot];
+    float a_const = hi * hi * graddivv;
+    float alphaloc = divvi < 0.0f
+        ? p.alphamax * a_const / (a_const + hi * fabsf(divvi) + 0.05f * ci)
+        : 0.0f;
+    float decay = hi / (p.decay_constant * vijsignal);
+    float alphadot = alphaloc >= p.alphamin
+        ? (alphaloc - alpha_i) / decay : (p.alphamin - alpha_i) / decay;
+    return alphaloc >= alpha_i ? alphaloc : alpha_i + alphadot * dt;
+}
 
 // --------------------------------------------------------------------------
 // stage 6 (K9): AV switches with graddivv from 8 cell-centred
@@ -516,9 +382,9 @@ struct AvMmBody {
         float gx = -(c[0] * G[0] + c[1] * G[1] + c[2] * G[2]) * scale;
         float gy = -(c[1] * G[0] + c[3] * G[1] + c[4] * G[2]) * scale;
         float gz = -(c[2] * G[0] + c[4] * G[1] + c[5] * G[2]) * scale;
-        float alpha = AvBody::alpha_tail(
-            I2, islot, ns, p, sqrtf(gx * gx + gy * gy + gz * gz),
-            fmaxf(vsig, 1e-30f * ci), divvi, hi, ci);
+        float alpha = alpha_tail(I2, islot, ns, p,
+                                 sqrtf(gx * gx + gy * gy + gz * gz),
+                                 fmaxf(vsig, 1e-30f * ci), divvi, hi, ci);
         out[islot] = xi < HALF_FILL ? alpha : 0.0f;
     }
 };
@@ -636,7 +502,7 @@ __device__ void cell_means(const float* J, long long first, int cap,
 }
 
 // streams the 27 neighbour cells one at a time through shared memory;
-// a moment body (NM > 0) also builds NM columns per staged j-slot
+// each staged j-slot also builds the moment body's NM columns
 template <class Body, bool Gated, bool Column>
 __global__ void
 cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
@@ -644,21 +510,19 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
                  PairGate gt, int zseg)
 {
     extern __shared__ float sj[];                  // [FJ + NM][cap]
-    __shared__ float origin[Body::NORIGIN > 0 ? Body::NORIGIN : 1];
+    __shared__ float origin[Body::NORIGIN];
     const int cap = g.cap, i = threadIdx.x;
     const Walk w = block_walk<Column>(g, zseg);
     for (int q = 0; q < w.ncell; ++q) {
         const long long own = w.own0 + q;
         if constexpr (Gated)
             if (gate_closed<Body::FO>(gt, g, own, out)) return;
-        if constexpr (Body::NORIGIN > 0) {
-            if (q) __syncthreads();          // the last cell's store read it
-            cell_means<Body>(J, own * cap, cap, g.n_slots, origin);
-        }
+        if (q) __syncthreads();              // the last cell's store read it
+        cell_means<Body>(J, own * cap, cap, g.n_slots, origin);
         const long long islot = own * cap + i;
         Body b;
         b.load_i(J, I2, islot, g.n_slots, p);
-        if constexpr (Body::NORIGIN > 0) b.org = origin;
+        b.org = origin;
         for (int nb = 0; nb < 27; ++nb) {
             const long long jslot = nbr_cell(g, own, nb) * cap + i;
             __syncthreads();
@@ -666,7 +530,7 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
             for (int s = 0; s < Body::FJ; ++s)
                 sj[s * cap + i] =
                     J[(long long)Body::jrow(s) * g.n_slots + jslot];
-            if constexpr (Body::NM > 0) Body::moments(sj, cap, i, origin);
+            Body::moments(sj, cap, i, origin);
             __syncthreads();
             for (int k = 0; k < cap; ++k) b.pair(sj, k, cap);
         }
@@ -674,62 +538,23 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
     }
 }
 
-// K11's ring form. Ring slot c9 * 3 + z % 3 holds neighbour column c9 =
-// (dx+1)*3 + (dy+1) at padded z-plane z; at the cell of plane z the
-// planes z-1, z, z+1 are resident, and the step to z+1 stages plane z+2
-// into the slot of plane z-1. Cell nb = c9 * 3 + (dz+1) of the cell
-// launch's order is slot c9 * 3 + (z+dz) % 3.
-template <class Body>
-__global__ void
-cell_pair_column(const float* __restrict__ J, const float* __restrict__ I2,
-                 float* __restrict__ out, PairGeom g, PairParams p, int zseg)
-{
-    static_assert(Body::NM == 0, "the ring holds j-rows, not moments");
-    extern __shared__ float ring[];                // [FJ][27 * cap]
-    const int cap = g.cap, i = threadIdx.x;
-    const int W = 27 * cap;
-    const long long ns = g.n_slots;
-    const Walk w = block_walk<true>(g, zseg);
-    const int z0 = (int)(w.own0 % g.npz);
-    auto stage_plane = [&](int z) {
-        const long long col = w.own0 + (z - z0);
-        for (int c9 = 0; c9 < 9; ++c9) {
-            const int dx = c9 / 3 - 1, dy = c9 % 3 - 1;
-            const long long jslot =
-                (col + ((long long)dx * g.npd + dy) * g.npz) * cap + i;
-            float* dst = ring + (c9 * 3 + z % 3) * cap + i;
-#pragma unroll
-            for (int s = 0; s < Body::FJ; ++s)
-                dst[s * W] = J[(long long)Body::jrow(s) * ns + jslot];
-        }
-    };
-    stage_plane(z0 - 1);
-    stage_plane(z0);
-    for (int q = 0; q < w.ncell; ++q) {
-        const int z = z0 + q;
-        if (q) __syncthreads();              // plane z-2 is read no more
-        stage_plane(z + 1);
-        __syncthreads();
-        auto off = [&](int nb) {
-            return ((nb / 3) * 3 + (z + nb % 3 - 1) % 3) * cap;
-        };
-        const long long islot = (w.own0 + q) * cap + i;
-        Body b;
-        b.load_i(J, I2, islot, ns, p);
-        for_candidates(ring, off, cap,
-                       [&](const float* cell, int k) { b.pair(cell, k, W); });
-        b.store(J, I2, out, islot, ns, p);
-    }
-}
-
 // --------------------------------------------------------------------------
-// The tiled pair routine: stage 2 (K5, IAD), stage 4 (K7, momentum and
-// energy) and stage 8 (K7c, AvClean).
+// The tiled pair routine: stage 1 (K4, grad-h), stage 2 (K5, IAD),
+// stage 3 (K6, AV switches), stage 4 (K7, momentum and energy) and
+// stage 8 (K7c, AvClean).
+// K4 replaces _gradh_body (pallas_ve.py:622): per i-slot the sums kx,
+// whomega and wrho0 of W and its h-derivative term over the in-support
+// pairs, then the VE normalisation kx and grad-h (1.0 on invalid
+// slots: kx is a divisor downstream, pallas_ve.py:667).
 // K5 replaces _iad_direct_body (pallas_ve.py:704): per i-slot the
 // h-scaled IAD tau (six sums) and the velocity-gradient sums Q_ab =
 // sum_j w xm_j (v_j - v_i)_a r_b (nine) over the in-support pairs of its
 // 27 neighbour cells, then the 3x3 inverse and the 14 outputs
 // (iad_tail, iad_store).
+// K6 replaces _av_direct_body (pallas_ve.py:900, _av_vsig_term :884,
+// _av_alpha_tail :865): per i-slot graddivv's three sums over the
+// in-support pairs and the max approaching signal speed, then the
+// Cullen-Dehnen alpha update (alpha_tail).
 // K7 replaces _momentum_body (pallas_ve.py:1022; avClean branch
 // :1031-1033, :1057-1060, :1094-1116, momentum_energy_kern.hpp:44-63):
 // per i-slot the pair sums of the momentum, energy, AV heating and max
@@ -738,21 +563,23 @@ cell_pair_column(const float* __restrict__ J, const float* __restrict__ I2,
 // eta_crit on the i side.
 //
 // Bound: arithmetic, the 9-flop distance test of every candidate plus,
-// a pair inside the i-support, ~62 flops (K5), ~170 (K7), ~220 (K7c).
+// a pair inside the i-support, ~40 flops (K4), ~62 (K5), ~55 (K6), ~170
+// (K7), ~220 (K7c).
 //
 // One device routine, pair_cell<Stage>, computes one interior cell for
-// every launch form: the cell launch, K2g's gated form (stages 2 and 4)
-// and K11's stream form (cell_tile below; K11's ring form of stage 2
-// is its stream form). It is __noinline__, so every form calls one
-// compiled routine of the same arithmetic (ptxas allocates its
-// registers per kernel), and K11 and K2g equal the cell launch bit for
-// bit on the card. A Stage (IadStage, MomStage) names its staged j-rows,
-// its j-only terms, its i-terms, the NC contributions of a pair, how its
-// pairs are evaluated (COMPACT) and the store.
+// every launch form: the cell launch, K2g's gated form (stages 1-4) and
+// K11's stream form (cell_tile below). It is __noinline__, so every
+// form calls one compiled routine of the same arithmetic (ptxas
+// allocates its registers per kernel), and K11 and K2g equal the cell
+// launch bit for bit on the card. A Stage (GradhStage, IadStage,
+// AvStage, MomStage) names its staged j-rows, its j-only terms, its
+// i-terms, the NC contributions of a pair, how its pairs are evaluated
+// (COMPACT), the store and the values of invalid slots (fill).
 //
 // A block of T = min(cap, 128) threads takes the T i-slots of one i-tile
 // of its cell (cap > 128: ceil(cap / 128) blocks a cell, blockIdx.y);
-// a tile with no valid i-slot stores zeros and returns before staging.
+// a tile with no valid i-slot stores its Stage's fill values and
+// returns before staging (at cap 256 the second i-tile of most cells).
 // From cap 128 a block has 4 warps; at cap 64 the cell's i-slots fill
 // only 2, and the latency is hidden by the ~10 blocks an SM instead.
 // The 27 neighbour cells are walked in the cell launch's order as units
@@ -767,8 +594,8 @@ cell_pair_column(const float* __restrict__ J, const float* __restrict__ I2,
 //     before. Warps whose i-slots are all invalid run no tests.
 //  2. j-only terms once per staged slot, written as extra rows when a
 //     slot is staged, with the expressions and association the pair
-//     body used: K5 vol_j = xm_j / kx_j; K7 1/h, 1/h^2, 1/h^3, logf(xm),
-//     m / rho and m * prho.
+//     body used: K5 and K6 vol_j = xm_j / kx_j; K7 1/h, 1/h^2, 1/h^3,
+//     logf(xm), m / rho and m * prho; K4 has none.
 //  3. The support tests, per warp and chunk of 32 staged j-slots: each
 //     lane tests its own i against the chunk (dist2 and __fmul_rn(d2,
 //     hinv2) < 4, unchanged) into a 32-bit mask. Then the in-support
@@ -785,13 +612,14 @@ cell_pair_column(const float* __restrict__ J, const float* __restrict__ I2,
 //     rounds a batch took K7 from 5.26 to 4.89 ms at Sedov 100^3 (one
 //     round a batch, or four, were slower); a lane evaluating only its
 //     own pairs took K7 6.19 ms (4.87 compacted).
-//     K5: each lane evaluates its own in-support pairs, walking its
-//     mask's set bits, and adds each pair's 15 terms as it goes. The
+//     K4, K5, K6: each lane evaluates its own in-support pairs, walking
+//     its mask's set bits, and adds each pair's terms as it goes. The
 //     cross-lane compaction took K5 4.60 ms (the rounds' search,
 //     i-term loads and 15 shared stores a pair ~2.8 ms of it, the
 //     owners' adds ~0.4) against 2.61 this way (2.86 with the tests
 //     unrolled by 2, see IadStage) and 3.61 for the former
-//     thread-a-slot kernel: a 62-flop body does not repay it.
+//     thread-a-slot kernel: a 62-flop body does not repay it, nor do
+//     K4's 40 flops (3 sums) and K6's 55 (3 sums and a max).
 //     Either way every per-i sum takes its pairs one at a time in the
 //     order of the cell launch before it (nb, then slot).
 //     (chip_smoke.py --compare and trial variants of this file, NVIDIA
@@ -801,10 +629,11 @@ cell_pair_column(const float* __restrict__ J, const float* __restrict__ I2,
 //     aligned) while the current one is computed, its x row read two
 //     units ahead, its j-only terms written from registers after the
 //     compute, so one barrier a unit suffices.
-// Shared memory: 2 * NROW * T floats of tiles (NROW: K5 8, K7 23, K7c
-// 29), the NI i-terms of the block's T i-slots (NI 9, 21, 29) and, for
-// K7 and K7c, 6 * 64 contributions a warp: at cap 64 K5 6.4 KB, K7 20.2
-// KB, K7c 25.4 KB; from cap 128 12.8, 40.5 and 50.7 KB. Keeping the
+// Shared memory: 2 * NROW * T floats of tiles (NROW: K4 5, K5 8, K6 9,
+// K7 23, K7c 29), the NI i-terms of the block's T i-slots (NI 5, 9, 16,
+// 21, 29) and, for K7 and K7c, 6 * 64 contributions a warp: at cap 64
+// K4 3.9 KB, K5 6.4 KB, K6 8.7 KB, K7 20.2 KB, K7c 25.4 KB; from cap 128
+// twice those of K4-K6, 40.5 and 50.7 KB for K7 and K7c. Keeping the
 // i-terms there rather than in registers (shuffled to the evaluating
 // lane) cut K7's register count by about 40 and K7 from 5.90 to 5.24 ms.
 // --------------------------------------------------------------------------
@@ -840,19 +669,102 @@ __device__ __forceinline__ void cp_async_wait_all()
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// A Stage's interface (IadStage, MomStage):
+// A Stage's interface (GradhStage, IadStage, AvStage, MomStage):
 //   staged rows: X, Y, Z = 0, 1, 2, NCOPY rows copied from J (J row
 //     jrow(r)), NROW in all with the j-only terms;
 //   i-terms: NI of them, I_X, I_Y, I_Z, I_HINV2 = 0, 1, 2, 3 first
-//     (the support test's, kept in registers too);
+//     (the support test's, kept in registers too), from J and I2
+//     (load_i);
 //   NE J values a staged slot reads for its j-only terms (load_e), which
-//     finish writes; NC contributions a pair (terms), added into the
-//     lane's sums (add); COMPACT: pairs compacted across lanes, NLOAD
-//     entries in flight when an owner adds; TEST_UNROLL: the support
-//     tests' unroll; FO output rows (store).
+//     finish writes (neither is called at NE 0); NC contributions a pair
+//     (terms), added into the lane's sums (add); COMPACT: pairs
+//     compacted across lanes, NLOAD entries in flight when an owner
+//     adds; TEST_UNROLL: the support tests' unroll; FO output rows
+//     (store), fill(r) those of an invalid slot.
 #define JI(r) J[(long long)(r) * ns + islot]
 #define S(r) sb[(r) * T + k]
 #define A(q) a[(q) * T]
+
+// stage 1 (K4): VE normalization kx and grad-h
+struct GradhStage {
+    // x y z m xm (J rows 0-2, 5, 6); no j-only term
+    static constexpr int X = 0, Y = 1, Z = 2, M = 3, XM = 4;
+    static constexpr int NCOPY = 5, NROW = 5;
+    __device__ static int jrow(int r) { return r < 3 ? r : r + 2; }
+    enum : int { I_X, I_Y, I_Z, I_HINV2, I_HINV, NI };
+    // each lane evaluates its own in-support pairs; kx, whomega, wrho0.
+    // The support tests unrolled by 4: 2.10-2.13 ms at 63 registers, no
+    // spill; by 2 2.21, by 8 2.09-2.10 (93 registers in the K11 form)
+    // (chip_smoke.py --compare, Sedov 100^3, H100)
+    static constexpr bool COMPACT = false;
+    static constexpr int NE = 0, NC = 3, NLOAD = 0, FO = 2,
+                         TEST_UNROLL = 4;
+
+    // kx and gradh of an invalid slot: kx is a divisor downstream
+    __device__ static float fill(int) { return 1.0f; }
+
+    __device__ static void load_i(const float* J, const float*, long long ns,
+                                  long long islot, bool ihas,
+                                  const PairParams&, float (&iv)[NI])
+    {
+        const float hinv = __fdiv_rn(1.0f, JI(3));
+        iv[I_X] = ihas ? JI(0) : SPH_FILL_POS;
+        iv[I_Y] = JI(1);
+        iv[I_Z] = JI(2);
+        iv[I_HINV2] = __fmul_rn(hinv, hinv);
+        iv[I_HINV] = hinv;
+    }
+
+    __device__ static void init(float (&acc)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) acc[q] = 0.0f;
+    }
+
+    __device__ static void add(float (&acc)[NC], const float (&v)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) acc[q] += v[q];
+    }
+
+    // kx, whomega, wrho0 (the expressions of _gradh_body)
+    __device__ static void terms(const float* a, const float* sb, int T,
+                                 int k, const PairParams& p,
+                                 float (&c)[NC])
+    {
+        const float d2 = dist2(__fsub_rn(A(I_X), S(X)),
+                               __fsub_rn(A(I_Y), S(Y)),
+                               __fsub_rn(A(I_Z), S(Z)));
+        const float v2 = __fmul_rn(d2, A(I_HINV2));
+        const float sinc = sinc_poly(v2);
+        const float wnm1 = pow_nw(sinc, p.n_w - 1);
+        const float w = wnm1 * sinc;
+        const float vdw = (float)p.n_w * wnm1 * (v2 * dsinc_over_v_poly(v2));
+        const float dterh = -(3.0f * w + vdw);
+        c[0] = w * S(XM);
+        c[1] = dterh * S(XM);
+        c[2] = dterh * S(M);
+    }
+
+    __device__ static void store(const float* J, const float*, long long ns,
+                                 long long islot, const float* mine, int T,
+                                 const float (&acc)[NC], bool ok,
+                                 const PairParams& p, float* out)
+    {
+        const float hi = JI(3), mi = JI(5), xmi = JI(6);
+        const float hinv = mine[I_HINV * T], hinv2 = mine[I_HINV2 * T];
+        const float K3d = p.K3d;
+        const float h3inv = hinv * hinv2;
+        const float kxs = acc[0] * K3d * h3inv;
+        float who = acc[1] * K3d * h3inv * hinv;
+        const float wr0 = acc[2] * K3d * h3inv * hinv;
+        who = who * mi / xmi + (kxs - K3d * xmi * h3inv) * wr0;
+        const float rho = kxs * mi / xmi;
+        const float gradh = 1.0f + hi / (rho * 3.0f) * who;
+        out[0 * ns + islot] = ok ? kxs : fill(0);
+        out[1 * ns + islot] = ok ? gradh : fill(1);
+    }
+};
 
 // stage 2 (K5): IAD tau, divv, curlv, velocity gradients
 struct IadStage {
@@ -871,7 +783,9 @@ struct IadStage {
     static constexpr int NE = 2, NC = 15, NLOAD = 0, FO = 14,
                          TEST_UNROLL = 2;
 
-    __device__ static void load_i(const float* J, long long ns,
+    __device__ static float fill(int) { return 0.0f; }
+
+    __device__ static void load_i(const float* J, const float*, long long ns,
                                   long long islot, bool ihas,
                                   const PairParams& p, float (&iv)[NI])
     {
@@ -940,7 +854,7 @@ struct IadStage {
     }
 
     // mine: this slot's i-terms (stride T)
-    __device__ static void store(const float* J, long long ns,
+    __device__ static void store(const float* J, const float*, long long ns,
                                  long long islot, const float* mine, int T,
                                  const float (&acc)[NC], bool ok,
                                  const PairParams&, float* out)
@@ -956,6 +870,116 @@ struct IadStage {
                              + C[b][1] * acc[6 + 3 * q + 1]
                              + C[b][2] * acc[6 + 3 * q + 2]);
         iad_store(C, dV, mine[I_KFAC * T] / JI(5), ok, out, islot, ns);
+    }
+};
+
+// stage 3 (K6): AV switches (signal speed, graddivv, alpha update)
+struct AvStage {
+    // x y z c divv vx vy vz (J rows 0-2, 5, 8-11), then vol_j
+    static constexpr int X = 0, Y = 1, Z = 2, C = 3, DIVV = 4, VX = 5,
+                         VY = 6, VZ = 7;
+    static constexpr int NCOPY = 8, VOLJ = 8, NROW = 9;
+    __device__ static int jrow(int r)
+    {
+        return r < 3 ? r : (r == 3 ? 5 : r + 4);
+    }
+    enum : int { I_X, I_Y, I_Z, I_HINV2, I_KFAC, I_C, I_DIVV, I_VX, I_VY,
+                 I_VZ, I_C11, NI = I_C11 + 6 };
+    // each lane evaluates its own in-support pairs; gx gy gz (sums),
+    // vsig (a max). The support tests unrolled by 4: 2.65-2.66 ms at 96
+    // registers, no spill; by 2 2.67-2.70, by 1 2.76-2.79 (as K4's)
+    static constexpr bool COMPACT = false;
+    static constexpr int NE = 2, NC = 4, NLOAD = 0, FO = 1,
+                         TEST_UNROLL = 4;
+
+    __device__ static float fill(int) { return 0.0f; }
+
+    __device__ static void load_i(const float* J, const float* I2,
+                                  long long ns, long long islot, bool ihas,
+                                  const PairParams& p, float (&iv)[NI])
+    {
+        const float hinv = __fdiv_rn(1.0f, JI(3));
+        const float hinv2 = __fmul_rn(hinv, hinv);
+        iv[I_X] = ihas ? JI(0) : SPH_FILL_POS;
+        iv[I_Y] = JI(1);
+        iv[I_Z] = JI(2);
+        iv[I_HINV2] = hinv2;
+        iv[I_KFAC] = p.K3d * (hinv * hinv2);
+        iv[I_C] = JI(5);
+        iv[I_DIVV] = JI(8);
+        iv[I_VX] = JI(9);
+        iv[I_VY] = JI(10);
+        iv[I_VZ] = JI(11);
+#pragma unroll
+        for (int r = 0; r < 6; ++r) iv[I_C11 + r] = I2[r * ns + islot];
+    }
+
+    __device__ static void load_e(const float* J, long long ns, long long s,
+                                  float (&e)[NE])
+    {
+        e[0] = J[6 * ns + s];        // kx
+        e[1] = J[7 * ns + s];        // xm
+    }
+
+    __device__ static void finish(float* d, int T, const float (&e)[NE])
+    {
+        d[VOLJ * T] = e[1] / e[0];
+    }
+
+    __device__ static void init(float (&acc)[NC])
+    {
+        acc[0] = acc[1] = acc[2] = 0.0f;
+        acc[3] = SPH_NEG;
+    }
+
+    __device__ static void add(float (&acc)[NC], const float (&v)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) acc[q] += v[q];
+        acc[3] = fmaxf(acc[3], v[3]);
+    }
+
+    // graddivv's three terms and the pair's approaching signal speed
+    // (SPH_NEG where the pair recedes: no term of the max)
+    __device__ static void terms(const float* a, const float* sb, int T,
+                                 int k, const PairParams& p,
+                                 float (&c)[NC])
+    {
+        const float rx = __fsub_rn(A(I_X), S(X)),
+                    ry = __fsub_rn(A(I_Y), S(Y)),
+                    rz = __fsub_rn(A(I_Z), S(Z));
+        const float d2 = dist2(rx, ry, rz);
+        const float v2 = __fmul_rn(d2, A(I_HINV2));
+        const float rv = rx * (A(I_VX) - S(VX)) + ry * (A(I_VY) - S(VY))
+            + rz * (A(I_VZ) - S(VZ));
+        c[3] = rv < 0.0f
+            ? A(I_C) + S(C) - 3.0f * rv * rsqrtf(fmaxf(d2, 1e-30f))
+            : SPH_NEG;
+        const float w = pow_nw(sinc_poly(v2), p.n_w) * A(I_KFAC);
+        const float c11 = A(I_C11), c12 = A(I_C11 + 1), c13 = A(I_C11 + 2),
+                    c22 = A(I_C11 + 3), c23 = A(I_C11 + 4),
+                    c33 = A(I_C11 + 5);
+        const float tA1 = -(c11 * rx + c12 * ry + c13 * rz) * w;
+        const float tA2 = -(c12 * rx + c22 * ry + c23 * rz) * w;
+        const float tA3 = -(c13 * rx + c23 * ry + c33 * rz) * w;
+        const float factor = S(VOLJ) * (A(I_DIVV) - S(DIVV));
+        c[0] = factor * tA1;
+        c[1] = factor * tA2;
+        c[2] = factor * tA3;
+    }
+
+    __device__ static void store(const float* J, const float* I2,
+                                 long long ns, long long islot,
+                                 const float* mine, int T,
+                                 const float (&acc)[NC], bool ok,
+                                 const PairParams& p, float* out)
+    {
+        const float ci = mine[I_C * T];
+        const float alpha = alpha_tail(
+            I2, islot, ns, p,
+            sqrtf(acc[0] * acc[0] + acc[1] * acc[1] + acc[2] * acc[2]),
+            fmaxf(acc[3], 1e-30f * ci), mine[I_DIVV * T], JI(3), ci);
+        out[islot] = ok ? alpha : fill(0);
     }
 };
 
@@ -986,7 +1010,9 @@ struct MomStage {
     static constexpr bool COMPACT = true;
     static constexpr int NE = 5, NC = 6, NLOAD = 4, FO = 5, TEST_UNROLL = 4;
 
-    __device__ static void load_i(const float* J, long long ns,
+    __device__ static float fill(int) { return 0.0f; }
+
+    __device__ static void load_i(const float* J, const float*, long long ns,
                                   long long islot, bool ihas,
                                   const PairParams&, float (&iv)[NI])
     {
@@ -1156,8 +1182,8 @@ struct MomStage {
         c[2] = mom_i * tAi2 + mom_j * tAj2 + avz;
     }
 
-    __device__ static void store(const float*, long long ns, long long islot,
-                                 const float* mine, int T,
+    __device__ static void store(const float*, const float*, long long ns,
+                                 long long islot, const float* mine, int T,
                                  const float (&acc)[NC], bool ok,
                                  const PairParams& p, float* out)
     {
@@ -1167,7 +1193,7 @@ struct MomStage {
         const float o[5] = {-K3d * acc[0], -K3d * acc[1], -K3d * acc[2], du,
                             fmaxf(acc[5], 0.0f)};
 #pragma unroll
-        for (int r = 0; r < 5; ++r) out[r * ns + islot] = ok ? o[r] : 0.0f;
+        for (int r = 0; r < 5; ++r) out[r * ns + islot] = ok ? o[r] : fill(r);
     }
 };
 #undef S
@@ -1184,11 +1210,13 @@ __host__ __device__ constexpr int smem_floats(int T)
 // one interior cell `own`, the i-tile blockIdx.y, blockDim.x == T
 template <class St>
 __device__ __noinline__ void pair_cell(const float* __restrict__ J,
+                                       const float* __restrict__ I2,
                                        float* __restrict__ out,
                                        const PairGeom g, const PairParams p,
                                        const long long own, const int vec)
 {
     constexpr int NROW = St::NROW, NI = St::NI, NC = St::NC;
+    constexpr int NE = St::NE > 0 ? St::NE : 1;      // j-only sources
     constexpr int NCS = St::COMPACT ? NC * 64 : 0;   // contributions a warp
     extern __shared__ __align__(16) float msm[];
     const int cap = g.cap;
@@ -1207,7 +1235,7 @@ __device__ __noinline__ void pair_cell(const float* __restrict__ J,
     const bool ihas = ti < cap;
     const long long islot = own * cap + (ihas ? ti : 0);
     float iv[NI];
-    St::load_i(J, ns, islot, ihas, p, iv);
+    St::load_i(J, I2, ns, islot, ihas, p, iv);
     // the i-terms to shared memory ([NI][T]; a warp reads only its own
     // lanes' columns, so the next cell of K11 may overwrite them before
     // the barrier), the support test's kept in registers
@@ -1218,7 +1246,7 @@ __device__ __noinline__ void pair_cell(const float* __restrict__ J,
     // also the barrier after the previous cell's last unit (K11)
     if (!__syncthreads_or(ivalid)) {
         if (ihas)
-            for (int r = 0; r < St::FO; ++r) out[r * ns + islot] = 0.0f;
+            for (int r = 0; r < St::FO; ++r) out[r * ns + islot] = St::fill(r);
         return;
     }
     const bool wactive = __ballot_sync(FULL, ivalid) != 0;
@@ -1239,7 +1267,7 @@ __device__ __noinline__ void pair_cell(const float* __restrict__ J,
     // stage unit v into its buffer: warp w's slot group, if occupied
     // (cp.async, committed as one group), and the sources of its j-only
     // terms into e; returns the warp's validity ballot
-    auto issue = [&](int v, float xv, float (&e)[St::NE]) {
+    auto issue = [&](int v, float xv, float (&e)[NE]) {
         const unsigned vm = __ballot_sync(FULL, xv < HALF_FILL);
         if (lane == 0)
             lastv[(v & 1) * nw + w] = vm ? 32 * w + 31 - __clz(vm) : -1;
@@ -1256,20 +1284,21 @@ __device__ __noinline__ void pair_cell(const float* __restrict__ J,
                     cp_async4(dst + r * T + lane,
                               J + (long long)St::jrow(r) * ns + b + lane);
             }
-            St::load_e(J, ns, b + lane, e);
+            if constexpr (St::NE > 0) St::load_e(J, ns, b + lane, e);
         }
         cp_async_commit();
         return vm;
     };
     // the j-only terms of unit v
-    auto finish = [&](int v, unsigned vm, const float (&e)[St::NE]) {
-        if (vm)
-            St::finish(tiles + (v & 1) * NROW * T + 32 * w + lane, T, e);
+    auto finish = [&](int v, unsigned vm, const float (&e)[NE]) {
+        if constexpr (St::NE > 0)
+            if (vm)
+                St::finish(tiles + (v & 1) * NROW * T + 32 * w + lane, T, e);
     };
 
     float acc[NC];
     St::init(acc);
-    float e[St::NE];
+    float e[NE];
     {
         const float x0 = xload(0);
         finish(0, issue(0, x0, e), e);
@@ -1366,15 +1395,16 @@ __device__ __noinline__ void pair_cell(const float* __restrict__ J,
         xn1 = xn2;
     }
 
-    if (ihas) St::store(J, ns, islot, ist + t, T, acc, ivalid, p, out);
+    if (ihas) St::store(J, I2, ns, islot, ist + t, T, acc, ivalid, p, out);
 }
 
 // the cell launch, K2g (Gated) and K11's stream form (Column);
 // blockIdx.y is the i-tile
 template <class St, bool Gated, bool Column>
 __global__ void __launch_bounds__(TILE)
-cell_tile(const float* __restrict__ J, float* __restrict__ out, PairGeom g,
-          PairParams p, PairGate gt, int zseg, int vec)
+cell_tile(const float* __restrict__ J, const float* __restrict__ I2,
+          float* __restrict__ out, PairGeom g, PairParams p, PairGate gt,
+          int zseg, int vec)
 {
     const Walk w = block_walk<Column>(g, zseg);
     const int T = g.cap < TILE ? g.cap : TILE;
@@ -1384,7 +1414,7 @@ cell_tile(const float* __restrict__ J, float* __restrict__ out, PairGeom g,
         if constexpr (Gated)
             if (gate_closed<St::FO>(gt, g, own, out, s0, min(T, g.cap - s0)))
                 return;
-        pair_cell<St>(J, out, g, p, own, vec);
+        pair_cell<St>(J, I2, out, g, p, own, vec);
     }
 }
 
@@ -1405,9 +1435,8 @@ cell_tile(const float* __restrict__ J, float* __restrict__ out, PairGeom g,
 //
 // One device routine, xh_cell, computes the interior cells of a block
 // for every launch form (the cell launch and K2g one cell, K11 a
-// z-segment; K11's ring form of stage 0 is its stream form), so those
-// equal each other bit for bit. A block of T = min(cap, 128) threads
-// takes one i-tile of the cell (blockIdx.y):
+// z-segment), so those equal each other bit for bit. A block of T =
+// min(cap, 128) threads takes one i-tile of the cell (blockIdx.y):
 //  1. Occupied slots, one flat run. Each warp ballots x < HALF_FILL over
 //     the 32-slot groups of the 27 neighbour cells; warp 0 lists the
 //     occupied groups in nb-then-slot order, and the block stages their
@@ -2031,8 +2060,8 @@ bool bad_gate(const PairGeom& g, const PairGate& gt, int zseg)
         && (zseg || gt.prev == nullptr || gt.Z < 1 || g.npz % gt.Z);
 }
 
-// stages 1, 3, 5 and 6: the cell launch (zseg == 0; K2g when gt.act is
-// set) and K11's stream form (zseg > 0)
+// stages 5 and 6: the cell launch (zseg == 0; K2g when gt.act is set)
+// and K11's stream form (zseg > 0)
 template <class Body>
 cudaError_t launch(const float* J, const float* I2, float* out,
                    const PairGeom& g, const PairParams& p, const PairGate& gt,
@@ -2048,30 +2077,13 @@ cudaError_t launch(const float* J, const float* I2, float* out,
                  gt, zseg);
 }
 
-// K11's ring form: 27 * FJ * cap floats of shared memory a block
-template <class Body>
-cudaError_t launch_ring(const float* J, const float* I2, float* out,
-                        const PairGeom& g, const PairParams& p, int zseg,
-                        cudaStream_t st)
-{
-    if constexpr (Body::NM > 0) {
-        return cudaErrorInvalidValue;
-    } else {
-        if (g.cap > 1024 || g.cap % 32 || zseg < 1)
-            return cudaErrorInvalidValue;
-        const size_t smem = sizeof(float) * Body::FJ * 27 * g.cap;
-        return start(cell_pair_column<Body>, n_blocks(g, zseg), g.cap, smem,
-                     st, J, I2, out, g, p, zseg);
-    }
-}
-
-// K5, K7 and K7c (stage 2, 4, 8): blocks of T = min(cap, 128) threads,
-// one a (cell, i-tile); the cell launch (K2g when gt.act is set) or K11's
-// stream form (zseg > 0)
+// K4-K7 and K7c (stages 1-4, 8): blocks of T = min(cap, 128) threads,
+// one a (cell, i-tile); the cell launch (K2g when gt.act is set) or
+// K11's stream form (zseg > 0)
 template <class St>
-cudaError_t launch_tile(const float* J, float* out, const PairGeom& g,
-                        const PairParams& p, const PairGate& gt, int zseg,
-                        cudaStream_t st)
+cudaError_t launch_tile(const float* J, const float* I2, float* out,
+                        const PairGeom& g, const PairParams& p,
+                        const PairGate& gt, int zseg, cudaStream_t st)
 {
     if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
         return cudaErrorInvalidValue;
@@ -2082,10 +2094,10 @@ cudaError_t launch_tile(const float* J, float* out, const PairGeom& g,
     auto kern = zseg ? tile::cell_tile<St, false, true>
         : gt.act != nullptr ? tile::cell_tile<St, true, false>
                             : tile::cell_tile<St, false, false>;
-    return start(kern, grid, T, smem, st, J, out, g, p, gt, zseg, vec);
+    return start(kern, grid, T, smem, st, J, I2, out, g, p, gt, zseg, vec);
 }
 
-// K3 (stage 0): the same blocks; K11's ring form is its stream form
+// K3 (stage 0): the same blocks
 cudaError_t launch_xh(const float* J, float* out, const PairGeom& g,
                       const PairParams& p, const PairGate& gt, int zseg,
                       cudaStream_t st)
@@ -2125,42 +2137,26 @@ cudaError_t launch_momentum_mm(const float* J, float* out, const PairGeom& g,
                  p, gt, T, nft, zseg);
 }
 
-template <class Body>
-cudaError_t body_launch(const float* J, const float* I2, float* out,
-                        const PairGeom& g, const PairParams& p,
-                        const PairGate& gt, int zseg, bool ring,
-                        cudaStream_t st)
-{
-    if (ring) return launch_ring<Body>(J, I2, out, g, p, zseg, st);
-    return launch<Body>(J, I2, out, g, p, gt, zseg, st);
-}
-
 cudaError_t stage_launch(int stage, const float* J, const float* I2,
                          float* out, const PairGeom& g, const PairParams& p,
-                         const PairGate& gt, int zseg, bool ring,
-                         cudaStream_t st)
+                         const PairGate& gt, int zseg, cudaStream_t st)
 {
-#define BODY(B) body_launch<B>(J, I2, out, g, p, gt, zseg, ring, st)
+#define TILED(S) launch_tile<S>(J, I2, out, g, p, gt, zseg, st)
     switch (stage) {
     case 0: return launch_xh(J, out, g, p, gt, zseg, st);
-    case 1: return BODY(GradhBody);
-    case 2: return launch_tile<tile::IadStage>(J, out, g, p, gt, zseg, st);
-    case 3: return BODY(AvBody);
-    case 4:
-        if (ring) return cudaErrorInvalidValue;
-        return launch_tile<tile::MomStage<false>>(J, out, g, p, gt, zseg, st);
-    case 5: return BODY(IadMmBody);
-    case 6: return BODY(AvMmBody);
-    case 7:
-        if (ring) return cudaErrorInvalidValue;
-        return launch_momentum_mm(J, out, g, p, gt, zseg, st);
+    case 1: return TILED(tile::GradhStage);
+    case 2: return TILED(tile::IadStage);
+    case 3: return TILED(tile::AvStage);
+    case 4: return TILED(tile::MomStage<false>);
+    case 5: return launch<IadMmBody>(J, I2, out, g, p, gt, zseg, st);
+    case 6: return launch<AvMmBody>(J, I2, out, g, p, gt, zseg, st);
+    case 7: return launch_momentum_mm(J, out, g, p, gt, zseg, st);
     case 8:
-        if (gt.act != nullptr || ring)          // no K2g form, no ring
-            return cudaErrorInvalidValue;
-        return launch_tile<tile::MomStage<true>>(J, out, g, p, gt, zseg, st);
+        if (gt.act != nullptr) return cudaErrorInvalidValue;   // no K2g form
+        return TILED(tile::MomStage<true>);
     default: return cudaErrorInvalidValue;
     }
-#undef BODY
+#undef TILED
 }
 
 }  // namespace
@@ -2171,22 +2167,21 @@ extern "C" int pair_launch(int stage, const float* J, const float* I2,
                            float* out, PairGeom g, PairParams p, PairGate gt,
                            void* stream)
 {
-    cudaError_t e = stage_launch(stage, J, I2, out, g, p, gt, 0, false,
+    cudaError_t e = stage_launch(stage, J, I2, out, g, p, gt, 0,
                                  (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
-// K11, the column launch: segments of zseg >= 1 cells; ring != 0 takes
-// the ring form (stages 0-3), else the stream form
+// K11, the column launch: segments of zseg >= 1 cells
 extern "C" int pair_launch_column(int stage, const float* J, const float* I2,
                                   float* out, PairGeom g, PairParams p,
-                                  int zseg, int ring, void* stream)
+                                  int zseg, void* stream)
 {
     if (zseg < 1) return (int)cudaErrorInvalidValue;
     cudaError_t e = stage_launch(stage, J, I2, out, g, p,
                                  PairGate{nullptr, nullptr, 0}, zseg,
-                                 ring != 0, (cudaStream_t)stream);
+                                 (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }

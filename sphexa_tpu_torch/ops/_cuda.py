@@ -177,7 +177,7 @@ _ARGTYPES = {
         "ghost_refresh": [_P, _I, _LL, _I, _I, _I, _I, _P, _P]},
     "cell_pair.cu": {
         "pair_launch": [_I, _P, _P, _P, PairGeom, PairParams, PairGate, _P],
-        "pair_launch_column": [_I, _P, _P, _P, PairGeom, PairParams, _I, _I,
+        "pair_launch_column": [_I, _P, _P, _P, PairGeom, PairParams, _I,
                                _P]},
     "probes.cu": {
         "fma_ceiling": [_P, _P, _LL, _I, _I, _P],
@@ -278,13 +278,12 @@ def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None,
 
 
 def pair_launch_column(stage: int, J, I2, out, grid, cfg, K3d: float,
-                       zseg: int, ring: bool, stats=None):
-    """K11: the column launch in segments of zseg cells, ring or stream
-    form."""
+                       zseg: int, stats=None):
+    """K11: the column launch in segments of zseg cells."""
     geom, prm = _pair_args(grid, cfg, K3d, stats)
     code = lib("cell_pair.cu").pair_launch_column(
         stage, J.data_ptr(), None if I2 is None else I2.data_ptr(),
-        out.data_ptr(), geom, prm, zseg, int(ring), _stream(J))
+        out.data_ptr(), geom, prm, zseg, _stream(J))
     _check(code, f"column pair stage {stage}")
 
 

@@ -26,11 +26,12 @@ tensor cores.
 K3-K10 share the driver make_cell_pair_call (pallas_ve.py:103), which in
 the port is the launch skeleton of cell_pair.cu: one thread block per
 interior cell, one thread per i-slot, the 27 neighbour cells streamed
-through shared memory (K4, K6, K8, K9). K5, K7 and K7c stream only the
-occupied slots (K7 and K7c evaluate their in-support pairs compacted
-across a warp's lanes); K3 stages the occupied slots of the 27 cells as
-one run and walks it again only for slots whose h the controller moved.
-Each has one routine for the cell, gated and column launches.
+through shared memory (K8, K9). K4-K7 and K7c stream only the occupied
+slots (K7 and K7c evaluate their in-support pairs compacted across a
+warp's lanes, K4-K6 each lane its own); K3 stages the occupied slots of
+the 27 cells as one run and walks it again only for slots whose h the
+controller moved. Each has one routine for the cell, gated and column
+launches.
 
 K2g, the gated driver (make_cell_pair_call(gated=True), pallas_ve.py:
 162-172, :242-251), is the same stages but K7c as GATED_KERNELS: a
@@ -745,28 +746,11 @@ def _check_rows(name, t, rows, grid: CMGrid):
                          f"got {tuple(t.shape)}")
 
 
-# K11's launch form: the z-segment a thread block walks (zseg cells) and
-# whether it keeps the 27 neighbour cells in a ring of shared memory or
-# streams them per z-step. Of the forms chip_smoke.py times at the Sedov
-# 100^3 inputs (PERF.md), one cell a block, streamed, was the fastest for
-# every stage but K3 (its ring 5% ahead, before K3's candidate loop was
-# made one flat run again): longer segments leave fewer blocks in
-# flight, and a ring of 35-69 KB a block (cap 64) leaves few blocks an SM.
-COLUMN_ZSEG, COLUMN_RING = 1, False
-# j-rows a ring holds per cell (the bodies' FJ in cell_pair.cu), for the
-# stages with a ring form; the ring form of K3 and K5 (stages 0, 2) runs
-# as their stream form, since their routines stage only the occupied
-# slot groups
-RING_ROWS = {0: 4, 1: 5, 2: 8, 3: 10}
-_SMEM_MAX = 232448            # shared memory a block may opt into (bytes)
-
-
-def column_form(kern: "PairKernel", grid: CMGrid):
-    """(zseg, ring) of a K11 launch: the kernel's form, with the ring
-    only where its 27 cells of j-rows fit a block's shared memory."""
-    rows = RING_ROWS.get(kern.stage)
-    fits = rows is not None and 4 * 27 * rows * grid.cap <= _SMEM_MAX
-    return kern.zseg, kern.ring and fits
+# K11's z-segment: the cells a thread block walks. Of the segments
+# chip_smoke.py times at the Sedov 100^3 inputs (PERF.md), one cell a
+# block was the fastest for every stage but K10 (two within 1% of it):
+# longer segments leave fewer blocks in flight.
+COLUMN_ZSEG = 1
 
 
 class PairKernel:
@@ -787,9 +771,8 @@ class PairKernel:
         self.gated = gated
         self.column = column
         self.launches = 0
-        # K11's launch form (column_form); chip_smoke.py sweeps it
-        self.zseg, self.ring = (COLUMN_ZSEG, COLUMN_RING) if column \
-            else (0, False)
+        # K11's z-segment; chip_smoke.py sweeps it
+        self.zseg = COLUMN_ZSEG if column else 0
 
     def _body_kw(self, cfg: SphConfig):
         return dict(cfg=cfg, K3d=kernel_3d_k(cfg.sinc_index),
@@ -821,9 +804,8 @@ class PairKernel:
                           device=J.device)
         K3d = kernel_3d_k(cfg.sinc_index)
         if self.column:
-            zseg, ring = column_form(self, grid)
             _cuda.pair_launch_column(self.stage, J, I2, out, grid, cfg, K3d,
-                                     zseg, ring, stats)
+                                     self.zseg, stats)
             return out
         if gate is not None:
             gate = (*gate, resolve_zgroup(grid, zgroup))

@@ -26,11 +26,13 @@ with a seeded activity pattern: the slots of active z-supercells hold
 those tolerances, and the interior slots of inactive ones equal prev
 bit for bit. The column launch (K11) takes the same inputs and equals
 the cell launch bit for bit on interior slots in every form, zero
-elsewhere. K3, K5, K7 and K7c are also held on synthetic frames at
-caps 64, 128 and 256 (empty, partial and full cells), with their K2g
-and K11 forms; K3's nc, h and nonconv bit-equal to plain on every
+elsewhere. K3-K7 and K7c are also held on synthetic frames at caps 64,
+128 and 256 (empty, partial and full cells; at cap 256 a partial cell
+of fewer than 128 particles leaves its second i-tile empty), with their
+K2g and K11 forms; K3's nc, h and nonconv bit-equal to plain on every
 interior slot, under controllers whose h moves in the first round, a
-later one or never. The probe kernels (P1-P5) are held against their
+later one or never; invalid interior slots exactly 1.0 for K4 (kx and
+gradh) and 0 for the others. The probe kernels (P1-P5) are held against their
 plain versions: P1-P4 rtol 1e-6 (the same float32 operations), P5 1e-5 of the
 output's scale (TF32: 5e-3). K1z (the ghost refresh with refresh_z=False)
 is bit-equal to its plain version, and the slab-sharded resident step
@@ -135,13 +137,15 @@ def _check_bf16(ref, out, ref32, mask):
     np.testing.assert_allclose(b[4], a[4], rtol=1e-5)
 
 
-def _check_rows(name, ref, out, mask):
+def _check_rows(name, ref, out, mask, scaled=()):
+    """Per row: exact, rtol 1e-5, or (the cancelling sums, and the rows
+    in `scaled`) 1e-4 of the row's scale."""
     a, b = ref[:, mask].cpu().numpy(), out[:, mask].cpu().numpy()
     assert np.isfinite(b).all()
     for r in range(a.shape[0]):
         if r in EXACT.get(name, ()):
             np.testing.assert_array_equal(b[r], a[r])
-        elif r in RELATIVE.get(name, ()):
+        elif r in RELATIVE.get(name, ()) and r not in scaled:
             np.testing.assert_allclose(b[r], a[r], rtol=1e-5)
         else:
             assert np.abs(b[r] - a[r]).max() <= 1e-4 * max(
@@ -311,26 +315,22 @@ def _momentum_frame(grid, av_clean, seed):
     return J, valid
 
 
-def _check_forms(k, J, grid, cfg, out, intmask, mask, seed, gated=True):
-    """K11's stream and (where the stage has one) ring forms at zseg 1-3
-    bit-equal to the cell launch `out` on interior slots and zero
-    elsewhere; K2g (gated) against its gated plain version, inactive
-    slots equal to prev, active valid slots bit-equal to the cell
-    launch."""
+def _check_forms(k, J, grid, cfg, out, intmask, mask, seed, gated=True,
+                 I2=None, scaled=()):
+    """K11 at zseg 1-3 bit-equal to the cell launch `out` on interior
+    slots and zero elsewhere; K2g (gated) against its gated plain
+    version, inactive slots equal to prev, active valid slots bit-equal
+    to the cell launch."""
     kc = next(c for c in pv.COLUMN_KERNELS if c.name == k.name + "_column")
-    saved = kc.zseg, kc.ring
+    saved = kc.zseg
     try:
         for zseg in (1, 2, 3):
-            for ring in (False, True):
-                kc.zseg, kc.ring = zseg, ring
-                if pv.column_form(kc, grid) != (zseg, ring):
-                    continue
-                col = kc(J, None, grid, cfg)
-                assert torch.equal(col[:, intmask], out[:, intmask]), \
-                    (zseg, ring)
-                assert not col[:, ~intmask].any()
+            kc.zseg = zseg
+            col = kc(J, I2, grid, cfg)
+            assert torch.equal(col[:, intmask], out[:, intmask]), zseg
+            assert not col[:, ~intmask].any()
     finally:
-        kc.zseg, kc.ring = saved
+        kc.zseg = saved
     if not gated:
         return
     kg = next(g for g in pv.GATED_KERNELS if g.name == k.name + "_gated")
@@ -341,12 +341,12 @@ def _check_forms(k, J, grid, cfg, out, intmask, mask, seed, gated=True):
                            .reshape(-1).astype(np.float32)).to(J.device)
     prev = torch.from_numpy(r.normal(0, 1, (kg.fo, grid.n_slots)).astype(
         np.float32)).to(J.device)
-    gout = kg(J, None, grid, cfg, (act, prev), 1)
-    gref = kg.plain(J, None, grid, cfg, (act, prev), 1)
+    gout = kg(J, I2, grid, cfg, (act, prev), 1)
+    gref = kg.plain(J, I2, grid, cfg, (act, prev), 1)
     on = pv.supercell_active(act, grid, 1).repeat_interleave(cap)
     assert (intmask & on).any() and (intmask & ~on).any()
     assert torch.equal(gout[:, intmask & ~on], prev[:, intmask & ~on])
-    _check_rows(k.name, gref, gout, mask & on)
+    _check_rows(k.name, gref, gout, mask & on, scaled)
     assert torch.equal(gout[:, mask & on], out[:, mask & on])
 
 
@@ -404,8 +404,7 @@ def test_xh_forms_match_plain(cuda, cap, case):
     nonconv bit-equal on every interior slot (on invalid slots too: the
     kernel counts their candidates without walking them), xm at rtol
     1e-5; the inputs hold slots whose h moves in round 0 only, in a
-    later round, and never. K11 (stream and ring form) and K2g as in
-    _check_forms."""
+    later round, and never. K11 and K2g as in _check_forms."""
     grid = CMGrid(n=3, cap=cap)
     cfg = SphConfig(**XH_CASES[case])
     k = pv.pair_xh
@@ -436,7 +435,7 @@ def test_xh_forms_match_plain(cuda, cap, case):
 def test_iad_forms_match_plain(cuda, cap):
     """K5 on full, partial and empty cells against plain (the cancelling
     sums at 1e-4 of their row's scale), zero on invalid interior slots;
-    K11 (stream and ring form) and K2g as in _check_forms."""
+    K11 and K2g as in _check_forms."""
     grid = CMGrid(n=3, cap=cap)
     cfg = SphConfig()
     k = pv.pair_iad
@@ -452,6 +451,96 @@ def test_iad_forms_match_plain(cuda, cap):
     _check_rows(k.name, ref, out, mask)
     assert not out[:, intmask & ~mask].any()
     _check_forms(k, J, grid, cfg, out, intmask, mask, seed=cap)
+
+
+def _gradh_frame(grid, seed):
+    """J rows of K4 (x y z h gid m xm) on `grid`, seeded: positions and m
+    of _xh_iad_frame, h and xm as K3 leaves them there (its plain
+    version, on the interior cells); the ghost cells' xm, read only as
+    j, is m times the interior's median xm / m."""
+    J3, valid = _xh_iad_frame(grid, "pair_xh", seed)
+    xh = pv.pair_xh.plain(torch.from_numpy(J3), None, grid,
+                          SphConfig()).numpy()
+    inside = np.repeat(_interior_cells_np(grid), grid.cap)
+    m = J3[5]
+    ratio = np.median(xh[0][inside & valid] / m[inside & valid])
+    xm = np.where(inside, xh[0], np.where(valid, ratio * m, 1.0))
+    J = np.concatenate([J3[:3], np.where(inside, xh[1], J3[3])[None],
+                        J3[4:6], xm[None]])
+    return J.astype(np.float32), valid
+
+
+def _av_frame(grid, seed):
+    """J rows of K6 (x y z h gid c kx xm divv vx vy vz) and its I2 rows
+    (c11..c33, alpha, dt) on `grid`, seeded, h 0.35-0.45 of a cell; dt
+    0.02 moves alpha by a few hundredths where alphaloc is below
+    alpha_i, so the whole alpha update is held."""
+    r = np.random.default_rng(seed)
+    rows, valid, u, dx = _base_frame(grid, r, 0.35, 0.45)
+    ns = grid.n_slots
+    rows += [np.where(valid, u(0.5, 1.5), 1.0),                   # c
+             np.where(valid, u(0.5, 2.0), 1.0),                   # kx
+             u(0.5, 1.5) * dx ** 3,                               # xm
+             r.normal(0, 1, ns)]                                  # divv
+    rows += [r.normal(0, 1, ns) for _ in range(3)]                # v
+    i2 = [r.normal(0, 1, ns) for _ in range(6)]                   # cij
+    i2 += [u(0.05, 1.0), np.full(ns, 0.02)]                       # alpha, dt
+    return (np.stack(rows).astype(np.float32),
+            np.stack(i2).astype(np.float32), valid)
+
+
+@pytest.mark.parametrize("cap", MOMENTUM_CAPS)
+def test_gradh_forms_match_plain(cuda, cap):
+    """K4 on full, partial and empty cells (empty second i-tiles at cap
+    256) against plain: kx at rtol 1e-5; gradh = 1 + X at 1e-4 of its
+    row's scale, as the cancelling sums: next to the frame's empty cells
+    X nears -1 (gradh spans about -0.45 to 1.65), and X is itself a
+    difference of pair sums, so an order change alone moves gradh there
+    by up to 1.3e-4 of itself, 4e-7 of the row's scale (the kernel's
+    order emulated on the CPU by tests/test_torch_tile_schedule.py's
+    tile_schedule); on the Sedov frame of test_pair_kernel_matches_plain
+    both rows hold rtol 1e-5.
+    Invalid interior slots exactly 1.0; K11 and K2g as in
+    _check_forms."""
+    grid = CMGrid(n=3, cap=cap)
+    cfg = SphConfig()
+    k = pv.pair_gradh
+    J, valid = _gradh_frame(grid, seed=cap + 2)
+    J = torch.from_numpy(J).to(cuda)
+    intmask = torch.tensor(np.repeat(_interior_cells_np(grid), cap),
+                           device=cuda)
+    mask = intmask & torch.from_numpy(valid).to(cuda)
+    before = k.launches
+    out = k(J, None, grid, cfg)
+    assert k.launches == before + 1
+    ref = k.plain(J, None, grid, cfg)
+    _check_rows(k.name, ref, out, mask, scaled=(1,))
+    assert (out[:, intmask & ~mask] == 1.0).all()
+    assert torch.equal(out[:, intmask & ~mask], ref[:, intmask & ~mask])
+    _check_forms(k, J, grid, cfg, out, intmask, mask, seed=cap,
+                 scaled=(1,))
+
+
+@pytest.mark.parametrize("cap", MOMENTUM_CAPS)
+def test_av_forms_match_plain(cuda, cap):
+    """K6 on full, partial and empty cells (empty second i-tiles at cap
+    256) against plain, alpha at rtol 1e-5, zero on invalid interior
+    slots; K11 and K2g (with I2) as in _check_forms."""
+    grid = CMGrid(n=3, cap=cap)
+    cfg = SphConfig()
+    k = pv.pair_av
+    J, I2, valid = _av_frame(grid, seed=cap + 3)
+    J, I2 = torch.from_numpy(J).to(cuda), torch.from_numpy(I2).to(cuda)
+    intmask = torch.tensor(np.repeat(_interior_cells_np(grid), cap),
+                           device=cuda)
+    mask = intmask & torch.from_numpy(valid).to(cuda)
+    before = k.launches
+    out = k(J, I2, grid, cfg)
+    assert k.launches == before + 1
+    ref = k.plain(J, I2, grid, cfg)
+    _check_rows(k.name, ref, out, mask)
+    assert not out[:, intmask & ~mask].any()
+    _check_forms(k, J, grid, cfg, out, intmask, mask, seed=cap, I2=I2)
 
 
 def test_sharded_step_matches_cpu(cuda):
@@ -486,36 +575,29 @@ def test_sharded_step_matches_cpu(cuda):
     np.testing.assert_allclose(b["ecin"], a["ecin"], rtol=1e-3)
 
 
-# K11: every column stage against the cell launch on the same inputs, in
-# each launch form it has (the moment stages have no ring), at
+# K11: every column stage against the cell launch on the same inputs, at
 # z-segments of 1, 3 (not a divisor of nz) and 4 (one segment a column):
 # interior slots bit-equal, others zero
-STAGE_NO = {k.name: k.stage for k in pv.PAIR_KERNELS}
-COLUMN_CASES = [
-    (name, zseg, ring) for name in STAGES for zseg in (1, 3, 4)
-    for ring in (False, True)
-    if not ring or STAGE_NO[name.removesuffix("_bf16")] in pv.RING_ROWS]
+COLUMN_CASES = [(name, zseg) for name in STAGES for zseg in (1, 3, 4)]
 
 
-@pytest.mark.parametrize("name,zseg,ring", COLUMN_CASES,
-                         ids=[f"{n}-S{z}-{'ring' if r else 'stream'}"
-                              for n, z, r in COLUMN_CASES])
-def test_column_launch_bit_equal_to_cell(recorded, cuda, name, zseg, ring):
+@pytest.mark.parametrize("name,zseg", COLUMN_CASES,
+                         ids=[f"{n}-S{z}" for n, z in COLUMN_CASES])
+def test_column_launch_bit_equal_to_cell(recorded, cuda, name, zseg):
     calls, grid, intmask = recorded
     k, J, I2, cfg = calls[name]
     kc = next(c for c in pv.COLUMN_KERNELS if c.name == k.name + "_column")
     J = J.to(cuda)
     I2 = None if I2 is None else I2.to(cuda)
     cell = k._launch(J, I2, grid, cfg)
-    saved = kc.zseg, kc.ring
-    kc.zseg, kc.ring = zseg, ring
+    saved = kc.zseg
+    kc.zseg = zseg
     try:
-        assert pv.column_form(kc, grid) == (zseg, ring)
         before = kc.launches
         col = kc(J, I2, grid, cfg)
         assert kc.launches == before + 1
     finally:
-        kc.zseg, kc.ring = saved
+        kc.zseg = saved
     inside = intmask.to(cuda)
     assert torch.equal(col[:, inside], cell[:, inside])
     assert not col[:, ~inside].any()
