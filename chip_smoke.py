@@ -42,7 +42,10 @@ Phases (any failure exits non-zero before the last line):
      under + mxu_bf16 and under av_clean, and BdtVE under the moment
      bodies for one timed cycle (the gated K8-K10); (h) each new kernel
      timed at those inputs beside its direct counterpart (K5, K6, K7),
-     its plain version and its bound;
+     its plain version and its bound; K10's tensor-core blocks (issued,
+     staged, dense) counted by the kernel on the card (a stats buffer)
+     and held against the count its inputs predict (mm_block_counts),
+     and the registers and spills of every K8 and K10 form;
   8. (i) the column launch K11: at Sedov 30^3 (perturbed) under each of
      the four configurations every column stage against its plain
      version and against the cell launch on the same inputs at several
@@ -76,9 +79,10 @@ Phases (any failure exits non-zero before the last line):
 Details go to chiprun_out/chip_smoke.json.
 
 python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
-steps and 2 BdtVE cycles at Sedov 100^3, and K3-K7 in a D = 2 sharded
-step at cap 256, only (see compare_main), to compare two checkouts of
-the repository in one call.
+steps and 2 BdtVE cycles at Sedov 100^3, K8 and K10 (float32, bf16)
+and 3 steps under mxu_moments + mxu_momentum at 100^3, and K3-K7 in a
+D = 2 sharded step at cap 256, only (see compare_main), to compare two
+checkouts of the repository in one call.
 """
 
 from __future__ import annotations
@@ -98,8 +102,11 @@ CHECK_SIDE = 30       # kernel check (perturbed Sedov)
 MAIN_SIDE = 100       # main path: 1M particles, bench.py's Sedov size
 
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and device-memory bandwidth
+# cores, the tensor cores' dense TF32 and bf16, and device-memory
+# bandwidth
 FP32_PEAK = 67e12
+TF32_PEAK = 495e12
+BF16_PEAK = 989e12
 HBM_BW = 3.35e12
 
 # float operations per pair (FMA = 2, divide/sqrt/exp/log = 1), counted
@@ -116,8 +123,13 @@ BODY_FLOPS = {"pair_xh": 18, "pair_gradh": 40, "pair_iad": 62,
               # K10: phase A, the five pair weights
               "pair_iad_mm": 72, "pair_av_mm": 47,
               "pair_momentum_avclean": 219, "pair_momentum_mm": 95}
-# K10 phase B: 49 FMAs per (pair, family) with a nonzero weight
+# K10 phase B, on the tensor cores: 49 multiply-adds per (pair, family)
+# with a nonzero weight
 MM_FAMILY_FLOPS = 98
+# K10's tensor-core schedule (csrc/cell_pair.cu mm::mm_cell): i-slots a
+# block (16-row i-tiles), j-slots a staged unit (an occupied 32-slot
+# group), and the 5 families
+MM_IB, MM_UJ, MM_NF = 64, 32, 5
 # moment columns built per (i-cell, staged j-slot)
 COL_FLOPS = {"pair_iad_mm": 21, "pair_av_mm": 12, "pair_momentum_mm": 51}
 GATED_REPLACES = "sphexa_tpu/ops/pallas_ve.py:162-253"
@@ -148,9 +160,6 @@ COLUMN_STAGES = {None: ("pair_xh", "pair_gradh", "pair_iad", "pair_av",
                  "mm_bf16": ("pair_momentum_mm",),
                  "avclean": ("pair_momentum_avclean",)}
 COLUMN_STEPS = 3
-# (j): tensor-core peaks of the H100 SXM data sheet (dense)
-TF32_PEAK = 495e12
-BF16_PEAK = 989e12
 PROBE_REPLACES = {
     "fma_chains": "scripts/vpu_ceiling.py:26",
     "staging_loads": "scripts/dma_lab.py:61",
@@ -693,52 +702,47 @@ def stage_lanes(calls, grid, intmask):
 
 
 def routine_ptxas():
-    """Registers and spills of the redesigned pair kernels from the
-    build's ptxas -v output: the routines (xh::xh_cell of K3,
-    tile::pair_cell<Stage> of K4-K7, K7c) and their launch forms
-    (xh::cell_xh<Gated, Column>, tile::cell_tile<Stage, Gated,
-    Column>); in a parent checkout the thread-a-slot skeleton of K4 and
-    K6 (cell_pair_stream<GradhBody|AvBody, Gated, Column>, the ring
-    form cell_pair_column<Body>)."""
+    """Registers and spills of the pair kernels of csrc/cell_pair.cu
+    from the build's ptxas -v output, keyed by the demangled names of
+    the functions it lists (c++filt; the mangled name where it is
+    missing): the kernels (xh::cell_xh<Gated, Column>, tile::cell_tile<
+    Stage, Gated, Column>, mm::cell_mm<BF16, Gated, Column>, ...) and
+    the routines they call (xh::xh_cell, tile::pair_cell<Stage>,
+    mm::mm_cell<BF16>)."""
     import re
     from sphexa_tpu_torch.ops import _cuda
 
-    def key(name):
-        m = re.search(r"(xh_cell|cell_xh|pair_cell|cell_tile|"
-                      r"cell_pair_stream|cell_pair_column)(\w*?)E?PKf", name)
-        if m is None or name.startswith("_ZZ"):
-            return None
-        tmpl = m.group(2)
-        args = re.findall(r"Lb(\d)E", tmpl)
-        stage = re.search(r"(GradhStage|IadStage|AvStage|MomStage|"
-                          r"GradhBody|AvBody)", tmpl)
-        if stage is None:
-            if m.group(1).startswith("cell_pair"):
-                return None                  # K8, K9 bodies
-        else:
-            s = stage.group(1)
-            if s == "MomStage":
-                s, args = f"{s}<{args[0]}>", args[1:]
-            args = [s] + args
-        return m.group(1) + (f"<{','.join(args)}>" if args else "")
+    text = _cuda.build_info.get("cell_pair.cu", {}).get("ptxas", "")
+    pat = (r"(?:Compiling entry function|Function properties for) "
+           r"'?([\w.$]+)")
+    names = sorted({m.group(1) for m in re.finditer(pat, text)
+                    if not m.group(1).startswith("_ZZ")})
+    try:
+        filt = subprocess.run(["c++filt"], input="\n".join(names),
+                              capture_output=True, text=True, check=True)
+        plain = filt.stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        plain = names
+    if len(plain) != len(names):
+        plain = names
+    keys = {n: re.sub(r"^void ", "", d.split("(")[0])
+            for n, d in zip(names, plain)}
 
     # ptxas compiles a routine once for each kernel that calls it and
     # prints its properties after that kernel's: each copy is keyed
     # "routine in kernel"
     out, name, entry = {"raw": []}, None, None
-    text = _cuda.build_info.get("cell_pair.cu", {}).get("ptxas", "")
     for line in text.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([\w.$]+)", line)
+        m = re.search(pat, line)
         if m:
             name = m.group(1)
             if "Compiling entry function" in line:
                 entry = name
-        k = key(name) if name else None
+        k = keys.get(name)
         if k is None:
             continue
-        if name != entry and entry is not None and key(entry):
-            k = f"{k} in {key(entry)}"
+        if name != entry and entry in keys:
+            k = f"{k} in {keys[entry]}"
         out["raw"].append(line.strip())
         rec = out.setdefault(k, {})
         m = re.search(r"Used (\d+) registers", line)
@@ -838,11 +842,11 @@ def timing(report, eng, rst, grid, launches):
         report[LANE_STAGES[kname]] = lc
         log_lanes(f"{kname} at cap {grid.cap}", lc)
     regs = routine_ptxas()
-    log(f"  K3-K7 registers and spills (ptxas): "
+    log(f"  K3-K8 and K10 registers and spills (ptxas): "
         f"{dict((k, v) for k, v in regs.items() if k != 'raw')}")
     spilled = [k for k, v in regs.items() if k != "raw"
                and (v.get("spill_stores") or v.get("spill_loads"))]
-    log(f"  spills in K3-K7 and their copies: {spilled or 'none'}")
+    log(f"  spills in K3-K8, K10 and their copies: {spilled or 'none'}")
     report["tile_ptxas"] = regs
     for k, (J, I2, g, c), out in pair_calls:
         ref = k.plain(J, I2, g, c)
@@ -1206,23 +1210,20 @@ def bdt_timing(report, eng, bst, launches, cname=None):
         ops = cand_a * GEO_FLOPS + inside_a * BODY_FLOPS[k.name]
         if k.name == "pair_xh":
             ops += recount * RECOUNT_FLOPS
-        ops += mm_extra_flops(k.name, J, g, c, ok_on, float(cell_on.sum()))
+        mm = mm_extra_flops(k.name, J, g, c, ok_on, float(cell_on.sum()))
         fi2 = I2.shape[0] if I2 is not None else 0
         nbytes = 4 * (J.shape[0] * n_read + fi2 * n_on + g.n_slots
                       + kg.fo * (n_int - n_on) + kg.fo * n_int)
-        t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+        bound, by = pair_bound(ops, nbytes, mm, c.mxu_bf16)
         rows.append(dict(
             name=kg.name, route="cuda",
             source="sphexa_tpu_torch/csrc/cell_pair.cu",
             replaces=GATED_REPLACES, launches=launches[kg.name],
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            library_ms=None))
+            bound_ms=bound, bound_by=by, library_ms=None))
         report.setdefault("bdt_ungated_ms", {})[kg.name] = ungated_ms
         log(f"  {kg.name:20s} {ms:9.3f} ms  ungated {ungated_ms:9.3f} ms  "
-            f"plain {plain_ms:10.3f} ms  bound {max(t_ops, t_bytes):.4f} ms "
-            f"({'operations' if t_ops >= t_bytes else 'bytes'})  err "
+            f"plain {plain_ms:10.3f} ms  bound {bound:.4f} ms ({by})  err "
             f"{err:.3e} (rel {rel:.3e})")
     report["kernels_gated" if cname is None
            else f"kernels_gated_{cname}"] = rows
@@ -1245,20 +1246,129 @@ def _mm_count_body(I, Jn, i2, **_):
 
 
 def mm_extra_flops(name, J, grid, cfg, slot_mask, n_cells):
-    """Flops of a moment body beyond its per-pair count: the columns
-    built per (i-cell, staged j-slot) for the n_cells computed cells,
-    and for K10 phase B, 49 FMAs per pair and family with a nonzero
-    weight, over the i-slots of slot_mask (counted on these inputs)."""
+    """Flops of a moment body beyond its per-pair count, as (float32-core
+    flops, tensor-core flops): the columns built per (i-cell, staged
+    j-slot) for the n_cells computed cells, and K10's contraction, 49
+    multiply-adds per pair and family with a nonzero weight over the
+    i-slots of slot_mask (counted on these inputs)."""
     from sphexa_tpu_torch.ops import pair_ve as pv
     if name not in COL_FLOPS:
-        return 0.0
-    ops = COL_FLOPS[name] * n_cells * 27 * grid.cap
+        return 0.0, 0.0
+    ops, tc = COL_FLOPS[name] * n_cells * 27 * grid.cap, 0.0
     if name == "pair_momentum_mm":
         cnt = pv._run_plain(_mm_count_body, J, None, grid, 3)
         n_in, n_wj, n_visc = (float(cnt[r][slot_mask].double().sum())
                               for r in range(3))
-        ops += MM_FAMILY_FLOPS * (2 * n_in + n_wj + 2 * n_visc)
-    return ops
+        tc = MM_FAMILY_FLOPS * (2 * n_in + n_wj + 2 * n_visc)
+    return ops, tc
+
+
+def pair_bound(ops, nbytes, mm=(0.0, 0.0), bf16=False):
+    """(bound ms, bound_by) of a pair kernel: the largest of its
+    float32-core flops (ops and mm's first) over FP32_PEAK, its
+    tensor-core flops (mm's second: K10's contraction, three TF32
+    products a flop in 3xTF32, one bf16 product under mxu_bf16) over
+    their peak, and its bytes over HBM_BW."""
+    t_ops = max((ops + mm[0]) / FP32_PEAK,
+                mm[1] / BF16_PEAK if bf16 else 3 * mm[1] / TF32_PEAK) * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mm_nonzero_blocks(w, ks):
+    """[C, R // 16, W // ks]: which (16-row i-tile, k-step of ks j-slots)
+    blocks of K10's pair weights w [C, R, W] (one family) hold a nonzero
+    weight: the blocks the kernel issues (mm::mm_cell's warp vote)."""
+    C, R, W = w.shape
+    return (w != 0).view(C, R // 16, 16, W // ks, ks).any(4).any(2)
+
+
+def mm_block_counts(J, grid, cfg):
+    """K10's (16-row i-tile, k-step, family) blocks on these inputs under
+    the kernel's schedule (csrc/cell_pair.cu mm::mm_cell): the i-tiles of
+    each interior cell against the occupied 32-slot groups of its 27
+    neighbour cells in nb-then-slot order, cut into k-steps of 8 j-slots
+    (16 under mxu_bf16). Returns (the blocks whose weights for a family,
+    by the plain version's arithmetic and bf16-rounded under mxu_bf16,
+    are not all zero: what the kernel issues; the blocks of each
+    group's k-steps up to its last valid slot in the 64-slot i-blocks
+    holding a valid slot: what it stages; the dense count over every
+    slot of the 27 cells)."""
+    import torch
+    from unittest import mock
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    cap, dev = grid.cap, J.device
+    G, ks = cap // MM_UJ, 16 if cfg.mxu_bf16 else 8
+    nit = -(-cap // 16)
+    valid = valid_slots(J)
+    cells = torch.tensor(pv.interior_cells(grid), device=dev)
+    offs = torch.tensor(pv._nbr_offsets(grid), device=dev)
+    lane = torch.arange(cap, device=dev)
+    slot = torch.arange(MM_UJ, device=dev)
+    kw = pv.pair_momentum_mm._body_kw(cfg)
+    issued, staged = [0], 0
+
+    def contract(w, cols):
+        issued[0] += int(mm_nonzero_blocks(w, ks).sum())
+        return w.new_zeros((*w.shape[:2], len(cols)))
+
+    chunk = max(1, pv._PAIR_BUDGET // (27 * cap * cap))
+    for c0 in range(0, cells.shape[0], chunk):
+        cc = cells[c0:c0 + chunk]
+        C = cc.shape[0]
+        groups = ((cc[:, None] + offs)[:, :, None] * cap + lane).view(
+            C, 27 * G, MM_UJ)
+        gv = valid[groups]
+        occ = gv.any(-1)
+        order = torch.argsort((~occ).to(torch.int8), dim=1, stable=True)
+        nrun = MM_UJ * int(occ.sum(1).max())
+        run = groups.gather(1, order[..., None].expand(-1, -1, MM_UJ)).view(
+            C, -1)[:, :nrun]
+        own = cc[:, None] * cap + lane
+        I = J[:, own].reshape(J.shape[0], C, cap, 1)
+        Jn = J[:, run].reshape(J.shape[0], C, 1, nrun)
+        with mock.patch.object(pv, "_contract", contract):
+            pv._momentum_mm_body(I, Jn, None, **kw)
+        last = torch.where(gv, slot, -1).amax(-1)
+        nks = torch.where(last >= 0, last // ks + 1, 0).sum(1)
+        iv = valid[own]
+        blocks = sum(iv[:, b:b + MM_IB].any(1).long()
+                     for b in range(0, cap, MM_IB))
+        staged += int((MM_NF * (MM_IB // 16) * nks * blocks).sum())
+    dense = cells.shape[0] * MM_NF * nit * 27 * cap // ks
+    return issued[0], staged, dense
+
+
+def mm_blocks(k, args, what):
+    """K10's issued and staged blocks counted on the card (a stats
+    buffer, mm::mm_cell) beside mm_block_counts' prediction for the same
+    inputs: the staged count must be equal, the issued one within 1e-3
+    of it (a weight at the edge of zero can differ in its last bits
+    between the kernel's and the plain version's arithmetic)."""
+    import torch
+    J, I2, g, c = args
+    st = torch.zeros(3, dtype=torch.int64, device=DEVICE)
+    k._launch(*args, stats=st)
+    torch.cuda.synchronize()
+    got_i, got_s = (int(v) for v in st.tolist()[:2])
+    pred_i, pred_s, dense = mm_block_counts(J, g, c)
+    log(f"  {what}: {got_i} mma blocks issued (predicted {pred_i}), "
+        f"{got_s} staged (predicted {pred_s}), {dense} dense: "
+        f"{got_i / max(got_s, 1):.4f} of the staged, "
+        f"{got_i / max(dense, 1):.4f} of the dense")
+    if got_s != pred_s or abs(got_i - pred_i) > 1e-3 * pred_i:
+        raise AssertionError(f"K10 blocks: issued {got_i} (predicted "
+                             f"{pred_i}), staged {got_s} ({pred_s})")
+    return dict(issued=got_i, staged=got_s, dense=dense,
+                predicted_issued=pred_i, predicted_staged=pred_s)
+
+
+def mm_ptxas():
+    """Registers and spills of every K8 and K10 form (routine_ptxas)."""
+    regs = routine_ptxas()
+    return {k: v for k, v in regs.items() if k != "raw" and
+            ("IadMm" in k or "mm_cell" in k or "cell_mm" in k)}
 
 
 def mm_kernel_check(report):
@@ -1343,9 +1453,19 @@ def mm_timing(report, eng, rst, grid, launches, bf16_launches=None):
                      bf16_launches["pair_momentum_mm"], args,
                      pv.pair_momentum_mm._launch(*args)))
     rows = []
+    if "pair_momentum_mm" in calls:
+        regs = mm_ptxas()
+        spilled = [k for k, v in regs.items()
+                   if v.get("spill_stores") or v.get("spill_loads")]
+        log(f"  K8 and K10 registers and spills (ptxas): {regs}")
+        log(f"  spills in the K8 and K10 forms: {spilled or 'none'}")
+        report["mm_ptxas"] = regs
     for name, row_name, launched, args, out in runs:
         k = calls[name][0]
         J, I2, g, c = args
+        if name == "pair_momentum_mm":
+            report[f"{row_name}_blocks"] = mm_blocks(
+                k, args, f"{row_name} at the 100^3 inputs")
         if c.mxu_bf16:
             err, rel = bf16_compare(k, args, out, ok)
         else:
@@ -1355,21 +1475,21 @@ def mm_timing(report, eng, rst, grid, launches, bf16_launches=None):
         direct = next(x for x in pv.KERNELS if x.name == DIRECT[name])
         Jd = J[:direct.fj].contiguous()
         direct_ms = cuda_ms(lambda: direct._launch(Jd, I2, g, c), 5)
-        ops = (cand * GEO_FLOPS + inside * BODY_FLOPS[name]
-               + mm_extra_flops(name, J, g, c, ok, n_cells))
+        ops = cand * GEO_FLOPS + inside * BODY_FLOPS[name]
         nbytes = 4 * (J.numel() + (I2.numel() if I2 is not None else 0)
                       + out.numel())
-        t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+        bound, by = pair_bound(ops, nbytes,
+                               mm_extra_flops(name, J, g, c, ok, n_cells),
+                               c.mxu_bf16)
         rows.append(dict(
             name=row_name, route="cuda",
             source="sphexa_tpu_torch/csrc/cell_pair.cu",
             replaces=REPLACES[name], launches=launched, max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             library_ms=None, direct_ms=direct_ms))
         log(f"  {row_name:22s} {ms:9.3f} ms  {DIRECT[name]} "
             f"{direct_ms:8.3f} ms  plain {plain_ms:10.3f} ms  bound "
-            f"{max(t_ops, t_bytes):.4f} ms  err {err:.3e} (rel {rel:.3e})")
+            f"{bound:.4f} ms ({by})  err {err:.3e} (rel {rel:.3e})")
     report.setdefault("kernels_mm", []).extend(rows)
     return rows
 
@@ -1553,26 +1673,26 @@ def column_timing(report, cname, eng, rst, launches):
         cell = cell_kernel(kc)
         cell_ms = cuda_ms(lambda: cell._launch(*args), 5)
         plain_ms = cuda_ms(lambda: kc.plain(*args), 1)
-        ops = (cand * GEO_FLOPS + inside * BODY_FLOPS[name]
-               + mm_extra_flops(name, J, g, c, ok, n_cells))
+        ops = cand * GEO_FLOPS + inside * BODY_FLOPS[name]
         if name == "pair_xh":
             ops += xh_recounts(J, g, c, per_slot)[0] * RECOUNT_FLOPS
         nbytes = 4 * (J.numel() + (I2.numel() if I2 is not None else 0)
                       + out.numel())
-        t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BW * 1e3
+        bound, by = pair_bound(ops, nbytes,
+                               mm_extra_flops(name, J, g, c, ok, n_cells),
+                               c.mxu_bf16)
         row_name = column_row_name(kc, c)
         rows.append(dict(
             name=row_name, route="cuda",
             source="sphexa_tpu_torch/csrc/cell_pair.cu",
             replaces=COLUMN_REPLACES, launches=launches[kc.name],
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_ms=bound, bound_by=by,
             library_ms=None, cell_ms=cell_ms, form=f"S{kc.zseg}"))
         report.setdefault("column_forms_ms", {})[row_name] = forms
         log(f"  {row_name:30s} {ms:9.3f} ms (S{kc.zseg})  cell "
             f"{cell_ms:8.3f} ms  "
-            f"plain {plain_ms:10.3f} ms  bound {max(t_ops, t_bytes):.4f} ms "
+            f"plain {plain_ms:10.3f} ms  bound {bound:.4f} ms ({by}) "
             f" err {err:.3e}")
         log("    forms: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                       forms.items()))
@@ -2199,18 +2319,67 @@ def sharded_bdt_main_path(report, D=2, nr=4):
         rung_hist_single=hist1, rung_differs=differ, launches=launches)
 
 
+def compare_mm():
+    """--compare's moment-matmul part: K8 and K10 (float32, bf16) at the
+    inputs of a Sedov 100^3 step under mxu_moments + mxu_momentum, 3 x 5
+    launches each, K10's blocks (zero counts from a kernel without the
+    counter), then 3 timed steps of that configuration."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
+
+    out = {}
+    state, box, cfg, grid = sedov(MAIN_SIDE, DEVICE, flags=MM)
+    eng = ResidentVE(box, grid, cfg, device=DEVICE)
+    rst = eng.bind(state)
+    for _ in range(2):
+        rst, _ = eng.step(rst)
+    with Spy((pv.pair_iad_mm, pv.pair_momentum_mm)) as spy:
+        eng.step(rst)
+    torch.cuda.synchronize()
+    for k, (J, I2, g, c), _ in spy.calls:
+        for bf in ((False, True) if k is pv.pair_momentum_mm else (False,)):
+            args = (J, I2, g, c.replace(mxu_bf16=bf))
+            name = k.name + ("_bf16" if bf else "")
+            out[f"{name}_ms"] = [cuda_ms(lambda: k._launch(*args), 5)
+                                 for _ in range(3)]
+            log(f"  {name} {grid}: {out[f'{name}_ms']} ms (events, 3 x 5 "
+                f"launches)")
+            if k is pv.pair_momentum_mm:
+                st = torch.zeros(3, dtype=torch.int64, device=DEVICE)
+                k._launch(*args, stats=st)
+                torch.cuda.synchronize()
+                out[f"{name}_blocks"] = st.tolist()[:2]
+                log(f"  {name} mma blocks issued, staged: "
+                    f"{out[f'{name}_blocks']}")
+    del spy
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for i in range(3):
+        rst, _ = eng.step(rst)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    out["mm_step_ms"] = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    log(f"  mm resident step {out['mm_step_ms']} ms")
+    return out
+
+
 def compare_main(tag: str) -> int:
-    """--compare [tag]: K1, K1z and the redesigned pair kernels (K3-K7)
-    alone, so that two checkouts can be compared in one call. K1 over
-    the five refreshes of one Sedov 100^3 resident step, and K3-K7 at
-    that step's inputs (events time; K3's walks counted on the card
+    """--compare [tag]: K1, K1z and the redesigned pair kernels (K3-K8,
+    K10) alone, so that two checkouts can be compared in one call. K1
+    over the five refreshes of one Sedov 100^3 resident step, and K3-K7
+    at that step's inputs (events time; K3's walks counted on the card
     where the checkout has the counter; K4-K7's in-support pairs and
     lane efficiency; registers), then 3 timed resident steps and 2
-    timed BdtVE cycles (4 rungs); K3-K7 at the inputs of a 100^3
-    sharded step at D = 2 (cap 256, both shards' launches); K1z
-    over the 6 * D launches of a 100^3 sharded step (stacks of ZX_ROWS'
-    row counts, on the plan_slab local grids, z open); K1 and K1z split
-    by ghost_split. Writes chiprun_out/compare<tag>.json."""
+    timed BdtVE cycles (4 rungs); K8 and K10 (float32 and mxu_bf16) at
+    the inputs of a Sedov 100^3 step under mxu_moments + mxu_momentum
+    (after two warm-up steps; K10's mma blocks counted on the card
+    where the checkout has the counter), then 3 timed steps of that
+    configuration; K3-K7 at the inputs of a 100^3 sharded step at D = 2
+    (cap 256, both shards' launches); K1z over the 6 * D launches of a
+    100^3 sharded step (stacks of ZX_ROWS' row counts, on the plan_slab
+    local grids, z open); K1 and K1z split by ghost_split. Writes
+    chiprun_out/compare<tag>.json."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2271,6 +2440,7 @@ def compare_main(tag: str) -> int:
     log(f"  resident step {out['step_ms']} ms, BdtVE cycle "
         f"{out['bdt_cycle_ms']} ms (4 rungs, after a warm-up cycle)")
     del eng, rst
+    out.update(compare_mm())
     sstate, sbox, scfg, sgrid, sc = sharded_setup(2)
     mesh = SlabMesh(2, devices=[DEVICE])
     sstep = make_ve_step_pallas_sharded(sbox, sgrid, scfg, sc, mesh)

@@ -9,25 +9,26 @@
 //                                    :865, :884)
 //   stage 4  K7   tile::MomStage<false> <- _momentum_body (pallas_ve.py:
 //                                    1022), avClean off
-//   stage 5  K8   IadMmBody       <- _iad_hybrid_body  (pallas_ve.py:769)
+//   stage 5  K8   tile::IadMmStage <- _iad_hybrid_body (pallas_ve.py:769)
 //   stage 6  K9   AvMmBody        <- _av_mm_body       (pallas_ve.py:949)
-//   stage 7  K10  momentum_mm     <- _momentum_mm_body (pallas_ve.py:1190)
+//   stage 7  K10  mm::mm_cell     <- _momentum_mm_body (pallas_ve.py:1190)
 //   stage 8  K7c  tile::MomStage<true> <- _momentum_body, avClean branch
 //                                    (pallas_ve.py:1031-1033, :1057-1060,
 //                                    :1094-1116)
 //
-// Launch skeletons. Stages 5 and 6 (cell_pair_stream): one thread block
-// per interior cell, one thread per i-slot (blockDim = cap); the block
-// walks the 27 neighbour cells, stages each cell's [FJ, cap] j-rows in
-// shared memory, and every thread accumulates its pair sums in
-// registers; all threads read the same j value at once (a shared-memory
-// broadcast). Stages 1, 2, 3, 4 and 8 (tile::pair_cell): blocks of
-// min(cap, 128) threads a cell's i-tile, occupied slots only,
-// double-buffered cp.async staging; K7's in-support pairs compacted
-// across lanes, K4's, K5's and K6's evaluated by their own lanes. Stage
-// 0 (xh::xh_cell): the same blocks, the occupied slots of the 27 cells
-// in one flat run, walked again only where the h controller moved h. K10
-// has its own (cell_pair_momentum_mm).
+// Launch skeletons. Stage 6 (cell_pair_stream): one thread block per
+// interior cell, one thread per i-slot (blockDim = cap); the block walks
+// the 27 neighbour cells, stages each cell's [FJ, cap] j-rows in shared
+// memory, and every thread accumulates its pair sums in registers; all
+// threads read the same j value at once (a shared-memory broadcast).
+// Stages 1, 2, 3, 4, 5 and 8 (tile::pair_cell): blocks of min(cap, 128)
+// threads a cell's i-tile, occupied slots only, double-buffered cp.async
+// staging; K7's in-support pairs compacted across lanes, K4's, K5's,
+// K6's and K8's evaluated by their own lanes. Stage 0 (xh::xh_cell): the
+// same blocks, the occupied slots of the 27 cells in one flat run,
+// walked again only where the h controller moved h. Stage 7 (mm::
+// mm_cell): the pair weights on the float32 cores, their contraction
+// with the moment columns on the tensor cores (mma.sync).
 //
 // Frame contract (as the Pallas kernels): invalid slots carry FILL_POS
 // positions and drop out through the distance overflow; self-pairs are
@@ -54,13 +55,15 @@
 // :330; PallasVE(kernel_mode="column")), runs the same bodies with a
 // block per z-segment of zseg consecutive cells of one interior (x, y)
 // column, walking z (pair_launch_column), each cell as the cell launch
-// computes it: K8 and K9 stage each neighbour cell in turn
-// (cell_pair_stream), K10 streams (cell_pair_momentum_mm), and K3-K7
-// and K7c call the cell launch's routine for each cell (xh::xh_cell,
-// tile::cell_tile). So each thread visits the 27 cells in the cell
-// launch's order, its sums, and the outputs on interior slots, are
-// those of the cell launch bit for bit; the output rows are written on
-// interior slots only.
+// computes it: K9 stages each neighbour cell in turn
+// (cell_pair_stream), and K3-K8, K10 and K7c call the cell launch's
+// routine for each cell (xh::xh_cell, tile::cell_tile, mm::cell_mm).
+// So each thread visits the 27 cells in the cell launch's order, its
+// sums, and the outputs on interior slots, are those of the cell launch
+// bit for bit; the output rows are written on interior slots only.
+
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,7 +84,9 @@ struct PairParams {
     int uniform_mass;
     float hcoef;   // 1023 * ng0 of the nc -> h controller
     int mxu_bf16;  // K10: round both contraction operands to bf16
-    unsigned long long* stats;   // K3: walk counts (xh::xh_cell), or null
+    // K3: walk counts (xh::xh_cell); K10: issued and staged mma blocks
+    // (mm::mm_cell); or null
+    unsigned long long* stats;
 };
 
 // K2g's gate (see gate_closed); act == nullptr for the ungated stage
@@ -144,8 +149,8 @@ __device__ __forceinline__ float w_v2(float v2, int n_w)
 #define JI(r) J[(long long)(r) * ns + islot]
 
 // --------------------------------------------------------------------------
-// stage 2 (K5, tile::IadStage below) and stage 5 (K8): the IAD inverse of
-// the h-scaled tau and the outputs
+// stage 2 (K5) and stage 5 (K8), tile::IadStage and tile::IadMmStage
+// below: the IAD inverse of the h-scaled tau and the outputs
 // --------------------------------------------------------------------------
 
 // the IAD inverse of the h-scaled tau (_iad_tail, pallas_ve.py:672)
@@ -180,106 +185,6 @@ __device__ void iad_store(const float (&C)[3][3], const float (&dV)[3][3],
 #pragma unroll
     for (int r = 0; r < 14; ++r) out[r * ns + islot] = ok ? o[r] : 0.0f;
 }
-
-// --------------------------------------------------------------------------
-// stage 5 (K8): IAD with the velocity gradients from 16 cell-centred
-// j-moments. Replaces _iad_hybrid_body (pallas_ve.py:769, dot :832).
-// tau is accumulated per pair as in K5. When a j-cell is staged,
-// each thread builds the 16 moment columns of its own j-slot in shared
-// memory (xm_j (1, x_jc) and xm_j (v_j - o_v)(1, x_jc), centred on the
-// i-cell's mean, cell_means); every in-support pair then adds w_ij
-// times the 16 columns, and the epilogue contracts them with the i-side
-// offsets and cij. Out-of-support pairs add exact zeros in the JAX
-// matmul, so they are skipped. Bound: arithmetic, ~16 FMAs more per
-// in-support pair than K5 (plus 16 shared loads), the column build per
-// staged j-slot; no tensor cores (float32 throughout).
-// --------------------------------------------------------------------------
-struct IadMmBody {
-    static constexpr int FJ = 8;        // x y z kx xm vx vy vz
-    static constexpr int FO = 14;
-    static constexpr int NM = 16;       // moment columns
-    static constexpr int NORIGIN = 6;   // x y z vx vy vz
-    __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
-    __device__ static int orow(int r) { return r < 3 ? r : r + 4; }
-
-    __device__ static void moments(float* sj, int cap, int j,
-                                   const float* o)
-    {
-        const float xmj = sj[4 * cap + j];
-        const float xc[3] = {sj[0 * cap + j] - o[0], sj[1 * cap + j] - o[1],
-                             sj[2 * cap + j] - o[2]};
-        float* M = sj + FJ * cap + j;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-            // a = 0: xm_j; a = 1..3: xm_j (v_a - o_va)
-            const float u = a == 0 ? xmj : xmj * (sj[(4 + a) * cap + j]
-                                                  - o[2 + a]);
-            M[(4 * a) * cap] = u;
-#pragma unroll
-            for (int b = 0; b < 3; ++b) M[(4 * a + 1 + b) * cap] = u * xc[b];
-        }
-    }
-
-    float xi, yi, zi, hi, hinv, hinv2, kfac;
-    float t11, t12, t13, t22, t23, t33;
-    float mom[NM];
-    int n_w;
-    const float* org;
-
-    __device__ void load_i(const float* J, const float*, long long islot,
-                           long long ns, const PairParams& p)
-    {
-        xi = JI(0); yi = JI(1); zi = JI(2); hi = JI(3);
-        hinv = __fdiv_rn(1.0f, hi);
-        hinv2 = __fmul_rn(hinv, hinv);
-        kfac = p.K3d * (hinv * hinv2);
-        t11 = t12 = t13 = t22 = t23 = t33 = 0.0f;
-#pragma unroll
-        for (int k = 0; k < NM; ++k) mom[k] = 0.0f;
-        n_w = p.n_w;
-    }
-
-    __device__ void pair(const float* sj, int k, int stride)
-    {
-        float rx = __fsub_rn(xi, SJ(0)), ry = __fsub_rn(yi, SJ(1)),
-              rz = __fsub_rn(zi, SJ(2));
-        float v2 = __fmul_rn(dist2(rx, ry, rz), hinv2);
-        if (!(v2 < 4.0f)) return;
-        float w = pow_int(sinc_poly(v2), n_w);
-        float wn = (SJ(4) / SJ(3) * w) * kfac;
-        float sx = rx * hinv, sy = ry * hinv, sz = rz * hinv;
-        t11 += sx * sx * wn; t12 += sx * sy * wn; t13 += sx * sz * wn;
-        t22 += sy * sy * wn; t23 += sy * sz * wn; t33 += sz * sz * wn;
-#pragma unroll
-        for (int m = 0; m < NM; ++m) mom[m] += w * SJ(FJ + m);
-    }
-
-    __device__ void store(const float* J, const float*, float* out,
-                          long long islot, long long ns, const PairParams& p)
-    {
-        float C[3][3];
-        iad_tail(t11, t12, t13, t22, t23, t33, hi, C);
-        const float xib[3] = {xi - org[0], yi - org[1], zi - org[2]};
-        const float S0 = mom[0];
-        float dV[3][3];   // dV[a][b] = -(C F_a)_b
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-            // F_b = xi_b (U0 - v_i S0) - (U_b - v_i S_b), U = mom[4(a+1)..]
-            const float vi = JI(7 + a) - org[3 + a];
-            const float U0 = mom[4 * (a + 1)];
-            float F[3];
-#pragma unroll
-            for (int b = 0; b < 3; ++b)
-                F[b] = xib[b] * (U0 - vi * S0)
-                    - (mom[4 * (a + 1) + 1 + b] - vi * mom[1 + b]);
-#pragma unroll
-            for (int b = 0; b < 3; ++b)
-                dV[a][b] = -(C[b][0] * F[0] + C[b][1] * F[1]
-                             + C[b][2] * F[2]);
-        }
-        iad_store(C, dV, kfac / JI(5), xi < HALF_FILL, out, islot, ns);
-    }
-};
 
 // Cullen-Dehnen alpha evolution of stages 3 and 6 (_av_alpha_tail,
 // pallas_ve.py:865); I2 rows 6 and 7 are alpha_i and dt
@@ -540,8 +445,8 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
 
 // --------------------------------------------------------------------------
 // The tiled pair routine: stage 1 (K4, grad-h), stage 2 (K5, IAD),
-// stage 3 (K6, AV switches), stage 4 (K7, momentum and energy) and
-// stage 8 (K7c, AvClean).
+// stage 3 (K6, AV switches), stage 4 (K7, momentum and energy), stage 5
+// (K8, hybrid IAD) and stage 8 (K7c, AvClean).
 // K4 replaces _gradh_body (pallas_ve.py:622): per i-slot the sums kx,
 // whomega and wrho0 of W and its h-derivative term over the in-support
 // pairs, then the VE normalisation kx and grad-h (1.0 on invalid
@@ -561,13 +466,21 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
 // signal velocity, with the Atwood-ramped VE terms; K7c adds the
 // avClean rv correction on six more j-rows (the symmetrised gradv) and
 // eta_crit on the i side.
+// K8 replaces _iad_hybrid_body (pallas_ve.py:769, dot :832): K5's tau,
+// and the velocity gradients from 16 sums of w_ij times the j-moments
+// xm_j (1, x_jc) and u_a (1, x_jc), u_a = xm_j (v_a,j - o_va), centred
+// on the own cell's mean o (cell_means, before the walk: the Stage's
+// NORIGIN); each moment product is formed per pair from the staged
+// j-only terms in the order the JAX body forms its columns, so each
+// column keeps its float32 rounding; the epilogue contracts the sums
+// with the i-side offsets and cij.
 //
 // Bound: arithmetic, the 9-flop distance test of every candidate plus,
 // a pair inside the i-support, ~40 flops (K4), ~62 (K5), ~55 (K6), ~170
-// (K7), ~220 (K7c).
+// (K7), ~220 (K7c), ~72 and 16 products (K8).
 //
 // One device routine, pair_cell<Stage>, computes one interior cell for
-// every launch form: the cell launch, K2g's gated form (stages 1-4) and
+// every launch form: the cell launch, K2g's gated form (stages 1-5) and
 // K11's stream form (cell_tile below). It is __noinline__, so every
 // form calls one compiled routine of the same arithmetic (ptxas
 // allocates its registers per kernel), and K11 and K2g equal the cell
@@ -595,7 +508,8 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
 //  2. j-only terms once per staged slot, written as extra rows when a
 //     slot is staged, with the expressions and association the pair
 //     body used: K5 and K6 vol_j = xm_j / kx_j; K7 1/h, 1/h^2, 1/h^3,
-//     logf(xm), m / rho and m * prho; K4 has none.
+//     logf(xm), m / rho and m * prho; K8 vol_j, x_j - o and xm_j (v_j -
+//     o_v); K4 has none.
 //  3. The support tests, per warp and chunk of 32 staged j-slots: each
 //     lane tests its own i against the chunk (dist2 and __fmul_rn(d2,
 //     hinv2) < 4, unchanged) into a 32-bit mask. Then the in-support
@@ -612,7 +526,7 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
 //     rounds a batch took K7 from 5.26 to 4.89 ms at Sedov 100^3 (one
 //     round a batch, or four, were slower); a lane evaluating only its
 //     own pairs took K7 6.19 ms (4.87 compacted).
-//     K4, K5, K6: each lane evaluates its own in-support pairs, walking
+//     K4, K5, K6, K8: each lane evaluates its own in-support pairs, walking
 //     its mask's set bits, and adds each pair's terms as it goes. The
 //     cross-lane compaction took K5 4.60 ms (the rounds' search,
 //     i-term loads and 15 shared stores a pair ~2.8 ms of it, the
@@ -630,10 +544,11 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
 //     units ahead, its j-only terms written from registers after the
 //     compute, so one barrier a unit suffices.
 // Shared memory: 2 * NROW * T floats of tiles (NROW: K4 5, K5 8, K6 9,
-// K7 23, K7c 29), the NI i-terms of the block's T i-slots (NI 5, 9, 16,
-// 21, 29) and, for K7 and K7c, 6 * 64 contributions a warp: at cap 64
-// K4 3.9 KB, K5 6.4 KB, K6 8.7 KB, K7 20.2 KB, K7c 25.4 KB; from cap 128
-// twice those of K4-K6, 40.5 and 50.7 KB for K7 and K7c. Keeping the
+// K7 23, K7c 29, K8 11), the NI i-terms of the block's T i-slots (NI 5,
+// 9, 16, 21, 29, 12), K8's origin and, for K7 and K7c, 6 * 64
+// contributions a warp: at cap 64 K4 3.9 KB, K5 6.4 KB, K6 8.7 KB, K7
+// 20.2 KB, K7c 25.4 KB, K8 8.7 KB; from cap 128 twice those of K4-K6
+// and K8, 40.5 and 50.7 KB for K7 and K7c. Keeping the
 // i-terms there rather than in registers (shuffled to the evaluating
 // lane) cut K7's register count by about 40 and K7 from 5.90 to 5.24 ms.
 // --------------------------------------------------------------------------
@@ -669,7 +584,8 @@ __device__ __forceinline__ void cp_async_wait_all()
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// A Stage's interface (GradhStage, IadStage, AvStage, MomStage):
+// A Stage's interface (GradhStage, IadStage, AvStage, MomStage,
+// IadMmStage):
 //   staged rows: X, Y, Z = 0, 1, 2, NCOPY rows copied from J (J row
 //     jrow(r)), NROW in all with the j-only terms;
 //   i-terms: NI of them, I_X, I_Y, I_Z, I_HINV2 = 0, 1, 2, 3 first
@@ -680,7 +596,10 @@ __device__ __forceinline__ void cp_async_wait_all()
 //     (terms), added into the lane's sums (add); COMPACT: pairs
 //     compacted across lanes, NLOAD entries in flight when an owner
 //     adds; TEST_UNROLL: the support tests' unroll; FO output rows
-//     (store), fill(r) those of an invalid slot.
+//     (store), fill(r) those of an invalid slot;
+//   NORIGIN, where a Stage has it (K8's): the own cell's means of its
+//     rows orow(r) before the walk (cell_means), an origin that load_i
+//     and finish then take as their last argument.
 #define JI(r) J[(long long)(r) * ns + islot]
 #define S(r) sb[(r) * T + k]
 #define A(q) a[(q) * T]
@@ -869,6 +788,139 @@ struct IadStage {
                 dV[q][b] = -(C[b][0] * acc[6 + 3 * q]
                              + C[b][1] * acc[6 + 3 * q + 1]
                              + C[b][2] * acc[6 + 3 * q + 2]);
+        iad_store(C, dV, mine[I_KFAC * T] / JI(5), ok, out, islot, ns);
+    }
+};
+
+// stage 5 (K8): K5's tau, the velocity gradients from 16 cell-centred
+// j-moments (_iad_hybrid_body's contraction, summed per lane)
+struct IadMmStage {
+    // x y z xm (J rows 0-2, 6), then the j-only terms vol_j = xm / kx,
+    // the centred x_j - o (three) and u_a = xm_j (v_a,j - o_va) (three)
+    static constexpr int X = 0, Y = 1, Z = 2, XM = 3;
+    static constexpr int NCOPY = 4, VOLJ = 4, XC = 5, UX = 8, NROW = 11;
+    __device__ static int jrow(int r) { return r < 3 ? r : 6; }
+    // the expansion origin (cell_means): the mean x y z vx vy vz
+    static constexpr int NORIGIN = 6;
+    __device__ static int orow(int r) { return r < 3 ? r : r + 4; }
+    enum : int { I_X, I_Y, I_Z, I_HINV2, I_HINV, I_KFAC, I_XIB,
+                 I_VIC = I_XIB + 3, NI = I_VIC + 3 };
+    // each lane evaluates its own in-support pairs: six tau sums, then
+    // the 16 moment sums S0, S_b, and per a U0_a, U_ab; the support tests
+    // unrolled by 2 (K5's)
+    static constexpr bool COMPACT = false;
+    static constexpr int NE = 8, NC = 22, NLOAD = 0, FO = 14,
+                         TEST_UNROLL = 2;
+
+    __device__ static float fill(int) { return 0.0f; }
+
+    __device__ static void load_i(const float* J, const float*, long long ns,
+                                  long long islot, bool ihas,
+                                  const PairParams& p, float (&iv)[NI],
+                                  const float* org)
+    {
+        const float hinv = __fdiv_rn(1.0f, JI(3));
+        const float hinv2 = __fmul_rn(hinv, hinv);
+        iv[I_X] = ihas ? JI(0) : SPH_FILL_POS;
+        iv[I_Y] = JI(1);
+        iv[I_Z] = JI(2);
+        iv[I_HINV2] = hinv2;
+        iv[I_HINV] = hinv;
+        iv[I_KFAC] = p.K3d * (hinv * hinv2);
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+            iv[I_XIB + b] = JI(b) - org[b];
+            iv[I_VIC + b] = JI(7 + b) - org[3 + b];
+        }
+    }
+
+    __device__ static void load_e(const float* J, long long ns, long long s,
+                                  float (&e)[NE])
+    {
+        e[0] = J[5 * ns + s];        // kx
+        e[1] = J[6 * ns + s];        // xm
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+            e[2 + b] = J[b * ns + s];           // x y z
+            e[5 + b] = J[(7 + b) * ns + s];     // vx vy vz
+        }
+    }
+
+    __device__ static void finish(float* d, int T, const float (&e)[NE],
+                                  const float* org)
+    {
+        d[VOLJ * T] = e[1] / e[0];
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+            d[(XC + b) * T] = e[2 + b] - org[b];
+            d[(UX + b) * T] = e[1] * (e[5 + b] - org[3 + b]);
+        }
+    }
+
+    __device__ static void init(float (&acc)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) acc[q] = 0.0f;
+    }
+
+    __device__ static void add(float (&acc)[NC], const float (&v)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < NC; ++q) acc[q] += v[q];
+    }
+
+    // t11 t12 t13 t22 t23 t33, then the moments at 6 + 4a (+ 1 + b):
+    // w u_a and w (u_a x_jc,b), u_0 = xm_j
+    __device__ static void terms(const float* a, const float* sb, int T,
+                                 int k, const PairParams& p,
+                                 float (&c)[NC])
+    {
+        const float rx = __fsub_rn(A(I_X), S(X)),
+                    ry = __fsub_rn(A(I_Y), S(Y)),
+                    rz = __fsub_rn(A(I_Z), S(Z));
+        const float v2 = __fmul_rn(dist2(rx, ry, rz), A(I_HINV2));
+        const float w = pow_nw(sinc_poly(v2), p.n_w);
+        const float wn = (S(VOLJ) * w) * A(I_KFAC);
+        const float hinv = A(I_HINV);
+        const float sx = rx * hinv, sy = ry * hinv, sz = rz * hinv;
+        c[0] = sx * sx * wn; c[1] = sx * sy * wn; c[2] = sx * sz * wn;
+        c[3] = sy * sy * wn; c[4] = sy * sz * wn; c[5] = sz * sz * wn;
+        const float u[4] = {S(XM), S(UX), S(UX + 1), S(UX + 2)};
+        const float xc[3] = {S(XC), S(XC + 1), S(XC + 2)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            c[6 + 4 * q] = w * u[q];
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                c[6 + 4 * q + 1 + b] = w * (u[q] * xc[b]);
+        }
+    }
+
+    // F_b = xi_b (U0 - v_i S0) - (U_b - v_i S_b); dV[a][b] = -(C F_a)_b
+    __device__ static void store(const float* J, const float*, long long ns,
+                                 long long islot, const float* mine, int T,
+                                 const float (&acc)[NC], bool ok,
+                                 const PairParams&, float* out)
+    {
+        float C[3][3];
+        iad_tail(acc[0], acc[1], acc[2], acc[3], acc[4], acc[5], JI(3), C);
+        const float* mom = acc + 6;
+        const float S0 = mom[0];
+        float dV[3][3];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+            const float vi = mine[(I_VIC + q) * T];
+            const float U0 = mom[4 * (q + 1)];
+            float F[3];
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                F[b] = mine[(I_XIB + b) * T] * (U0 - vi * S0)
+                    - (mom[4 * (q + 1) + 1 + b] - vi * mom[1 + b]);
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                dV[q][b] = -(C[b][0] * F[0] + C[b][1] * F[1]
+                             + C[b][2] * F[2]);
+        }
         iad_store(C, dV, mine[I_KFAC * T] / JI(5), ok, out, islot, ns);
     }
 };
@@ -1199,12 +1251,22 @@ struct MomStage {
 #undef S
 #undef A
 
+// a Stage's origin floats: NORIGIN where it has one, else 0
+template <class St, class = void>
+struct Origin {
+    static constexpr int N = 0;
+};
+template <class St>
+struct Origin<St, std::void_t<decltype(St::NORIGIN)>> {
+    static constexpr int N = St::NORIGIN;
+};
+
 // floats of shared memory a block of T threads takes
 template <class St>
 __host__ __device__ constexpr int smem_floats(int T)
 {
     return 2 * St::NROW * T + (T / 32) * (St::COMPACT ? St::NC * 64 : 0)
-        + 2 * (T / 32) + St::NI * T;
+        + 2 * (T / 32) + St::NI * T + Origin<St>::N;
 }
 
 // one interior cell `own`, the i-tile blockIdx.y, blockDim.x == T
@@ -1229,13 +1291,20 @@ __device__ __noinline__ void pair_cell(const float* __restrict__ J,
     int* const lastv = reinterpret_cast<int*>(msm + 2 * NROW * T
                                               + nw * NCS);       // [2][nw]
     float* const ist = msm + 2 * NROW * T + nw * NCS + 2 * nw;
+    float* const org = ist + NI * T;              // [Origin<St>::N]
+    constexpr bool ORG = Origin<St>::N > 0;
 
+    // the own cell's origin (K8's; with a barrier)
+    if constexpr (ORG) cell_means<St>(J, own * cap, cap, ns, org);
     // the i side
     const int ti = blockIdx.y * T + t;
     const bool ihas = ti < cap;
     const long long islot = own * cap + (ihas ? ti : 0);
     float iv[NI];
-    St::load_i(J, I2, ns, islot, ihas, p, iv);
+    if constexpr (ORG)
+        St::load_i(J, I2, ns, islot, ihas, p, iv, org);
+    else
+        St::load_i(J, I2, ns, islot, ihas, p, iv);
     // the i-terms to shared memory ([NI][T]; a warp reads only its own
     // lanes' columns, so the next cell of K11 may overwrite them before
     // the barrier), the support test's kept in registers
@@ -1291,9 +1360,12 @@ __device__ __noinline__ void pair_cell(const float* __restrict__ J,
     };
     // the j-only terms of unit v
     auto finish = [&](int v, unsigned vm, const float (&e)[NE]) {
-        if constexpr (St::NE > 0)
-            if (vm)
-                St::finish(tiles + (v & 1) * NROW * T + 32 * w + lane, T, e);
+        float* const d = tiles + (v & 1) * NROW * T + 32 * w + lane;
+        if constexpr (ORG) {
+            if (vm) St::finish(d, T, e, org);
+        } else if constexpr (St::NE > 0) {
+            if (vm) St::finish(d, T, e);
+        }
     };
 
     float acc[NC];
@@ -1687,34 +1759,110 @@ cell_xh(const float* __restrict__ J, float* __restrict__ out, PairGeom g,
 // mxu_bf16 both operands rounded to bf16 (nearest even) before a float32
 // accumulation (:1321-1325).
 //
-// 5 families x 49 columns are 245 sums per i-slot, more than a thread's
-// registers, so a block of nft*cap threads (nft = min(5, 384 / cap))
-// splits the work; the 384-thread bound leaves 168 registers a thread,
-// enough for the 49 accumulators without spills. Per staged j-cell and per sub-tile of T j-slots:
-//   A. the threads evaluate each (i, j) pair once (thread t takes i =
-//      t % cap and every nft-th j) and write its five weights L_f into
-//      shared memory (zeros outside the support); threads t < T build
-//      the 49 columns of j-slot t of the sub-tile;
-//   B. thread t owns family f = f0 + t / cap of i-slot t % cap and adds
-//      L_f(i, j) * M_k(j) into its 49 accumulators, skipping L = 0 (an
-//      exact zero in the JAX matmul).
-// Above cap 64 the families run in ceil(5 / nft) passes over the 27
-// cells (phase A repeated). The epilogue contracts each family with the
-// i-side offsets and cij, and thread i adds the families up.
-// Bound: arithmetic, with 245 FMAs per in-support pair in phase B (the
-// JAX body's matmul work, on the float32 cores: no tensor cores here),
-// ~90 flops per in-support pair in phase A, and ~70 per staged j-slot
-// per sub-tile for the columns.
+// Per i-slot the 5 x 49 sums S_f,k = sum_j L_f(i, j) M_k(j) are a matrix
+// product [5 * cap, 27 cap] x [27 cap, 49] per cell, as the TPU body puts
+// it on its matrix unit; here it runs on the tensor cores (mma.sync):
+//   float32: m16n8k8 TF32 in the 3xTF32 split, a = a_hi + a_lo with each
+//     part cvt.rna.tf32.f32, a_lo b_hi + a_hi b_lo + a_hi b_hi from a
+//     zeroed accumulator, then added to the float32 sums (a single TF32
+//     pass keeps about three digits, and the epilogue's centred moments
+//     cancel; accumulating on the tensor core in place put the outputs
+//     at up to 9.7e-5 of their scale from the plain version at Sedov
+//     100^3, against 5.1e-5 this way, for 0.8 ms);
+//   mxu_bf16: m16n8k16 bf16, one pass (a product of two bf16 values is
+//     exact in float32).
+// A block of 4 warps (128 threads) takes IB = 64 i-slots of one cell,
+// warp w the 16-row i-tile w with all five families (cap > 64:
+// ceil(cap / 64) blocks a cell, blockIdx.y; an i-block with no valid
+// slot stores zeros and returns). It walks the occupied 32-slot groups
+// of the 27 neighbour cells (a ballot each, listed in nb-then-slot
+// order), a unit each, with one barrier a unit: the 20 J rows of unit
+// v + 2 are copied with cp.async and the columns of unit v + 1 built
+// while unit v is computed. Per unit and warp:
+//   columns (float32 cores): warp w builds a quarter of the 49 columns
+//     of the unit's 32 j-slots (padded to 56, seven n8 tiles) into the
+//     next B buffer, TF32 hi and lo parts or bf16 values, once for all
+//     five families; warp 3 also the slots' 1 / h and log(xm);
+//   A (float32 cores): each lane tests the 16 (i, j) pairs of its
+//     A-fragment positions (rows g, g + 8; columns t + 4m in float32,
+//     2t (+1) and 2t + 8 (+1) a k-step in bf16) up to the unit's last
+//     valid slot; the fragments of k-steps with an in-support pair are
+//     zeroed, and the tile's in-support pairs, compacted across lanes
+//     (K7's scan), each get their five weights (pair_weights)
+//     written to their fragment positions, the signal speed max(vsig,
+//     0) by a shared atomicMax on its row, and a bit per (k-step,
+//     family) with a nonzero weight (warp vote);
+//   B (tensor cores): for each k-step and family whose bit is set, the
+//     A fragment (split into hi and lo in float32) against the seven B
+//     tiles, into 5 x 7 x 4 accumulators that stay in registers across
+//     the 27 cells. Blocks whose weights are all zero are skipped (at
+//     Sedov 100^3 71% of the float32 blocks, 60% of the bf16); with
+//     p.stats set the block adds its issued (i-tile, k-step, family)
+//     blocks and the blocks of its staged k-steps (chip_smoke.py's
+//     count against the count its inputs predict).
+// The A fragments are the warp's own, so only the B columns and the
+// staged rows are shared. The epilogue writes the fragments to shared
+// memory, and mm::partial and EpiI contract each family with the i-side
+// offsets and cij. One routine, mm_cell (__noinline__), serves the cell
+// launch, K2g and K11, so they equal each other bit for bit.
+// Bound: the pair work on the float32 cores. At Sedov 100^3 (NVIDIA H100
+// 80GB HBM3, 700 W; chip_smoke.py --compare from trial copies of this
+// file, one call) the float32 kernel took 20.6-21.1 ms with the tensor
+// core accumulating in place: dropping the pair weights' arithmetic
+// saved 4.5 ms, the tensor-core phase 8.5 (two of its three mma 4.0),
+// the support tests 2.1 and the columns 1.5, so each phase costs
+// several times its instruction count at the 8 warps an SM that the
+// 5 x 28 accumulators (230-255 registers) leave. Measured against it in
+// the same call: five warps a block, one a family, two barriers a unit
+// (168 registers, 256 bytes spilled: 27.1 ms); bounding-box culling of
+// (i-tile, k-step) blocks before the tests (22.1); producer and
+// consumer warps (26.5); the compacted-pair float32-core variant, each
+// lane owning (family, column) sums of the tile's rows (38.7).
 // --------------------------------------------------------------------------
 namespace mm {
 
+using tile::FULL;
+
 constexpr int NC = 49;             // moment columns
+constexpr int NCP = 56;            // padded: seven n8 tiles
+constexpr int NT = NCP / 8;
 constexpr int NF = 5;              // pair-weight families
-constexpr int MAX_THREADS = 384;   // 168 registers a thread at most
-// staged j-rows: positions, 1/h, velocities, c, alpha, then the
-// sanitised m, xm, rho, prho, log(xm), validity and six cij rows
-enum { SX, SY, SZ, SHINV, SVX, SVY, SVZ, SC, SAL, SM, SXM, SRHO, SPRHO,
-       SLXM, SOK, SC11, NJ = SC11 + 6 };
+constexpr int IB = 64;             // i-slots a block
+constexpr int NIT = IB / 16;       // 16-row i-tiles
+constexpr int THREADS = 32 * NIT;  // warp w takes i-tile w
+constexpr int UJ = 32;             // j-slots a unit
+constexpr int NJR = 20;            // J rows staged (all of K10's)
+// the i-terms of the pair weights (the JAX body's sanitised i columns),
+// [NI][IB]
+enum { IX, IY, IZ, IHINV2, IHI3, IVX, IVY, IVZ, IC, IAL, IRHO, IRHOINV,
+       IPRHO, IXM, ILXM, NI };
+
+// shared memory of a block, in 4-byte words: the main loop's A
+// fragments (a warp's own), two B column buffers and three units of raw
+// rows, which the epilogue's [NF][IB][NC] sums overlay; then the
+// i-terms, the families' output shares, the signal speeds, the origin,
+// a counter, and the ballots and list of the 27 * cap / 32 units
+template <bool BF16>
+struct Shape {
+    static constexpr int KS = BF16 ? 16 : 8;        // j-slots a k-step
+    static constexpr int NKS = UJ / KS;
+    static constexpr int BPK = 16 / NKS;            // a lane's pairs a k-step
+    static constexpr int LS = NIT * NF * NKS * 128;
+    // float32: {hi, lo} pairs at [col][36]; bf16: [col][40] halves;
+    // then the unit's j-only terms [2][UJ]
+    static constexpr int BC = BF16 ? NCP * 20 : NCP * 72;
+    static constexpr int BS = BC + 2 * UJ;
+    static constexpr int MAIN = LS + 2 * BS + 3 * NJR * UJ;
+    static constexpr int EPI = NF * IB * NC;
+    static constexpr int UNION = MAIN > EPI ? MAIN : EPI;
+    static constexpr int FIXED = NI * IB + 9 * IB + IB + 8 + 8;
+};
+
+template <bool BF16>
+__host__ __device__ constexpr int smem_words(int cap)
+{
+    return Shape<BF16>::UNION + Shape<BF16>::FIXED + 2 * 27 * (cap / UJ);
+}
 
 // J rows of the origin: x y z vx vy vz
 struct Rows {
@@ -1729,45 +1877,148 @@ __host__ __device__ constexpr int c6(int a, int b)
                   : (b == 0 ? a : b == 1 ? 2 + a : 5);
 }
 
-__device__ __forceinline__ float bf16r(float x)
+__device__ __forceinline__ uint32_t tf32(float x)
 {
-    return __bfloat162float(__float2bfloat16_rn(x));
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+    return r;
 }
 
-#define JJ(r) J[(long long)(r) * ns + jslot]
-__device__ __forceinline__ void stage_j(const float* J, long long jslot,
-                                        long long ns, float* sj, int cap,
-                                        int j)
+// x ~ hi + lo to about 2^-22 relative (3xTF32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo)
 {
-    const bool ok = JJ(4) >= 0.0f;                 // gid
-    const float xm = ok ? JJ(11) : 1.0f;
-    const float v[SC11] = {JJ(0), JJ(1), JJ(2), 1.0f / JJ(3), JJ(5), JJ(6),
-                           JJ(7), JJ(8), JJ(12), ok ? JJ(13) : 0.0f, xm,
-                           ok ? JJ(10) : 1.0f, ok ? JJ(9) : 0.0f, logf(xm),
-                           ok ? 1.0f : 0.0f};
-#pragma unroll
-    for (int s = 0; s < SC11; ++s) sj[s * cap + j] = v[s];
-#pragma unroll
-    for (int r = 0; r < 6; ++r)
-        sj[(SC11 + r) * cap + j] = ok ? JJ(14 + r) : 0.0f;
+    hi = tf32(x);
+    lo = tf32(x - __uint_as_float(hi));
 }
-#undef JJ
 
-// the 49 columns of staged j-slot j into M[k * T]
-__device__ __forceinline__ void build_cols(const float* sj, int cap, int j,
-                                           float* M, int T, const float* o,
-                                           bool bf16)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1)
 {
-    const bool ok = sj[SOK * cap + j] != 0.0f;
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1)
+{
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A-fragment position e of a lane (g, t) in k-step ks: its row (0 or 8
+// added to g) and its column in the unit. float32 (m16n8k8): a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); bf16 (m16n8k16),
+// halves of a0..a3: (g, 2t + h), (g + 8, 2t + h), (g, 2t + 8 + h),
+// (g + 8, 2t + 8 + h)
+template <bool BF16>
+__device__ __forceinline__ void frag_pos(int ks, int e, int t, int& dr,
+                                         int& col)
+{
+    if constexpr (BF16) {
+        const int k = e >> 1;
+        dr = 8 * (k & 1);
+        col = 16 * ks + 2 * t + (e & 1) + 8 * (k >> 1);
+    } else {
+        dr = 8 * (e & 1);
+        col = 8 * ks + t + 4 * (e >> 1);
+    }
+}
+
+// the i side of phase A (the JAX body's sanitised i columns) into
+// IT[q * IB + r]
+__device__ __forceinline__ void load_i(const float* J, long long islot,
+                                       long long ns, bool ihas, float* IT,
+                                       int r)
+{
+#define JI(q) J[(long long)(q) * ns + islot]
+    const float xi = ihas ? JI(0) : SPH_FILL_POS;
+    const float hinv = __fdiv_rn(1.0f, JI(3));
+    const float hinv2 = __fmul_rn(hinv, hinv);
+    const bool oki = xi < HALF_FILL;
+    const float rhoi = oki ? JI(10) : 1.0f, xmi = oki ? JI(11) : 1.0f;
+    const float v[NI] = {xi, JI(1), JI(2), hinv2, hinv * hinv2, JI(5),
+                         JI(6), JI(7), oki ? JI(8) : 1.0f,
+                         oki ? JI(12) : 0.0f, rhoi, 1.0f / rhoi,
+                         oki ? JI(9) : 0.0f, xmi, logf(xmi)};
+#undef JI
+#pragma unroll
+    for (int q = 0; q < NI; ++q) IT[q * IB + r] = v[q];
+}
+
+// the five weights of in-support pair (i-row r, unit slot c) and its
+// signal speed (valid where d2 > 0); j rows sanitised by validity
+__device__ __forceinline__ void pair_weights(const float* IT, int r,
+                                             const float* Rb, int c,
+                                             const float* JT,
+                                             const PairParams& p,
+                                             float (&l)[NF], float& vs,
+                                             float& d2)
+{
+#define I(q) IT[(q) * IB + r]
+#define S(q) Rb[(q) * UJ + c]
+    const float rx = __fsub_rn(I(IX), S(0)), ry = __fsub_rn(I(IY), S(1)),
+                rz = __fsub_rn(I(IZ), S(2));
+    d2 = dist2(rx, ry, rz);
+    const float v2i = __fmul_rn(d2, I(IHINV2));
+    const float hj_inv = JT[c];                    // 1 / h_j
+    const float v2j = d2 * (hj_inv * hj_inv);
+    const float Wi = w_v2(v2i, p.n_w) * I(IHI3);
+    const float Wj = w_v2(v2j, p.n_w) * (hj_inv * hj_inv * hj_inv);
+    const float rv = rx * (I(IVX) - S(5)) + ry * (I(IVY) - S(6))
+        + rz * (I(IVZ) - S(7));
+    const float wij = rv * rsqrtf(fmaxf(d2, 1e-30f));
+    const float csum = I(IC) + S(8);
+    const float vij_signal = (I(IAL) + S(12)) * 0.25f * csum - 2.0f * wij;
+    const float visc = wij < 0.0f ? -vij_signal * wij : 0.0f;
+    vs = 0.5f * csum - 2.0f * wij;
+
+    const bool ok = S(4) >= 0.0f;                  // gid
+    const float mj = ok ? S(13) : 0.0f, xmj = ok ? S(11) : 1.0f,
+                rhoj = ok ? S(10) : 1.0f, prhoj = ok ? S(9) : 0.0f;
+    const float rhoi = I(IRHO), xmi = I(IXM);
+    const float drho = fabsf(rhoi - rhoj);
+    const float srho = rhoi + rhoj;
+    const bool is_lo = drho < p.atmin * srho;
+    const bool is_hi = drho > p.atmax * srho;
+    const float sigma = p.ramp * (drho / srho - p.atmin);
+    const float t = expf((sigma - 1.0f) * (JT[UJ + c] - I(ILXM)));
+    const float prod = xmi * xmj;
+    const float a_mom = is_lo ? xmi * xmi : (is_hi ? prod : prod * t);
+    const float b_mom = is_lo ? xmj * xmj : (is_hi ? prod : prod / t);
+    const float av2 = (0.5f * mj) * visc;
+    const float Vi = av2 * I(IRHOINV), Vj = av2 / rhoj;
+    const float Ei = mj * a_mom;
+    const float Pi = I(IPRHO) * Ei + Vi;
+    const float Pj = (prhoj * b_mom) * mj + Vj;
+    l[0] = Pi * Wi;
+    l[1] = Pj * Wj;
+    l[2] = Ei * Wi;
+    l[3] = Vi * Wi;
+    l[4] = Vj * Wj;
+#undef S
+#undef I
+}
+
+// the 49 columns of unit slot j (sanitised: zero on an invalid slot)
+__device__ __forceinline__ void columns(const float* Rb, int j,
+                                        const float* o, float (&col)[NC])
+{
+    const bool ok = Rb[4 * UJ + j] >= 0.0f;
     float bj[3], vj[3], cj[6];
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
-        bj[b] = ok ? sj[(SX + b) * cap + j] - o[b] : 0.0f;
-        vj[b] = ok ? sj[(SVX + b) * cap + j] - o[3 + b] : 0.0f;
+        bj[b] = ok ? Rb[b * UJ + j] - o[b] : 0.0f;
+        vj[b] = ok ? Rb[(5 + b) * UJ + j] - o[3 + b] : 0.0f;
     }
 #pragma unroll
-    for (int r = 0; r < 6; ++r) cj[r] = sj[(SC11 + r) * cap + j];
-    float col[NC];
+    for (int r = 0; r < 6; ++r) cj[r] = ok ? Rb[(14 + r) * UJ + j] : 0.0f;
     col[0] = ok ? 1.0f : 0.0f;
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
@@ -1786,81 +2037,7 @@ __device__ __forceinline__ void build_cols(const float* sj, int cap, int j,
             col[31 + 3 * a + b] = c * vj[a];
             col[40 + 3 * a + b] = c * vj[a] * bj[b];
         }
-#pragma unroll
-    for (int k = 0; k < NC; ++k) M[k * T] = bf16 ? bf16r(col[k]) : col[k];
 }
-
-// the i side of phase A (the JAX body's sanitised i columns)
-struct PairI {
-    float xi, yi, zi, hinv2, hi3inv, vxi, vyi, vzi, ci, alphai, rhoi,
-        rhoi_inv, prhoi, xmi, lxmi;
-
-    __device__ void load(const float* J, long long islot, long long ns)
-    {
-#define JI(r) J[(long long)(r) * ns + islot]
-        xi = JI(0); yi = JI(1); zi = JI(2);
-        const float hinv = __fdiv_rn(1.0f, JI(3));
-        hinv2 = __fmul_rn(hinv, hinv);
-        hi3inv = hinv * hinv2;
-        vxi = JI(5); vyi = JI(6); vzi = JI(7);
-        const bool oki = xi < HALF_FILL;
-        ci = oki ? JI(8) : 1.0f;
-        alphai = oki ? JI(12) : 0.0f;
-        rhoi = oki ? JI(10) : 1.0f;
-        rhoi_inv = 1.0f / rhoi;
-        prhoi = oki ? JI(9) : 0.0f;
-        xmi = oki ? JI(11) : 1.0f;
-        lxmi = logf(xmi);
-#undef JI
-    }
-
-    // the five weights of pair (i, staged j) into L[f * ls]
-    __device__ void pair(const float* sj, int cap, int j, float* L, int ls,
-                         float& vsig, const PairParams& p) const
-    {
-#define S(r) sj[(r) * cap + j]
-        const float rx = __fsub_rn(xi, S(SX)), ry = __fsub_rn(yi, S(SY)),
-                    rz = __fsub_rn(zi, S(SZ));
-        const float d2 = dist2(rx, ry, rz);
-        const float v2i = __fmul_rn(d2, hinv2);
-        if (!(v2i < 4.0f)) {
-#pragma unroll
-            for (int f = 0; f < NF; ++f) L[f * ls] = 0.0f;
-            return;
-        }
-        const float hj_inv = S(SHINV);
-        const float v2j = d2 * (hj_inv * hj_inv);
-        const float Wi = w_v2(v2i, p.n_w) * hi3inv;
-        const float Wj = w_v2(v2j, p.n_w) * (hj_inv * hj_inv * hj_inv);
-        const float rv = rx * (vxi - S(SVX)) + ry * (vyi - S(SVY))
-            + rz * (vzi - S(SVZ));
-        const float wij = rv * rsqrtf(fmaxf(d2, 1e-30f));
-        const float csum = ci + S(SC);
-        const float vij_signal = (alphai + S(SAL)) * 0.25f * csum - 2.0f * wij;
-        const float visc = wij < 0.0f ? -vij_signal * wij : 0.0f;
-        if (d2 > 0.0f) vsig = fmaxf(vsig, 0.5f * csum - 2.0f * wij);
-
-        const float mj = S(SM), xmj = S(SXM), rhoj = S(SRHO);
-        const float drho = fabsf(rhoi - rhoj);
-        const float srho = rhoi + rhoj;
-        const bool is_lo = drho < p.atmin * srho;
-        const bool is_hi = drho > p.atmax * srho;
-        const float sigma = p.ramp * (drho / srho - p.atmin);
-        const float t = expf((sigma - 1.0f) * (S(SLXM) - lxmi));
-        const float prod = xmi * xmj;
-        const float a_mom = is_lo ? xmi * xmi : (is_hi ? prod : prod * t);
-        const float b_mom = is_lo ? xmj * xmj : (is_hi ? prod : prod / t);
-        const float av2 = (0.5f * mj) * visc;
-        const float Vi = av2 * rhoi_inv, Vj = av2 / rhoj;
-        const float Ei = mj * a_mom;
-        const float Pi = prhoi * Ei + Vi;
-        const float Pj = (S(SPRHO) * b_mom) * mj + Vj;
-        const float l[NF] = {Pi * Wi, Pj * Wj, Ei * Wi, Vi * Wi, Vj * Wj};
-#pragma unroll
-        for (int f = 0; f < NF; ++f) L[f * ls] = p.mxu_bf16 ? bf16r(l[f]) : l[f];
-#undef S
-    }
-};
 
 // the i-side offsets and cij of the epilogue (zero on invalid slots)
 struct EpiI {
@@ -1896,10 +2073,11 @@ struct EpiI {
     }
 };
 
-// family f's share of the outputs into part[r * cap]: momA (rows 0-2),
-// momB (3-5), energy (6), i-side and j-side visc energy (7, 8)
+// family f's share of the outputs into part[r * stride]: momA (rows
+// 0-2), momB (3-5), energy (6), i-side and j-side visc energy (7, 8)
 __device__ __forceinline__ void partial(int f, const float (&S)[NC],
-                                        const EpiI& e, float* part, int cap)
+                                        const EpiI& e, float* part,
+                                        int stride)
 {
     switch (f) {
     case 0: {
@@ -1908,8 +2086,9 @@ __device__ __forceinline__ void partial(int f, const float (&S)[NC],
         for (int b = 0; b < 3; ++b) RA[b] = e.bic[b] * S[0] - S[1 + b];
 #pragma unroll
         for (int a = 0; a < 3; ++a)
-            part[a * cap] = -(e.cii[c6(a, 0)] * RA[0] + e.cii[c6(a, 1)] * RA[1]
-                              + e.cii[c6(a, 2)] * RA[2]);
+            part[a * stride] = -(e.cii[c6(a, 0)] * RA[0]
+                                 + e.cii[c6(a, 1)] * RA[1]
+                                 + e.cii[c6(a, 2)] * RA[2]);
         break;
     }
     case 1:
@@ -1919,11 +2098,11 @@ __device__ __forceinline__ void partial(int f, const float (&S)[NC],
 #pragma unroll
             for (int b = 0; b < 3; ++b)
                 acc = acc + e.bic[b] * S[16 + c6(a, b)] - S[22 + 3 * a + b];
-            part[(3 + a) * cap] = -acc;
+            part[(3 + a) * stride] = -acc;
         }
         break;
-    case 2: part[6 * cap] = e.qi(S); break;
-    case 3: part[7 * cap] = e.qi(S); break;
+    case 2: part[6 * stride] = e.qi(S); break;
+    case 3: part[7 * stride] = e.qi(S); break;
     default: {
         float acc = 0.0f;
 #pragma unroll
@@ -1934,100 +2113,386 @@ __device__ __forceinline__ void partial(int f, const float (&S)[NC],
                              - e.vic[a] * S[22 + 3 * a + b]
                              - e.bic[b] * S[31 + 3 * a + b]
                              + S[40 + 3 * a + b]);
-        part[8 * cap] = acc;
+        part[8 * stride] = acc;
     }
+    }
+}
+
+// the columns [LO, HI) of unit slot `lane` into B buffer Bb: TF32 hi and
+// lo parts ({hi, lo} at [k][36] float2), or bf16 values ([k][40])
+template <bool BF16, int LO, int HI, bool TERMS>
+__device__ __forceinline__ void store_cols(const float* Rb, int lane,
+                                           const float* o, float* Bb)
+{
+    if constexpr (TERMS) {
+        float* JT = Bb + Shape<BF16>::BC;
+        const bool ok = Rb[4 * UJ + lane] >= 0.0f;
+        JT[lane] = 1.0f / Rb[3 * UJ + lane];
+        JT[UJ + lane] = logf(ok ? Rb[11 * UJ + lane] : 1.0f);
+    }
+    float col[NC];
+    columns(Rb, lane, o, col);
+#pragma unroll
+    for (int k = LO; k < HI; ++k) {
+        if constexpr (BF16) {
+            reinterpret_cast<__nv_bfloat16*>(Bb)[k * 40 + lane] =
+                __float2bfloat16_rn(col[k]);
+        } else {
+            uint32_t hi, lo;
+            split_tf32(col[k], hi, lo);
+            reinterpret_cast<float2*>(Bb)[k * 36 + lane] =
+                make_float2(__uint_as_float(hi), __uint_as_float(lo));
+        }
+    }
+}
+
+// one interior cell `own`, the i-block blockIdx.y, blockDim.x == THREADS
+template <bool BF16>
+__device__ __noinline__ void mm_cell(const float* __restrict__ J,
+                                     float* __restrict__ out,
+                                     const PairGeom g, const PairParams p,
+                                     const long long own, const int vec)
+{
+    using Sh = Shape<BF16>;
+    constexpr int KS = Sh::KS, NKS = Sh::NKS, BPK = Sh::BPK;
+    constexpr int LSW = NF * NKS * 128;           // A fragments a warp
+    extern __shared__ __align__(16) float msm[];
+    const int cap = g.cap, G = cap / UJ, NU = 27 * G;
+    const long long ns = g.n_slots;
+    const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+    const int gq = lane >> 2, tq = lane & 3;
+    float* const Ls = msm + w * LSW;              // this warp's i-tile
+    float* const Bs = msm + Sh::LS;               // [2][BS] B columns
+    float* const R = Bs + 2 * Sh::BS;             // [3][NJR][UJ] raw j rows
+    float* const Se = msm;                        // epilogue [NF][IB][NC]
+    float* const IT = msm + Sh::UNION;            // [NI][IB]
+    float* const part = IT + NI * IB;             // [9][IB]
+    int* const vsm = reinterpret_cast<int*>(part + 9 * IB);   // [IB]
+    float* const origin = reinterpret_cast<float*>(vsm + IB);
+    int* const cnt = reinterpret_cast<int*>(origin + 8);
+    int* const vm = cnt + 8;                      // [NU] last valid slot
+    int* const list = vm + NU;                    // [NU] occupied units
+
+    __syncthreads();               // K11: the previous cell's epilogue
+    cell_means<Rows>(J, own * cap, cap, ns, origin);
+    const int i0 = blockIdx.y * IB;
+    bool ivalid = false;
+    for (int r = t; r < IB; r += THREADS) {
+        const bool ihas = i0 + r < cap;
+        load_i(J, own * cap + (ihas ? i0 + r : 0), ns, ihas, IT, r);
+        ivalid |= IT[IX * IB + r] < HALF_FILL;
+        vsm[r] = 0;                // +0.0f: the signal speed's floor
+    }
+    for (int u = w; u < NU; u += NIT) {
+        const int nb = u / G;
+        const unsigned b = __ballot_sync(
+            FULL, J[nbr_cell(g, own, nb) * cap + UJ * (u - nb * G) + lane]
+                      < HALF_FILL);
+        if (lane == 0) vm[u] = b ? 31 - __clz(b) : -1;
+    }
+    // the zero pad columns of both B buffers
+    for (int e = t; e < 2 * (NCP - NC) * UJ; e += THREADS) {
+        const int bb = e / ((NCP - NC) * UJ), q = e % ((NCP - NC) * UJ);
+        const int k = NC + q / UJ, j = q % UJ;
+        float* Bb = Bs + bb * Sh::BS;
+        if constexpr (BF16)
+            reinterpret_cast<__nv_bfloat16*>(Bb)[k * 40 + j] =
+                __float2bfloat16_rn(0.0f);
+        else
+            reinterpret_cast<float2*>(Bb)[k * 36 + j] =
+                make_float2(0.0f, 0.0f);
+    }
+    if (!__syncthreads_or(ivalid)) {
+        for (int r = t; r < IB && i0 + r < cap; r += THREADS)
+            for (int q = 0; q < 5; ++q)
+                out[q * ns + own * cap + i0 + r] = 0.0f;
+        return;
+    }
+    if (w == 0) {
+        int base = 0;
+        for (int c0 = 0; c0 < NU; c0 += 32) {
+            const int q = c0 + lane;
+            const bool f = q < NU && vm[q] >= 0;
+            const unsigned b = __ballot_sync(FULL, f);
+            if (f)
+                list[base + __popc(b & ((1u << lane) - 1u))] =
+                    (q << 5) | vm[q];
+            base += __popc(b);
+        }
+        if (lane == 0) cnt[0] = base;
+    }
+    __syncthreads();
+    const int nocc = cnt[0];
+
+    // phase A's i side: rows gq and gq + 8 of i-tile w, in registers for
+    // the support tests
+    float xi[2], yi[2], zi[2], hi2[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+        const int r = 16 * w + gq + 8 * s;
+        xi[s] = IT[IX * IB + r];
+        yi[s] = IT[IY * IB + r];
+        zi[s] = IT[IZ * IB + r];
+        hi2[s] = IT[IHINV2 * IB + r];
+    }
+    const bool wtests =
+        __any_sync(FULL, xi[0] < HALF_FILL || xi[1] < HALF_FILL);
+
+    // stage unit v's rows into R[v % 3] (one cp.async group, committed
+    // also when empty)
+    auto issue = [&](int v) {
+        if (v < nocc) {
+            const int u = list[v] >> 5, nb = u / G;
+            const long long b =
+                nbr_cell(g, own, nb) * cap + UJ * (u - nb * G);
+            float* dst = R + (v % 3) * NJR * UJ;
+            if (vec) {
+                for (int e = t; e < NJR * UJ / 4; e += THREADS) {
+                    const int r = e >> 3, seg = (e & 7) * 4;
+                    tile::cp_async16(dst + r * UJ + seg,
+                                     J + r * ns + b + seg);
+                }
+            } else {
+                for (int e = t; e < NJR * UJ; e += THREADS)
+                    tile::cp_async4(dst + e, J + (e / UJ) * ns + b + e % UJ);
+            }
+        }
+        tile::cp_async_commit();
+    };
+    // unit v's columns into B buffer v & 1, warp w a quarter of them
+    auto build = [&](int v) {
+        const float* Rb = R + (v % 3) * NJR * UJ;
+        float* Bb = Bs + (v & 1) * Sh::BS;
+        switch (w) {
+        case 0: store_cols<BF16, 0, 14, false>(Rb, lane, origin, Bb); break;
+        case 1: store_cols<BF16, 14, 28, false>(Rb, lane, origin, Bb); break;
+        case 2: store_cols<BF16, 28, 40, false>(Rb, lane, origin, Bb); break;
+        default: store_cols<BF16, 40, NC, true>(Rb, lane, origin, Bb);
+        }
+    };
+
+    float acc[NF][NT][4];
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[f][n][q] = 0.0f;
+    unsigned long long issued = 0, staged = 0;
+
+    issue(0);
+    issue(1);
+    for (int v = 0; v < nocc; ++v) {
+        // unit v + 1's rows landed (unit v's with them), unit v's columns
+        // built, the last unit's phase B done
+        tile::cp_async_wait_all();
+        __syncthreads();
+        issue(v + 2);
+        if (v == 0) {
+            build(0);
+            __syncthreads();
+        }
+        if (v + 1 < nocc) build(v + 1);
+        const int nks = (list[v] & 31) / KS + 1;
+        const float* Rb = R + (v % 3) * NJR * UJ;
+        const float* Bb = Bs + (v & 1) * Sh::BS;
+        const float* JT = Bb + Sh::BC;
+
+        // A. the pair weights of i-tile w (float32 cores)
+        unsigned m = 0;
+        if (wtests) {
+#pragma unroll
+            for (int b = 0; b < 16; ++b) {
+                const int ks = b / BPK;
+                int dr, col;
+                frag_pos<BF16>(ks, b % BPK, tq, dr, col);
+                const int s = dr ? 1 : 0;
+                if (ks < nks) {
+                    const float d2 = dist2(
+                        __fsub_rn(xi[s], Rb[0 * UJ + col]),
+                        __fsub_rn(yi[s], Rb[1 * UJ + col]),
+                        __fsub_rn(zi[s], Rb[2 * UJ + col]));
+                    if (__fmul_rn(d2, hi2[s]) < 4.0f) m |= 1u << b;
+                }
+            }
+        }
+        const unsigned wm = __reduce_or_sync(FULL, m);
+        for (int ks = 0; ks < NKS; ++ks)
+            if ((wm >> (ks * BPK)) & ((1u << BPK) - 1u))
+#pragma unroll
+                for (int f = 0; f < NF; ++f)
+                    *reinterpret_cast<float4*>(
+                        Ls + (f * NKS + ks) * 128 + 4 * lane) =
+                        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        __syncwarp();
+        // the warp's in-support pairs, compacted: lane q of a round takes
+        // pair p0 + q, its owner lane and fragment position
+        const int cn = __popc(m);
+        int incl = cn;
+#pragma unroll
+        for (int s = 1; s < 32; s <<= 1) {
+            const int y = __shfl_up_sync(FULL, incl, s);
+            if (lane >= s) incl += y;
+        }
+        const int total = __shfl_sync(FULL, incl, 31);
+        const int off = incl - cn;
+        unsigned fam = 0;          // bit ks * NF + f: a nonzero weight
+        for (int p0 = 0; p0 < total; p0 += 32) {
+            const int pi = p0 + lane;
+            int l = 0;                  // owner: last lane with off <= pi
+#pragma unroll
+            for (int s = 16; s > 0; s >>= 1) {
+                const int o = __shfl_sync(FULL, off, l + s);
+                if (o <= pi) l += s;
+            }
+            const int r = pi - __shfl_sync(FULL, off, l);
+            const unsigned mm = __shfl_sync(FULL, m, l);
+            int bit = 0;                // the r-th set bit of mm
+#pragma unroll
+            for (int s = 8; s > 0; s >>= 1)
+                if (__popc(mm & ((1u << (bit + s)) - 1u)) <= r) bit += s;
+            if (pi < total) {
+                const int ks = bit / BPK, e = bit % BPK;
+                int dr, col;
+                frag_pos<BF16>(ks, e, l & 3, dr, col);
+                const int row = 16 * w + (l >> 2) + dr;
+                float lw[NF], vs, d2;
+                pair_weights(IT, row, Rb, col, JT, p, lw, vs, d2);
+                float* at = Ls + ks * 128 + 4 * l;
+#pragma unroll
+                for (int f = 0; f < NF; ++f) {
+                    if constexpr (BF16) {
+                        const __nv_bfloat16 h = __float2bfloat16_rn(lw[f]);
+                        if (__bfloat162float(h) != 0.0f) {
+                            reinterpret_cast<__nv_bfloat16*>(
+                                at + f * NKS * 128)[e] = h;
+                            fam |= 1u << (ks * NF + f);
+                        }
+                    } else if (lw[f] != 0.0f) {
+                        at[f * NKS * 128 + e] = lw[f];
+                        fam |= 1u << (ks * NF + f);
+                    }
+                }
+                if (d2 > 0.0f)
+                    atomicMax(vsm + row, __float_as_int(fmaxf(vs, 0.0f)));
+            }
+        }
+        fam = __reduce_or_sync(FULL, fam);
+        __syncwarp();
+
+        // B. the nonzero blocks of i-tile w on the tensor cores
+        if (p.stats != nullptr && t == 0) staged += NF * NIT * nks;
+        for (int ks = 0; ks < nks; ++ks) {
+            const unsigned act = (fam >> (ks * NF)) & ((1u << NF) - 1u);
+            if (!act) continue;
+            issued += __popc(act);
+#pragma unroll
+            for (int f = 0; f < NF; ++f) {
+                if (!(act >> f & 1)) continue;
+                const float* af = Ls + (f * NKS + ks) * 128 + 4 * lane;
+                if constexpr (BF16) {
+                    const uint4 q = *reinterpret_cast<const uint4*>(af);
+                    const uint32_t a[4] = {q.x, q.y, q.z, q.w};
+                    const uint32_t* Bw = reinterpret_cast<const uint32_t*>(Bb);
+#pragma unroll
+                    for (int n = 0; n < NT; ++n) {
+                        const int at = (8 * n + gq) * 20 + 8 * ks + tq;
+                        mma_bf16(acc[f][n], a, Bw[at], Bw[at + 4]);
+                    }
+                } else {
+                    const float4 q = *reinterpret_cast<const float4*>(af);
+                    uint32_t ah[4], al[4];
+                    split_tf32(q.x, ah[0], al[0]);
+                    split_tf32(q.y, ah[1], al[1]);
+                    split_tf32(q.z, ah[2], al[2]);
+                    split_tf32(q.w, ah[3], al[3]);
+                    const float2* B2 = reinterpret_cast<const float2*>(Bb);
+#pragma unroll
+                    for (int n = 0; n < NT; ++n) {
+                        const int at = (8 * n + gq) * 36 + 8 * ks + tq;
+                        const float2 b0 = B2[at], b1 = B2[at + 4];
+                        const uint32_t h0 = __float_as_uint(b0.x),
+                                       l0 = __float_as_uint(b0.y),
+                                       h1 = __float_as_uint(b1.x),
+                                       l1 = __float_as_uint(b1.y);
+                        // from zero, then added in float32: accumulating
+                        // in place on the tensor core doubled the error
+                        float tmp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                        mma_tf32(tmp, al, h0, h1);
+                        mma_tf32(tmp, ah, l0, l1);
+                        mma_tf32(tmp, ah, h0, h1);
+#pragma unroll
+                        for (int q = 0; q < 4; ++q) acc[f][n][q] += tmp[q];
+                    }
+                }
+            }
+        }
+    }
+
+    // the epilogue: the sums through shared memory, each family's share,
+    // then the outputs
+    tile::cp_async_wait_all();
+    __syncthreads();               // the last unit's phase B is done
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int row = 16 * w + gq + 8 * (q >> 1);
+                const int col = 8 * n + 2 * tq + (q & 1);
+                if (col < NC) Se[(f * IB + row) * NC + col] = acc[f][n][q];
+            }
+    if (p.stats != nullptr) {
+        if (lane == 0) atomicAdd(p.stats, issued);
+        if (t == 0) atomicAdd(p.stats + 1, staged);
+    }
+    __syncthreads();
+    for (int task = t; task < NF * IB; task += THREADS) {
+        const int f = task / IB, r = task % IB;
+        if (i0 + r >= cap) continue;
+        float S[NC];
+#pragma unroll
+        for (int k = 0; k < NC; ++k) S[k] = Se[(f * IB + r) * NC + k];
+        partial(f, S, EpiI(J, own * cap + i0 + r, ns, origin), part + r, IB);
+    }
+    __syncthreads();
+    for (int r = t; r < IB; r += THREADS) {
+        if (i0 + r >= cap) break;
+        const long long islot = own * cap + i0 + r;
+        const float prhoi = J[islot] < HALF_FILL ? J[9 * ns + islot] : 0.0f;
+        const float K3d = p.K3d;
+        const float ae = fmaxf(part[7 * IB + r] + part[8 * IB + r], 0.0f);
+        const float o[5] = {
+            -K3d * (part[0 * IB + r] + part[3 * IB + r]),
+            -K3d * (part[1 * IB + r] + part[4 * IB + r]),
+            -K3d * (part[2 * IB + r] + part[5 * IB + r]),
+            K3d * (prhoi * part[6 * IB + r] + 0.5f * ae),
+            __int_as_float(vsm[r])};
+#pragma unroll
+        for (int q = 0; q < 5; ++q) out[q * ns + islot] = o[q];
+    }
+}
+
+// the cell launch, K2g (Gated) and K11's stream form (Column);
+// blockIdx.y is the i-block
+template <bool BF16, bool Gated, bool Column>
+__global__ void __launch_bounds__(THREADS, 2)
+cell_mm(const float* __restrict__ J, float* __restrict__ out, PairGeom g,
+        PairParams p, PairGate gt, int zseg, int vec)
+{
+    const Walk w = block_walk<Column>(g, zseg);
+    const int s0 = blockIdx.y * IB;
+    for (int q = 0; q < w.ncell; ++q) {
+        const long long own = w.own0 + q;
+        if constexpr (Gated)
+            if (gate_closed<NF>(gt, g, own, out, s0, min(IB, g.cap - s0)))
+                return;
+        mm_cell<BF16>(J, out, g, p, own, vec);
     }
 }
 
 }  // namespace mm
-
-// Column: K11's stream form of K10, the cell launch per z-step of the
-// block's segment
-template <bool Gated, bool Column>
-__global__ void __launch_bounds__(mm::MAX_THREADS)
-cell_pair_momentum_mm(const float* __restrict__ J, float* __restrict__ out,
-                      PairGeom g, PairParams p, PairGate gt, int T, int nft,
-                      int zseg)
-{
-    using namespace mm;
-    extern __shared__ float sm[];
-    __shared__ float origin[Rows::NORIGIN];
-    const int cap = g.cap, t = threadIdx.x, i = t % cap, grp = t / cap;
-    const long long ns = g.n_slots;
-    float* sj = sm;                          // [NJ][cap] staged j-rows
-    float* Ms = sj + NJ * cap;               // [NC][T] sub-tile columns
-    float* Ls = Ms + NC * T;                 // [NF][T][cap] pair weights
-    float* part = Ls + NF * T * cap;         // [9][cap] family shares
-    float* vs = part + 9 * cap;              // [nft][cap] signal maxima
-    const Walk w = block_walk<Column>(g, zseg);
-    for (int q = 0; q < w.ncell; ++q) {
-        const long long own = w.own0 + q;
-        if constexpr (Gated)
-            if (gate_closed<NF>(gt, g, own, out)) return;
-        if (q) __syncthreads();          // the last epilogue read part
-        cell_means<Rows>(J, own * cap, cap, ns, origin);
-        const long long islot = own * cap + i;
-        PairI pi;
-        pi.load(J, islot, ns);
-        float vsig = SPH_NEG;
-        for (int f0 = 0; f0 < NF; f0 += nft) {
-            const int f = f0 + grp;
-            float acc[NC];
-#pragma unroll
-            for (int k = 0; k < NC; ++k) acc[k] = 0.0f;
-            for (int nb = 0; nb < 27; ++nb) {
-                __syncthreads();
-                if (t < cap)
-                    stage_j(J, nbr_cell(g, own, nb) * cap + t, ns, sj, cap,
-                            t);
-                __syncthreads();
-                for (int j0 = 0; j0 < cap; j0 += T) {
-                    if (t < T)
-                        build_cols(sj, cap, j0 + t, Ms + t, T, origin,
-                                   p.mxu_bf16 != 0);
-                    for (int jj = grp; jj < T; jj += nft)
-                        pi.pair(sj, cap, j0 + jj, Ls + jj * cap + i, T * cap,
-                                vsig, p);
-                    __syncthreads();
-                    if (f < NF) {
-                        const float* Lf = Ls + f * T * cap + i;
-                        for (int jj = 0; jj < T; ++jj) {
-                            const float l = Lf[jj * cap];
-                            if (l != 0.0f) {
-#pragma unroll
-                                for (int k = 0; k < NC; ++k)
-                                    acc[k] += l * Ms[k * T + jj];
-                            }
-                        }
-                    }
-                    __syncthreads();
-                }
-            }
-            if (f < NF)
-                partial(f, acc, EpiI(J, islot, ns, origin), part + i, cap);
-        }
-        vs[grp * cap + i] = vsig;
-        __syncthreads();
-        if (t < cap) {
-            float vmax = vs[i];
-            for (int f = 1; f < nft; ++f)
-                vmax = fmaxf(vmax, vs[f * cap + i]);
-            const float prhoi =
-                J[islot] < HALF_FILL ? J[9 * ns + islot] : 0.0f;
-            const float K3d = p.K3d;
-            const float ae =
-                fmaxf(part[7 * cap + i] + part[8 * cap + i], 0.0f);
-            const float o[5] = {
-                -K3d * (part[0 * cap + i] + part[3 * cap + i]),
-                -K3d * (part[1 * cap + i] + part[4 * cap + i]),
-                -K3d * (part[2 * cap + i] + part[5 * cap + i]),
-                K3d * (prhoi * part[6 * cap + i] + 0.5f * ae),
-                fmaxf(vmax, 0.0f)};
-#pragma unroll
-            for (int r = 0; r < 5; ++r) out[r * ns + islot] = o[r];
-        }
-    }
-}
 
 constexpr size_t SMEM_MAX = 232448;   // 227 KB a block may opt into
 
@@ -2060,8 +2525,8 @@ bool bad_gate(const PairGeom& g, const PairGate& gt, int zseg)
         && (zseg || gt.prev == nullptr || gt.Z < 1 || g.npz % gt.Z);
 }
 
-// stages 5 and 6: the cell launch (zseg == 0; K2g when gt.act is set)
-// and K11's stream form (zseg > 0)
+// stage 6: the cell launch (zseg == 0; K2g when gt.act is set) and K11's
+// stream form (zseg > 0)
 template <class Body>
 cudaError_t launch(const float* J, const float* I2, float* out,
                    const PairGeom& g, const PairParams& p, const PairGate& gt,
@@ -2077,7 +2542,7 @@ cudaError_t launch(const float* J, const float* I2, float* out,
                  gt, zseg);
 }
 
-// K4-K7 and K7c (stages 1-4, 8): blocks of T = min(cap, 128) threads,
+// K4-K8 and K7c (stages 1-5, 8): blocks of T = min(cap, 128) threads,
 // one a (cell, i-tile); the cell launch (K2g when gt.act is set) or
 // K11's stream form (zseg > 0)
 template <class St>
@@ -2113,28 +2578,26 @@ cudaError_t launch_xh(const float* J, float* out, const PairGeom& g,
                  zseg);
 }
 
-// K10: blocks of nft * cap threads; the sub-tile T shrinks until the
-// shared memory fits
-cudaError_t launch_momentum_mm(const float* J, float* out, const PairGeom& g,
-                               const PairParams& p, const PairGate& gt,
-                               int zseg, cudaStream_t st)
+// K10: blocks of mm::THREADS threads, one a (cell, i-block of 64 slots)
+cudaError_t launch_mm(const float* J, float* out, const PairGeom& g,
+                      const PairParams& p, const PairGate& gt, int zseg,
+                      cudaStream_t st)
 {
-    using namespace mm;
-    const int cap = g.cap;
-    if (cap % 32 || cap > MAX_THREADS || zseg < 0 || bad_gate(g, gt, zseg))
+    if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
         return cudaErrorInvalidValue;
-    const int nft = NF < MAX_THREADS / cap ? NF : MAX_THREADS / cap;
-    int T = 32;
-    auto bytes = [&](int tile) {
-        return sizeof(float) * ((size_t)NJ * cap + NC * tile
-                                + (size_t)NF * tile * cap + (9 + nft) * cap);
-    };
-    while (T > 1 && bytes(T) > SMEM_MAX) T /= 2;
-    auto kern = zseg ? cell_pair_momentum_mm<false, true>
-        : gt.act != nullptr ? cell_pair_momentum_mm<true, false>
-                            : cell_pair_momentum_mm<false, false>;
-    return start(kern, n_blocks(g, zseg), nft * cap, bytes(T), st, J, out, g,
-                 p, gt, T, nft, zseg);
+    const bool bf = p.mxu_bf16 != 0;
+    const size_t smem = sizeof(float) * (bf ? mm::smem_words<true>(g.cap)
+                                            : mm::smem_words<false>(g.cap));
+    const dim3 grid(n_blocks(g, zseg), (g.cap + mm::IB - 1) / mm::IB);
+    const int vec = reinterpret_cast<size_t>(J) % 16 == 0;
+    auto kern = bf ? (zseg ? mm::cell_mm<true, false, true>
+                      : gt.act != nullptr ? mm::cell_mm<true, true, false>
+                                          : mm::cell_mm<true, false, false>)
+                   : (zseg ? mm::cell_mm<false, false, true>
+                      : gt.act != nullptr ? mm::cell_mm<false, true, false>
+                                          : mm::cell_mm<false, false, false>);
+    return start(kern, grid, mm::THREADS, smem, st, J, out, g, p, gt, zseg,
+                 vec);
 }
 
 cudaError_t stage_launch(int stage, const float* J, const float* I2,
@@ -2148,9 +2611,9 @@ cudaError_t stage_launch(int stage, const float* J, const float* I2,
     case 2: return TILED(tile::IadStage);
     case 3: return TILED(tile::AvStage);
     case 4: return TILED(tile::MomStage<false>);
-    case 5: return launch<IadMmBody>(J, I2, out, g, p, gt, zseg, st);
+    case 5: return TILED(tile::IadMmStage);
     case 6: return launch<AvMmBody>(J, I2, out, g, p, gt, zseg, st);
-    case 7: return launch_momentum_mm(J, out, g, p, gt, zseg, st);
+    case 7: return launch_mm(J, out, g, p, gt, zseg, st);
     case 8:
         if (gt.act != nullptr) return cudaErrorInvalidValue;   // no K2g form
         return TILED(tile::MomStage<true>);

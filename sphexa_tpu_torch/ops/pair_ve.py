@@ -19,19 +19,21 @@ version of the same function:
 
 K8-K10 are the moment-matmul bodies (SphConfig.mxu_moments,
 mxu_momentum, mxu_bf16): their plain versions contract the pair
-weights with cell-centred j-moment columns in a float32 matmul; the
-kernels accumulate the same sums per pair, in float32 and without
-tensor cores.
+weights with cell-centred j-moment columns in a float32 matmul. K10's
+kernel contracts them on the tensor cores (mma.sync: 3xTF32 in float32,
+bf16 under mxu_bf16), skipping the blocks whose weights are all zero;
+K8's and K9's accumulate the same sums per pair, in float32.
 
 K3-K10 share the driver make_cell_pair_call (pallas_ve.py:103), which in
 the port is the launch skeleton of cell_pair.cu: one thread block per
 interior cell, one thread per i-slot, the 27 neighbour cells streamed
-through shared memory (K8, K9). K4-K7 and K7c stream only the occupied
+through shared memory (K9). K4-K8 and K7c stream only the occupied
 slots (K7 and K7c evaluate their in-support pairs compacted across a
-warp's lanes, K4-K6 each lane its own); K3 stages the occupied slots of
-the 27 cells as one run and walks it again only for slots whose h the
-controller moved. Each has one routine for the cell, gated and column
-launches.
+warp's lanes, K4-K6 and K8 each lane its own); K3 stages the occupied
+slots of the 27 cells as one run and walks it again only for slots
+whose h the controller moved; K10 stages the occupied slots, computes
+the pair weights on the float32 cores and contracts them on the tensor
+cores. Each has one routine for the cell, gated and column launches.
 
 K2g, the gated driver (make_cell_pair_call(gated=True), pallas_ve.py:
 162-172, :242-251), is the same stages but K7c as GATED_KERNELS: a
@@ -796,9 +798,10 @@ class PairKernel:
 
     def _launch(self, J, I2, grid: CMGrid, cfg: SphConfig, gate=None,
                 zgroup: int = 0, stats=None) -> torch.Tensor:
-        """stats: K3 only, an int64 [3] tensor on the card that the
-        launch adds its lanes' walks, warp walks and the candidates those
-        walked to (chip_smoke.py counts them); None on the engines'
+        """stats: an int64 [3] tensor on the card that the launch adds
+        its counts to (chip_smoke.py reads them): K3 its lanes' walks,
+        warp walks and the candidates those walked; K10 the mma blocks
+        it issued and those of its staged k-steps. None on the engines'
         path."""
         out = torch.zeros((self.fo, grid.n_slots), dtype=torch.float32,
                           device=J.device)
@@ -1015,9 +1018,6 @@ COLUMN_KERNELS = tuple(
     for k in KERNELS[1:] + MM_KERNELS + (pair_momentum_avclean,))
 PAIR_KERNELS = KERNELS[1:] + MM_KERNELS + (pair_momentum_avclean,) \
     + GATED_KERNELS + COLUMN_KERNELS
-# K10 runs one thread per (i-slot, family group) in a block of at most
-# 384 threads (cell_pair.cu, launch_momentum_mm)
-MM_MOMENTUM_MAX_CAP = 384
 
 
 # ---------------------------------------------------------------------------
@@ -1073,9 +1073,6 @@ class PairVE:
             mom = pair_momentum_avclean
         elif cfg.mxu_momentum:
             mom = pair_momentum_mm
-            if grid.cap > MM_MOMENTUM_MAX_CAP:
-                raise ValueError(f"mxu_momentum: cap {grid.cap} above "
-                                 f"{MM_MOMENTUM_MAX_CAP}")
         else:
             mom = pair_momentum
         iad, av = ((pair_iad_mm, pair_av_mm) if cfg.mxu_moments

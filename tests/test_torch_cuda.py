@@ -32,7 +32,13 @@ of fewer than 128 particles leaves its second i-tile empty), with their
 K2g and K11 forms; K3's nc, h and nonconv bit-equal to plain on every
 interior slot, under controllers whose h moves in the first round, a
 later one or never; invalid interior slots exactly 1.0 for K4 (kx and
-gradh) and 0 for the others. The probe kernels (P1-P5) are held against their
+gradh) and 0 for the others. K8 (tile::IadMmStage) and K10 (the
+tensor-core form, float32 and mxu_bf16) are held on the same synthetic
+frames at caps 64, 128 and 256 with their K2g and K11 forms: K8's 14
+rows and K10's ax, ay, az, du at 1e-4 of their row's scale, K10's
+maxvsignal at rtol 1e-5, K10 under mxu_bf16 as above against its plain
+version (its K2g form bit-equal to the cell launch on active slots).
+The probe kernels (P1-P5) are held against their
 plain versions: P1-P4 rtol 1e-6 (the same float32 operations), P5 1e-5 of the
 output's scale (TF32: 5e-3). K1z (the ghost refresh with refresh_z=False)
 is bit-equal to its plain version, and the slab-sharded resident step
@@ -316,11 +322,12 @@ def _momentum_frame(grid, av_clean, seed):
 
 
 def _check_forms(k, J, grid, cfg, out, intmask, mask, seed, gated=True,
-                 I2=None, scaled=()):
+                 I2=None, scaled=(), plain=True):
     """K11 at zseg 1-3 bit-equal to the cell launch `out` on interior
     slots and zero elsewhere; K2g (gated) against its gated plain
-    version, inactive slots equal to prev, active valid slots bit-equal
-    to the cell launch."""
+    version (plain=False: not held against it, as K10 under mxu_bf16,
+    whose cell launch the caller has held), inactive slots equal to
+    prev, active valid slots bit-equal to the cell launch."""
     kc = next(c for c in pv.COLUMN_KERNELS if c.name == k.name + "_column")
     saved = kc.zseg
     try:
@@ -346,7 +353,8 @@ def _check_forms(k, J, grid, cfg, out, intmask, mask, seed, gated=True,
     on = pv.supercell_active(act, grid, 1).repeat_interleave(cap)
     assert (intmask & on).any() and (intmask & ~on).any()
     assert torch.equal(gout[:, intmask & ~on], prev[:, intmask & ~on])
-    _check_rows(k.name, gref, gout, mask & on, scaled)
+    if plain:
+        _check_rows(k.name, gref, gout, mask & on, scaled)
     assert torch.equal(gout[:, mask & on], out[:, mask & on])
 
 
@@ -372,6 +380,37 @@ def test_momentum_forms_match_plain(cuda, cap, av_clean):
     assert not out[:, intmask & ~mask].any()
     _check_forms(k, J, grid, cfg, out, intmask, mask, seed=cap,
                  gated=not av_clean)
+
+
+@pytest.mark.parametrize("cap", MOMENTUM_CAPS)
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_momentum_mm_forms_match_plain(cuda, cap, bf16):
+    """K10 (float32: 3xTF32 on the tensor cores; mxu_bf16: bf16) on full,
+    partial and empty cells against plain: ax, ay, az, du at 1e-4 of
+    their row's scale and maxvsignal at rtol 1e-5 in float32, under
+    mxu_bf16 as _check_bf16; zero on invalid interior slots; K11 and
+    K2g as in _check_forms. Its inputs are K7's frame (the same J
+    rows)."""
+    grid = CMGrid(n=3, cap=cap)
+    cfg = SphConfig(mxu_moments=True, mxu_momentum=True, mxu_bf16=bf16)
+    k = pv.pair_momentum_mm
+    J, valid = _momentum_frame(grid, False, seed=cap + 7)
+    J = torch.from_numpy(J).to(cuda)
+    intmask = torch.tensor(np.repeat(_interior_cells_np(grid), cap),
+                           device=cuda)
+    mask = intmask & torch.from_numpy(valid).to(cuda)
+    before = k.launches
+    out = k(J, None, grid, cfg)
+    assert k.launches == before + 1
+    ref = k.plain(J, None, grid, cfg)
+    if bf16:
+        _check_bf16(ref, out, k.plain(J, None, grid,
+                                      cfg.replace(mxu_bf16=False)), mask)
+    else:
+        _check_rows(k.name, ref, out, mask)
+    assert not out[:, intmask & ~mask].any()
+    _check_forms(k, J, grid, cfg, out, intmask, mask, seed=cap,
+                 plain=not bf16)
 
 
 def _xh_iad_frame(grid, stage, seed):
@@ -440,6 +479,29 @@ def test_iad_forms_match_plain(cuda, cap):
     cfg = SphConfig()
     k = pv.pair_iad
     J, valid = _xh_iad_frame(grid, k.name, seed=cap + 1)
+    J = torch.from_numpy(J).to(cuda)
+    intmask = torch.tensor(np.repeat(_interior_cells_np(grid), cap),
+                           device=cuda)
+    mask = intmask & torch.from_numpy(valid).to(cuda)
+    before = k.launches
+    out = k(J, None, grid, cfg)
+    assert k.launches == before + 1
+    ref = k.plain(J, None, grid, cfg)
+    _check_rows(k.name, ref, out, mask)
+    assert not out[:, intmask & ~mask].any()
+    _check_forms(k, J, grid, cfg, out, intmask, mask, seed=cap)
+
+
+@pytest.mark.parametrize("cap", MOMENTUM_CAPS)
+def test_iad_mm_forms_match_plain(cuda, cap):
+    """K8 (tile::IadMmStage) on full, partial and empty cells (empty
+    second i-tiles at cap 256) against plain, its 14 rows at 1e-4 of
+    their scale, zero on invalid interior slots; K11 and K2g as in
+    _check_forms. Its inputs are K5's frame (the same J rows)."""
+    grid = CMGrid(n=3, cap=cap)
+    cfg = SphConfig(mxu_moments=True)
+    k = pv.pair_iad_mm
+    J, valid = _xh_iad_frame(grid, "pair_iad", seed=cap + 5)
     J = torch.from_numpy(J).to(cuda)
     intmask = torch.tensor(np.repeat(_interior_cells_np(grid), cap),
                            device=cuda)
