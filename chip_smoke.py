@@ -28,9 +28,13 @@ Phases (any failure exits non-zero before the last line):
      K4-K7 hold their fill values exactly (K4 1.0, the others 0);
   6. (c) the block-time-step path: BdtVE at Sedov 100^3, 4 rungs, one
      warm-up cycle, then 2 timed cycles of 8 substeps (counters zeroed
-     just before, read just after); (d) each gated stage timed at the
-     inputs of a substep that skips cells, beside the ungated stage,
-     its gated plain version and its bound;
+     just before, read just after; the gate pass pair_gate five times a
+     substep); (d) each gated stage timed at the inputs of a substep
+     that skips cells, beside the ungated stage, its gated plain
+     version, its bound and the same launch with no active supercell;
+     then the gate pass: its device count, list and supercell flags
+     against supercell_active and its plain version, and its time
+     alone;
   7. the moment-matmul and avClean bodies (SphConfig mxu_moments +
      mxu_momentum, + mxu_bf16, av_clean): (e) K8, K9, K10 (float32 and
      bf16) and K7c against their plain versions at Sedov 30^3, and the
@@ -45,7 +49,8 @@ Phases (any failure exits non-zero before the last line):
      its plain version and its bound; K10's tensor-core blocks (issued,
      staged, dense) counted by the kernel on the card (a stats buffer)
      and held against the count its inputs predict (mm_block_counts),
-     and the registers and spills of every K8 and K10 form;
+     K9's lane counts and fill values (cell, K2g and K11 forms), and the
+     registers and spills of every K8, K9 and K10 form;
   8. (i) the column launch K11: at Sedov 30^3 (perturbed) under each of
      the four configurations every column stage against its plain
      version and against the cell launch on the same inputs at several
@@ -74,15 +79,17 @@ Phases (any failure exits non-zero before the last line):
      pair kernels timed, K4-K7's lane counts, fill values and K3's
      walks at cap 256; ShardedBdtVE at
      100^3, D = 2, 4 rungs, one warm-up and one timed cycle, its rungs
-     beside BdtVE's on the same global grid;
+     beside BdtVE's on the same global grid, and one more substep of
+     the shards under PyTorch's sync check set to errors;
   11. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
 python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
-steps and 2 BdtVE cycles at Sedov 100^3, K8 and K10 (float32, bf16)
-and 3 steps under mxu_moments + mxu_momentum at 100^3, and K3-K7 in a
-D = 2 sharded step at cap 256, only (see compare_main), to compare two
-checkouts of the repository in one call.
+steps and 2 BdtVE cycles at Sedov 100^3, the five gated stages at the
+inputs of substep 1 and with no active supercell, K8, K9 and K10
+(float32, bf16) and 3 steps under mxu_moments + mxu_momentum at 100^3,
+and K3-K7 in a D = 2 sharded step at cap 256, only (see compare_main),
+to compare two checkouts of the repository in one call.
 """
 
 from __future__ import annotations
@@ -133,6 +140,7 @@ MM_IB, MM_UJ, MM_NF = 64, 32, 5
 # moment columns built per (i-cell, staged j-slot)
 COL_FLOPS = {"pair_iad_mm": 21, "pair_av_mm": 12, "pair_momentum_mm": 51}
 GATED_REPLACES = "sphexa_tpu/ops/pallas_ve.py:162-253"
+GATE_REPLACES = "sphexa_tpu/ops/pallas_ve.py:242-251"
 REPLACES = {
     "ghost_refresh": "sphexa_tpu/ops/pallas_ve.py:349",
     "pair_xh": "sphexa_tpu/ops/pallas_ve.py:537",
@@ -203,7 +211,8 @@ BF16_SHARE = 0.25
 # cell_pair.cu, St::fill; K4 1.0: kx is a divisor downstream,
 # pallas_ve.py:667), held exactly on the invalid interior slots
 FILL = {"pair_gradh": 1.0, "pair_iad": 0.0, "pair_av": 0.0,
-        "pair_momentum": 0.0, "pair_momentum_avclean": 0.0}
+        "pair_momentum": 0.0, "pair_momentum_avclean": 0.0,
+        "pair_iad_mm": 0.0, "pair_av_mm": 0.0}
 # the stages on the tiled routine whose lane counts are reported, and
 # their report keys
 LANE_STAGES = {"pair_gradh": "k4_lanes", "pair_iad": "k5_lanes",
@@ -215,19 +224,26 @@ def stage_of(name: str) -> str:
     return name.removesuffix("_gated")
 
 
+def body_of(name: str) -> str:
+    """The cell stage whose body a kernel runs (K2g and K11 forms)."""
+    return stage_of(name).removesuffix("_column")
+
+
 def log(*a):
     print(*a, flush=True)
 
 
 def check_fill(k, J, out, intmask):
-    """The invalid interior slots of a tiled stage's cell launch hold its
-    FILL value exactly. Returns how many slots were held."""
-    if k.name not in FILL:
+    """The invalid slots of `intmask` (the interior slots; a gated
+    stage's: those of its active supercells) hold the FILL value of the
+    tiled stage's body exactly. Returns how many slots were held."""
+    name = body_of(k.name)
+    if name not in FILL:
         return 0
     bad = intmask & ~valid_slots(J)
-    if not bool((out[:, bad] == FILL[k.name]).all()):
+    if not bool((out[:, bad] == FILL[name]).all()):
         raise AssertionError(f"{k.name}: invalid interior slots differ from "
-                             f"{FILL[k.name]}")
+                             f"{FILL[name]}")
     return int(bad.sum())
 
 
@@ -517,7 +533,8 @@ def engine_check(report, cname=None):
 def all_kernels():
     """Every kernel wrapper with a launch counter."""
     from sphexa_tpu_torch.ops import pair_ve as pv
-    return (pv.ghost_refresh, pv.ghost_refresh_xy) + pv.PAIR_KERNELS
+    return (pv.ghost_refresh, pv.ghost_refresh_xy, pv.pair_gate) \
+        + pv.PAIR_KERNELS
 
 
 def main_path(report, cname=None, steps=10, rebin_at=5):
@@ -618,17 +635,17 @@ def pair_counts(J, eng, grid, nc_sph):
 
 def lane_counts(J, grid, intmask, batch_pairs=2 ** 28):
     """The work of the tiled pair routine (csrc/cell_pair.cu
-    tile::pair_cell: K4-K7, K7c) on these inputs, counted on the card
+    tile::pair_cell: K4-K9, K7c) on these inputs, counted on the card
     from J (rows x, y, z, h), with the kernels' own support test:
     in-support pairs (valid interior i, valid j), and the lane
     efficiency (pairs / (32 * warp body executions)) of three designs.
-    Old (a thread per i-slot walking every j-slot, cell_pair_stream): a
+    Old (a thread per i-slot walking every j-slot, the former skeleton): a
     warp runs the body for each (warp, j-slot) where any lane is in
     support. Compacted (K7, K7c): per warp of 32 i-slots and chunk of 32
     staged j-slots, the in-support pairs run in rounds of 32 lanes.
-    Per lane (K4, K5, K6): per warp and chunk, each lane walks its own
-    in-support pairs, so the warp runs the body as often as its busiest
-    lane. Also the support tests each design issues per warp: old every
+    Per lane (K4, K5, K6, K8, K9): per warp and chunk, each lane walks
+    its own in-support pairs, so the warp runs the body as often as its
+    busiest lane. Also the support tests each design issues per warp: old every
     slot of the 27 cells for every warp; new, warps with a valid i-slot
     over each j-tile's slots up to its last valid one."""
     import torch
@@ -725,8 +742,13 @@ def routine_ptxas():
         plain = names
     if len(plain) != len(names):
         plain = names
-    keys = {n: re.sub(r"^void ", "", d.split("(")[0])
-            for n, d in zip(names, plain)}
+    # the demangled name without the anonymous namespaces, the internal
+    # linkage prefix, the return type and the arguments
+    keys = {}
+    for n, d in zip(names, plain):
+        d = re.sub(r"_INTERNAL_\w+::", "",
+                   d.replace("(anonymous namespace)::", ""))
+        keys[n] = re.sub(r"^void ", "", d.split("(")[0])
 
     # ptxas compiles a routine once for each kernel that calls it and
     # prints its properties after that kernel's: each copy is keyed
@@ -958,6 +980,8 @@ def gated_compare(kg, args, out, intmask, per_row):
     if not (torch.equal(out[:, keep], prev[:, keep])
             and torch.equal(ref[:, keep], prev[:, keep])):
         raise AssertionError(f"{kg.name}: inactive supercells != prev")
+    if out[:, ~intmask].any():
+        raise AssertionError(f"{kg.name}: slots outside the interior != 0")
     return compare(kg.name, ref, out, valid_slots(J) & intmask & on,
                    per_row=per_row)
 
@@ -1087,6 +1111,7 @@ def bdt_main_path(report, cname=None, cycles=2):
     used = {k.name for k in eng.pve_gated.kernels}
     want = {k.name: nsub if k.name in used else 0 for k in kernels}
     want["ghost_refresh"] = 5 * nsub
+    want["pair_gate"] = 5 * nsub          # one a gated stage
     assert launches == want, (launches, want)
     per = 1 + (1 << (nr - 1))          # events a cycle: resync, substeps
     whats = [w for w, _ in marks]
@@ -1196,6 +1221,7 @@ def bdt_timing(report, eng, bst, launches, cname=None):
 
     rows = []
     ok_on = on_slot & valid_slots(J) & eng.intmask
+    act_mask = on_slot & eng.intmask
     for kg, args, out in calls:
         J, I2, g, c, (act, prev), zgroup = args
         if cname is not None and kg.name.removesuffix("_gated") not in DIRECT:
@@ -1204,9 +1230,23 @@ def bdt_timing(report, eng, bst, launches, cname=None):
                  if not x.gated and x.name == stage_of(kg.name))
         err, rel = gated_compare(kg, args, out, eng.intmask,
                                  per_row=False)
+        nfill = check_fill(kg, J, out, act_mask)
+        if kg.name == "pair_av_mm_gated":
+            lc = lane_counts(J, g, act_mask)
+            report["k9_gated_lanes"] = lc
+            log_lanes(f"{kg.name} at cap {g.cap}, active supercells", lc)
         ms = cuda_ms(lambda: kg._launch(*args), 5)
         ungated_ms = cuda_ms(lambda: k._launch(J, I2, g, c), 5)
         plain_ms = cuda_ms(lambda: kg.plain(*args), 1)
+        # the same launch with no active supercell: the gate pass, the
+        # blocks past the device count and the copy only; both also as
+        # device time (a CUDA graph) and host dispatch
+        idle = (torch.zeros_like(act), prev)
+        idle_ms = cuda_ms(lambda: kg._launch(J, I2, g, c, idle, zgroup), 5)
+        sp = split_ms(lambda: kg._launch(*args))
+        sp_idle = split_ms(lambda: kg._launch(J, I2, g, c, idle, zgroup))
+        report.setdefault("bdt_gated_split", {})[kg.name] = dict(
+            substep1=sp, none_active=sp_idle)
         ops = cand_a * GEO_FLOPS + inside_a * BODY_FLOPS[k.name]
         if k.name == "pair_xh":
             ops += recount * RECOUNT_FLOPS
@@ -1220,14 +1260,73 @@ def bdt_timing(report, eng, bst, launches, cname=None):
             source="sphexa_tpu_torch/csrc/cell_pair.cu",
             replaces=GATED_REPLACES, launches=launches[kg.name],
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None))
+            bound_ms=bound, bound_by=by, library_ms=None, idle_ms=idle_ms))
         report.setdefault("bdt_ungated_ms", {})[kg.name] = ungated_ms
         log(f"  {kg.name:20s} {ms:9.3f} ms  ungated {ungated_ms:9.3f} ms  "
-            f"plain {plain_ms:10.3f} ms  bound {bound:.4f} ms ({by})  err "
-            f"{err:.3e} (rel {rel:.3e})")
+            f"none active {idle_ms:7.3f} ms  plain {plain_ms:10.3f} ms  "
+            f"bound {bound:.4f} ms ({by})  err {err:.3e} (rel {rel:.3e})"
+            + (f"; {nfill} invalid active slots at their fill" if nfill
+               else ""))
+        log(f"    device (CUDA graph) {sp['device_ms']:.4f} ms, none active "
+            f"{sp_idle['device_ms']:.4f} ms; host dispatch "
+            f"{sp['host_ms']:.4f} ms")
+    if cname is None:
+        rows.append(gate_timing(report, calls, launches))
     report["kernels_gated" if cname is None
            else f"kernels_gated_{cname}"] = rows
     return rows
+
+
+def gate_timing(report, calls, launches):
+    """Phase (d), after the timing: K2g's gate pass at the substep-1
+    inputs (one act row for the five stages): its device count, sorted
+    list and supercell flags against supercell_active and its plain
+    version (gate_plan), then timed alone (its kernel row, per launch).
+    A list built once a substep and shared by the five stages would save
+    four of these passes."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    gp = pv.pair_gate
+    _, (J, I2, g, c, (act, prev), zgroup), _ = calls[0]
+    Z = pv.resolve_zgroup(g, zgroup)
+    ws = gp._launch(act, g, Z)
+    ref = gp.plain(act, g, Z)
+    inner = torch.tensor(pv.interior_cells(g), device=act.device)
+    n_cells = int(pv.supercell_active(act, g, Z)[inner].sum())
+    count, n_ref = int(ws[0]), int(ref[0])
+    m = min(count, n_ref)
+    listed = ws[pv.GATE_HDR:pv.GATE_HDR + count].sort().values
+    flags = pv.gate_flags(g)
+    # mismatches: the counts apart, then list entries and flags that differ
+    bad = (abs(count - n_cells) + abs(count - n_ref)
+           + int((listed[:m] != ref[pv.GATE_HDR:pv.GATE_HDR + m]).sum())
+           + int((ws[flags:] != ref[flags:]).sum()))
+    if bad:
+        raise AssertionError(f"gate pass: count {count}, supercell_active "
+                             f"{n_cells}, plain {n_ref}; {bad} mismatches")
+    sp = split_ms(lambda: gp._launch(act, g, Z))
+    ms = sp["events_ms"]
+    plain_ms = cuda_ms(lambda: gp.plain(act, g, Z), 3)
+    # act of the interior columns' supercells (their z-ghost cells
+    # too) read once; the header, the list and the flags written
+    nbytes = 4 * (g.nx * g.n * g.npz * g.cap + pv.GATE_HDR + count
+                  + ws.numel() - flags)
+    bound = nbytes / HBM_BW * 1e3
+    report["gate_pass"] = dict(sp, plain_ms=plain_ms, bound_ms=bound,
+                               count=count)
+    log(f"  pair_gate  {ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+        f"{bound:.4f} ms (bytes); device (CUDA graph) {sp['device_ms']:.4f} "
+        f"ms, host dispatch {sp['host_ms']:.4f} ms; device count {count} = "
+        f"supercell_active's, list and flags = its plain version's; a list "
+        f"shared by the five stages would save 4 x {sp['device_ms']:.4f} ms "
+        f"of device time a substep")
+    return dict(
+        name="pair_gate", route="cuda",
+        source="sphexa_tpu_torch/csrc/cell_pair.cu", replaces=GATE_REPLACES,
+        launches=launches["pair_gate"], max_abs_err=float(bad), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+        library_ms=None)
 
 
 def _mm_count_body(I, Jn, i2, **_):
@@ -1365,10 +1464,12 @@ def mm_blocks(k, args, what):
 
 
 def mm_ptxas():
-    """Registers and spills of every K8 and K10 form (routine_ptxas)."""
+    """Registers and spills of every K8, K9 and K10 form
+    (routine_ptxas)."""
     regs = routine_ptxas()
     return {k: v for k, v in regs.items() if k != "raw" and
-            ("IadMm" in k or "mm_cell" in k or "cell_mm" in k)}
+            ("IadMm" in k or "AvMm" in k or "mm_cell" in k
+             or "cell_mm" in k)}
 
 
 def mm_kernel_check(report):
@@ -1404,9 +1505,12 @@ def mm_kernel_check(report):
                 f"most {share:.3e} of the bf16-to-float32 distance")
             continue
         err, rel = compare(k.name, k.plain(*args), out, mask, per_row=True)
-        errs[name] = dict(max_abs_err=err, max_rel_err=rel)
+        nfill = check_fill(k, args[0], out, eng.intmask)
+        errs[name] = dict(max_abs_err=err, max_rel_err=rel, fill_slots=nfill)
         log(f"  {CHECK_SIDE}^3 {name:22s} max abs err {err:.3e}, "
-            f"max rel err (to row scale) {rel:.3e}")
+            f"max rel err (to row scale) {rel:.3e}"
+            + (f"; {nfill} invalid interior slots at {FILL[name]}"
+               if nfill else ""))
     J0 = calls["pair_iad_mm"][1][0]
     act, kinds = activity_pattern(grid, valid_slots(J0), seed=3)
     r = np.random.default_rng(4)
@@ -1457,8 +1561,8 @@ def mm_timing(report, eng, rst, grid, launches, bf16_launches=None):
         regs = mm_ptxas()
         spilled = [k for k, v in regs.items()
                    if v.get("spill_stores") or v.get("spill_loads")]
-        log(f"  K8 and K10 registers and spills (ptxas): {regs}")
-        log(f"  spills in the K8 and K10 forms: {spilled or 'none'}")
+        log(f"  K8, K9 and K10 registers and spills (ptxas): {regs}")
+        log(f"  spills in the K8, K9 and K10 forms: {spilled or 'none'}")
         report["mm_ptxas"] = regs
     for name, row_name, launched, args, out in runs:
         k = calls[name][0]
@@ -1470,6 +1574,12 @@ def mm_timing(report, eng, rst, grid, launches, bf16_launches=None):
             err, rel = bf16_compare(k, args, out, ok)
         else:
             err, rel = compare(name, k.plain(*args), out, ok, per_row=False)
+        nfill = check_fill(k, J, out, eng.intmask)
+        if name == "pair_av_mm":
+            lc = lane_counts(J, g, eng.intmask)
+            report["k9_lanes"] = lc
+            log_lanes(f"{name} at cap {g.cap} ({nfill} invalid interior "
+                      f"slots at 0)", lc)
         ms = cuda_ms(lambda: k._launch(*args), 5)
         plain_ms = cuda_ms(lambda: k.plain(*args), 1)
         direct = next(x for x in pv.KERNELS if x.name == DIRECT[name])
@@ -1667,6 +1777,12 @@ def column_timing(report, cname, eng, rst, launches):
             err, rel = bf16_compare(kc, args, out, ok)
         else:
             err, rel = compare(name, kc.plain(*args), out, ok, per_row=False)
+        nfill = check_fill(kc, J, out, eng.intmask)
+        if name == "pair_av_mm":
+            lc = lane_counts(J, g, eng.intmask)
+            report["k9_column_lanes"] = lc
+            log_lanes(f"{kc.name} at cap {g.cap} ({nfill} invalid interior "
+                      f"slots at 0)", lc)
         ms = cuda_ms(lambda: kc._launch(*args), 5)
         forms = {f"S{zseg}": cuda_ms(lambda: launch_zseg(kc, args, zseg), 3)
                  for zseg in (1, 2, 4, 8, g.nz)}
@@ -2290,6 +2406,7 @@ def sharded_bdt_main_path(report, D=2, nr=4):
     want = {k.name: D * nsub if k.name in used else 0 for k in kernels}
     # five refreshes a substep, and the resync's 15-row local bind
     want["ghost_refresh_xy"] = D * (5 * nsub + 1)
+    want["pair_gate"] = D * 5 * nsub
     assert launches == want, (launches, want)
     etot = float(ds[-1].etot)
     drift = abs(etot - e0) / e0
@@ -2307,9 +2424,22 @@ def sharded_bdt_main_path(report, D=2, nr=4):
     hist = [x.rung_hist.tolist() for x in warm]
     hist1 = [x.rung_hist.tolist() for x in warm1]
     assert differ <= 1e-3 * n, (differ, hist, hist1)
+    del eng1, b1
+
+    # the shards' substep takes no host sync: one more, untimed and
+    # uncounted, with PyTorch's sync check turned to errors
+    b2, _ = eng.resync(bsts)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.substep(b2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
     log(f"  100^3 ShardedBdtVE D={D}, {nr} rungs: {cycle_ms:.3f} ms/cycle, "
         f"sim-time per wall-second {sim / (cycle_ms * 1e-3):.6e}; overflow "
-        f"0, lost 0, |etot - e0|/e0 = {drift:.3e}")
+        f"0, lost 0, |etot - e0|/e0 = {drift:.3e}; the shards' substep ran "
+        f"with no host sync")
     log(f"  warm-up cycle rung_hist sharded {hist[0]} vs one card "
         f"{hist1[0]}; particles whose rung differs: {differ}; launches "
         f"{dict((k, v) for k, v in launches.items() if v)}")
@@ -2320,8 +2450,8 @@ def sharded_bdt_main_path(report, D=2, nr=4):
 
 
 def compare_mm():
-    """--compare's moment-matmul part: K8 and K10 (float32, bf16) at the
-    inputs of a Sedov 100^3 step under mxu_moments + mxu_momentum, 3 x 5
+    """--compare's moment-matmul part: K8, K9 and K10 (float32, bf16) at
+    the inputs of a Sedov 100^3 step under mxu_moments + mxu_momentum, 3 x 5
     launches each, K10's blocks (zero counts from a kernel without the
     counter), then 3 timed steps of that configuration."""
     import torch
@@ -2334,7 +2464,7 @@ def compare_mm():
     rst = eng.bind(state)
     for _ in range(2):
         rst, _ = eng.step(rst)
-    with Spy((pv.pair_iad_mm, pv.pair_momentum_mm)) as spy:
+    with Spy((pv.pair_iad_mm, pv.pair_av_mm, pv.pair_momentum_mm)) as spy:
         eng.step(rst)
     torch.cuda.synchronize()
     for k, (J, I2, g, c), _ in spy.calls:
@@ -2365,13 +2495,15 @@ def compare_mm():
 
 
 def compare_main(tag: str) -> int:
-    """--compare [tag]: K1, K1z and the redesigned pair kernels (K3-K8,
-    K10) alone, so that two checkouts can be compared in one call. K1
+    """--compare [tag]: K1, K1z and the redesigned pair kernels (K3-K10)
+    alone, so that two checkouts can be compared in one call. K1
     over the five refreshes of one Sedov 100^3 resident step, and K3-K7
     at that step's inputs (events time; K3's walks counted on the card
     where the checkout has the counter; K4-K7's in-support pairs and
     lane efficiency; registers), then 3 timed resident steps and 2
-    timed BdtVE cycles (4 rungs); K8 and K10 (float32 and mxu_bf16) at
+    timed BdtVE cycles (4 rungs), then the five gated stages at the
+    inputs of substep 1 of a cycle and with no active supercell; K8, K9
+    and K10 (float32 and mxu_bf16) at
     the inputs of a Sedov 100^3 step under mxu_moments + mxu_momentum
     (after two warm-up steps; K10's mma blocks counted on the card
     where the checkout has the counter), then 3 timed steps of that
@@ -2435,7 +2567,27 @@ def compare_main(tag: str) -> int:
     torch.cuda.synchronize()
     out["step_ms"] = [a.elapsed_time(b) for a, b in zip(step_ev, step_ev[1:])]
     out["bdt_cycle_ms"] = [a.elapsed_time(b) for a, b in zip(cyc, cyc[1:])]
-    del beng, bst, state_b
+    # the five gated stages at the inputs of substep 1 of a cycle, and
+    # with no active supercell
+    bst, _ = beng.resync(bst)
+    bst, _ = beng.substep(bst)
+    with Spy(beng.pve_gated.kernels) as spy:
+        beng.substep(bst)
+    torch.cuda.synchronize()
+    for kg, args, _ in spy.calls:
+        J, I2, g, c, (act, prev), zgroup = args
+        idle = (J, I2, g, c, (torch.zeros_like(act), prev), zgroup)
+        for key, a in ((f"{kg.name}_ms", args), (f"{kg.name}_idle_ms", idle)):
+            out[key] = [cuda_ms(lambda: kg._launch(*a), 5) for _ in range(3)]
+            out[key.replace("_ms", "_split")] = split_ms(
+                lambda: kg._launch(*a))
+        log(f"  {kg.name} substep 1: {out[f'{kg.name}_ms']} ms, none active "
+            f"{out[f'{kg.name}_idle_ms']} ms (events, 3 x 5 launches); "
+            f"device (CUDA graph) {out[f'{kg.name}_split']['device_ms']:.4f}"
+            f", none active {out[f'{kg.name}_idle_split']['device_ms']:.4f} "
+            f"ms; host dispatch "
+            f"{out[f'{kg.name}_split']['host_ms']:.4f} ms")
+    del beng, bst, state_b, spy
     log_split(f"K1 {grid}, {len(ghost)} refreshes", out["K1"])
     log(f"  resident step {out['step_ms']} ms, BdtVE cycle "
         f"{out['bdt_cycle_ms']} ms (4 rungs, after a warm-up cycle)")

@@ -10,25 +10,21 @@
 //   stage 4  K7   tile::MomStage<false> <- _momentum_body (pallas_ve.py:
 //                                    1022), avClean off
 //   stage 5  K8   tile::IadMmStage <- _iad_hybrid_body (pallas_ve.py:769)
-//   stage 6  K9   AvMmBody        <- _av_mm_body       (pallas_ve.py:949)
+//   stage 6  K9   tile::AvMmStage <- _av_mm_body       (pallas_ve.py:949)
 //   stage 7  K10  mm::mm_cell     <- _momentum_mm_body (pallas_ve.py:1190)
 //   stage 8  K7c  tile::MomStage<true> <- _momentum_body, avClean branch
 //                                    (pallas_ve.py:1031-1033, :1057-1060,
 //                                    :1094-1116)
 //
-// Launch skeletons. Stage 6 (cell_pair_stream): one thread block per
-// interior cell, one thread per i-slot (blockDim = cap); the block walks
-// the 27 neighbour cells, stages each cell's [FJ, cap] j-rows in shared
-// memory, and every thread accumulates its pair sums in registers; all
-// threads read the same j value at once (a shared-memory broadcast).
-// Stages 1, 2, 3, 4, 5 and 8 (tile::pair_cell): blocks of min(cap, 128)
-// threads a cell's i-tile, occupied slots only, double-buffered cp.async
-// staging; K7's in-support pairs compacted across lanes, K4's, K5's,
-// K6's and K8's evaluated by their own lanes. Stage 0 (xh::xh_cell): the
-// same blocks, the occupied slots of the 27 cells in one flat run,
-// walked again only where the h controller moved h. Stage 7 (mm::
-// mm_cell): the pair weights on the float32 cores, their contraction
-// with the moment columns on the tensor cores (mma.sync).
+// Launch skeletons. Stages 1-6 and 8 (tile::pair_cell): blocks of
+// min(cap, 128) threads a cell's i-tile, occupied slots only,
+// double-buffered cp.async staging; K7's in-support pairs compacted
+// across lanes, K4's, K5's, K6's, K8's and K9's evaluated by their own
+// lanes. Stage 0 (xh::xh_cell): the same blocks, the occupied slots of
+// the 27 cells in one flat run, walked again only where the h
+// controller moved h. Stage 7 (mm::mm_cell): the pair weights on the
+// float32 cores, their contraction with the moment columns on the
+// tensor cores (mma.sync).
 //
 // Frame contract (as the Pallas kernels): invalid slots carry FILL_POS
 // positions and drop out through the distance overflow; self-pairs are
@@ -44,23 +40,27 @@
 // from L2), so its floor is pair work over the card's fp32 rate.
 //
 // K2g, the gated form (make_cell_pair_call(gated=True), pallas_ve.py:
-// 162-172 and :242-251), launches the same bodies with an activity row
-// and the previous outputs (PairGate below). A block whose z-supercell
-// is inactive only copies FO rows of its slots, so the gated stage is
-// bounded by the pair work of the active supercells plus that copy
-// (bytes). It still launches a block for every interior cell: inactive
-// blocks cost a launch slot and one read of Z*cap act values.
+// 162-172 and :242-251), is two launches. The gate pass (gate_pass
+// below) reduces the activity row per z-supercell and lists the interior
+// cells of the active supercells in a device list with a device count.
+// The stage's kernel then runs the cell launch's grid: block x of an
+// i-tile computes listed cell x through the cell launch's routine while
+// x is below the device count, and every block writes its share of the
+// rest of the output (gate_copy): prev on the interior slots of the
+// inactive supercells, 0 outside the interior cells. No block computes
+// an inactive cell, and nothing reads the count on the host. The gated
+// stage is bounded by the pair work of the active supercells plus the
+// act read and the copy's bytes.
 //
 // K11, the column launch (make_column_pair_call, pallas_ve.py:273, call
 // :330; PallasVE(kernel_mode="column")), runs the same bodies with a
 // block per z-segment of zseg consecutive cells of one interior (x, y)
-// column, walking z (pair_launch_column), each cell as the cell launch
-// computes it: K9 stages each neighbour cell in turn
-// (cell_pair_stream), and K3-K8, K10 and K7c call the cell launch's
-// routine for each cell (xh::xh_cell, tile::cell_tile, mm::cell_mm).
-// So each thread visits the 27 cells in the cell launch's order, its
-// sums, and the outputs on interior slots, are those of the cell launch
-// bit for bit; the output rows are written on interior slots only.
+// column, walking z (pair_launch_column): each stage calls the cell
+// launch's routine for each cell (xh::xh_cell, tile::cell_tile,
+// mm::cell_mm). So each thread visits the 27 cells in the cell launch's
+// order, its sums, and the outputs on interior slots, are those of the
+// cell launch bit for bit; the output rows are written on interior slots
+// only.
 
 #include <cstdint>
 #include <type_traits>
@@ -89,11 +89,15 @@ struct PairParams {
     unsigned long long* stats;
 };
 
-// K2g's gate (see gate_closed); act == nullptr for the ungated stage
+// K2g's gate: ws, the workspace its gate pass filled (gate_pass), or null
+// for the ungated stage. ws[0] is the count of listed cells,
+// ws[SPH_GATE_HDR + q] the padded id of listed cell q, ws[gate_flags(g) +
+// sc] supercell sc's flag. out and prev are 16-byte aligned (pair_ve.py
+// checks it).
 struct PairGate {
-    const float* act;    // [n_slots] 0/1 activity (row 0 of the TPU's act)
+    const int* ws;
     const float* prev;   // [FO, n_slots] outputs kept by inactive supercells
-    int Z;               // z-supercell size; divides npz
+    int Z;               // the z-supercell size
 };
 
 namespace {
@@ -142,11 +146,6 @@ __device__ __forceinline__ float w_v2(float v2, int n_w)
 {
     return v2 < 4.0f ? pow_int(sinc_poly(v2), n_w) : 0.0f;
 }
-
-// staged j-row s of the current candidate k
-#define SJ(s) sj[(s) * stride + k]
-// J row r of this block's i-slot
-#define JI(r) J[(long long)(r) * ns + islot]
 
 // --------------------------------------------------------------------------
 // stage 2 (K5) and stage 5 (K8), tile::IadStage and tile::IadMmStage
@@ -204,97 +203,6 @@ __device__ float alpha_tail(const float* I2, long long islot, long long ns,
 }
 
 // --------------------------------------------------------------------------
-// stage 6 (K9): AV switches with graddivv from 8 cell-centred
-// j-moments. Replaces _av_mm_body (pallas_ve.py:949, dot :991). The
-// signal-speed max stays per pair (a max is no sum); the staged j-slot
-// builds vol_j (1, x_jc) and vol_j (divv_j - o_divv)(1, x_jc), and each
-// in-support pair adds W_ij times the 8 columns. Bound: arithmetic, as
-// K6 with 8 FMAs per pair in place of the 3 termA projections.
-// --------------------------------------------------------------------------
-struct AvMmBody {
-    static constexpr int FJ = 10;   // x y z c kx xm divv vx vy vz
-    static constexpr int FO = 1;
-    static constexpr int NM = 8;
-    static constexpr int NORIGIN = 4;   // x y z divv
-    __device__ static int jrow(int s) { return s < 3 ? s : s + 2; }
-    __device__ static int orow(int r) { return r < 3 ? r : 8; }
-
-    __device__ static void moments(float* sj, int cap, int j,
-                                   const float* o)
-    {
-        const float volj = sj[5 * cap + j] / sj[4 * cap + j];
-        const float vd = volj * (sj[6 * cap + j] - o[3]);
-        float* M = sj + FJ * cap + j;
-        M[0] = volj;
-        M[4 * cap] = vd;
-#pragma unroll
-        for (int b = 0; b < 3; ++b) {
-            const float xc = sj[b * cap + j] - o[b];
-            M[(1 + b) * cap] = volj * xc;
-            M[(5 + b) * cap] = vd * xc;
-        }
-    }
-
-    float xi, yi, zi, hi, hinv2, ci, divvi, vxi, vyi, vzi;
-    float vsig;
-    float mom[NM];
-    int n_w;
-    const float* org;
-
-    __device__ void load_i(const float* J, const float*, long long islot,
-                           long long ns, const PairParams& p)
-    {
-        xi = JI(0); yi = JI(1); zi = JI(2); hi = JI(3);
-        ci = JI(5); divvi = JI(8); vxi = JI(9); vyi = JI(10); vzi = JI(11);
-        float hinv = __fdiv_rn(1.0f, hi);
-        hinv2 = __fmul_rn(hinv, hinv);
-        vsig = SPH_NEG;
-#pragma unroll
-        for (int k = 0; k < NM; ++k) mom[k] = 0.0f;
-        n_w = p.n_w;
-    }
-
-    __device__ void pair(const float* sj, int k, int stride)
-    {
-        float rx = __fsub_rn(xi, SJ(0)), ry = __fsub_rn(yi, SJ(1)),
-              rz = __fsub_rn(zi, SJ(2));
-        float d2 = dist2(rx, ry, rz);
-        float v2 = __fmul_rn(d2, hinv2);
-        if (!(v2 < 4.0f)) return;
-        float rv = rx * (vxi - SJ(7)) + ry * (vyi - SJ(8)) + rz * (vzi - SJ(9));
-        if (rv < 0.0f)
-            vsig = fmaxf(vsig, ci + SJ(3) - 3.0f * rv * rsqrtf(fmaxf(d2, 1e-30f)));
-        float w = pow_int(sinc_poly(v2), n_w);
-#pragma unroll
-        for (int m = 0; m < NM; ++m) mom[m] += w * SJ(FJ + m);
-    }
-
-    __device__ void store(const float* J, const float* I2, float* out,
-                          long long islot, long long ns, const PairParams& p)
-    {
-        const float xib[3] = {xi - org[0], yi - org[1], zi - org[2]};
-        const float dvic = divvi - org[3];
-        float G[3];
-#pragma unroll
-        for (int b = 0; b < 3; ++b)
-            G[b] = xib[b] * (dvic * mom[0] - mom[4])
-                - (dvic * mom[1 + b] - mom[5 + b]);
-        float c[6];
-#pragma unroll
-        for (int r = 0; r < 6; ++r) c[r] = I2[r * ns + islot];
-        const float hinv = __fdiv_rn(1.0f, hi);
-        const float scale = p.K3d * (hinv * hinv2);
-        float gx = -(c[0] * G[0] + c[1] * G[1] + c[2] * G[2]) * scale;
-        float gy = -(c[1] * G[0] + c[3] * G[1] + c[4] * G[2]) * scale;
-        float gz = -(c[2] * G[0] + c[4] * G[1] + c[5] * G[2]) * scale;
-        float alpha = alpha_tail(I2, islot, ns, p,
-                                 sqrtf(gx * gx + gy * gy + gz * gz),
-                                 fmaxf(vsig, 1e-30f * ci), divvi, hi, ci);
-        out[islot] = xi < HALF_FILL ? alpha : 0.0f;
-    }
-};
-
-// --------------------------------------------------------------------------
 // stage 4: momentum and energy
 // --------------------------------------------------------------------------
 __device__ __forceinline__ void exp_pair(float x, float& ep, float& em)
@@ -306,9 +214,6 @@ __device__ __forceinline__ void exp_pair(float x, float& ep, float& em)
     ep = even + odd;
     em = even - odd;
 }
-
-#undef SJ
-#undef JI
 
 // --------------------------------------------------------------------------
 // launch skeletons
@@ -350,38 +255,137 @@ __device__ __forceinline__ Walk block_walk(const PairGeom& g, int zseg)
     }
 }
 
-// K2g, the gate of the block-time-step pipeline: the block of interior
-// cell c belongs to the z-supercell of padded z-cells [t*Z, (t+1)*Z) of
-// its (x, y) column, t = cz / Z (make_cell_pair_call's program unit).
-// When no slot of the supercell has act > 0.5, the block copies prev
-// into out for its own cap slots and returns before staging any j-cell.
-// The flag is read over the whole supercell, so an inactive cell inside
-// an active supercell is recomputed, as on the TPU (its fresh outputs
-// are what its active neighbours read in the next stage). Any block
-// size works: the threads stride over the Z*cap flags and cap slots.
-// A block that computes only some i-slots of its cell (K7's i-tiles)
-// copies slots [s0, s0 + nslot) of it.
-template <int FO>
-__device__ __forceinline__ bool gate_closed(const PairGate& gt,
-                                            const PairGeom& g,
-                                            long long own, float* out,
-                                            int s0 = 0, int nslot = -1)
+// --------------------------------------------------------------------------
+// K2g, the gated launch: replaces make_cell_pair_call's gate (pallas_ve.py:
+// 162-172, :242-251: a program computes its z-supercell only where
+// max(act) > 0.5 over the supercell's Z * cap slots, else copies prev).
+// A z-supercell is padded z-cells [t Z, (t + 1) Z) of one (x, y) column of
+// the padded grid, numbered sc = column * (npz / Z) + t.
+// The gate pass (gate_pass) gives a warp to each supercell: it reduces the
+// act slots of an interior column's supercell, records the supercell's
+// flag, and where one slot is above 0.5 adds the supercell's interior
+// cells to the list (an atomicAdd on the count reserves their entries, so
+// the list is in no fixed order). An inactive cell inside an active
+// supercell is listed and recomputed, as on the TPU (its fresh outputs
+// are what its active neighbours read in the next stage).
+// The stage's kernel then runs the cell launch's grid, a block a (cell,
+// i-tile): block x computes listed cell x if x is below the device count
+// and skips the routine otherwise, and every block then copies its share
+// of the supercells (gate_copy): prev on the interior slots of an
+// inactive one, 0 on every slot outside the interior cells, so out needs
+// no zero fill. The copy is taken from the end of the grid, so at a
+// skipping substep the blocks past the count do it while the listed
+// cells compute. Chosen by measurement (Sedov 100^3 substep-1 inputs,
+// the five direct stages, chip_smoke.py --compare, three runs each in
+// one call on an NVIDIA H100 80GB HBM3 at 700 W): 0.932-0.937 ms of
+// device time, against 1.333-1.342 for an occupancy-sized persistent
+// grid taking cells and then supercells from atomic counters.
+// The pass runs once a gated launch, so each stage reduces act again: a
+// read of the interior columns' supercells, beside the FO rows each
+// stage copies anyway (chip_smoke.py times the pass alone at a skipping
+// substep's inputs). Bound: bytes, that read and the list and flags
+// written; the copy's bytes are the stage's.
+// --------------------------------------------------------------------------
+constexpr int GATE_WARPS = 8;            // supercells a gate-pass block
+
+// the flags of the supercells follow the list of interior cells
+__host__ __device__ constexpr long long gate_flags(const PairGeom& g)
 {
-    const int cap = g.cap;
-    const int cz = (int)(own % g.npz);
-    const long long first = (own - cz % gt.Z) * cap;
-    int any = 0;
-    for (int s = threadIdx.x; s < gt.Z * cap; s += blockDim.x)
-        any |= gt.act[first + s] > 0.5f;
-    if (__syncthreads_or(any)) return false;
-    if (nslot < 0) nslot = cap;
-    for (int s = s0 + threadIdx.x; s < s0 + nslot; s += blockDim.x) {
-        const long long islot = own * cap + s;
-#pragma unroll
-        for (int r = 0; r < FO; ++r)
-            out[r * g.n_slots + islot] = gt.prev[r * g.n_slots + islot];
+    return SPH_GATE_HDR + (long long)g.nx * g.n * g.nz;
+}
+
+// supercell sc of size Z: its (x, y) column is interior (icol); its
+// interior cells are padded z-cells [z0, z1) of padded column col; its
+// slots start at `first`, and slots [lo, hi) of it are interior
+struct Supercell {
+    bool icol;
+    int col, z0, z1, lo, hi;
+    long long first;
+
+    __device__ Supercell(const PairGeom& g, int Z, int sc)
+    {
+        const int nsc = g.npz / Z, t = sc % nsc;
+        col = sc / nsc;
+        const int cx = col / g.npd, cy = col - cx * g.npd;
+        icol = cx >= 1 && cx <= g.nx && cy >= 1 && cy <= g.n;
+        z0 = max(t * Z, 1);
+        z1 = icol ? max(min(t * Z + Z, g.nz + 1), z0) : z0;
+        lo = (z0 - t * Z) * g.cap;
+        hi = (z1 - t * Z) * g.cap;
+        first = ((long long)col * g.npz + t * Z) * g.cap;
     }
-    return true;
+};
+
+__global__ void __launch_bounds__(32 * GATE_WARPS)
+gate_pass(const float* __restrict__ act, PairGeom g, int Z,
+          int* __restrict__ ws)
+{
+    const int nslot = Z * g.cap;
+    const int sc = blockIdx.x * GATE_WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (sc >= (g.nx + 2) * g.npd * (g.npz / Z)) return;
+    const Supercell u(g, Z, sc);
+    const float* a = act + u.first;
+    bool any = false;
+    if (u.icol) {
+        for (int s = 4 * lane; s < nslot; s += 128) {
+            const float4 v = *reinterpret_cast<const float4*>(a + s);
+            any |= v.x > 0.5f || v.y > 0.5f || v.z > 0.5f || v.w > 0.5f;
+        }
+    }
+    const bool on = __any_sync(0xffffffffu, any);
+    if (lane == 0) {
+        ws[gate_flags(g) + sc] = on;
+        if (on && u.z1 > u.z0) {
+            const int base = atomicAdd(ws, u.z1 - u.z0);
+            for (int z = u.z0; z < u.z1; ++z)
+                ws[SPH_GATE_HDR + base + z - u.z0] =
+                    (int)((long long)u.col * g.npz + z);
+        }
+    }
+}
+
+// out of supercell sc: prev on its interior slots if it is inactive, 0 on
+// its other slots; coalesced 16-byte accesses
+template <int FO>
+__device__ __forceinline__ void gate_fill(const PairGate& gt,
+                                          const PairGeom& g, int sc,
+                                          float* __restrict__ out)
+{
+    const Supercell u(g, gt.Z, sc);
+    const bool on = gt.ws[gate_flags(g) + sc] != 0;
+#pragma unroll 1
+    for (int r = 0; r < FO; ++r) {
+        const long long row = r * g.n_slots + u.first;
+        for (int s = 4 * threadIdx.x; s < gt.Z * g.cap; s += 4 * blockDim.x) {
+            float4* o = reinterpret_cast<float4*>(out + row + s);
+            if (s < u.lo || s >= u.hi)
+                *o = make_float4(0.f, 0.f, 0.f, 0.f);
+            else if (!on)
+                *o = *reinterpret_cast<const float4*>(gt.prev + row + s);
+        }
+    }
+}
+
+// K2g's listed cell for block x of an i-tile, or -1 past the count
+__device__ __forceinline__ long long gate_cell(const PairGate& gt)
+{
+    return blockIdx.x < (unsigned)gt.ws[0] ? gt.ws[SPH_GATE_HDR + blockIdx.x]
+                                           : -1;
+}
+
+// then the block's share of the supercells, counted from the grid's last
+// block, so that at a skipping substep the blocks past the count copy
+template <int FO>
+__device__ void gate_copy(const PairGate& gt, const PairGeom& g,
+                          float* __restrict__ out)
+{
+    const long long nsc = (long long)(g.nx + 2) * g.npd * (g.npz / gt.Z);
+    const long long nb = (long long)gridDim.x * gridDim.y;
+    for (long long sc = nb - 1 - (blockIdx.y * (long long)gridDim.x
+                                  + blockIdx.x);
+         sc < nsc; sc += nb)
+        gate_fill<FO>(gt, g, (int)sc, out);
 }
 
 // The expansion origin of the moment bodies (_cell_means, pallas_ve.py:
@@ -406,47 +410,11 @@ __device__ void cell_means(const float* J, long long first, int cap,
     __syncthreads();
 }
 
-// streams the 27 neighbour cells one at a time through shared memory;
-// each staged j-slot also builds the moment body's NM columns
-template <class Body, bool Gated, bool Column>
-__global__ void
-cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
-                 float* __restrict__ out, PairGeom g, PairParams p,
-                 PairGate gt, int zseg)
-{
-    extern __shared__ float sj[];                  // [FJ + NM][cap]
-    __shared__ float origin[Body::NORIGIN];
-    const int cap = g.cap, i = threadIdx.x;
-    const Walk w = block_walk<Column>(g, zseg);
-    for (int q = 0; q < w.ncell; ++q) {
-        const long long own = w.own0 + q;
-        if constexpr (Gated)
-            if (gate_closed<Body::FO>(gt, g, own, out)) return;
-        if (q) __syncthreads();              // the last cell's store read it
-        cell_means<Body>(J, own * cap, cap, g.n_slots, origin);
-        const long long islot = own * cap + i;
-        Body b;
-        b.load_i(J, I2, islot, g.n_slots, p);
-        b.org = origin;
-        for (int nb = 0; nb < 27; ++nb) {
-            const long long jslot = nbr_cell(g, own, nb) * cap + i;
-            __syncthreads();
-#pragma unroll
-            for (int s = 0; s < Body::FJ; ++s)
-                sj[s * cap + i] =
-                    J[(long long)Body::jrow(s) * g.n_slots + jslot];
-            Body::moments(sj, cap, i, origin);
-            __syncthreads();
-            for (int k = 0; k < cap; ++k) b.pair(sj, k, cap);
-        }
-        b.store(J, I2, out, islot, g.n_slots, p);
-    }
-}
-
 // --------------------------------------------------------------------------
 // The tiled pair routine: stage 1 (K4, grad-h), stage 2 (K5, IAD),
 // stage 3 (K6, AV switches), stage 4 (K7, momentum and energy), stage 5
-// (K8, hybrid IAD) and stage 8 (K7c, AvClean).
+// (K8, hybrid IAD), stage 6 (K9, moment AV switches) and stage 8 (K7c,
+// AvClean).
 // K4 replaces _gradh_body (pallas_ve.py:622): per i-slot the sums kx,
 // whomega and wrho0 of W and its h-derivative term over the in-support
 // pairs, then the VE normalisation kx and grad-h (1.0 on invalid
@@ -474,20 +442,35 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
 // j-only terms in the order the JAX body forms its columns, so each
 // column keeps its float32 rounding; the epilogue contracts the sums
 // with the i-side offsets and cij.
+// K9 replaces _av_mm_body (pallas_ve.py:949, dot :991): K6's signal-speed
+// max per pair (a max is no sum), and graddivv from 8 sums of W_ij times
+// the cell-centred j-columns vol_j (1, x_jc) and vd_j (1, x_jc), vol_j =
+// xm_j / kx_j, vd_j = vol_j (divv_j - o_divv), centred on the own cell's
+// means of x, y, z, divv (NORIGIN 4); the columns are j-only terms,
+// written once a staged slot with the JAX body's expressions, so a pair
+// costs the test, rv, the signal-speed term, W and 8 FMAs; the epilogue
+// forms G_b, contracts it with cij and scales by K3d h^-3, as the JAX
+// body does, then alpha_tail. The float32 cores and not the tensor
+// cores: the contraction is 8 columns, 16 of K9's 47 flops a pair, while
+// the test, the signal-speed max and W run per pair on the float32 cores
+// anyway (K10's 49 columns x 5 families on mma.sync stay latency-bound,
+// 60x their bound), so the tiled routine's occupied groups, cp.async
+// staging and per-lane masks are K9's design.
 //
 // Bound: arithmetic, the 9-flop distance test of every candidate plus,
 // a pair inside the i-support, ~40 flops (K4), ~62 (K5), ~55 (K6), ~170
-// (K7), ~220 (K7c), ~72 and 16 products (K8).
+// (K7), ~220 (K7c), ~72 and 16 products (K8), ~47 (K9).
 //
 // One device routine, pair_cell<Stage>, computes one interior cell for
-// every launch form: the cell launch, K2g's gated form (stages 1-5) and
+// every launch form: the cell launch, K2g's gated form (stages 1-6) and
 // K11's stream form (cell_tile below). It is __noinline__, so every
 // form calls one compiled routine of the same arithmetic (ptxas
 // allocates its registers per kernel), and K11 and K2g equal the cell
 // launch bit for bit on the card. A Stage (GradhStage, IadStage,
-// AvStage, MomStage) names its staged j-rows, its j-only terms, its
-// i-terms, the NC contributions of a pair, how its pairs are evaluated
-// (COMPACT), the store and the values of invalid slots (fill).
+// AvStage, MomStage, IadMmStage, AvMmStage) names its staged j-rows, its
+// j-only terms, its i-terms, the NC contributions of a pair, how its
+// pairs are evaluated (COMPACT), the store and the values of invalid
+// slots (fill).
 //
 // A block of T = min(cap, 128) threads takes the T i-slots of one i-tile
 // of its cell (cap > 128: ceil(cap / 128) blocks a cell, blockIdx.y);
@@ -509,7 +492,7 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
 //     slot is staged, with the expressions and association the pair
 //     body used: K5 and K6 vol_j = xm_j / kx_j; K7 1/h, 1/h^2, 1/h^3,
 //     logf(xm), m / rho and m * prho; K8 vol_j, x_j - o and xm_j (v_j -
-//     o_v); K4 has none.
+//     o_v); K9 its 8 columns; K4 has none.
 //  3. The support tests, per warp and chunk of 32 staged j-slots: each
 //     lane tests its own i against the chunk (dist2 and __fmul_rn(d2,
 //     hinv2) < 4, unchanged) into a 32-bit mask. Then the in-support
@@ -526,9 +509,9 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
 //     rounds a batch took K7 from 5.26 to 4.89 ms at Sedov 100^3 (one
 //     round a batch, or four, were slower); a lane evaluating only its
 //     own pairs took K7 6.19 ms (4.87 compacted).
-//     K4, K5, K6, K8: each lane evaluates its own in-support pairs, walking
-//     its mask's set bits, and adds each pair's terms as it goes. The
-//     cross-lane compaction took K5 4.60 ms (the rounds' search,
+//     K4, K5, K6, K8, K9: each lane evaluates its own in-support pairs,
+//     walking its mask's set bits, and adds each pair's terms as it
+//     goes. The cross-lane compaction took K5 4.60 ms (the rounds' search,
 //     i-term loads and 15 shared stores a pair ~2.8 ms of it, the
 //     owners' adds ~0.4) against 2.61 this way (2.86 with the tests
 //     unrolled by 2, see IadStage) and 3.61 for the former
@@ -544,13 +527,14 @@ cell_pair_stream(const float* __restrict__ J, const float* __restrict__ I2,
 //     units ahead, its j-only terms written from registers after the
 //     compute, so one barrier a unit suffices.
 // Shared memory: 2 * NROW * T floats of tiles (NROW: K4 5, K5 8, K6 9,
-// K7 23, K7c 29, K8 11), the NI i-terms of the block's T i-slots (NI 5,
-// 9, 16, 21, 29, 12), K8's origin and, for K7 and K7c, 6 * 64
-// contributions a warp: at cap 64 K4 3.9 KB, K5 6.4 KB, K6 8.7 KB, K7
-// 20.2 KB, K7c 25.4 KB, K8 8.7 KB; from cap 128 twice those of K4-K6
-// and K8, 40.5 and 50.7 KB for K7 and K7c. Keeping the
-// i-terms there rather than in registers (shuffled to the evaluating
-// lane) cut K7's register count by about 40 and K7 from 5.90 to 5.24 ms.
+// K7 23, K7c 29, K8 11, K9 15), the NI i-terms of the block's T i-slots
+// (NI 5, 9, 16, 21, 29, 12, 20), K8's and K9's origin and, for K7 and
+// K7c, 6 * 64 contributions a warp: at cap 64 K4 3.9 KB, K5 6.4 KB, K6
+// 8.7 KB, K7 20.2 KB, K7c 25.4 KB, K8 8.7 KB, K9 12.8 KB; from cap 128
+// twice those of K4-K6, K8 and K9, 40.5 and 50.7 KB for K7 and K7c.
+// Keeping the i-terms there rather than in registers (shuffled to the
+// evaluating lane) cut K7's register count by about 40 and K7 from 5.90
+// to 5.24 ms.
 // --------------------------------------------------------------------------
 namespace tile {
 
@@ -585,7 +569,7 @@ __device__ __forceinline__ void cp_async_wait_all()
 }
 
 // A Stage's interface (GradhStage, IadStage, AvStage, MomStage,
-// IadMmStage):
+// IadMmStage, AvMmStage):
 //   staged rows: X, Y, Z = 0, 1, 2, NCOPY rows copied from J (J row
 //     jrow(r)), NROW in all with the j-only terms;
 //   i-terms: NI of them, I_X, I_Y, I_Z, I_HINV2 = 0, 1, 2, 3 first
@@ -597,7 +581,7 @@ __device__ __forceinline__ void cp_async_wait_all()
 //     compacted across lanes, NLOAD entries in flight when an owner
 //     adds; TEST_UNROLL: the support tests' unroll; FO output rows
 //     (store), fill(r) those of an invalid slot;
-//   NORIGIN, where a Stage has it (K8's): the own cell's means of its
+//   NORIGIN, where a Stage has it (K8's, K9's): the own cell's means of its
 //     rows orow(r) before the walk (cell_means), an origin that load_i
 //     and finish then take as their last argument.
 #define JI(r) J[(long long)(r) * ns + islot]
@@ -1031,6 +1015,144 @@ struct AvStage {
             I2, islot, ns, p,
             sqrtf(acc[0] * acc[0] + acc[1] * acc[1] + acc[2] * acc[2]),
             fmaxf(acc[3], 1e-30f * ci), mine[I_DIVV * T], JI(3), ci);
+        out[islot] = ok ? alpha : fill(0);
+    }
+};
+
+// stage 6 (K9): AV switches with graddivv from 8 cell-centred
+// j-moments (_av_mm_body's contraction, summed per lane)
+struct AvMmStage {
+    // x y z c vx vy vz (J rows 0-2, 5, 9-11), then the j-only columns
+    // vol_j, vol_j x_jc (three), vd_j, vd_j x_jc (three)
+    static constexpr int X = 0, Y = 1, Z = 2, C = 3, VX = 4, VY = 5,
+                         VZ = 6;
+    static constexpr int NCOPY = 7, COL = 7, NM = 8, NROW = NCOPY + NM;
+    __device__ static int jrow(int r)
+    {
+        return r < 3 ? r : (r == 3 ? 5 : r + 5);
+    }
+    // the expansion origin (cell_means): the mean x y z divv
+    static constexpr int NORIGIN = 4;
+    __device__ static int orow(int r) { return r < 3 ? r : 8; }
+    enum : int { I_X, I_Y, I_Z, I_HINV2, I_KFAC, I_C, I_DIVV, I_VX, I_VY,
+                 I_VZ, I_XIB, I_DVIC = I_XIB + 3, I_C11, NI = I_C11 + 6 };
+    // each lane evaluates its own in-support pairs: the 8 moment sums,
+    // then vsig (a max); the support tests unrolled by 4 (K6's)
+    static constexpr bool COMPACT = false;
+    static constexpr int NE = 6, NC = NM + 1, NLOAD = 0, FO = 1,
+                         TEST_UNROLL = 4;
+
+    __device__ static float fill(int) { return 0.0f; }
+
+    __device__ static void load_i(const float* J, const float* I2,
+                                  long long ns, long long islot, bool ihas,
+                                  const PairParams& p, float (&iv)[NI],
+                                  const float* org)
+    {
+        const float hinv = __fdiv_rn(1.0f, JI(3));
+        const float hinv2 = __fmul_rn(hinv, hinv);
+        iv[I_X] = ihas ? JI(0) : SPH_FILL_POS;
+        iv[I_Y] = JI(1);
+        iv[I_Z] = JI(2);
+        iv[I_HINV2] = hinv2;
+        iv[I_KFAC] = p.K3d * (hinv * hinv2);
+        iv[I_C] = JI(5);
+        iv[I_DIVV] = JI(8);
+        iv[I_VX] = JI(9);
+        iv[I_VY] = JI(10);
+        iv[I_VZ] = JI(11);
+#pragma unroll
+        for (int b = 0; b < 3; ++b) iv[I_XIB + b] = JI(b) - org[b];
+        iv[I_DVIC] = JI(8) - org[3];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) iv[I_C11 + r] = I2[r * ns + islot];
+    }
+
+    __device__ static void load_e(const float* J, long long ns, long long s,
+                                  float (&e)[NE])
+    {
+        e[0] = J[6 * ns + s];        // kx
+        e[1] = J[7 * ns + s];        // xm
+        e[2] = J[8 * ns + s];        // divv
+#pragma unroll
+        for (int b = 0; b < 3; ++b) e[3 + b] = J[b * ns + s];   // x y z
+    }
+
+    // the JAX body's cols: volj, volj * xjc, ..., vd, vd * xjc, ...
+    __device__ static void finish(float* d, int T, const float (&e)[NE],
+                                  const float* org)
+    {
+        const float volj = e[1] / e[0];
+        const float vd = volj * (e[2] - org[3]);
+        d[COL * T] = volj;
+        d[(COL + 4) * T] = vd;
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+            const float xc = e[3 + b] - org[b];
+            d[(COL + 1 + b) * T] = volj * xc;
+            d[(COL + 5 + b) * T] = vd * xc;
+        }
+    }
+
+    __device__ static void init(float (&acc)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < NM; ++q) acc[q] = 0.0f;
+        acc[NM] = SPH_NEG;
+    }
+
+    __device__ static void add(float (&acc)[NC], const float (&v)[NC])
+    {
+#pragma unroll
+        for (int q = 0; q < NM; ++q) acc[q] += v[q];
+        acc[NM] = fmaxf(acc[NM], v[NM]);
+    }
+
+    // W_ij times the 8 columns, and the pair's approaching signal speed
+    // (SPH_NEG where the pair recedes)
+    __device__ static void terms(const float* a, const float* sb, int T,
+                                 int k, const PairParams& p,
+                                 float (&c)[NC])
+    {
+        const float rx = __fsub_rn(A(I_X), S(X)),
+                    ry = __fsub_rn(A(I_Y), S(Y)),
+                    rz = __fsub_rn(A(I_Z), S(Z));
+        const float d2 = dist2(rx, ry, rz);
+        const float v2 = __fmul_rn(d2, A(I_HINV2));
+        const float rv = rx * (A(I_VX) - S(VX)) + ry * (A(I_VY) - S(VY))
+            + rz * (A(I_VZ) - S(VZ));
+        c[NM] = rv < 0.0f
+            ? A(I_C) + S(C) - 3.0f * rv * rsqrtf(fmaxf(d2, 1e-30f))
+            : SPH_NEG;
+        const float w = pow_nw(sinc_poly(v2), p.n_w);
+#pragma unroll
+        for (int m = 0; m < NM; ++m) c[m] = w * S(COL + m);
+    }
+
+    // G_b = xi_b (dvic S0 - D0) - (dvic S_b - D_b), graddivv = |-(C G)|
+    // K3d h^-3, then the alpha update
+    __device__ static void store(const float* J, const float* I2,
+                                 long long ns, long long islot,
+                                 const float* mine, int T,
+                                 const float (&acc)[NC], bool ok,
+                                 const PairParams& p, float* out)
+    {
+        const float dvic = mine[I_DVIC * T];
+        float G[3], c[6];
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+            G[b] = mine[(I_XIB + b) * T] * (dvic * acc[0] - acc[4])
+                - (dvic * acc[1 + b] - acc[5 + b]);
+#pragma unroll
+        for (int r = 0; r < 6; ++r) c[r] = mine[(I_C11 + r) * T];
+        const float scale = mine[I_KFAC * T];
+        const float gx = -(c[0] * G[0] + c[1] * G[1] + c[2] * G[2]) * scale;
+        const float gy = -(c[1] * G[0] + c[3] * G[1] + c[4] * G[2]) * scale;
+        const float gz = -(c[2] * G[0] + c[4] * G[1] + c[5] * G[2]) * scale;
+        const float ci = mine[I_C * T];
+        const float alpha = alpha_tail(
+            I2, islot, ns, p, sqrtf(gx * gx + gy * gy + gz * gz),
+            fmaxf(acc[NM], 1e-30f * ci), mine[I_DIVV * T], JI(3), ci);
         out[islot] = ok ? alpha : fill(0);
     }
 };
@@ -1470,23 +1592,22 @@ __device__ __noinline__ void pair_cell(const float* __restrict__ J,
     if (ihas) St::store(J, I2, ns, islot, ist + t, T, acc, ivalid, p, out);
 }
 
-// the cell launch, K2g (Gated) and K11's stream form (Column);
-// blockIdx.y is the i-tile
+// the cell launch, K2g (Gated: the cells of the gate pass's list) and
+// K11's stream form (Column); blockIdx.y is the i-tile
 template <class St, bool Gated, bool Column>
 __global__ void __launch_bounds__(TILE)
 cell_tile(const float* __restrict__ J, const float* __restrict__ I2,
           float* __restrict__ out, PairGeom g, PairParams p, PairGate gt,
           int zseg, int vec)
 {
-    const Walk w = block_walk<Column>(g, zseg);
-    const int T = g.cap < TILE ? g.cap : TILE;
-    const int s0 = blockIdx.y * T;
-    for (int q = 0; q < w.ncell; ++q) {
-        const long long own = w.own0 + q;
-        if constexpr (Gated)
-            if (gate_closed<St::FO>(gt, g, own, out, s0, min(T, g.cap - s0)))
-                return;
-        pair_cell<St>(J, I2, out, g, p, own, vec);
+    if constexpr (Gated) {
+        const long long own = gate_cell(gt);
+        if (own >= 0) pair_cell<St>(J, I2, out, g, p, own, vec);
+        gate_copy<St::FO>(gt, g, out);
+    } else {
+        const Walk w = block_walk<Column>(g, zseg);
+        for (int q = 0; q < w.ncell; ++q)
+            pair_cell<St>(J, I2, out, g, p, w.own0 + q, vec);
     }
 }
 
@@ -1731,20 +1852,21 @@ __device__ __noinline__ void xh_cell(const float* __restrict__ J,
     for (int q = 0; q < ncell; ++q) xh_one(J, out, g, p, own0 + q);
 }
 
-// the cell launch, K2g (Gated) and K11 (Column); blockIdx.y is the i-tile
+// the cell launch, K2g (Gated) and K11 (Column); blockIdx.y is the
+// i-tile
 template <bool Gated, bool Column>
 __global__ void __launch_bounds__(TILE)
 cell_xh(const float* __restrict__ J, float* __restrict__ out, PairGeom g,
         PairParams p, PairGate gt, int zseg)
 {
-    const Walk w = block_walk<Column>(g, zseg);
     if constexpr (Gated) {
-        const int T = g.cap < TILE ? g.cap : TILE;
-        const int s0 = blockIdx.y * T;
-        if (gate_closed<4>(gt, g, w.own0, out, s0, min(T, g.cap - s0)))
-            return;
+        const long long own = gate_cell(gt);
+        if (own >= 0) xh_cell(J, out, g, p, own, 1);
+        gate_copy<4>(gt, g, out);
+    } else {
+        const Walk w = block_walk<Column>(g, zseg);
+        xh_cell(J, out, g, p, w.own0, w.ncell);
     }
-    xh_cell(J, out, g, p, w.own0, w.ncell);
 }
 
 }  // namespace xh
@@ -2481,14 +2603,14 @@ __global__ void __launch_bounds__(THREADS, 2)
 cell_mm(const float* __restrict__ J, float* __restrict__ out, PairGeom g,
         PairParams p, PairGate gt, int zseg, int vec)
 {
-    const Walk w = block_walk<Column>(g, zseg);
-    const int s0 = blockIdx.y * IB;
-    for (int q = 0; q < w.ncell; ++q) {
-        const long long own = w.own0 + q;
-        if constexpr (Gated)
-            if (gate_closed<NF>(gt, g, own, out, s0, min(IB, g.cap - s0)))
-                return;
-        mm_cell<BF16>(J, out, g, p, own, vec);
+    if constexpr (Gated) {
+        const long long own = gate_cell(gt);
+        if (own >= 0) mm_cell<BF16>(J, out, g, p, own, vec);
+        gate_copy<NF>(gt, g, out);
+    } else {
+        const Walk w = block_walk<Column>(g, zseg);
+        for (int q = 0; q < w.ncell; ++q)
+            mm_cell<BF16>(J, out, g, p, w.own0 + q, vec);
     }
 }
 
@@ -2519,46 +2641,28 @@ unsigned n_blocks(const PairGeom& g, int zseg)
     return (unsigned)g.nx * g.n * per_col;
 }
 
-bool bad_gate(const PairGeom& g, const PairGate& gt, int zseg)
+bool bad_launch(const PairGeom& g, const PairGate& gt, int zseg)
 {
-    return gt.act != nullptr
-        && (zseg || gt.prev == nullptr || gt.Z < 1 || g.npz % gt.Z);
+    return g.cap > 1024 || g.cap % 32 || zseg < 0
+        || (gt.ws != nullptr && zseg);
 }
 
-// stage 6: the cell launch (zseg == 0; K2g when gt.act is set) and K11's
-// stream form (zseg > 0)
-template <class Body>
-cudaError_t launch(const float* J, const float* I2, float* out,
-                   const PairGeom& g, const PairParams& p, const PairGate& gt,
-                   int zseg, cudaStream_t st)
-{
-    if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
-        return cudaErrorInvalidValue;
-    const size_t smem = sizeof(float) * (Body::FJ + Body::NM) * g.cap;
-    auto kern = zseg ? cell_pair_stream<Body, false, true>
-        : gt.act != nullptr ? cell_pair_stream<Body, true, false>
-                            : cell_pair_stream<Body, false, false>;
-    return start(kern, n_blocks(g, zseg), g.cap, smem, st, J, I2, out, g, p,
-                 gt, zseg);
-}
-
-// K4-K8 and K7c (stages 1-5, 8): blocks of T = min(cap, 128) threads,
-// one a (cell, i-tile); the cell launch (K2g when gt.act is set) or
+// K4-K9 and K7c (stages 1-6, 8): blocks of T = min(cap, 128) threads,
+// one a (cell, i-tile); the cell launch, K2g when gt.ws is set, or
 // K11's stream form (zseg > 0)
 template <class St>
 cudaError_t launch_tile(const float* J, const float* I2, float* out,
                         const PairGeom& g, const PairParams& p,
                         const PairGate& gt, int zseg, cudaStream_t st)
 {
-    if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
-        return cudaErrorInvalidValue;
+    if (bad_launch(g, gt, zseg)) return cudaErrorInvalidValue;
     const int T = g.cap < tile::TILE ? g.cap : tile::TILE;
     const size_t smem = sizeof(float) * tile::smem_floats<St>(T);
     const dim3 grid(n_blocks(g, zseg), (g.cap + T - 1) / T);
     const int vec = reinterpret_cast<size_t>(J) % 16 == 0;
     auto kern = zseg ? tile::cell_tile<St, false, true>
-        : gt.act != nullptr ? tile::cell_tile<St, true, false>
-                            : tile::cell_tile<St, false, false>;
+        : gt.ws ? tile::cell_tile<St, true, false>
+                : tile::cell_tile<St, false, false>;
     return start(kern, grid, T, smem, st, J, I2, out, g, p, gt, zseg, vec);
 }
 
@@ -2567,13 +2671,11 @@ cudaError_t launch_xh(const float* J, float* out, const PairGeom& g,
                       const PairParams& p, const PairGate& gt, int zseg,
                       cudaStream_t st)
 {
-    if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
-        return cudaErrorInvalidValue;
+    if (bad_launch(g, gt, zseg)) return cudaErrorInvalidValue;
     const int T = g.cap < xh::TILE ? g.cap : xh::TILE;
     const dim3 grid(n_blocks(g, zseg), (g.cap + T - 1) / T);
     auto kern = zseg ? xh::cell_xh<false, true>
-        : gt.act != nullptr ? xh::cell_xh<true, false>
-                            : xh::cell_xh<false, false>;
+        : gt.ws ? xh::cell_xh<true, false> : xh::cell_xh<false, false>;
     return start(kern, grid, T, xh::smem_bytes(g.cap), st, J, out, g, p, gt,
                  zseg);
 }
@@ -2583,19 +2685,18 @@ cudaError_t launch_mm(const float* J, float* out, const PairGeom& g,
                       const PairParams& p, const PairGate& gt, int zseg,
                       cudaStream_t st)
 {
-    if (g.cap > 1024 || g.cap % 32 || zseg < 0 || bad_gate(g, gt, zseg))
-        return cudaErrorInvalidValue;
+    if (bad_launch(g, gt, zseg)) return cudaErrorInvalidValue;
     const bool bf = p.mxu_bf16 != 0;
     const size_t smem = sizeof(float) * (bf ? mm::smem_words<true>(g.cap)
                                             : mm::smem_words<false>(g.cap));
     const dim3 grid(n_blocks(g, zseg), (g.cap + mm::IB - 1) / mm::IB);
     const int vec = reinterpret_cast<size_t>(J) % 16 == 0;
     auto kern = bf ? (zseg ? mm::cell_mm<true, false, true>
-                      : gt.act != nullptr ? mm::cell_mm<true, true, false>
-                                          : mm::cell_mm<true, false, false>)
+                      : gt.ws ? mm::cell_mm<true, true, false>
+                              : mm::cell_mm<true, false, false>)
                    : (zseg ? mm::cell_mm<false, false, true>
-                      : gt.act != nullptr ? mm::cell_mm<false, true, false>
-                                          : mm::cell_mm<false, false, false>);
+                      : gt.ws ? mm::cell_mm<false, true, false>
+                              : mm::cell_mm<false, false, false>);
     return start(kern, grid, mm::THREADS, smem, st, J, out, g, p, gt, zseg,
                  vec);
 }
@@ -2612,10 +2713,10 @@ cudaError_t stage_launch(int stage, const float* J, const float* I2,
     case 3: return TILED(tile::AvStage);
     case 4: return TILED(tile::MomStage<false>);
     case 5: return TILED(tile::IadMmStage);
-    case 6: return launch<AvMmBody>(J, I2, out, g, p, gt, zseg, st);
+    case 6: return TILED(tile::AvMmStage);
     case 7: return launch_mm(J, out, g, p, gt, zseg, st);
     case 8:
-        if (gt.act != nullptr) return cudaErrorInvalidValue;   // no K2g form
+        if (gt.ws != nullptr) return cudaErrorInvalidValue;   // no K2g form
         return TILED(tile::MomStage<true>);
     default: return cudaErrorInvalidValue;
     }
@@ -2624,8 +2725,8 @@ cudaError_t stage_launch(int stage, const float* J, const float* I2,
 
 }  // namespace
 
-// the cell launch. gt.act == nullptr: the ungated stage (K2); else K2g
-// with gt.prev, gt.Z
+// the cell launch. gt.ws == nullptr: the ungated stage (K2); else K2g
+// over the list that pair_gate wrote into gt.ws
 extern "C" int pair_launch(int stage, const float* J, const float* I2,
                            float* out, PairGeom g, PairParams p, PairGate gt,
                            void* stream)
@@ -2633,6 +2734,21 @@ extern "C" int pair_launch(int stage, const float* J, const float* I2,
     cudaError_t e = stage_launch(stage, J, I2, out, g, p, gt, 0,
                                  (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+}
+
+// K2g's gate pass at supercell size Z into ws (gate_flags(g) + the
+// supercells' count of ints), its header zeroed first
+extern "C" int pair_gate(const float* act, PairGeom g, int Z, int* ws,
+                         void* stream)
+{
+    if (Z < 1 || g.npz % Z || g.cap % 32) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    cudaError_t e = cudaMemsetAsync(ws, 0, SPH_GATE_HDR * sizeof(int), st);
+    if (e != cudaSuccess) return (int)e;
+    const int nsc = (g.nx + 2) * g.npd * (g.npz / Z);
+    const unsigned nb = (nsc + GATE_WARPS - 1) / GATE_WARPS;
+    gate_pass<<<nb, 32 * GATE_WARPS, 0, st>>>(act, g, Z, ws);
     return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,9 @@ current stream. Every C entry returns cudaGetLastError(); a non-zero
 code raises here.
 
 A header with the kernel constants (the sinc polynomials of
-sph/kernels.py, FILL_POS) is generated into the build directory, so
-the kernels and the plain versions share one definition. Library file
+sph/kernels.py, FILL_POS, the header size of K2g's gate workspace) is
+generated into the build directory, so the kernels and the plain
+versions share one definition. Library file
 names carry a hash of source, header and flags: a changed source is
 rebuilt, an unchanged one is loaded as built.
 """
@@ -53,7 +54,7 @@ def _f32_literal(x: float) -> str:
 
 
 def _consts_header() -> str:
-    from sphexa_tpu_torch.ops.pair_ve import _NEG, FILL_POS
+    from sphexa_tpu_torch.ops.pair_ve import _NEG, FILL_POS, GATE_HDR
     from sphexa_tpu_torch.sph.kernels import _DSINC_OVER_V_COEF, _SINC_COEF
 
     def poly(name, coef):
@@ -70,6 +71,7 @@ def _consts_header() -> str:
         "#pragma once",
         f"#define SPH_FILL_POS ({_f32_literal(FILL_POS)})",
         f"#define SPH_NEG ({_f32_literal(_NEG)})",
+        f"#define SPH_GATE_HDR {GATE_HDR}",
         poly("sinc_poly", _SINC_COEF),
         poly("dsinc_over_v_poly", _DSINC_OVER_V_COEF),
         ""])
@@ -162,8 +164,9 @@ class PairParams(ctypes.Structure):
 
 
 class PairGate(ctypes.Structure):
-    """K2g's gate: act null for the ungated stage."""
-    _fields_ = [("act", _P), ("prev", _P), ("Z", _I)]
+    """K2g's gate: the gate pass's workspace (null for the ungated
+    stage), prev and the supercell size."""
+    _fields_ = [("ws", _P), ("prev", _P), ("Z", _I)]
 
 
 class GhostArgs(ctypes.Structure):
@@ -177,6 +180,7 @@ _ARGTYPES = {
         "ghost_refresh": [_P, _I, _LL, _I, _I, _I, _I, _P, _P]},
     "cell_pair.cu": {
         "pair_launch": [_I, _P, _P, _P, PairGeom, PairParams, PairGate, _P],
+        "pair_gate": [_P, PairGeom, _I, _P, _P],
         "pair_launch_column": [_I, _P, _P, _P, PairGeom, PairParams, _I,
                                _P]},
     "probes.cu": {
@@ -248,9 +252,13 @@ class GhostLaunch:
         _check(code, self.name)
 
 
-def _pair_args(grid, cfg, K3d: float, stats=None):
-    geom = PairGeom(grid.nx, grid.n, grid.nz, grid.np_, grid.npz, grid.cap,
+def _geom(grid):
+    return PairGeom(grid.nx, grid.n, grid.nz, grid.np_, grid.npz, grid.cap,
                     grid.n_slots)
+
+
+def _pair_args(grid, cfg, K3d: float, stats=None):
+    geom = _geom(grid)
     prm = PairParams(K3d, int(cfg.sinc_index), float(cfg.ng0 // 4),
                      float(cfg.ngmax), cfg.h_cap, cfg.h_iter, cfg.alphamin,
                      cfg.alphamax, cfg.decay_constant, cfg.atmin, cfg.atmax,
@@ -262,19 +270,27 @@ def _pair_args(grid, cfg, K3d: float, stats=None):
 
 def pair_launch(stage: int, J, I2, out, grid, cfg, K3d: float, gate=None,
                 stats=None):
-    """gate=None: the ungated stage; else (act, prev, Z) for K2g. stats:
-    an int64 [3] tensor on the card that K3 adds its walk counts to
-    (cell_pair.cu, xh::xh_cell), or None."""
+    """gate=None: the ungated stage; else (ws, prev, Z) for K2g: the
+    list that pair_gate wrote into ws, then prev's rows kept on the
+    inactive supercells. stats: an int64 [3] tensor on the card that K3
+    adds its walk counts to (cell_pair.cu, xh::xh_cell), or None."""
     geom, prm = _pair_args(grid, cfg, K3d, stats)
     if gate is None:
         gt = PairGate(None, None, 0)
     else:
-        act, prev, Z = gate
-        gt = PairGate(act.data_ptr(), prev.data_ptr(), Z)
+        ws, prev, Z = gate
+        gt = PairGate(ws.data_ptr(), prev.data_ptr(), Z)
     code = lib("cell_pair.cu").pair_launch(
         stage, J.data_ptr(), None if I2 is None else I2.data_ptr(),
         out.data_ptr(), geom, prm, gt, _stream(J))
     _check(code, f"pair stage {stage}")
+
+
+def pair_gate(act, ws, grid, Z: int):
+    """K2g's gate pass (cell_pair.cu gate_pass) into ws."""
+    code = lib("cell_pair.cu").pair_gate(
+        act.data_ptr(), _geom(grid), Z, ws.data_ptr(), _stream(act))
+    _check(code, "pair gate pass")
 
 
 def pair_launch_column(stage: int, J, I2, out, grid, cfg, K3d: float,

@@ -25,20 +25,26 @@ bf16 under mxu_bf16), skipping the blocks whose weights are all zero;
 K8's and K9's accumulate the same sums per pair, in float32.
 
 K3-K10 share the driver make_cell_pair_call (pallas_ve.py:103), which in
-the port is the launch skeleton of cell_pair.cu: one thread block per
-interior cell, one thread per i-slot, the 27 neighbour cells streamed
-through shared memory (K9). K4-K8 and K7c stream only the occupied
-slots (K7 and K7c evaluate their in-support pairs compacted across a
-warp's lanes, K4-K6 and K8 each lane its own); K3 stages the occupied
-slots of the 27 cells as one run and walks it again only for slots
-whose h the controller moved; K10 stages the occupied slots, computes
-the pair weights on the float32 cores and contracts them on the tensor
-cores. Each has one routine for the cell, gated and column launches.
+the port is the launch skeleton of cell_pair.cu: thread blocks of a
+cell's i-tile. K4-K9 and K7c run the tiled routine tile::pair_cell:
+they stage only the occupied slots of the 27 neighbour cells with
+cp.async (K7 and K7c evaluate their in-support pairs compacted across a
+warp's lanes, K4-K6, K8 and K9 each lane its own); K3 stages the
+occupied slots of the 27 cells as one run and walks it again only for
+slots whose h the controller moved; K10 stages the occupied slots,
+computes the pair weights on the float32 cores and contracts them on
+the tensor cores. Each has one routine for the cell, gated and column
+launches.
 
 K2g, the gated driver (make_cell_pair_call(gated=True), pallas_ve.py:
 162-172, :242-251), is the same stages but K7c as GATED_KERNELS: a
 z-supercell (Z cells of one column) with no active slot keeps its
-previous outputs. Block time-steps (propagator/ve_bdt.py) run on it.
+previous outputs. A gated stage is two launches: the gate pass
+(pair_gate) lists the interior cells of the active supercells on the
+card, then the stage's kernel, on the cell launch's grid, computes the
+listed cells only (the blocks past the device count skip the routine)
+and writes prev and the zeros everywhere else; no count is read on the
+host. Block time-steps (propagator/ve_bdt.py) run on it.
 
 K11, the column driver (make_column_pair_call, pallas_ve.py:273), is
 every stage as COLUMN_KERNELS, selected by PairVE(kernel_mode="column"):
@@ -86,6 +92,10 @@ NBASE = 5
 FILL_POS = 1e8    # invalid-slot position fill: d2 overflows the support
 _NEG = -1e30
 
+# ints before the cell list in K2g's gate workspace (cell_pair.cu's
+# SPH_GATE_HDR): the count
+GATE_HDR = 1
+
 # pair candidates evaluated at once by a plain version (bounds its
 # temporaries to a few tens of MB each)
 _PAIR_BUDGET = 1 << 22
@@ -126,7 +136,7 @@ def _run_plain(body, J, I2, grid: CMGrid, fo: int, cells=None, **kw):
     [C, CAP, 1] outputs. Slots of other cells come out zero."""
     cap = grid.cap
     dev = J.device
-    out = torch.zeros((fo, grid.n_slots), dtype=torch.float32, device=dev)
+    out = torch.zeros((fo, grid.n_slots), dtype=J.dtype, device=dev)
     if cells is None:
         cells = torch.tensor(interior_cells(grid), device=dev)
     offs = torch.tensor(_nbr_offsets(grid), device=dev)
@@ -167,6 +177,25 @@ def supercell_active(act, grid: CMGrid, Z: int):
     flag = (act.reshape(grid.npx, grid.np_, grid.npz // Z, Z * grid.cap)
             > 0.5).any(-1)
     return flag.repeat_interleave(Z, dim=2).reshape(-1)
+
+
+def gate_flags(grid: CMGrid) -> int:
+    """Where the supercells' flags start in K2g's gate workspace: after
+    the header and room for every interior cell in the list."""
+    return GATE_HDR + grid.nx * grid.n * grid.nz
+
+
+def gate_plan(act, grid: CMGrid, Z: int):
+    """K2g's gate, plain: (the padded ids of the interior cells whose
+    z-supercell is active, ascending; the interior slots of the other
+    interior cells, which keep prev). The reference that the gate pass's
+    list and the gated kernels' copy are held to."""
+    on = supercell_active(act, grid, Z)
+    cells = torch.tensor(interior_cells(grid), device=act.device)
+    live = on[cells]
+    lane = torch.arange(grid.cap, device=act.device)
+    keep = (cells[~live][:, None] * grid.cap + lane).reshape(-1)
+    return cells[live], keep
 
 
 def _w_v2(v2, n_w: int):
@@ -748,6 +777,12 @@ def _check_rows(name, t, rows, grid: CMGrid):
                          f"got {tuple(t.shape)}")
 
 
+def _check_aligned(name, *tensors):
+    """K2g's kernels access act, prev and out with 16-byte loads."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: K2g's rows must be 16-byte aligned")
+
+
 # K11's z-segment: the cells a thread block walks. Of the segments
 # chip_smoke.py times at the Sedov 100^3 inputs (PERF.md), one cell a
 # block was the fastest for every stage but K10 (two within 1% of it):
@@ -786,13 +821,9 @@ class PairKernel:
             return _run_plain(self.body, J, I2, grid, self.fo,
                               **self._body_kw(cfg))
         act, prev = gate
-        on = supercell_active(act, grid, resolve_zgroup(grid, zgroup))
-        cells = torch.tensor(interior_cells(grid), device=J.device)
-        live = on[cells]
-        out = _run_plain(self.body, J, I2, grid, self.fo, cells=cells[live],
+        cells, keep = gate_plan(act, grid, resolve_zgroup(grid, zgroup))
+        out = _run_plain(self.body, J, I2, grid, self.fo, cells=cells,
                          **self._body_kw(cfg))
-        lane = torch.arange(grid.cap, device=J.device)
-        keep = (cells[~live][:, None] * grid.cap + lane).reshape(-1)
         out[:, keep] = prev[:, keep]
         return out
 
@@ -802,18 +833,27 @@ class PairKernel:
         its counts to (chip_smoke.py reads them): K3 its lanes' walks,
         warp walks and the candidates those walked; K10 the mma blocks
         it issued and those of its staged k-steps. None on the engines'
-        path."""
-        out = torch.zeros((self.fo, grid.n_slots), dtype=torch.float32,
-                          device=J.device)
+        path. A gated launch first runs the gate pass (pair_gate, which
+        counts its own launch), then the stage's kernel over its list,
+        which also writes prev and the zeros into out with 16-byte
+        accesses."""
         K3d = kernel_3d_k(cfg.sinc_index)
+        if gate is not None:
+            act, prev = gate
+            Z = resolve_zgroup(grid, zgroup)
+            out = torch.empty((self.fo, grid.n_slots), dtype=torch.float32,
+                              device=J.device)
+            _check_aligned(self.name, out, prev)
+            gate = (pair_gate(act, grid, Z), prev, Z)
+        else:
+            out = torch.zeros((self.fo, grid.n_slots), dtype=torch.float32,
+                              device=J.device)
         if self.column:
             _cuda.pair_launch_column(self.stage, J, I2, out, grid, cfg, K3d,
                                      self.zseg, stats)
-            return out
-        if gate is not None:
-            gate = (*gate, resolve_zgroup(grid, zgroup))
-        _cuda.pair_launch(self.stage, J, I2, out, grid, cfg, K3d, gate,
-                          stats)
+        else:
+            _cuda.pair_launch(self.stage, J, I2, out, grid, cfg, K3d, gate,
+                              stats)
         return out
 
     def _check(self, J, I2, grid: CMGrid, gate):
@@ -844,6 +884,61 @@ class PairKernel:
         out = self._launch(*args)
         _count_launch(self)
         return out
+
+
+class GatePass:
+    """K2g's gate pass (cell_pair.cu gate_pass): for the [n_slots]
+    activity row act and the gate unit Z (resolve_zgroup), the int32
+    workspace ws that the gated stage's kernel reads: ws[0] the count of
+    listed cells, ws[GATE_HDR:GATE_HDR + count] their padded ids, the
+    interior cells of the active z-supercells (in no fixed order on the
+    card, ascending in the plain version, gate_plan), then from
+    gate_flags(grid) one 0/1 flag a supercell (padded (x, y) column
+    major, npz / Z a column; 0 outside the interior columns). The kernel
+    reads act with 16-byte loads. `launches` counts the gate pass's
+    launches."""
+
+    name = "pair_gate"
+
+    def __init__(self):
+        self.launches = 0
+
+    def _workspace(self, grid: CMGrid, Z: int, device):
+        n_sc = grid.npx * grid.np_ * (grid.npz // Z)
+        return torch.empty(gate_flags(grid) + n_sc, dtype=torch.int32,
+                           device=device)
+
+    def plain(self, act, grid: CMGrid, Z: int):
+        cells, _ = gate_plan(act, grid, Z)
+        ws = self._workspace(grid, Z, act.device).zero_()
+        ws[0] = cells.numel()
+        ws[GATE_HDR:GATE_HDR + cells.numel()] = cells
+        on = supercell_active(act, grid, Z).view(
+            grid.npx, grid.np_, -1, Z)[..., 0]
+        on[[0, -1]] = False                      # the x-y ghost columns
+        on[:, [0, -1]] = False
+        ws[gate_flags(grid):] = on.reshape(-1)
+        return ws
+
+    def _launch(self, act, grid: CMGrid, Z: int):
+        _check_aligned(self.name, act)
+        ws = self._workspace(grid, Z, act.device)
+        _cuda.pair_gate(act, ws, grid, Z)
+        return ws
+
+    def __call__(self, act, grid: CMGrid, Z: int):
+        _check_rows(self.name, act[None], 1, grid)
+        if grid.npz % Z:
+            raise ValueError(f"{self.name}: zgroup {Z} must divide "
+                             f"npz={grid.npz}")
+        if act.device.type == "cpu":
+            return self.plain(act, grid, Z)
+        if act.device.type != "cuda":
+            raise ValueError(f"{self.name}: no kernel for device "
+                             f"{act.device}")
+        ws = self._launch(act, grid, Z)
+        _count_launch(self)
+        return ws
 
 
 @functools.lru_cache(maxsize=16)
@@ -983,6 +1078,7 @@ class GhostRefresh:
 
 ghost_refresh = GhostRefresh()
 ghost_refresh_xy = GhostRefresh(refresh_z=False)     # K1z
+pair_gate = GatePass()                               # K2g's gate pass
 pair_xh = PairKernel("pair_xh", 0, NBASE + 1, 4, 0, _xh_body)
 pair_gradh = PairKernel("pair_gradh", 1, NBASE + 2, 2, 0, _gradh_body)
 pair_iad = PairKernel("pair_iad", 2, NBASE + 5, 14, 0, _iad_body)

@@ -38,6 +38,13 @@ frames at caps 64, 128 and 256 with their K2g and K11 forms: K8's 14
 rows and K10's ax, ay, az, du at 1e-4 of their row's scale, K10's
 maxvsignal at rtol 1e-5, K10 under mxu_bf16 as above against its plain
 version (its K2g form bit-equal to the cell launch on active slots).
+K9 (tile::AvMmStage) is held on K6's synthetic frames at caps 64, 128
+and 256 with its K2g and K11 forms. Each gated stage is also launched
+as the engines launch it (the gate pass, then the stage's blocks over
+its list) with no active supercell, all active and chip_smoke.py's
+seeded activity pattern: the device count and list equal gate_plan's,
+inactive interior slots equal prev and active ones the ungated launch,
+bit for bit, and the slots outside the interior cells hold 0.
 The probe kernels (P1-P5) are held against their
 plain versions: P1-P4 rtol 1e-6 (the same float32 operations), P5 1e-5 of the
 output's scale (TF32: 5e-3). K1z (the ghost refresh with refresh_z=False)
@@ -551,6 +558,70 @@ def _av_frame(grid, seed):
             np.stack(i2).astype(np.float32), valid)
 
 
+def _k9_noise_body(I, Jn, i2, *, cfg, K3d, n_w):
+    """K9's alpha (pair_ve._av_mm_body) and its float32 rounding noise
+    relative to it, from the inputs, evaluated in the rows' dtype
+    (float64): the unit roundoff times the magnitude of graddivv's terms
+    (each moment sum of G_b taken over |terms|, G's combination through
+    |c_ij|) over |graddivv|, times alpha's relative sensitivity to
+    graddivv. No summation-length factor: the float32 orders measured
+    (kernel, plain, JAX) sit within 4.5 times it."""
+    RC, _, RXM, RDIVV, RVX, RVY, RVZ = range(pv.NBASE, pv.NBASE + 7)
+    hinv = 1.0 / I[pv.RH]
+    ox, oy, oz, odv = pv._cell_means(I, (pv.RX, pv.RY, pv.RZ, RDIVV))
+    xib = (I[pv.RX] - ox, I[pv.RY] - oy, I[pv.RZ] - oz)
+    xjc = (Jn[pv.RX] - ox, Jn[pv.RY] - oy, Jn[pv.RZ] - oz)
+    dvic = I[RDIVV] - odv
+    rx, ry, rz, d2 = pv._geo(I, Jn)
+    w = pv._w_v2(d2 * hinv * hinv, n_w)
+    volj = Jn[RXM] / Jn[RC + 1]
+    vd = volj * (Jn[RDIVV] - odv)
+
+    def S(t):
+        return torch.sum(w * t, dim=-1, keepdim=True)
+
+    G = [xib[b] * (dvic * S(volj) - S(vd)) - (dvic * S(volj * xjc[b])
+                                              - S(vd * xjc[b]))
+         for b in range(3)]
+    M = [xib[b].abs() * (dvic.abs() * S(volj) + S(vd.abs()))
+         + dvic.abs() * S(volj * xjc[b].abs()) + S((vd * xjc[b]).abs())
+         for b in range(3)]
+    c = [[i2[0], i2[1], i2[2]], [i2[1], i2[3], i2[4]],
+         [i2[2], i2[4], i2[5]]]
+    g = torch.sqrt(sum(sum(c[a][b] * G[b] for b in range(3)) ** 2
+                       for a in range(3)))
+    dg = torch.sqrt(sum(sum(c[a][b].abs() * M[b] for b in range(3)) ** 2
+                        for a in range(3)))
+    rv = (rx * (I[RVX] - Jn[RVX]) + ry * (I[RVY] - Jn[RVY])
+          + rz * (I[RVZ] - Jn[RVZ]))
+    vsig = torch.where((w > 0) & (rv < 0.0), I[RC] + Jn[RC] - 3.0 * rv
+                       * torch.rsqrt(torch.clamp_min(d2, 1e-30)), pv._NEG)
+    vs = torch.maximum(torch.amax(vsig, -1, keepdim=True), 1e-30 * I[RC])
+    scale = K3d * hinv ** 3
+
+    def alpha(gd):
+        return pv._alpha_tail(i2, gd, vs, I[RDIVV], I[pv.RH], I[RC], cfg)
+
+    a0, eps = alpha(g * scale), 1e-6
+    sens = (alpha(g * scale * (1 + eps)) - a0).abs() / eps
+    noise = 2.0 ** -24 * sens * dg / torch.clamp_min(g, 1e-300)
+    ok = pv._oki(I)
+    return [torch.where(ok, a0, 0.0),
+            torch.where(ok, noise / torch.clamp_min(a0.abs(), 1e-300), 0.0)]
+
+
+def k9_noise_floor(J, I2, grid, cfg):
+    """K9's alpha from the inputs in float64 and its relative float32
+    noise floor (_k9_noise_body), [n_slots] each, on J's device; and the
+    slots at that floor: where four times the noise reaches K9's rtol
+    of 1e-5 (the mm alpha property, ROADMAP Queue 3: graddivv is a
+    difference of centred moment sums)."""
+    k = pv.pair_av_mm
+    ref, noise = pv._run_plain(_k9_noise_body, J.double(), I2.double(),
+                               grid, 2, **k._body_kw(cfg))
+    return ref, noise, 4.0 * noise >= 1e-5
+
+
 @pytest.mark.parametrize("cap", MOMENTUM_CAPS)
 def test_gradh_forms_match_plain(cuda, cap):
     """K4 on full, partial and empty cells (empty second i-tiles at cap
@@ -603,6 +674,102 @@ def test_av_forms_match_plain(cuda, cap):
     _check_rows(k.name, ref, out, mask)
     assert not out[:, intmask & ~mask].any()
     _check_forms(k, J, grid, cfg, out, intmask, mask, seed=cap, I2=I2)
+
+
+@pytest.mark.parametrize("cap", MOMENTUM_CAPS)
+def test_av_mm_forms_match_plain(cuda, cap):
+    """K9 (tile::pair_cell<AvMmStage>) on K6's frame: full, partial and
+    empty cells (empty second i-tiles at cap 256) against plain, alpha
+    at rtol 1e-5. At cap 256 the slots at K9's noise floor
+    (k9_noise_floor: 92 of 3036 valid interior slots) are held within 8
+    times their noise of the float64 alpha instead: graddivv is a
+    difference of centred moment sums, and the kernel's order alone
+    (tests/test_torch_tile_schedule.py's tile_schedule on this frame, on
+    the CPU) moves alpha from plain by up to 3.2e-5 of itself at 2 of
+    those slots, against 2.1e-6 and 5.9e-6 at caps 64 and 128 (ROADMAP
+    Queue 3). Zero on invalid interior slots; K11 bit-equal to the cell
+    launch, K2g (with I2) as in _check_forms on the other slots."""
+    grid = CMGrid(n=3, cap=cap)
+    cfg = SphConfig().replace(mxu_moments=True)
+    k = pv.pair_av_mm
+    J, I2, valid = _av_frame(grid, seed=cap + 3)
+    J, I2 = torch.from_numpy(J).to(cuda), torch.from_numpy(I2).to(cuda)
+    intmask = torch.tensor(np.repeat(_interior_cells_np(grid), cap),
+                           device=cuda)
+    mask = intmask & torch.from_numpy(valid).to(cuda)
+    held = mask
+    before = k.launches
+    out = k(J, I2, grid, cfg)
+    assert k.launches == before + 1
+    if cap > 128:
+        ref64, noise, named = k9_noise_floor(J, I2, grid, cfg)
+        assert int((mask & named).sum()) == 92
+        held = mask & ~named
+        err = (out[0, mask & named].double() - ref64[mask & named]).abs()
+        assert (err <= 8.0 * noise[mask & named]
+                * ref64[mask & named].abs()).all()
+    ref = k.plain(J, I2, grid, cfg)
+    _check_rows(k.name, ref, out, held)
+    assert not out[:, intmask & ~mask].any()
+    _check_forms(k, J, grid, cfg, out, intmask, held, seed=cap, I2=I2)
+
+
+GATE_CASES = ("none", "all", "pattern")
+
+
+@pytest.mark.parametrize("case", GATE_CASES)
+@pytest.mark.parametrize("name", GATED)
+def test_gated_launch_cases(recorded, cuda, name, case):
+    """K2g as launched: the gate pass (pair_gate), then the stage's
+    blocks over its list and the copy, at the gate unit Z of
+    resolve_zgroup. No active supercell: the device count is 0, out
+    equals prev on interior slots and 0 elsewhere. All valid interior
+    slots active: every interior cell listed, out bit-equal to the
+    ungated launch on interior slots. chip_smoke.activity_pattern's
+    seeded pattern: active supercells bit-equal to the ungated launch,
+    inactive ones to prev. In every case the count, the sorted list and
+    the supercell flags equal the plain version's (gate_plan), and the
+    slots outside the interior cells hold 0."""
+    import chip_smoke
+
+    calls, grid, intmask = recorded
+    k, J, I2, cfg = calls[name]
+    kg = next(g for g in pv.GATED_KERNELS if g.name == name + "_gated")
+    J = J.to(cuda)
+    I2 = None if I2 is None else I2.to(cuda)
+    intmask = intmask.to(cuda)
+    Z = pv.resolve_zgroup(grid)
+    valid = J[0] < 0.5 * pv.FILL_POS
+    if case == "none":
+        act = torch.zeros(grid.n_slots, device=cuda)
+    elif case == "all":
+        act = (valid & intmask).float()
+    else:
+        act, kinds = chip_smoke.activity_pattern(grid, valid, seed=3)
+        assert min(kinds.values()) > 0, kinds
+    prev = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1, (kg.fo, grid.n_slots)).astype(np.float32)).to(cuda)
+    cells, _ = pv.gate_plan(act.cpu(), grid, Z)
+    ws = pv.pair_gate(act, grid, Z)
+    count = int(ws[0])
+    assert count == len(cells)
+    listed = ws[pv.GATE_HDR:pv.GATE_HDR + count].sort().values.cpu()
+    assert torch.equal(listed.long(), cells)
+    flags = pv.pair_gate.plain(act.cpu(), grid, Z)[pv.gate_flags(grid):]
+    assert torch.equal(ws[pv.gate_flags(grid):].cpu(), flags)
+    if case == "none":
+        assert count == 0
+    elif case == "all":
+        assert count == len(pv.interior_cells(grid))
+    before = (kg.launches, pv.pair_gate.launches)
+    out = kg(J, I2, grid, cfg, (act, prev))
+    assert (kg.launches, pv.pair_gate.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    ungated = k(J, I2, grid, cfg)
+    on = pv.supercell_active(act, grid, Z).repeat_interleave(grid.cap)
+    assert torch.equal(out[:, intmask & ~on], prev[:, intmask & ~on])
+    assert torch.equal(out[:, intmask & on], ungated[:, intmask & on])
+    assert not out[:, ~intmask].any()
 
 
 def test_sharded_step_matches_cpu(cuda):

@@ -2,7 +2,9 @@
 tile::pair_cell<GradhStage> and <AvStage>), emulated in torch, against
 the JAX package's _gradh_body and _av_direct_body (PallasVE in interpret
 mode) and against the port's plain versions pair_gradh.plain and
-pair_av.plain.
+pair_av.plain. K9's schedule (tile::pair_cell<AvMmStage>) is held by
+tests/test_torch_av_mm_schedule.py with this file's tile_schedule and
+frame_inputs.
 
 The kernels stage the occupied 32-slot groups of the 27 neighbour cells
 in neighbour-then-slot order (each up to its last valid slot: valid
@@ -57,6 +59,7 @@ GRIDS = {"cap256": (dict(n=2, cap=256), 1.0),
          "cap64": (dict(n=4, cap=64), 0.75)}   # (grid, h scale)
 BOXES = ("periodic", "open")
 STAGES = {"pair_gradh": 1.0, "pair_av": 0.0}    # stage: fill value
+FILLS = dict(STAGES, pair_av_mm=0.0)
 TILE = 128
 CELLS_AT_ONCE = 16
 
@@ -70,9 +73,19 @@ def _seq_sum(t):
     return acc
 
 
+def _seq_contract(w, cols):
+    """The moment contraction with each (i, column) sum taken one pair
+    at a time in run order (K9's per-lane sums); [C, CAP, K]."""
+    M = torch.cat(cols, dim=1)                       # [C, K, W]
+    acc = torch.zeros((*w.shape[:2], M.shape[1]), dtype=torch.float32)
+    for j in range(w.shape[-1]):
+        acc = acc + w[:, :, j:j + 1] * M[:, None, :, j]
+    return acc
+
+
 def tile_schedule(k, J, I2, grid, cfg):
-    """K4's or K6's schedule in torch: output rows, zero outside the
-    interior cells."""
+    """K4's, K6's or K9's schedule in torch: output rows, zero outside
+    the interior cells."""
     cap, G = grid.cap, grid.cap // 32
     T = min(cap, TILE)
     valid = J[tpv.RX] < 0.5 * tpv.FILL_POS
@@ -98,21 +111,22 @@ def tile_schedule(k, J, I2, grid, cfg):
         Jn = J[:, run].reshape(J.shape[0], C, 1, nrun)
         i2 = None if I2 is None else I2[:, own].reshape(I2.shape[0], C,
                                                         cap, 1)
-        with mock.patch.object(tpv, "_sum", _seq_sum):
+        with mock.patch.object(tpv, "_sum", _seq_sum), \
+                mock.patch.object(tpv, "_contract", _seq_contract):
             res = k.body(I, Jn, i2, **k._body_kw(cfg))
         # an i-tile with no valid slot stores the fill values
         empty = ~valid[own].view(C, cap // T, T).any(-1)
         empty = empty.repeat_interleave(T, dim=1)             # [C, cap]
         for r, v in enumerate(res):
-            v = torch.where(empty, STAGES[k.name], v.reshape(C, cap))
+            v = torch.where(empty, FILLS[k.name], v.reshape(C, cap))
             out[r, own.reshape(-1)] = v.reshape(-1)
     return out
 
 
-@pytest.fixture(scope="module")
-def frames():
-    """Per (grid, box): the JAX stage calls, the port's J and I2 rows,
-    grid and masks; and the port's config."""
+def frame_inputs():
+    """Per (grid, box): the JAX stage inputs (base rows, cell-major rows,
+    cij, dt), the port's J and I2 rows of K4 and K6 (K9 reads K6's), the
+    port's grid and masks; and the JAX config."""
     state, pbox, cfg = j_init_sedov(10, JCfg(), dt0=1e-5)
     n = 1000
     r = np.random.default_rng(0)
@@ -140,8 +154,6 @@ def frames():
     for gname, (gkw, hscale) in GRIDS.items():
         grid = jcm.CMGrid(**gkw)
         pve = jpv.PallasVE(grid, cfg, interpret=True)
-        # jitted once a grid: the second box reuses the compiled kernels
-        gradh, av_switches = jax.jit(pve.gradh), jax.jit(pve.av_switches)
         for bname, box in (("periodic", pbox), ("open", obox)):
             X = [jnp.asarray(a) for a in xyz]
             lay = jcm.build_layout(grid, box, *X)
@@ -159,13 +171,6 @@ def frames():
                 rows[key] = cm(part[key])
             cij = tuple(rows[key] for key in ("c11", "c12", "c13", "c22",
                                               "c23", "c33"))
-            jin = {
-                "pair_gradh": lambda f=gradh, base=base, rows=rows:
-                    f(base, rows["m"], rows["xm"]),
-                "pair_av": lambda f=av_switches, base=base, rows=rows, cij=cij:
-                    (f(base, rows["c"], rows["kx"], rows["xm_av"],
-                       rows["divv"], rows["vx"], rows["vy"], rows["vz"], cij,
-                       rows["alpha"], jnp.float32(dt)),)}
 
             def t(keys, base=base, rows=rows):
                 return torch.from_numpy(np.stack(
@@ -178,12 +183,46 @@ def frames():
                             torch.from_numpy(np.stack(
                                 [np.asarray(c) for c in cij]
                                 + [np.asarray(rows["alpha"]), dt_row])))}
+            tin["pair_av_mm"] = tin["pair_av"]
             tgrid = CMGrid(**gkw)
             inside = np.repeat(_interior_cells_np(tgrid), tgrid.cap)
             out[gname, bname] = dict(
-                jin=jin, tin=tin, grid=tgrid, inside=inside,
+                jax=dict(base=base, rows=rows, cij=cij, dt=dt), tin=tin,
+                grid=tgrid, inside=inside,
                 valid=np.asarray(lay.valid) & inside)
-    return out, config_from_dict(dataclasses.asdict(cfg))
+    return out, cfg
+
+
+def av_switches_call(f, jx):
+    """The JAX av_switches `f` on a frame's inputs, as K6's and K9's J
+    rows hold them."""
+    rows = jx["rows"]
+    return f(jx["base"], rows["c"], rows["kx"], rows["xm_av"], rows["divv"],
+             rows["vx"], rows["vy"], rows["vz"], jx["cij"], rows["alpha"],
+             jnp.float32(jx["dt"]))
+
+
+@pytest.fixture(scope="module")
+def frames():
+    """Per (grid, box): the JAX stage calls, the port's J and I2 rows,
+    grid and masks; and the port's config."""
+    fr, cfg = frame_inputs()
+    jits = {}
+    for (gname, bname), f in fr.items():
+        if gname not in jits:
+            # jitted once a grid: the second box reuses the compiled
+            # kernels
+            pve = jpv.PallasVE(jcm.CMGrid(**GRIDS[gname][0]), cfg,
+                               interpret=True)
+            jits[gname] = (jax.jit(pve.gradh), jax.jit(pve.av_switches))
+        gradh, av_switches = jits[gname]
+        jx = f["jax"]
+        f["jin"] = {
+            "pair_gradh": lambda f=gradh, jx=jx:
+                f(jx["base"], jx["rows"]["m"], jx["rows"]["xm"]),
+            "pair_av": lambda f=av_switches, jx=jx:
+                (av_switches_call(f, jx),)}
+    return fr, config_from_dict(dataclasses.asdict(cfg))
 
 
 CASES = [(s, g, b) for s in STAGES for g in GRIDS for b in BOXES]
