@@ -81,7 +81,24 @@ Phases (any failure exits non-zero before the last line):
      100^3, D = 2, 4 rungs, one warm-up and one timed cycle, its rungs
      beside BdtVE's on the same global grid, and one more substep of
      the shards under PyTorch's sync check set to errors;
-  11. the kernel table as one JSON line, then the device line.
+  11. (l) single-device self-gravity: each solver on the card against
+     the same solver on the CPU (direct_gravity on 4096 seeded
+     particles; fmm_gravity on Evrard 30 at level 5 with cuDNN's TF32
+     left on, and on a seeded cluster whose leaves overflow leaf_cap,
+     nf_truncated equal and nonzero; ewald_gravity on 512 particles in
+     a periodic box; 3 N-body steps); ResidentVE (3 steps) and BdtVE
+     (3 rungs, 2 cycles) on the card against the CPU at Evrard 10 under
+     the FMM and the direct sum; Evrard 100 (523,984 particles, the
+     planner's cap-768 grid) on ResidentVE with the FMM at level 6, one
+     warm-up and 5 timed steps (counters zeroed just before, read just
+     after), gated on overflow 0, nf_truncated 0, finite rows, energy
+     drift < 5e-3 and bench.py's density L1 < 0.15, each step split
+     into the hydro pipeline, P2M + M2M, M2L, L2L + L2P, P2P and the
+     rest; K3-K7 at cap 768 against their plain versions on sampled
+     cells, their fill values, their times, K1 on the open box
+     bit-equal; BdtVE at Evrard 100 (4 rungs), one warm-up and one
+     timed cycle;
+  12. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
 python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
@@ -90,6 +107,8 @@ inputs of substep 1 and with no active supercell, K8, K9 and K10
 (float32, bf16) and 3 steps under mxu_moments + mxu_momentum at 100^3,
 and K3-K7 in a D = 2 sharded step at cap 256, only (see compare_main),
 to compare two checkouts of the repository in one call.
+python3 chip_smoke.py --gravity runs the build and phase (l) alone,
+with no result lines.
 """
 
 from __future__ import annotations
@@ -2449,6 +2468,575 @@ def sharded_bdt_main_path(report, D=2, nr=4):
         rung_hist_single=hist1, rung_differs=differ, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# (l): single-device self-gravity, and the Evrard collapse at 100^3
+# ---------------------------------------------------------------------------
+
+EVRARD_SIDE = 100         # 523,984 particles, bench.py's Evrard size
+# the lowest FMM level at which no leaf of the Evrard 100 sphere holds
+# more than leaf_cap (128) particles: level 5's densest leaf holds 388,
+# so its P2P would drop pairs (nf_truncated > 0); level 6's holds 103
+EVRARD_LEVEL = 6
+EVRARD_STEPS = 5          # timed resident steps after one warm-up step
+EVRARD_SAMPLE_CELLS = 48  # cells of each cap-768 pair launch held against plain
+# the TPU package's tiered Evrard-50 density L1 (an accuracy comparison
+# only: another size, engine and device)
+TPU_EVRARD50_L1 = 0.0042
+EVRARD_L1_BOUND = 0.15    # bench.py's physics gate
+
+
+def evrard(side, device, solver="fmm", level=None):
+    """Evrard state on `device`, gravity_solver `solver` (FMM at `level`,
+    default SphConfig's), and the planner's grid
+    (choose_cap_and_grid(cap_min=32, cap_max=1024) at 1.2 h_max)."""
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.init.evrard import init_evrard
+    from sphexa_tpu_torch.ops.cellmajor import choose_cap_and_grid
+
+    state, box, cfg = init_evrard(side, SphConfig(), dt0=3e-5, device=device)
+    cfg = cfg.replace(gravity_solver=solver,
+                      fmm_level=level or cfg.fmm_level)
+    p = state.p
+    alive = p.alive
+    xyz = [getattr(p, c)[alive].cpu().numpy() for c in "xyz"]
+    _, grid = choose_cap_and_grid(box, float(p.h[alive].max()) * 1.2,
+                                  int(alive.sum()), *xyz, cap_min=32,
+                                  cap_max=1024)
+    return state, box, cfg, grid
+
+
+def state_energy(state, box, cfg):
+    """ecin + eint + egrav of a particle state (egrav from the FMM at
+    cfg's level): the e0 of the energy gate."""
+    from sphexa_tpu_torch.gravity.direct import egrav
+    from sphexa_tpu_torch.gravity.fmm import FmmConfig, fmm_gravity
+    from sphexa_tpu_torch.propagator.common import compute_energies
+
+    p = state.p
+    g = fmm_gravity(p.x, p.y, p.z, p.m, p.alive, box, cfg.gravG,
+                    FmmConfig(level=cfg.fmm_level, min_sep=cfg.fmm_min_sep),
+                    eps=cfg.eps)
+    return float(sum(compute_energies(p, cfg))) + float(
+        egrav(p.m, g.pot, p.alive))
+
+
+def rows_close(what, got, want, rtol):
+    """Each output row (ax, ay, az, pot, ...) of the card within rtol of
+    the CPU row's largest absolute value. Returns the largest error as a
+    share of its row's scale."""
+    import torch
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(want, got)):
+        a, b = a.double().cpu(), b.double().cpu()
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError(f"{what} row {i}: non-finite on the card")
+        rel = float((b - a).abs().max() / a.abs().max().clamp_min(1e-30))
+        if rel > rtol:
+            raise AssertionError(f"{what} row {i}: {rel:.3e} of scale > "
+                                 f"{rtol}")
+        worst = max(worst, rel)
+    return worst
+
+
+def leaf_counts(x, y, z, box, level):
+    """Particles in each FMM leaf at `level` (the P2P's cap applies to
+    these counts)."""
+    import torch
+    from sphexa_tpu_torch.gravity.fmm import FmmConfig, _leaf_binning
+    cid = _leaf_binning(FmmConfig(level=level), box, x, y, z, None)
+    return torch.bincount(cid.long(), minlength=8 ** level)
+
+
+def gravity_solver_check(report):
+    """(l) 1: each solver on the card against the same solver on the
+    CPU, same seeded inputs, the CPU tests' tolerances; cuDNN's TF32
+    left on around the FMM (the module turns it off for its
+    convolutions)."""
+    import torch
+    from sphexa_tpu_torch.gravity import direct, ewald, fmm
+    from sphexa_tpu_torch.sfc.box import Box, Boundary
+
+    res = {}
+    r = np.random.default_rng(7)
+    n = 4096
+    host = [r.uniform(-1, 1, n).astype(np.float32) for _ in range(3)] + [
+        (r.uniform(0.5, 1.5, n) / n).astype(np.float32)]
+    alive = np.arange(n) < n - 5
+
+    def on(dev, arrs, live):
+        return [torch.from_numpy(a).to(dev) for a in arrs] + [
+            torch.from_numpy(live).to(dev)]
+
+    g = {dev: direct.direct_gravity(*on(dev, host, alive), 1.0, 0.01)
+         for dev in (DEVICE, "cpu")}
+    res["direct_4096"] = rows_close("direct_gravity", g[DEVICE], g["cpu"],
+                                    1e-5)
+    e = {dev: float(direct.egrav(on(dev, host, alive)[3], g[dev].pot,
+                                 on(dev, host, alive)[4]))
+         for dev in (DEVICE, "cpu")}
+    np.testing.assert_allclose(e[DEVICE], e["cpu"], rtol=1e-5)
+
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        st, box, cfg, _ = evrard(30, "cpu")
+        p = st.p
+        ev = [getattr(p, c)[p.alive].numpy() for c in ("x", "y", "z", "m")]
+        fc = fmm.FmmConfig(level=5, min_sep=3)
+        ones = np.ones(ev[0].size, bool)
+        g = {dev: fmm.fmm_gravity(*on(dev, ev, ones), box, 1.0, fc,
+                                  eps=cfg.eps) for dev in (DEVICE, "cpu")}
+        res["fmm_evrard30_l5"] = rows_close("fmm_gravity Evrard 30", g[DEVICE][:4],
+                                            g["cpu"][:4], 1e-4)
+        nf = [int(g[d].nf_truncated) for d in (DEVICE, "cpu")]
+        assert nf[0] == nf[1] == 0, nf
+        # a seeded Gaussian cluster whose central level-3 leaves
+        # overflow leaf_cap
+        cl = [np.clip(r.normal(0, 0.15, 20000), -0.99, 0.99).astype(
+            np.float32) for _ in range(3)] + [np.full(20000, 5e-5,
+                                                      np.float32)]
+        fc3 = fmm.FmmConfig(level=3, min_sep=2)
+        cbox = Box.cube(-1.0, 1.0, Boundary.open)
+        live = np.ones(20000, bool)
+        g = {dev: fmm.fmm_gravity(*on(dev, cl, live), cbox, 1.0, fc3,
+                                  eps=0.01) for dev in (DEVICE, "cpu")}
+        res["fmm_truncating"] = rows_close("fmm_gravity truncating",
+                                           g[DEVICE][:4], g["cpu"][:4], 1e-4)
+        nf = [int(g[d].nf_truncated) for d in (DEVICE, "cpu")]
+        assert nf[0] == nf[1] > 0, nf
+        res["nf_truncated_truncating"] = nf[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+
+    pb = Box.cube(0.0, 1.0, Boundary.periodic)
+    pe = [0.5 * (a[:512] + 1.0) for a in host[:3]] + [host[3][:512]]
+    g = {dev: ewald.ewald_gravity(*on(dev, pe, np.ones(512, bool)), pb, 1.0,
+                                  eps=0.01) for dev in (DEVICE, "cpu")}
+    res["ewald_512"] = rows_close("ewald_gravity", g[DEVICE], g["cpu"], 1e-4)
+
+    from sphexa_tpu_torch.propagator.nbody import make_nbody_step
+    diags = {}
+    for dev in (DEVICE, "cpu"):
+        st, box, cfg, _ = evrard(10, dev)
+        step = make_nbody_step(box, cfg, device=dev)
+        ds = []
+        for _ in range(3):
+            st, d = step(st)
+            ds.append(d)
+        diags[dev] = (st, ds)
+    (sc, dc), (sg, dg) = diags["cpu"], diags[DEVICE]
+    for a, b in zip(dc, dg):
+        for k in ("dt", "etot", "ecin", "egrav"):
+            np.testing.assert_allclose(float(getattr(b, k)),
+                                       float(getattr(a, k)), rtol=1e-5,
+                                       err_msg=f"nbody {k}")
+        assert int(a.nf_truncated) == int(b.nf_truncated) == 0
+    res["nbody_3_steps"] = rows_close(
+        "nbody positions", [getattr(sg.p, c) for c in ("x", "y", "z", "vx")],
+        [getattr(sc.p, c) for c in ("x", "y", "z", "vx")], 1e-5)
+    log(f"  solvers card vs cpu (largest error as a share of its row's "
+        f"scale): direct 4096 {res['direct_4096']:.3e} (egrav rtol 1e-5), "
+        f"FMM Evrard 30 level 5 {res['fmm_evrard30_l5']:.3e} (nf 0), FMM "
+        f"truncating frame {res['fmm_truncating']:.3e} (nf "
+        f"{res['nf_truncated_truncating']} on both), Ewald 512 "
+        f"{res['ewald_512']:.3e}, N-body 3 steps {res['nbody_3_steps']:.3e}")
+    report["gravity_solvers"] = res
+
+
+def gravity_engine_check(report):
+    """(l) 2: ResidentVE (3 steps) and BdtVE (3 rungs, 2 cycles) on the
+    card against the CPU at Evrard 10, under the FMM and the direct
+    sum; the CPU tests' bounds (dt, eint, ecin rtol 1e-5, etot 1e-4)."""
+    from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
+    from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
+
+    keys = ("dt", "etot", "ecin", "eint")
+    out = {}
+    for solver in ("fmm", "direct"):
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            state, box, cfg, grid = evrard(10, dev, solver)
+            eng = ResidentVE(box, grid, cfg, device=dev)
+            rst = eng.bind(state)
+            rd = []
+            for _ in range(3):
+                rst, d = eng.step(rst)
+                rd.append({k: float(getattr(d, k)) for k in keys
+                           + ("nf_truncated", "overflow")})
+            beng = BdtVE(box, grid, cfg, num_rungs=3, device=dev)
+            bst = beng.bind_bdt(state)
+            bd = []
+            for _ in range(2):
+                bst, ds = beng.run_cycle(bst)
+                bd += [dict({k: float(getattr(d, k)) for k in keys
+                             + ("overflow",)},
+                            rung_hist=d.rung_hist.cpu().tolist())
+                       for d in ds]
+            runs[dev] = (rd, bd)
+        for which in (0, 1):
+            for a, b in zip(runs["cpu"][which], runs[DEVICE][which]):
+                assert a["overflow"] == b["overflow"] == 0
+                assert a.get("nf_truncated", 0) == b.get("nf_truncated", 0)
+                for k in ("dt", "eint", "ecin"):
+                    np.testing.assert_allclose(b[k], a[k], rtol=1e-5,
+                                               err_msg=f"{solver} {k}")
+                np.testing.assert_allclose(b["etot"], a["etot"], rtol=1e-4,
+                                           err_msg=f"{solver} etot")
+                assert a.get("rung_hist") == b.get("rung_hist"), (a, b)
+        (ra, ba), (rb, bb) = runs["cpu"], runs[DEVICE]
+        log(f"  Evrard 10 {solver}: ResidentVE 3 steps, last dt "
+            f"{rb[-1]['dt']:.6e} vs {ra[-1]['dt']:.6e}, etot "
+            f"{rb[-1]['etot']:.7f} vs {ra[-1]['etot']:.7f}; BdtVE 2 cycles, "
+            f"rung_hist {bb[-1]['rung_hist']} equal, etot "
+            f"{bb[-1]['etot']:.7f} vs {ba[-1]['etot']:.7f}")
+        out[solver] = dict(card=runs[DEVICE], cpu=runs["cpu"])
+    report["gravity_engine_10"] = out
+
+
+def sample_occupied_cells(grid, valid, intmask, n_cells, seed):
+    """Interior cells held against plain: the densest ones (the i-tiles
+    of the full cap) and random occupied others."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    cells = torch.tensor(pv.interior_cells(grid), device=valid.device)
+    cnt = (valid & intmask).view(-1, grid.cap).sum(1)[cells]
+    dense = cells[torch.argsort(cnt, descending=True)[:n_cells // 3]]
+    occ = cells[cnt > 0].cpu().numpy()
+    r = np.random.default_rng(seed)
+    rnd = torch.tensor(r.choice(occ, min(n_cells - dense.numel(), occ.size),
+                                False), device=valid.device)
+    return torch.unique(torch.cat([dense, rnd]))
+
+
+def fmm_phase_ms(x, y, z, m, box, fc, eps, reps=3):
+    """The FMM's phases one by one on the card (events around `reps`
+    calls each): P2M + M2M, M2L (all levels), L2L + L2P, P2P; and the
+    whole fmm_gravity. The phases' sum is held against fmm_gravity's
+    output."""
+    import torch
+    from sphexa_tpu_torch.gravity import fmm
+
+    n = 1 << fc.level
+    alive = torch.ones(x.shape, dtype=torch.bool, device=x.device)
+    cid = fmm._leaf_binning(fc, box, x, y, z, alive)
+    co = fmm._box_centered(box, x, y, z)
+
+    def p2m_m2m():
+        c = fmm._leaf_binning(fc, box, x, y, z, alive)
+        return fmm._m2m(fmm._raw_leaf_moments(fmm._box_centered(
+            box, x, y, z), m, c, n), fc)
+
+    raw = p2m_m2m()
+    levels = range(2, fc.level + 1)
+
+    def m2l():
+        return [fmm._m2l(raw[lv], box, fc, lv) for lv in levels]
+
+    contrib = m2l()
+
+    def l2l_l2p():
+        local = None
+        for i, lv in enumerate(levels):
+            local = contrib[i] if local is None else local + contrib[i]
+            if lv < fc.level:
+                local = fmm._l2l(local, box, lv)
+        return fmm._l2p(local, co, cid, box, fc)
+
+    def p2p():
+        return fmm._p2p(x, y, z, m, cid, n, fc.leaf_cap, eps,
+                        reach=fc.min_sep - 1)
+
+    far, near = l2l_l2p(), p2p()
+    whole = fmm.fmm_gravity(x, y, z, m, alive, box, 1.0, fc, eps=eps)
+    for i, (a, b) in enumerate(zip(whole[:4], (far[1] + near[0],
+                                               far[2] + near[1],
+                                               far[3] + near[2],
+                                               far[0] + near[3]))):
+        rel = float((a - b).abs().max() / a.abs().max())
+        assert rel < 1e-4, f"FMM phases row {i}: {rel:.3e}"
+    ms = {k: cuda_ms(f, reps) for k, f in (
+        ("p2m_m2m", p2m_m2m), ("m2l", m2l), ("l2l_l2p", l2l_l2p),
+        ("p2p", p2p), ("fmm_gravity", lambda: fmm.fmm_gravity(
+            x, y, z, m, alive, box, 1.0, fc, eps=eps)))}
+    # the work as the solver does it: M2L's convolutions count every tap
+    # of the S^3 kernel (masked taps included), 8 parities of (s/2)^3
+    # outputs a level, 2 flops a multiply-add; P2P gathers
+    # (2 min_sep - 1)^3 cells x leaf_cap lanes for every row
+    S = 4 * fc.min_sep - 1
+    work = dict(
+        m2l_flops=float(sum(8 * (1 << (lv - 1)) ** 3 * fmm.NCH_L * fmm.NCH_M
+                            * S ** 3 * 2 for lv in levels)),
+        p2p_candidates=float(x.numel() * (2 * fc.min_sep - 1) ** 3
+                             * fc.leaf_cap))
+    return ms, work, int(whole.nf_truncated)
+
+
+def evrard_main_path(report):
+    """(l) 3: Evrard 100 on ResidentVE with FMM gravity at level 6, one
+    warm-up step, then EVRARD_STEPS timed steps (counters zeroed just
+    before, read just after); the gates; each step split into the hydro
+    pipeline, P2M + M2M, M2L, L2L + L2P, P2P and the rest."""
+    import torch
+    from sphexa_tpu_torch.gravity.fmm import FmmConfig
+    from sphexa_tpu_torch.propagator.ve_cellmajor import (ResidentVE,
+                                                          _add_gravity,
+                                                          _run_pipeline)
+
+    side, steps = EVRARD_SIDE, EVRARD_STEPS
+    t0 = time.perf_counter()
+    state, box, cfg, grid = evrard(side, DEVICE, "fmm", EVRARD_LEVEL)
+    p = state.p
+    n = int(p.alive.sum())
+    occ = {lv: int(leaf_counts(p.x[p.alive], p.y[p.alive], p.z[p.alive],
+                               box, lv).max()) for lv in (5, 6)}
+    e0 = state_energy(state, box, cfg)
+    eng = ResidentVE(box, grid, cfg, device=DEVICE)
+    rst = eng.bind(state)
+    assert int(rst.overflow) == 0, "slot overflow at bind"
+    rst, _ = eng.step(rst)                      # warm-up
+    torch.cuda.synchronize()
+    n_rows = int(eng.gravity_index(rst.valid).numel())
+    log(f"  setup + warm-up {time.perf_counter() - t0:.1f} s; {n} "
+        f"particles; plan cap {grid.cap}, grid {grid}, n_slots "
+        f"{grid.n_slots}; FMM level {cfg.fmm_level}, min_sep "
+        f"{cfg.fmm_min_sep}, leaf_cap 128: densest leaf {occ}; gravity "
+        f"on {n_rows} compacted rows")
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    diags = []
+    ev[0].record()
+    for i in range(steps):
+        rst, d = eng.step(rst)
+        ev[i + 1].record()
+        diags.append(d)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    d = {k: [float(getattr(x, k)) for x in diags] for k in
+         ("dt", "etot", "ecin", "eint", "overflow", "nf_truncated",
+          "h_nonconv", "rebinned", "h_max", "nc_mean")}
+    assert max(d["overflow"]) == 0, "slot overflow"
+    assert max(d["nf_truncated"]) == 0, \
+        f"FMM near-field truncation {d['nf_truncated']}"
+    for f in ("x", "y", "z", "h", "vx", "vy", "vz", "temp", "alpha",
+              "du_m1"):
+        assert torch.isfinite(getattr(rst, f)).all(), f"non-finite {f}"
+    drift = abs(d["etot"][-1] - e0) / abs(e0)
+    assert drift < 5e-3, f"energy drift {drift:.3e}"
+    used = {k.name for k in eng.pve.kernels}
+    want = {k.name: steps if k.name in used else 0 for k in kernels}
+    want["ghost_refresh"] = 5 * steps
+    assert launches == want, (launches, want)
+    mean_ms = float(np.mean(step_ms))
+
+    # the split, on the state after the timed steps
+    validint = rst.valid & eng.intmask
+    base = [rst.x, rst.y, rst.z, rst.h, rst.gid]
+
+    def hydro():
+        return _run_pipeline(eng.pve, eng.rf, base, rst.m, rst.vx, rst.vy,
+                             rst.vz, rst.temp, rst.alpha, rst.dt, validint)
+
+    out = hydro()
+    idx = eng.gravity_index(rst.valid)
+    hydro_ms = cuda_ms(hydro, 2)
+    grav_ms = cuda_ms(lambda: _add_gravity(out, rst.x, rst.y, rst.z, rst.m,
+                                           idx, box, cfg), 2)
+    fc = FmmConfig(level=cfg.fmm_level, min_sep=cfg.fmm_min_sep)
+    phases, work, nf = fmm_phase_ms(rst.x[idx], rst.y[idx], rst.z[idx],
+                                    rst.m[idx], box, fc, cfg.eps)
+    rest = mean_ms - hydro_ms - grav_ms
+    shares = {k: v / mean_ms for k, v in (
+        ("hydro_pipeline", hydro_ms), ("p2m_m2m", phases["p2m_m2m"]),
+        ("m2l", phases["m2l"]), ("l2l_l2p", phases["l2l_l2p"]),
+        ("p2p", phases["p2p"]), ("rest", rest))}
+    split = dict(shares=shares, hydro_pipeline=hydro_ms, gravity=grav_ms,
+                 p2m_m2m=phases["p2m_m2m"], m2l=phases["m2l"],
+                 l2l_l2p=phases["l2l_l2p"], p2p=phases["p2p"],
+                 fmm_gravity=phases["fmm_gravity"], rest=rest)
+
+    # bench.py's physics gate: rho against the analytic 1/(2 pi r)
+    rho = out["rho"][validint].double()
+    r = torch.sqrt(rst.x[validint].double() ** 2
+                   + rst.y[validint].double() ** 2
+                   + rst.z[validint].double() ** 2)
+    sel = (r > 0.05) & (r < 0.9)
+    ana = 1.0 / (2.0 * np.pi * r[sel].clamp_min(1e-6))
+    l1 = float(((rho[sel] - ana).abs() / ana).mean())
+    assert l1 < EVRARD_L1_BOUND, f"Evrard density L1 {l1:.4f}"
+
+    sim_per_wall = sum(d["dt"]) / (sum(step_ms) * 1e-3)
+    log(f"  Evrard {side}: {mean_ms:.3f} ms/step (CUDA events, mean of "
+        f"{steps}; steps {[round(s, 3) for s in step_ms]}), "
+        f"{n / (mean_ms * 1e-3):.4e} particle-updates/s, sim-time per "
+        f"wall-second {sim_per_wall:.6e}")
+    log(f"  split (ms, each part timed alone on the last state): hydro "
+        f"pipeline {hydro_ms:.3f}, gravity {grav_ms:.3f} (FMM phases: P2M "
+        f"+ M2M {phases['p2m_m2m']:.3f}, M2L {phases['m2l']:.3f}, L2L + "
+        f"L2P {phases['l2l_l2p']:.3f}, P2P {phases['p2p']:.3f}; "
+        f"fmm_gravity alone {phases['fmm_gravity']:.3f}), rest "
+        f"{rest:.3f}; M2L {work['m2l_flops']:.4e} float32 flops "
+        f"({work['m2l_flops'] / (phases['m2l'] * 1e9):.3f} TFLOP/s), P2P "
+        f"{work['p2p_candidates']:.4e} gathered candidates")
+    log(f"  shares of the mean step: "
+        f"{dict((k, round(v, 4)) for k, v in shares.items())}")
+    log(f"  |etot - e0|/|e0| = {drift:.3e} (e0 {e0:.7f}); overflow 0; "
+        f"nf_truncated {d['nf_truncated']}; rows finite; density L1 vs "
+        f"1/(2 pi r) on 0.05 < r < 0.9: {l1:.4f} (bound "
+        f"{EVRARD_L1_BOUND}; the TPU package's tiered Evrard 50: "
+        f"{TPU_EVRARD50_L1}, another size and engine)")
+    log(f"  launches {dict((k, v) for k, v in launches.items() if v)}, "
+        f"every other kernel 0; dt {d['dt']}")
+    report["evrard_main_path"] = dict(
+        side=side, n=n, cap=grid.cap, grid=str(grid), n_slots=grid.n_slots,
+        fmm_level=cfg.fmm_level, densest_leaf=occ, gravity_rows=n_rows,
+        steps=steps, step_ms=step_ms, mean_step_ms=mean_ms,
+        particle_updates_per_s=n / (mean_ms * 1e-3),
+        sim_time_per_wall_s=sim_per_wall, e0=e0, energy_drift=drift,
+        density_l1=l1, split=split, fmm_work=work, nf_truncated_phases=nf,
+        diags=d,
+        launches=launches)
+    return eng, rst, grid, launches
+
+
+def evrard_pair_check(report, eng, rst, grid):
+    """(l) 5: K3-K7 at cap 768, at the inputs of one more Evrard 100
+    step: each against its plain version on sampled cells (the densest
+    and random occupied ones), its invalid interior slots at their fill
+    values, each timed; K1 on the open box bit-equal to its plain
+    version."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    with Spy(pv.KERNELS) as spy:
+        eng.step(rst)
+    torch.cuda.synchronize()
+    res = {}
+    for i, (k, args, out) in enumerate(spy.calls):
+        if k.name == "ghost_refresh":
+            st, g, b, xyz = args
+            if not torch.equal(k.plain(st.clone(), g, b, xyz), out):
+                raise AssertionError("ghost_refresh at cap 768: not "
+                                     "bit-equal")
+            continue
+        J, I2, g, c = args
+        cells = sample_occupied_cells(g, valid_slots(J), eng.intmask,
+                                      EVRARD_SAMPLE_CELLS, i)
+        ref = pv._run_plain(k.body, J, I2, g, k.fo, cells=cells,
+                            **k._body_kw(c))
+        slots = torch.zeros(g.n_slots, dtype=torch.bool, device=DEVICE)
+        lane = torch.arange(g.cap, device=DEVICE)
+        slots[(cells[:, None] * g.cap + lane).reshape(-1)] = True
+        err, rel = compare(k.name, ref, out, valid_slots(J) & slots
+                           & eng.intmask, per_row=False)
+        nfill = check_fill(k, J, out, eng.intmask)
+        ms = cuda_ms(lambda: k._launch(J, I2, g, c), 3)
+        res[k.name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
+                           fill_slots=nfill, cells=int(cells.numel()))
+        log(f"  cap {g.cap} {k.name:14s} {ms:9.3f} ms; {cells.numel()} "
+            f"cells against plain: err {err:.3e} (rel {rel:.3e}); "
+            f"{nfill} invalid interior slots at their fill value")
+    n_ghost = sum(1 for k, _, _ in spy.calls if k.name == "ghost_refresh")
+    log(f"  ghost_refresh on the open box: {n_ghost} refreshes bit-equal "
+        f"to plain")
+    report["evrard_cap768"] = res
+
+
+def evrard_bdt_path(report, grid):
+    """(l) 4: BdtVE at Evrard 100, 4 rungs, one warm-up cycle, then one
+    timed cycle of 8 substeps (counters zeroed just before, read just
+    after); gravity every substep. Rung histogram, ms a cycle, gravity's
+    ms a substep (timed alone on the last state)."""
+    import torch
+    from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
+    from sphexa_tpu_torch.propagator.ve_cellmajor import _add_gravity
+
+    nr = 4
+    t0 = time.perf_counter()
+    state, box, cfg, _ = evrard(EVRARD_SIDE, DEVICE, "fmm", EVRARD_LEVEL)
+    e0 = state_energy(state, box, cfg)
+    eng = BdtVE(box, grid, cfg, num_rungs=nr, device=DEVICE)
+    bst = eng.bind_bdt(state)
+    assert int(bst.rv.overflow) == 0, "slot overflow at bind"
+    bst, _ = eng.run_cycle(bst)                        # warm-up
+    torch.cuda.synchronize()
+    log(f"  setup + warm-up cycle {time.perf_counter() - t0:.1f} s; Z "
+        f"{eng.pve_gated.zgroup}")
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    bst, diags = eng.run_cycle(bst)
+    b.record()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    nsub = 1 << (nr - 1)
+    used = {k.name for k in eng.pve_gated.kernels}
+    want = {k.name: nsub if k.name in used else 0 for k in kernels}
+    want["ghost_refresh"] = 5 * nsub
+    want["pair_gate"] = 5 * nsub
+    assert launches == want, (launches, want)
+    cycle_ms = a.elapsed_time(b)
+    d = {k: [np.asarray(getattr(x, k).cpu()).tolist() for x in diags]
+         for k in ("dt", "etot", "active_frac", "active_cell_frac",
+                   "rung_hist", "overflow")}
+    assert max(d["overflow"]) == 0, "slot overflow or FMM truncation"
+    for f in ("x", "y", "z", "h", "vx", "vy", "vz", "temp", "alpha"):
+        assert torch.isfinite(getattr(bst.rv, f)).all(), f"non-finite {f}"
+    drift = abs(d["etot"][-1] - e0) / abs(e0)
+    assert drift < 5e-3, f"energy drift {drift:.3e}"
+    # the substep, gravity included, takes no host sync: one more,
+    # untimed and uncounted, with PyTorch's sync check turned to errors
+    # (the resync builds the gravity index)
+    b2, _ = eng.resync(bst)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.substep(b2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    rv = bst.rv
+    z = torch.zeros_like(rv.x)
+    idx = eng.gravity_index(rv.valid)
+    grav_ms = cuda_ms(lambda: _add_gravity(
+        dict(ax=z, ay=z, az=z), rv.x, rv.y, rv.z, rv.m, idx, box, cfg), 2)
+    log(f"  Evrard {EVRARD_SIDE} BdtVE, {nr} rungs: {cycle_ms:.3f} ms/cycle, "
+        f"{cycle_ms / nsub:.3f} ms/substep, gravity {grav_ms:.3f} ms a "
+        f"substep (alone); rung_hist {d['rung_hist'][-1]}; active_frac "
+        f"{[round(x, 4) for x in d['active_frac']]}; |etot - e0|/|e0| = "
+        f"{drift:.3e}; overflow and nf_truncated 0; a substep ran with no "
+        f"host sync")
+    report["evrard_bdt"] = dict(num_rungs=nr, cycle_ms=cycle_ms,
+                                substep_ms=cycle_ms / nsub,
+                                gravity_ms=grav_ms, e0=e0,
+                                energy_drift=drift, diags=d,
+                                launches=launches)
+
+
+def gravity_phase(report):
+    """Phase (l): the solvers and the engines card against CPU, the
+    Evrard 100 main path, K3-K7 at cap 768, BdtVE at Evrard 100."""
+    t0 = time.perf_counter()
+    log("(l) gravity solvers on the card against the CPU:")
+    gravity_solver_check(report)
+    log("(l) engines with gravity on the card against the CPU, Evrard 10:")
+    gravity_engine_check(report)
+    log(f"(l) Evrard {EVRARD_SIDE} on ResidentVE, FMM level {EVRARD_LEVEL}:")
+    eng, rst, grid, _ = evrard_main_path(report)
+    log(f"(l) K3-K7 and K1 at the Evrard {EVRARD_SIDE} inputs:")
+    evrard_pair_check(report, eng, rst, grid)
+    del eng, rst
+    log(f"(l) Evrard {EVRARD_SIDE} on BdtVE:")
+    evrard_bdt_path(report, grid)
+    report["gravity_phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase (l): {report['gravity_phase_seconds']:.1f} s")
+
+
 def compare_mm():
     """--compare's moment-matmul part: K8, K9 and K10 (float32, bf16) at
     the inputs of a Sedov 100^3 step under mxu_moments + mxu_momentum, 3 x 5
@@ -2625,6 +3213,26 @@ def compare_main(tag: str) -> int:
     return 0
 
 
+def gravity_main() -> int:
+    """--gravity: the build and phase (l) alone (no result lines);
+    details to chiprun_out/chip_smoke_gravity.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"smi": smi_line()}
+    log(report["smi"])
+    _cuda.build()
+    gravity_phase(report)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_gravity.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--compare"]:
@@ -2632,6 +3240,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--gravity"]:
+        return gravity_main()
     sys.path.insert(0, ROOT)
     from sphexa_tpu_torch.ops import _cuda
 
@@ -2713,6 +3323,8 @@ def main() -> int:
     k1z_rows = [sharded_main_path(report, D) for D in SHARD_D]
     rows.append(k1z_rows[0])
     sharded_bdt_main_path(report)
+
+    gravity_phase(report)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

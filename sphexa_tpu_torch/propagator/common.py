@@ -31,7 +31,8 @@ class StepDiagnostics(NamedTuple):
     max_cell_count: torch.Tensor
     maxvsignal: torch.Tensor
     bounds: torch.Tensor = None   # [xmin,xmax,ymin,ymax,zmin,zmax] of alive
-    nf_truncated: int = 0
+    nf_truncated: torch.Tensor = 0   # FMM near-field slots beyond
+                                     # leaf_cap (dropped pairs: fail-stop)
     rho: torch.Tensor = None
     p: torch.Tensor = None
 
@@ -52,13 +53,18 @@ def compute_energies(ps: Particles, cfg: SphConfig):
 
 def finish_step(state: SimState, ps: Particles, ax, ay, az, du, maxvsignal,
                 c, divv, nc_sph, box: Box, cfg: SphConfig,
-                max_nc, max_cell_count, rho=None, p=None):
+                max_nc, max_cell_count, egrav=None, nf_truncated=None,
+                rho=None, p=None):
     """Timestep + Press-2 integration + AB2 energy + h controller + diag.
-    `ps` must carry the force-step-updated h/alpha. Gravity is not
-    ported: the caller has already refused gravG != 0."""
+    `ps` must carry the force-step-updated h/alpha; under gravity
+    (gravG != 0) ax, ay, az include it, `egrav` is its energy and the
+    acceleration limit joins the dt candidates."""
     dt_courant = ts.courant_timestep(maxvsignal, ps.h, c, ps.alive, cfg.kcour)
-    dt = ts.combine_timesteps(
-        state.dt, [dt_courant, ts.rho_timestep(divv, ps.alive, cfg.krho)], cfg)
+    candidates = [dt_courant, ts.rho_timestep(divv, ps.alive, cfg.krho)]
+    if cfg.gravG != 0.0:
+        candidates.append(ts.acceleration_timestep(
+            ax, ay, az, ps.alive, cfg.eta_acc, cfg.eps))
+    dt = ts.combine_timesteps(state.dt, candidates, cfg)
     dt_m1 = state.dt
 
     x, y, z, vx, vy, vz, dx, dy, dz = position_update(
@@ -72,7 +78,10 @@ def finish_step(state: SimState, ps: Particles, ax, ay, az, du, maxvsignal,
                     x_m1=dx, y_m1=dy, z_m1=dz, temp=temp, h=h, du_m1=du)
 
     ecin, eint = compute_energies(ps, cfg)
-    egrav = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    egrav = zero if egrav is None else egrav
+    nf_truncated = zero.to(torch.int32) if nf_truncated is None \
+        else nf_truncated
     big = torch.full((), 1e30, dtype=x.dtype, device=x.device)
     bounds = torch.stack([
         torch.min(torch.where(ps.alive, ps.x, big)),
@@ -90,7 +99,7 @@ def finish_step(state: SimState, ps: Particles, ax, ay, az, du, maxvsignal,
         nc_mean=(torch.sum(nc_sph * alive_f)
                  / torch.clamp_min(torch.sum(ps.alive), 1)).to(torch.float32),
         max_nc=max_nc, max_cell_count=max_cell_count,
-        rho=rho, p=p,
+        nf_truncated=nf_truncated, rho=rho, p=p,
         maxvsignal=torch.max(torch.where(ps.alive, maxvsignal,
                                          _zero(maxvsignal))))
 

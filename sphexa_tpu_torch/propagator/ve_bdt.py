@@ -2,9 +2,11 @@
 
 Counterpart of sphexa_tpu/propagator/ve_bdt.py (BdtVE; reference:
 main/src/propagator/ve_hydro_bdt.hpp, sph/include/sph/ts_rungs.hpp:
-117-157). Single device, hydro only (gravG == 0), avClean off; the
-moment-matmul options (mxu_moments, mxu_momentum) run their gated
-bodies.
+117-157). Single device, avClean off; the moment-matmul options
+(mxu_moments, mxu_momentum) run their gated bodies. Self-gravity
+(gravG != 0) is recomputed every substep on the drifted positions of
+all slots and committed with the active slots' kick forces; its
+acceleration limits each particle's dt at the rung assignment.
 
   - Rungs are per cell: rung_i = clip(floor(log2(dt_i / dt_i_min)), 0,
     num_rungs - 1), min-reduced over each cell at the cycle start.
@@ -35,13 +37,14 @@ from sphexa_tpu_torch.config import SphConfig
 from sphexa_tpu_torch.ops.cellmajor import CMGrid, to_cm
 from sphexa_tpu_torch.ops.pair_ve import FILL_POS, PairVE
 from sphexa_tpu_torch.propagator.ve_cellmajor import (ResidentVE, RVState,
-                                                      _masked)
+                                                      _add_gravity, _masked)
 from sphexa_tpu_torch.sfc.box import Box
 from sphexa_tpu_torch.sph import timestep as ts
 from sphexa_tpu_torch.sph.eos import eos_ve, ideal_gas_cv
 from sphexa_tpu_torch.sph.kernels import ts_k_courant, update_h
 from sphexa_tpu_torch.sph.positions import position_update, temp_update
 from sphexa_tpu_torch.state import SimState
+from sphexa_tpu_torch.util.fp import rdiv
 from sphexa_tpu_torch.util.kahan import kahan_sum
 
 
@@ -120,9 +123,13 @@ class BdtVE(ResidentVE):
         return v
 
     def _gravity(self, out, x, y, z, m, valid):
-        raise NotImplementedError(
-            "self-gravity is not ported yet: block time-steps run with "
-            "gravG == 0 only")
+        """Per-substep self-gravity on the drifted positions
+        (ve_hydro_bdt.hpp:277-288) over the valid interior slots of the
+        occupancy row `valid`. Returns (out, egrav, nf_truncated)."""
+        out, eg, nf = _add_gravity(out, x, y, z, m,
+                                   self.gravity_index(valid), self.box,
+                                   self.cfg)
+        return out, self._gsum(eg), nf
 
     # ---- state management -------------------------------------------------
     def _fresh(self, rv: RVState, dt_m1k, dt_min) -> BDTState:
@@ -189,8 +196,14 @@ class BdtVE(ResidentVE):
                       cij=(bst.c11, bst.c12, bst.c13, bst.c22, bst.c23,
                            bst.c33), divv=bst.divv, alpha=rv.alpha,
                       ax=bst.axk, ay=bst.ayk, az=bst.azk, du=bst.duk))
+        # self-gravity recomputed every substep from the drifted
+        # positions; inactive slots keep their frozen kick acceleration,
+        # gravity included
+        egrav = torch.zeros((), dtype=torch.float32, device=rv.x.device)
+        grav_nf = torch.zeros((), dtype=torch.int32, device=rv.x.device)
         if cfg.gravG != 0.0:
-            out = self._gravity(out, rv.x, rv.y, rv.z, rv.m, validint)
+            out, egrav, grav_nf = self._gravity(out, rv.x, rv.y, rv.z, rv.m,
+                                                rv.valid)
 
         # per-slot freeze/commit (the kernel gate is the compute skip at
         # supercell granularity)
@@ -209,6 +222,14 @@ class BdtVE(ResidentVE):
         # ---- rung (re)assignment at cycle start: ratios relative to the
         # unclamped min particle dt (ts_rungs.hpp:134-146) ----
         dt_i = ts_k_courant(out["maxvsignal"], h, out["c"], cfg.kcour)
+        if cfg.gravG != 0.0:
+            # per-particle acceleration limit (groupAccTimestep,
+            # ve_hydro_bdt.hpp:289; ts_global.hpp:46)
+            acc = torch.sqrt(out["ax"] ** 2 + out["ay"] ** 2
+                             + out["az"] ** 2)
+            dt_acc = cfg.eta_acc * torch.sqrt(
+                rdiv(cfg.eps, torch.clamp_min(acc, 1e-30)))
+            dt_i = torch.minimum(dt_i, dt_acc)
         dt_i_min = self._gmin(torch.min(torch.where(validint, dt_i, 1e30)))
         dt_rho = self._gmin(ts.rho_timestep(out["divv"], validint, cfg.krho))
         dt_min_new = torch.minimum(torch.minimum(dt_i_min, dt_rho),
@@ -282,12 +303,13 @@ class BdtVE(ResidentVE):
             torch.sum(validint & (torch.round(rung) == r))
             for r in range(self.num_rungs)]).to(torch.int32))
         diag = BDTDiag(
-            dt=dt_min, ttot=rv.ttot, etot=ecin + eint, ecin=ecin, eint=eint,
+            dt=dt_min, ttot=rv.ttot, etot=ecin + eint + egrav, ecin=ecin,
+            eint=eint,
             active_frac=self._gsum(torch.sum(act_row)) / nvalid,
             active_cell_frac=(self._gsum(torch.sum(cell_act))
                               / torch.clamp_min(
                                   self._gsum(torch.sum(cell_occ)), 1)),
-            rung_hist=rung_hist, overflow=rv.overflow)
+            rung_hist=rung_hist, overflow=rv.overflow + grav_nf)
         return new_bst, diag
 
     def run_cycle(self, bst: BDTState):

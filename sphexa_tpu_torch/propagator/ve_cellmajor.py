@@ -18,8 +18,15 @@ mxu_moments / mxu_momentum / av_clean as PairVE selects them.
 
 The rebin decision is a Python `if` on a device scalar: one host sync
 per step (the JAX engine branches in-graph with lax.cond).
-Self-gravity (_add_gravity, ve_pallas.py:129) is not ported: a config
-with gravG != 0 raises NotImplementedError.
+
+Self-gravity (gravG != 0) is coupled after the pair stages
+(_add_gravity, ve_pallas.py:129 of the JAX package) with the solver
+SphConfig.gravity_solver names: "direct", "fmm" (open cubic box) or
+"ewald" (periodic cubic box). The solver sees the valid interior slots
+only, compacted by an index built where their count is known (at bind
+and at each rebin); its accelerations are scattered back and every
+other slot gets 0 (the JAX package runs the solver over every slot and
+leaves its invalid slots' values unread).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from sphexa_tpu_torch.config import SphConfig
+from sphexa_tpu_torch.gravity.direct import direct_gravity, egrav
 from sphexa_tpu_torch.ops.cellmajor import (CMGrid, build_layout, from_cm,
                                             interior_mask, positions_cm, to_cm)
 from sphexa_tpu_torch.ops.pair_ve import FILL_POS, PairVE, ghost_refresh
@@ -46,10 +54,46 @@ from sphexa_tpu_torch.util.kahan import kahan_sum
 
 
 def _no_gravity(cfg: SphConfig):
+    """The sharded engines' refusal: their cross-shard gravity (the
+    sharded FMM) is not ported (ROADMAP Queue 1 item 10)."""
     if cfg.gravG != 0.0:
         raise NotImplementedError(
-            "self-gravity is not ported yet: the cell-major VE step runs "
-            "with gravG == 0 only")
+            "sharded self-gravity is not ported yet (ROADMAP Queue 1 item "
+            "10): the sharded engines run with gravG == 0 only")
+
+
+def _add_gravity(out, x, y, z, m, idx, box: Box, cfg: SphConfig):
+    """Couple self-gravity into the force step (reference:
+    ve_hydro.hpp:195-204) with the solver cfg.gravity_solver names
+    ("fmm", "ewald", else the direct sum): it runs on the slots `idx`
+    (the valid interior slots), and its accelerations are added there.
+    Returns (out, egrav, nf_truncated)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.gravG == 0.0:
+        return out, zero, zero.to(torch.int32)
+    xs, ys, zs, ms = x[idx], y[idx], z[idx], m[idx]
+    alive = torch.ones(idx.shape, dtype=torch.bool, device=x.device)
+    nf = zero.to(torch.int32)   # dropped near-field pairs: the FMM's only
+    if cfg.gravity_solver == "fmm":
+        from sphexa_tpu_torch.gravity.fmm import FmmConfig, fmm_gravity
+        gax, gay, gaz, pot, nf = fmm_gravity(
+            xs, ys, zs, ms, alive, box, cfg.gravG,
+            FmmConfig(level=cfg.fmm_level, min_sep=cfg.fmm_min_sep),
+            eps=cfg.eps)
+    elif cfg.gravity_solver == "ewald":
+        from sphexa_tpu_torch.gravity.ewald import ewald_gravity
+        gax, gay, gaz, pot = ewald_gravity(xs, ys, zs, ms, alive, box,
+                                           cfg.gravG, eps=cfg.eps)
+    else:
+        gax, gay, gaz, pot = direct_gravity(xs, ys, zs, ms, alive,
+                                            cfg.gravG, cfg.eps)
+
+    def scatter(v):
+        return torch.zeros_like(x).index_copy_(0, idx, v)
+
+    out = dict(out, ax=out["ax"] + scatter(gax), ay=out["ay"] + scatter(gay),
+               az=out["az"] + scatter(gaz))
+    return out, egrav(ms, pot, alive), nf
 
 
 class _Refreshers:
@@ -136,7 +180,6 @@ def make_ve_step_cellmajor(box: Box, grid: CMGrid, cfg: SphConfig,
     """step(state) -> (state, StepDiagnostics), with the same contract
     as make_ve_step_pallas. Runs on `device` (default: the GPU); the
     state must live there."""
-    _no_gravity(cfg)
     device = resolve_device(device)
     pve = PairVE(grid, cfg)
     refresh = _Refreshers(grid, box)
@@ -157,6 +200,10 @@ def make_ve_step_cellmajor(box: Box, grid: CMGrid, cfg: SphConfig,
         out = _run_pipeline(pve, refresh, base, cm(ps.m), cm(ps.vx),
                             cm(ps.vy), cm(ps.vz), cm(ps.temp), cm(ps.alpha),
                             state.dt, validint)
+        out, eg, nf = _add_gravity(
+            out, base[0], base[1], base[2], cm(ps.m),
+            torch.nonzero(validint).reshape(-1) if cfg.gravG != 0.0 else None,
+            box, cfg)
 
         def back(f, fill=0.0):
             return from_cm(layout, f, n, fill)
@@ -170,6 +217,7 @@ def make_ve_step_cellmajor(box: Box, grid: CMGrid, cfg: SphConfig,
             back(out["divv"]), back(out["nc_sph"], 1.0), box, cfg,
             max_nc=max_nc.to(torch.int32),
             max_cell_count=layout.overflow.to(torch.int32),
+            egrav=eg, nf_truncated=nf,
             rho=back(out["rho"], 1.0), p=back(out["p"]))
 
     return step
@@ -243,7 +291,6 @@ class ResidentVE:
     REBIN_FRAC = 0.95
 
     def __init__(self, box: Box, grid: CMGrid, cfg: SphConfig, device=None):
-        _no_gravity(cfg)
         self.device = resolve_device(device)
         self.box = box
         self.grid = grid
@@ -253,6 +300,7 @@ class ResidentVE:
         self.intmask = interior_mask(grid, self.device)
         self.cell_edge = min(box.lx / grid.nx, box.ly / grid.n,
                              box.lz / grid.nz)
+        self._gidx = (None, None)   # (valid row, its interior slot index)
 
     def _scalar(self, v, dtype=torch.float32):
         return torch.tensor(v, dtype=dtype, device=self.device)
@@ -284,7 +332,7 @@ class ResidentVE:
                        ttot=state.ttot.clone(), dt=state.dt.clone(),
                        dt_m1=state.dt_m1.clone(),
                        iteration=state.iteration.clone())
-        return self._gather(layout, fields, scalars, gid_src)
+        return self._indexed(self._gather(layout, fields, scalars, gid_src))
 
     def _rebin(self, rst: RVState):
         """(rebinned state, the layout it was gathered with)."""
@@ -298,7 +346,8 @@ class ResidentVE:
             overflow=rst.overflow + layout.overflow.to(torch.int32),
             ttot=rst.ttot, dt=rst.dt, dt_m1=rst.dt_m1,
             iteration=rst.iteration)
-        return self._gather(layout, fields, scalars, rst.gid), layout
+        return (self._indexed(self._gather(layout, fields, scalars, rst.gid)),
+                layout)
 
     def unbind(self, rst: RVState, n_capacity: int) -> SimState:
         validint = rst.valid & self.intmask
@@ -324,6 +373,20 @@ class ResidentVE:
                         dt_m1=rst.dt_m1.clone(),
                         iteration=rst.iteration.clone())
 
+    def gravity_index(self, valid):
+        """Index of the valid interior slots of an occupancy row, built
+        once per row (one host sync): bind and every rebin build it for
+        the row they make, so a step or substep that follows finds it."""
+        if self._gidx[0] is not valid:
+            self._gidx = (valid,
+                          torch.nonzero(valid & self.intmask).reshape(-1))
+        return self._gidx[1]
+
+    def _indexed(self, rst: RVState) -> RVState:
+        if self.cfg.gravG != 0.0:
+            self.gravity_index(rst.valid)
+        return rst
+
     # ---- the step ----------------------------------------------------------
     def step(self, rst: RVState):
         cfg = self.cfg
@@ -340,13 +403,21 @@ class ResidentVE:
         base = [rst.x, rst.y, rst.z, rst.h, rst.gid]
         out = _run_pipeline(self.pve, self.rf, base, rst.m, rst.vx, rst.vy,
                             rst.vz, rst.temp, rst.alpha, rst.dt, validint)
+        out, eg, nf = _add_gravity(
+            out, rst.x, rst.y, rst.z, rst.m,
+            self.gravity_index(rst.valid) if cfg.gravG != 0.0 else None,
+            box, cfg)
 
         # ---- global timestep (ts_global.hpp:96-112) ----
         dt_courant = ts.courant_timestep(out["maxvsignal"], out["h"],
                                          out["c"], validint, cfg.kcour)
-        dt = ts.combine_timesteps(
-            rst.dt, [dt_courant, ts.rho_timestep(out["divv"], validint,
-                                                 cfg.krho)], cfg)
+        candidates = [dt_courant,
+                      ts.rho_timestep(out["divv"], validint, cfg.krho)]
+        if cfg.gravG != 0.0:
+            candidates.append(ts.acceleration_timestep(
+                out["ax"], out["ay"], out["az"], validint, cfg.eta_acc,
+                cfg.eps))
+        dt = ts.combine_timesteps(rst.dt, candidates, cfg)
         dt_m1 = rst.dt
 
         # ---- integration, unfolded (fold happens at rebin) ----
@@ -381,7 +452,8 @@ class ResidentVE:
         h_max = torch.max(_masked(rst.h, validint))
         i32 = torch.int32
         diag = ResidentDiag(
-            dt=dt, ttot=rst.ttot, etot=ecin + eint, ecin=ecin, eint=eint,
+            dt=dt, ttot=rst.ttot, etot=ecin + eint + eg, ecin=ecin,
+            eint=eint,
             h_max=h_max,
             nc_mean=(torch.sum(_masked(out["nc_sph"], validint))
                      / nvalid).to(torch.float32),
@@ -391,7 +463,7 @@ class ResidentVE:
             drift=drift, rebinned=stale,
             need_regrid=(2.0 * h_max * 1.05 >= self.cell_edge),
             h_nonconv=torch.sum(_masked(out["h_nonconv"], validint)).to(i32),
-            nf_truncated=self._scalar(0, i32),
+            nf_truncated=nf,
             n_hclamped=(torch.sum(validint & (rst.h >= 0.999 * cfg.h_cap))
                         .to(i32) if cfg.h_cap > 0.0 else self._scalar(0, i32)))
         return rst, diag

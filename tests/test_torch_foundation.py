@@ -102,17 +102,18 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
     ResidentVE(box, CMGrid(n=2, cap=128), tcfg.SphConfig(), device="cpu")
 
 
-def test_gravity_and_avclean_not_ported_raise():
-    """Gravity is not ported; avClean is, on the resident engine, but
-    not with block time-steps (the JAX BdtVE asserts it off)."""
+def test_gravity_accepted_and_bdt_avclean_refused():
+    """Single-device gravity is ported: the resident engine and BdtVE
+    take gravG != 0. avClean runs on the resident engine, but not with
+    block time-steps (the JAX BdtVE asserts it off)."""
     from sphexa_tpu_torch.ops.cellmajor import CMGrid
     from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
     from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
 
     box = tbox.Box.cube(-0.5, 0.5, tbox.Boundary.periodic)
     grid = CMGrid(n=2, cap=128)
-    with pytest.raises(NotImplementedError):
-        ResidentVE(box, grid, tcfg.SphConfig(gravG=1.0), device="cpu")
+    ResidentVE(box, grid, tcfg.SphConfig(gravG=1.0), device="cpu")
+    BdtVE(box, grid, tcfg.SphConfig(gravG=1.0), device="cpu")
     with pytest.raises(NotImplementedError):
         BdtVE(box, grid, tcfg.SphConfig(av_clean=True), device="cpu")
     ResidentVE(box, grid, tcfg.SphConfig(av_clean=True), device="cpu")
