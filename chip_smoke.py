@@ -98,7 +98,21 @@ Phases (any failure exits non-zero before the last line):
      cells, their fill values, their times, K1 on the open box
      bit-equal; BdtVE at Evrard 100 (4 rungs), one warm-up and one
      timed cycle;
-  12. the kernel table as one JSON line, then the device line.
+  12. (m) the command line: make_ve_step (the gather path, --prop ve)
+     on the card against the CPU at Sedov 10^3 (3 steps) and Evrard 10
+     with the FMM (2 steps), the first step's cell permutation and
+     neighbour counts equal, rows within 1e-5 of scale; main([...]) in
+     this process at Sedov 100^3 (--dt0 3e-5) under --prop ve (3
+     steps, each step split into the cell list, the neighbour list, the
+     five stages, EOS and the rest, its device activities counted by
+     torch.profiler), ve-pallas (5 steps) and ve-bdt (1 cycle): ms a
+     step from CUDA events around each call of the step function, peak
+     memory, the kernels' launches, energy drift < 5e-3 from the
+     constants file, no fail-stop after the first accepted step, finite
+     rows; python -m sphexa_tpu_torch.main as a subprocess (Evrard 30,
+     3 steps, an ASCII dump, and a restart from it); the Sedov
+     similarity constant alpha(5/3) = 0.4936 (scipy on the host);
+  13. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
 python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
@@ -108,7 +122,8 @@ inputs of substep 1 and with no active supercell, K8, K9 and K10
 and K3-K7 in a D = 2 sharded step at cap 256, only (see compare_main),
 to compare two checkouts of the repository in one call.
 python3 chip_smoke.py --gravity runs the build and phase (l) alone,
-with no result lines.
+with no result lines; python3 chip_smoke.py --cli, the build and phase
+(m) alone.
 """
 
 from __future__ import annotations
@@ -3037,6 +3052,360 @@ def gravity_phase(report):
     log(f"  phase (l): {report['gravity_phase_seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# (m) the command line
+# ---------------------------------------------------------------------------
+
+CLI_SIDE = 100                  # main([...]) at Sedov 100^3
+CLI_DT0 = "3e-5"
+CLI_RUNS = (("ve", 3), ("ve-pallas", 5), ("ve-bdt", 1))   # steps (cycles)
+CLI_DRIFT_BOUND = 5e-3
+GATHER_CAP = 128                # holds the 125-row cells of Sedov 10^3
+                                # (and Evrard 10's 69) at grid level 1
+
+
+def gather_check(report):
+    """(m) 1: make_ve_step on the card against the CPU: Sedov 10^3 for 3
+    steps and Evrard 10 with the FMM for 2 steps. The first step's cell
+    permutation and neighbour counts equal; every row of the states
+    after the last step within 1e-5 of its scale (phase (c)'s bound)."""
+    import torch
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.init.evrard import init_evrard
+    from sphexa_tpu_torch.init.sedov import init_sedov
+    from sphexa_tpu_torch.neighbors import (CellGrid, build_cell_list,
+                                            build_neighbor_list,
+                                            choose_level)
+    from sphexa_tpu_torch.propagator.ve import make_ve_step
+    from sphexa_tpu_torch.state import _FIELDS
+
+    keys = ("dt", "etot", "ecin", "eint", "egrav", "max_nc",
+            "max_cell_count", "nf_truncated")
+    out = {}
+    # the CPU reference on one intra-op thread: several have been seen
+    # to compute a 32768-element chunk of an op's first use from stale
+    # data (tests/test_torch_gather.py's one_torch_thread)
+    threads = torch.get_num_threads()
+    for case, steps in (("sedov 10", 3), ("evrard 10 fmm", 2)):
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            torch.set_num_threads(1 if dev == "cpu" else threads)
+            if case.startswith("sedov"):
+                state, box, cfg = init_sedov(10, SphConfig(), dt0=1e-4,
+                                             device=dev)
+            else:
+                state, box, cfg = init_evrard(10, SphConfig(), device=dev)
+                cfg = cfg.replace(gravity_solver="fmm")
+            cfg = cfg.replace(cell_cap=GATHER_CAP)
+            p = state.p
+            grid = CellGrid(choose_level(box, float(p.h[p.alive].max())
+                                         * 1.25))
+            cl = build_cell_list(grid, box, p.x, p.y, p.z, alive=p.alive)
+            ps = p.permute(cl.perm)
+            nl = build_neighbor_list(grid, box, cl, ps.x, ps.y, ps.z, ps.h,
+                                     cfg, alive=ps.alive)
+            step = make_ve_step(box, grid, cfg, device=dev)
+            diags = []
+            for _ in range(steps):
+                state, d = step(state)
+                diags.append({k: float(getattr(d, k)) for k in keys})
+            runs[dev] = dict(perm=cl.perm.cpu(), nc=nl.nc.cpu(),
+                             idx=nl.idx.cpu(), state=state, diags=diags)
+        torch.set_num_threads(threads)
+        a, b = runs["cpu"], runs[DEVICE]
+        assert torch.equal(a["perm"], b["perm"]), f"{case}: permutation"
+        assert torch.equal(a["nc"], b["nc"]), f"{case}: neighbour counts"
+        for da, db in zip(a["diags"], b["diags"]):
+            assert da["max_cell_count"] <= GATHER_CAP
+            for k in ("max_nc", "max_cell_count", "nf_truncated"):
+                assert da[k] == db[k], (case, k, da[k], db[k])
+        sa, sb = a["state"], b["state"]
+        assert torch.equal(sa.p.alive, sb.p.alive.cpu())
+        err = rows_close(f"gather {case}",
+                         [getattr(sb.p, f) for f in _FIELDS[:-1]],
+                         [getattr(sa.p, f) for f in _FIELDS[:-1]], 1e-5)
+        idx_equal = torch.equal(a["idx"], b["idx"])
+        log(f"  {case}: {steps} steps, level {grid.level}; first step's "
+            f"permutation and neighbour counts equal (lists "
+            f"{'equal' if idx_equal else 'differ'}); rows within "
+            f"{err:.3e} of scale; last dt {b['diags'][-1]['dt']:.6e} vs "
+            f"{a['diags'][-1]['dt']:.6e}, etot "
+            f"{b['diags'][-1]['etot']:.8f} vs {a['diags'][-1]['etot']:.8f}")
+        out[case] = dict(level=grid.level, worst_row_err=err,
+                         idx_equal=idx_equal, card=b["diags"],
+                         cpu=a["diags"])
+    report["cli_gather_check"] = out
+
+
+def once_ms(fn) -> float:
+    """One call between CUDA events (the caller has warmed it up)."""
+    import torch
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def gather_split(box, cfg, grid, state):
+    """(m) 2: one gather step at the run's last state, each part timed
+    alone (CUDA events, one call each after the call that built its
+    inputs): the cell list, the neighbour list (with the permutation),
+    the five stages, EOS and the whole step; rest = step - parts. Device
+    activities (kernels, copies) and their busy time in one step from
+    torch.profiler (None where it saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sphexa_tpu_torch.neighbors import (build_cell_list,
+                                            build_neighbor_list)
+    from sphexa_tpu_torch.propagator.ve import make_ve_step
+    from sphexa_tpu_torch.sph import hydro_ve as hv
+    from sphexa_tpu_torch.sph.eos import eos_ve
+
+    p = state.p
+    cl = build_cell_list(grid, box, p.x, p.y, p.z, alive=p.alive)
+
+    def neighbours():
+        ps = p.permute(cl.perm)
+        return ps, build_neighbor_list(grid, box, cl, ps.x, ps.y, ps.z,
+                                       ps.h, cfg, alive=ps.alive)
+
+    ps, nl = neighbours()
+    ps = ps.replace(h=nl.h)
+    pos = (box, ps.x, ps.y, ps.z)
+    vel = (ps.vx, ps.vy, ps.vz)
+    ix = (nl.idx, nl.nc, cfg)
+    xm = hv.compute_xmass(*pos, ps.h, ps.m, *ix)
+    kx, gradh = hv.compute_ve_def_gradh(*pos, ps.h, ps.m, xm, *ix)
+    rho, _, c, prho = eos_ve(ps.temp, ps.m, kx, xm, gradh, cfg.mui,
+                             cfg.gamma)
+    iad = hv.compute_iad_divv_curlv(*pos, *vel, ps.h, kx, xm, *ix)
+    cij = tuple(iad[:6])
+    alpha = hv.compute_av_switches(*pos, *vel, ps.h, c, kx, xm, iad.divv,
+                                   cij, ps.alpha, state.dt, *ix)
+    step = make_ve_step(box, grid, cfg, device=DEVICE)
+    parts = {
+        "cell_list": lambda: build_cell_list(grid, box, p.x, p.y, p.z,
+                                             alive=p.alive),
+        "neighbor_list": neighbours,
+        "xmass": lambda: hv.compute_xmass(*pos, ps.h, ps.m, *ix),
+        "gradh": lambda: hv.compute_ve_def_gradh(*pos, ps.h, ps.m, xm, *ix),
+        "eos": lambda: eos_ve(ps.temp, ps.m, kx, xm, gradh, cfg.mui,
+                              cfg.gamma),
+        "iad_divv": lambda: hv.compute_iad_divv_curlv(*pos, *vel, ps.h, kx,
+                                                      xm, *ix),
+        "av_switches": lambda: hv.compute_av_switches(
+            *pos, *vel, ps.h, c, kx, xm, iad.divv, cij, ps.alpha, state.dt,
+            *ix),
+        "momentum": lambda: hv.compute_momentum_energy(
+            *pos, *vel, ps.h, ps.m, prho, c, cij, kx, xm, alpha, *ix),
+    }
+    split = {k: once_ms(fn) for k, fn in parts.items()}
+    step_ms = once_ms(lambda: step(state))
+    split["rest"] = step_ms - sum(split.values())
+    del xm, kx, gradh, rho, c, prho, iad, alpha
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) * 1e-3
+    return dict(step_ms=step_ms, split_ms=split,
+                launches=len(dev) or None,
+                device_busy_ms=busy if dev else None,
+                idx_bytes=nl.idx.numel() * nl.idx.element_size(),
+                ngpad=cfg.ngpad, cell_cap=cfg.cell_cap, level=grid.level)
+
+
+def cli_run(report, prop, steps):
+    """(m) 2: main([...]) in this process at Sedov 100^3, --dt0 3e-5.
+    Each call of the step function between CUDA events (the loop's steps;
+    a fail-stopped call is retried and precedes the first accepted step),
+    peak memory, the kernels' launch counts (zeroed just before),
+    |etot - e0|/e0 from the constants file the run wrote (e0: the
+    initial state's), every row finite, and no fail-stop after the first
+    accepted step."""
+    import contextlib
+    import io
+
+    import torch
+    from sphexa_tpu_torch import main as cli
+    from sphexa_tpu_torch.observables import conserved_quantities
+    from sphexa_tpu_torch.state import _FIELDS
+
+    consts = os.path.join(ROOT, "chiprun_out", f"cli_{prop}_constants.txt")
+    if os.path.exists(consts):
+        os.remove(consts)
+    calls, made, e0 = [], [], []
+    make_stepper = cli.make_stepper
+
+    def timed_stepper(args, box, cfg, *a, **kw):
+        fn, grid = make_stepper(args, box, cfg, *a, **kw)
+        made.append((box, cfg, grid))
+
+        def step(state):
+            if not e0:
+                e0.append(float(conserved_quantities(state.p, cfg).etot))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(state)
+            ev[1].record()
+            calls.append(ev)
+            return out
+        return step, grid
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    argv = ["--init", "sedov", "-n", str(CLI_SIDE), "-s", str(steps),
+            "--dt0", CLI_DT0, "--prop", prop, "--constants", consts]
+    t0 = time.perf_counter()
+    cli.make_stepper = timed_stepper
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            state = cli.main(argv)
+    finally:
+        cli.make_stepper = make_stepper
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        log(f"    {ln}")
+
+    fails = [i for i, ln in enumerate(lines)
+             if ln.startswith(("# re-gridded with larger caps",
+                               "# slot overflow"))]
+    checks = [i for i, ln in enumerate(lines) if ln.startswith("### Check")]
+    assert not fails or max(fails) < checks[0], \
+        f"{prop}: a fail-stop after the first accepted step"
+    assert len(calls) == steps + len(fails), (len(calls), steps, fails)
+    call_ms = [a.elapsed_time(b) for a, b in calls]
+    step_ms = call_ms[len(fails):]
+    for f in _FIELDS[:-1]:
+        assert torch.isfinite(getattr(state.p, f)).all(), f"{prop}: {f}"
+    etot = np.loadtxt(consts, ndmin=2)[:, 3]
+    assert len(etot) == steps
+    drift = abs(float(etot[-1]) - e0[0]) / e0[0]
+    assert drift < CLI_DRIFT_BOUND, f"{prop}: energy drift {drift:.3e}"
+    if prop == "ve":
+        assert not launches, f"the gather path launched {launches}"
+    else:
+        used = ({"ghost_refresh", "pair_xh", "pair_gradh", "pair_iad",
+                 "pair_av", "pair_momentum"} if prop == "ve-pallas" else
+                {"ghost_refresh", "pair_gate", "pair_xh_gated",
+                 "pair_gradh_gated", "pair_iad_gated", "pair_av_gated",
+                 "pair_momentum_gated"})
+        assert set(launches) == used, (prop, launches)
+    box, cfg, grid = made[-1]
+    per = "cycle" if prop == "ve-bdt" else "step"
+    res = dict(steps=steps, call_ms=call_ms, step_ms=step_ms,
+               mean_ms=float(np.mean(step_ms)), fail_stops=len(fails),
+               fail_stop_lines=[lines[i] for i in fails], wall_s=wall,
+               peak_bytes=peak, energy_drift=drift, e0=e0[0],
+               etot=etot.tolist(), launches=launches, grid=str(grid),
+               ngpad=cfg.ngpad, cell_cap=cfg.cell_cap)
+    log(f"  --prop {prop}: {res['mean_ms']:.3f} ms a {per} (CUDA events, "
+        f"mean of {steps}: {[round(s, 3) for s in step_ms]}; all calls "
+        f"{[round(s, 3) for s in call_ms]}), {wall:.1f} s of main, peak "
+        f"{peak / 2 ** 30:.3f} GiB, |etot - e0|/e0 = {drift:.3e}, "
+        f"fail-stops {len(fails)} (before the first step), grid {grid}, "
+        f"launches {launches}")
+    if prop == "ve":
+        res["split"] = gather_split(box, cfg, grid, state)
+        sp = res["split"]
+        log(f"  gather step at the last state: {sp['step_ms']:.3f} ms = "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sp["split_ms"].items())
+            + f"; {sp['launches']} device activities (kernels, copies) in "
+              f"{sp['device_busy_ms']} ms busy; idx "
+              f"{sp['idx_bytes'] / 2 ** 20:.1f} MiB (ngpad {sp['ngpad']}, "
+              f"cell_cap {sp['cell_cap']}, level {sp['level']})")
+    report.setdefault("cli_runs", {})[prop] = res
+
+
+def cli_subprocess(report):
+    """(m) 3: python -m sphexa_tpu_torch.main as a subprocess: Evrard 30
+    for 3 steps with an ASCII dump at step 3, then a restart from that
+    dump for 1 step (dumped too); both exit 0, the restart's rows
+    finite."""
+    from sphexa_tpu_torch.io.ascii import AsciiReader
+
+    out = {}
+    paths = {k: os.path.join("chiprun_out", f"cli_evrard{k}.txt")
+             for k in ("", "_restart", "_constants", "_restart_constants")}
+    for p in paths.values():
+        if os.path.exists(os.path.join(ROOT, p)):
+            os.remove(os.path.join(ROOT, p))
+    base = [sys.executable, "-m", "sphexa_tpu_torch.main"]
+    runs = (("run", ["--init", "evrard", "-n", "30", "-s", "3", "--ascii",
+                     "-w", "3", "-o", paths[""], "--constants",
+                     paths["_constants"]]),
+            ("restart", ["--init", paths[""], "-s", "1", "--ascii", "-w",
+                         "1", "-o", paths["_restart"], "--constants",
+                         paths["_restart_constants"]]))
+    for name, argv in runs:
+        t0 = time.perf_counter()
+        r = subprocess.run(base + argv, cwd=ROOT, capture_output=True,
+                           text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        tail = r.stdout.strip().splitlines()[-4:]
+        for ln in tail:
+            log(f"    {ln}")
+        assert r.returncode == 0, f"{name}: rc {r.returncode}: {r.stderr}"
+        fails = [ln for ln in r.stderr.splitlines()
+                 if ln.startswith("# re-gridded with larger caps")]
+        grown = sum(ln.startswith("# box expanded")
+                    for ln in r.stdout.splitlines())
+        out[name] = dict(seconds=secs, stdout_tail=tail, fail_stops=fails,
+                         box_growths=grown)
+        log(f"  {name}: rc 0 in {secs:.1f} s; fail-stop re-grids {fails}; "
+            f"box growths {grown}")
+    fields, attrs = AsciiReader(os.path.join(ROOT, paths["_restart"])) \
+        .read_step(-1)
+    assert attrs["iteration"] == 5, attrs
+    for k, v in fields.items():
+        assert np.isfinite(v).all(), f"restart: non-finite {k}"
+    out["restart_rows"] = len(fields["x"])
+    log(f"  restart dump: {len(fields['x'])} rows, iteration "
+        f"{attrs['iteration']}, every row finite")
+    report["cli_subprocess"] = out
+
+
+def cli_phase(report):
+    """Phase (m): the command line on the card."""
+    import scipy
+    from sphexa_tpu_torch.observables.sedov_solution import alpha_constant
+
+    t0 = time.perf_counter()
+    # the constants files and dumps of the runs below go there
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    log("(m) the gather step on the card against the CPU:")
+    gather_check(report)
+    log(f"  {time.perf_counter() - t0:.1f} s into phase (m)")
+    for prop, steps in CLI_RUNS:
+        log(f"(m) main([... --prop {prop} ...]) at Sedov {CLI_SIDE}^3:")
+        cli_run(report, prop, steps)
+        log(f"  {time.perf_counter() - t0:.1f} s into phase (m)")
+    log("(m) python -m sphexa_tpu_torch.main, Evrard 30, ASCII dump and "
+        "restart:")
+    cli_subprocess(report)
+    log(f"  {time.perf_counter() - t0:.1f} s into phase (m)")
+    alpha = alpha_constant(5.0 / 3.0)
+    assert round(alpha, 4) == 0.4936, alpha
+    log(f"(m) sedov_solution.alpha_constant(5/3) = {alpha:.6f} (scipy "
+        f"{scipy.__version__})")
+    report["sedov_alpha"] = alpha
+    report["cli_phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase (m): {report['cli_phase_seconds']:.1f} s")
+
+
 def compare_mm():
     """--compare's moment-matmul part: K8, K9 and K10 (float32, bf16) at
     the inputs of a Sedov 100^3 step under mxu_moments + mxu_momentum, 3 x 5
@@ -3233,6 +3602,25 @@ def gravity_main() -> int:
     return 0
 
 
+def cli_main() -> int:
+    """--cli: the build and phase (m) alone (no result lines); details to
+    chiprun_out/chip_smoke_cli.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"smi": smi_line()}
+    log(report["smi"])
+    _cuda.build()
+    cli_phase(report)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cli.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--compare"]:
@@ -3242,6 +3630,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--gravity"]:
         return gravity_main()
+    if sys.argv[1:2] == ["--cli"]:
+        return cli_main()
     sys.path.insert(0, ROOT)
     from sphexa_tpu_torch.ops import _cuda
 
@@ -3325,6 +3715,7 @@ def main() -> int:
     sharded_bdt_main_path(report)
 
     gravity_phase(report)
+    cli_phase(report)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

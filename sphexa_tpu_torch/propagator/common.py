@@ -56,11 +56,14 @@ def finish_step(state: SimState, ps: Particles, ax, ay, az, du, maxvsignal,
                 max_nc, max_cell_count, egrav=None, nf_truncated=None,
                 rho=None, p=None):
     """Timestep + Press-2 integration + AB2 energy + h controller + diag.
-    `ps` must carry the force-step-updated h/alpha; under gravity
+    `ps` must carry the force-step-updated h/alpha; divv None (the
+    std pipeline) leaves out the rho limit; under gravity
     (gravG != 0) ax, ay, az include it, `egrav` is its energy and the
     acceleration limit joins the dt candidates."""
     dt_courant = ts.courant_timestep(maxvsignal, ps.h, c, ps.alive, cfg.kcour)
-    candidates = [dt_courant, ts.rho_timestep(divv, ps.alive, cfg.krho)]
+    candidates = [dt_courant]
+    if divv is not None:  # the std pipeline has no divv (std_hydro)
+        candidates.append(ts.rho_timestep(divv, ps.alive, cfg.krho))
     if cfg.gravG != 0.0:
         candidates.append(ts.acceleration_timestep(
             ax, ay, az, ps.alive, cfg.eta_acc, cfg.eps))

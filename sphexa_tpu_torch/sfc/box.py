@@ -62,11 +62,22 @@ class Box:
     def any_fixed(self) -> bool:
         return Boundary.fixed in (self.bx, self.by, self.bz)
 
+    def with_bounds(self, xmin, xmax, ymin, ymax, zmin, zmax) -> "Box":
+        return dataclasses.replace(self, xmin=xmin, xmax=xmax, ymin=ymin,
+                                   ymax=ymax, zmin=zmin, zmax=zmax)
+
 
 def _wrap(x, lo, length, is_periodic: bool):
     if not is_periodic:
         return x
     return x - length * torch.floor((x - lo) / length)
+
+
+def fold(r, length, is_periodic: bool):
+    """Minimum-image fold of a displacement component."""
+    if not is_periodic:
+        return r
+    return r - length * torch.round(r / length)
 
 
 def put_in_box(box: Box, x, y, z):

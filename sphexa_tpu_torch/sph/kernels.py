@@ -2,7 +2,8 @@
 
 Counterpart of sphexa_tpu/sph/kernels.py (reference: kernels.hpp:11-32,
 sph_kernel_tables.hpp): the analytic sinc^n kernel as a polynomial in
-v^2, its 3D normalization, the h controller and the Courant time. The
+v^2 (w_sinc, w_sinc_derivative: the gather path's pair stages), its
+3D normalization, the h controller and the Courant time. The
 polynomial coefficients here are also written into the CUDA kernels'
 generated header (ops/_cuda.py), so the two cannot drift apart.
 """
@@ -85,6 +86,35 @@ def exp_pair(x):
     even = 1.0 + x2 * (0.5 + x2 * (1.0 / 24.0 + x2 * (1.0 / 720.0)))
     odd = x * (1.0 + x2 * (1.0 / 6.0 + x2 * (1.0 / 120.0)))
     return even + odd, even - odd
+
+
+def w_sinc(v, sinc_index: float = 6.0):
+    """W(v) = sinc(pi/2 v)^n; zero outside the support."""
+    n_int = int(sinc_index)
+    if float(n_int) == float(sinc_index) and 1 <= n_int <= 16:
+        w = _pow_int(_poly_even(v * v, _SINC_COEF), n_int)
+    else:
+        pv = (np.pi / 2.0) * v
+        small = v <= 1e-12
+        safe = torch.where(small, torch.ones_like(pv), pv)
+        sinc = torch.where(small, torch.ones_like(pv), torch.sin(safe) / safe)
+        w = torch.pow(torch.clamp_min(sinc, 0.0), sinc_index)
+    return torch.where(v < SUPPORT, w, torch.zeros_like(w))
+
+
+def w_sinc_derivative(v, sinc_index: float = 6.0):
+    """dW/dv from the fitted (dsinc/dv)/v polynomial (the closed form
+    cancels catastrophically in float32 at small v)."""
+    v2 = v * v
+    sinc = _poly_even(v2, _SINC_COEF)
+    dsinc = v * _poly_even(v2, _DSINC_OVER_V_COEF)
+    n_int = int(sinc_index)
+    if float(n_int) == float(sinc_index) and 2 <= n_int <= 16:
+        wnm1 = _pow_int(sinc, n_int - 1)
+    else:
+        wnm1 = torch.pow(torch.clamp_min(sinc, 0.0), sinc_index - 1.0)
+    d = sinc_index * wnm1 * dsinc
+    return torch.where(v < SUPPORT, d, torch.zeros_like(d))
 
 
 def update_h(ng0: int, nc, h, h_cap: float = 0.0):

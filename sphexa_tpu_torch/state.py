@@ -49,6 +49,10 @@ class Particles:
     def replace(self, **kw) -> "Particles":
         return dataclasses.replace(self, **kw)
 
+    def permute(self, perm) -> "Particles":
+        """Reorder all per-particle fields (after a cell sort)."""
+        return Particles(**{k: getattr(self, k)[perm] for k in _FIELDS})
+
 
 @dataclasses.dataclass
 class SimState:

@@ -2,10 +2,13 @@
 the JAX package takes its device from the backend).
 
 Entry points run on the GPU unless the caller names another device.
-Without a GPU they raise instead of quietly running on the CPU."""
+Without a GPU they raise instead of quietly running on the CPU. `host`
+copies a tensor to a numpy array for the host-side code (I/O, the
+CLI's planners)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,3 +26,11 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def host(a):
+    """numpy array of a tensor (copied from its device) or of anything
+    numpy takes."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
