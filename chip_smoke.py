@@ -102,7 +102,7 @@ Phases (any failure exits non-zero before the last line):
      on the card against the CPU at Sedov 10^3 (3 steps) and Evrard 10
      with the FMM (2 steps), the first step's cell permutation and
      neighbour counts equal, rows within 1e-5 of scale; main([...]) in
-     this process at Sedov 100^3 (--dt0 3e-5) under --prop ve (3
+     this process at Sedov 100^3 (--dt0 3e-5) under --prop ve (2
      steps, each step split into the cell list, the neighbour list, the
      five stages, EOS and the rest, its device activities counted by
      torch.profiler), ve-pallas (5 steps) and ve-bdt (1 cycle): ms a
@@ -112,7 +112,25 @@ Phases (any failure exits non-zero before the last line):
      rows; python -m sphexa_tpu_torch.main as a subprocess (Evrard 30,
      3 steps, an ASCII dump, and a restart from it); the Sedov
      similarity constant alpha(5/3) = 0.4936 (scipy on the host);
-  13. the kernel table as one JSON line, then the device line.
+  13. (n) subsonic turbulence, the std formulation and the remaining
+     cases: TurbBdtVE (one cycle of 2 rungs), TurbVeProp and
+     make_std_step (Noh; 2 steps each) on the card against the CPU at
+     10^3; main([...]) in this process at turbulence 100^3 under --prop
+     turbulence-ve-bdt (one warm-up and 2 timed cycles) and
+     turbulence-ve (2 steps), --prop std at Noh 100^3 (2 steps), and
+     gresho-chan, isobaric-cube, kelvin-helmholtz and wind-shock at
+     n = 50 under --prop ve and ve-pallas (2 steps; a planner refusal
+     recorded as given), kelvin-helmholtz at n = 50 with --glass (a 2^3
+     template: its glass branch), gated on finite rows, no fail-stop after the
+     first accepted step, the RMS Mach number growing under stirring
+     and the energy drift < 5e-3 elsewhere; TurbBdtVE at 100^3 driven
+     directly (one warm-up and one timed cycle, the rung histogram, a
+     fully active substep split into the gated stages, the ghost
+     refreshes, the stirring sum and the rest, one substep under the
+     sync check; each gated stage against its plain version on sampled
+     cells, timed beside its bound at this frame); TurbShardedBdtVE at
+     100^3, D = 2 (one warm-up and one timed cycle);
+  14. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
 python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
@@ -123,7 +141,8 @@ and K3-K7 in a D = 2 sharded step at cap 256, only (see compare_main),
 to compare two checkouts of the repository in one call.
 python3 chip_smoke.py --gravity runs the build and phase (l) alone,
 with no result lines; python3 chip_smoke.py --cli, the build and phase
-(m) alone.
+(m) alone; python3 chip_smoke.py --turb, the build and phase (n)
+alone.
 """
 
 from __future__ import annotations
@@ -2930,6 +2949,15 @@ def evrard_pair_check(report, eng, rst, grid):
         eng.step(rst)
     torch.cuda.synchronize()
     res = {}
+    # the bounds as timing() computes them, from this step's pair counts
+    # (K3's recounts left out: its plain version at cap 768 is too slow
+    # to run h_iter times here, so its bound is a floor)
+    xh_J, _, _, _ = next(a for k, a, _ in spy.calls if k.name == "pair_xh")
+    nc_sph = next(o for k, _, o in spy.calls if k.name == "pair_xh")[2] + 1
+    cand, inside, _ = pair_counts(xh_J, eng, grid, nc_sph)
+    res["pairs"] = dict(candidates=cand, in_support=inside)
+    log(f"  cap {grid.cap} pairs: {cand:.4e} valid candidates, "
+        f"{inside:.4e} in support")
     for i, (k, args, out) in enumerate(spy.calls):
         if k.name == "ghost_refresh":
             st, g, b, xyz = args
@@ -2949,11 +2977,17 @@ def evrard_pair_check(report, eng, rst, grid):
                            & eng.intmask, per_row=False)
         nfill = check_fill(k, J, out, eng.intmask)
         ms = cuda_ms(lambda: k._launch(J, I2, g, c), 3)
+        nbytes = 4 * (J.numel() + (I2.numel() if I2 is not None else 0)
+                      + out.numel())
+        bound, by = pair_bound(cand * GEO_FLOPS
+                               + inside * BODY_FLOPS[k.name], nbytes)
         res[k.name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
+                           bound_ms=bound, bound_by=by,
                            fill_slots=nfill, cells=int(cells.numel()))
-        log(f"  cap {g.cap} {k.name:14s} {ms:9.3f} ms; {cells.numel()} "
-            f"cells against plain: err {err:.3e} (rel {rel:.3e}); "
-            f"{nfill} invalid interior slots at their fill value")
+        log(f"  cap {g.cap} {k.name:14s} {ms:9.3f} ms  bound {bound:.4f} ms "
+            f"({by}); {cells.numel()} cells against plain: err {err:.3e} "
+            f"(rel {rel:.3e}); {nfill} invalid interior slots at their fill "
+            f"value")
     n_ghost = sum(1 for k, _, _ in spy.calls if k.name == "ghost_refresh")
     log(f"  ghost_refresh on the open box: {n_ghost} refreshes bit-equal "
         f"to plain")
@@ -3058,7 +3092,7 @@ def gravity_phase(report):
 
 CLI_SIDE = 100                  # main([...]) at Sedov 100^3
 CLI_DT0 = "3e-5"
-CLI_RUNS = (("ve", 3), ("ve-pallas", 5), ("ve-bdt", 1))   # steps (cycles)
+CLI_RUNS = (("ve", 2), ("ve-pallas", 5), ("ve-bdt", 1))   # steps (cycles)
 CLI_DRIFT_BOUND = 5e-3
 GATHER_CAP = 128                # holds the 125-row cells of Sedov 10^3
                                 # (and Evrard 10's 69) at grid level 1
@@ -3220,14 +3254,14 @@ def gather_split(box, cfg, grid, state):
                 ngpad=cfg.ngpad, cell_cap=cfg.cell_cap, level=grid.level)
 
 
-def cli_run(report, prop, steps):
-    """(m) 2: main([...]) in this process at Sedov 100^3, --dt0 3e-5.
-    Each call of the step function between CUDA events (the loop's steps;
-    a fail-stopped call is retried and precedes the first accepted step),
-    peak memory, the kernels' launch counts (zeroed just before),
-    |etot - e0|/e0 from the constants file the run wrote (e0: the
-    initial state's), every row finite, and no fail-stop after the first
-    accepted step."""
+def main_in_process(argv, consts):
+    """main(argv + --constants consts) in this process. Each call of the
+    step function between CUDA events (a fail-stopped call is retried
+    and precedes the first accepted step), the steppers made (box, cfg,
+    grid), e0 (the initial state's etot), the kernels' launch counts
+    (zeroed just before), peak memory, wall time and the printed
+    lines. Gates: one call a step and a retry a fail-stop, every row of
+    the final state finite."""
     import contextlib
     import io
 
@@ -3236,7 +3270,6 @@ def cli_run(report, prop, steps):
     from sphexa_tpu_torch.observables import conserved_quantities
     from sphexa_tpu_torch.state import _FIELDS
 
-    consts = os.path.join(ROOT, "chiprun_out", f"cli_{prop}_constants.txt")
     if os.path.exists(consts):
         os.remove(consts)
     calls, made, e0 = [], [], []
@@ -3263,13 +3296,11 @@ def cli_run(report, prop, steps):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
-    argv = ["--init", "sedov", "-n", str(CLI_SIDE), "-s", str(steps),
-            "--dt0", CLI_DT0, "--prop", prop, "--constants", consts]
     t0 = time.perf_counter()
     cli.make_stepper = timed_stepper
     try:
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
-            state = cli.main(argv)
+            state = cli.main(list(argv) + ["--constants", consts])
     finally:
         cli.make_stepper = make_stepper
     torch.cuda.synchronize()
@@ -3279,45 +3310,66 @@ def cli_run(report, prop, steps):
     lines = buf.getvalue().splitlines()
     for ln in lines:
         log(f"    {ln}")
-
+    steps = int(argv[argv.index("-s") + 1])
     fails = [i for i, ln in enumerate(lines)
              if ln.startswith(("# re-gridded with larger caps",
                                "# slot overflow"))]
-    checks = [i for i, ln in enumerate(lines) if ln.startswith("### Check")]
-    assert not fails or max(fails) < checks[0], \
-        f"{prop}: a fail-stop after the first accepted step"
     assert len(calls) == steps + len(fails), (len(calls), steps, fails)
-    call_ms = [a.elapsed_time(b) for a, b in calls]
-    step_ms = call_ms[len(fails):]
     for f in _FIELDS[:-1]:
-        assert torch.isfinite(getattr(state.p, f)).all(), f"{prop}: {f}"
-    etot = np.loadtxt(consts, ndmin=2)[:, 3]
+        assert torch.isfinite(getattr(state.p, f)).all(), f"{argv}: {f}"
+    call_ms = [a.elapsed_time(b) for a, b in calls]
+    # each call ends in a `### Check` line or a fail-stop line, in order
+    accepted = [ln.startswith("### Check") for ln in lines
+                if ln.startswith(("### Check", "# re-gridded with larger "
+                                  "caps", "# slot overflow"))]
+    assert len(accepted) == len(calls), (accepted, len(calls))
+    return dict(state=state, made=made, e0=e0[0], launches=launches,
+                lines=lines, fails=fails, call_ms=call_ms,
+                step_ms=[t for t, ok in zip(call_ms, accepted) if ok],
+                wall=wall, peak=peak, rows=np.loadtxt(consts, ndmin=2))
+
+
+# the kernels each slot-frame prop launches (the gather-path props none)
+PROP_KERNELS = {
+    "ve-pallas": {"ghost_refresh", "pair_xh", "pair_gradh", "pair_iad",
+                  "pair_av", "pair_momentum"},
+    "ve-bdt": {"ghost_refresh", "pair_gate", "pair_xh_gated",
+               "pair_gradh_gated", "pair_iad_gated", "pair_av_gated",
+               "pair_momentum_gated"}}
+PROP_KERNELS["turbulence-ve-bdt"] = PROP_KERNELS["ve-bdt"]
+
+
+def cli_run(report, prop, steps):
+    """(m) 2: main([...]) at Sedov 100^3, --dt0 3e-5 (main_in_process),
+    with |etot - e0|/e0 from the constants file the run wrote."""
+    consts = os.path.join(ROOT, "chiprun_out", f"cli_{prop}_constants.txt")
+    argv = ["--init", "sedov", "-n", str(CLI_SIDE), "-s", str(steps),
+            "--dt0", CLI_DT0, "--prop", prop]
+    r = main_in_process(argv, consts)
+    state, launches, step_ms = r["state"], r["launches"], r["step_ms"]
+    checks = [i for i, ln in enumerate(r["lines"])
+              if ln.startswith("### Check")]
+    assert not r["fails"] or max(r["fails"]) < checks[0], \
+        f"{prop}: a fail-stop after the first accepted step"
+    etot = r["rows"][:, 3]
     assert len(etot) == steps
-    drift = abs(float(etot[-1]) - e0[0]) / e0[0]
+    drift = abs(float(etot[-1]) - r["e0"]) / r["e0"]
     assert drift < CLI_DRIFT_BOUND, f"{prop}: energy drift {drift:.3e}"
-    if prop == "ve":
-        assert not launches, f"the gather path launched {launches}"
-    else:
-        used = ({"ghost_refresh", "pair_xh", "pair_gradh", "pair_iad",
-                 "pair_av", "pair_momentum"} if prop == "ve-pallas" else
-                {"ghost_refresh", "pair_gate", "pair_xh_gated",
-                 "pair_gradh_gated", "pair_iad_gated", "pair_av_gated",
-                 "pair_momentum_gated"})
-        assert set(launches) == used, (prop, launches)
-    box, cfg, grid = made[-1]
+    assert set(launches) == PROP_KERNELS.get(prop, set()), (prop, launches)
+    box, cfg, grid = r["made"][-1]
     per = "cycle" if prop == "ve-bdt" else "step"
-    res = dict(steps=steps, call_ms=call_ms, step_ms=step_ms,
-               mean_ms=float(np.mean(step_ms)), fail_stops=len(fails),
-               fail_stop_lines=[lines[i] for i in fails], wall_s=wall,
-               peak_bytes=peak, energy_drift=drift, e0=e0[0],
-               etot=etot.tolist(), launches=launches, grid=str(grid),
-               ngpad=cfg.ngpad, cell_cap=cfg.cell_cap)
+    res = dict(steps=steps, call_ms=r["call_ms"], step_ms=step_ms,
+               mean_ms=float(np.mean(step_ms)), fail_stops=len(r["fails"]),
+               fail_stop_lines=[r["lines"][i] for i in r["fails"]],
+               wall_s=r["wall"], peak_bytes=r["peak"], energy_drift=drift,
+               e0=r["e0"], etot=etot.tolist(), launches=launches,
+               grid=str(grid), ngpad=cfg.ngpad, cell_cap=cfg.cell_cap)
     log(f"  --prop {prop}: {res['mean_ms']:.3f} ms a {per} (CUDA events, "
         f"mean of {steps}: {[round(s, 3) for s in step_ms]}; all calls "
-        f"{[round(s, 3) for s in call_ms]}), {wall:.1f} s of main, peak "
-        f"{peak / 2 ** 30:.3f} GiB, |etot - e0|/e0 = {drift:.3e}, "
-        f"fail-stops {len(fails)} (before the first step), grid {grid}, "
-        f"launches {launches}")
+        f"{[round(s, 3) for s in r['call_ms']]}), {r['wall']:.1f} s of "
+        f"main, peak {r['peak'] / 2 ** 30:.3f} GiB, |etot - e0|/e0 = "
+        f"{drift:.3e}, fail-stops {len(r['fails'])} (before the first "
+        f"step), grid {grid}, launches {launches}")
     if prop == "ve":
         res["split"] = gather_split(box, cfg, grid, state)
         sp = res["split"]
@@ -3404,6 +3456,516 @@ def cli_phase(report):
     report["sedov_alpha"] = alpha
     report["cli_phase_seconds"] = time.perf_counter() - t0
     log(f"  phase (m): {report['cli_phase_seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# (n) subsonic turbulence, the std formulation and the remaining cases
+# ---------------------------------------------------------------------------
+
+TURB_SIDE = 100             # turbulence 100^3 (1,000,000 particles)
+TURB_CHECK_SIDE = 10        # card against CPU
+TURB_RUNGS = 4              # the CLI's BdtVE default
+TURB_SAMPLE_CELLS = 96      # cells of each gated launch held against plain
+CASE_SIDE = 50              # the other new cases through main
+# (case, prop, n, steps); turbulence-ve-bdt: one warm-up and 2 timed
+# cycles
+TURB_RUNS = (("turbulence", "turbulence-ve-bdt", TURB_SIDE, 3),
+             ("turbulence", "turbulence-ve", TURB_SIDE, 2),
+             ("noh", "std", TURB_SIDE, 2))
+CASE_RUNS = tuple((case, prop, CASE_SIDE, 2)
+                  for case in ("gresho-chan", "isobaric-cube",
+                               "kelvin-helmholtz", "wind-shock")
+                  for prop in ("ve", "ve-pallas"))
+
+
+def turb_engine_check(report):
+    """(n) 1: the new engines on the card against the CPU at 10^3, with
+    the CPU tests' tolerances: TurbBdtVE one cycle of 2 rungs
+    (tests/test_torch_turb_bdt.py), TurbVeProp 2 steps on the lattice
+    (tests/test_torch_turbulence.py) and make_std_step 2 steps at Noh
+    (tests/test_torch_std.py). The CPU references on one thread."""
+    import torch
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.init.factory import make_initializer
+    from sphexa_tpu_torch.neighbors import CellGrid, choose_level
+    from sphexa_tpu_torch.ops.cellmajor import choose_cm_grid
+    from sphexa_tpu_torch.propagator.std import make_std_step
+    from sphexa_tpu_torch.propagator.turb_ve import TurbVeProp
+    from sphexa_tpu_torch.propagator.ve_bdt import TurbBdtVE
+
+    side = TURB_CHECK_SIDE
+    threads = torch.get_num_threads()
+    out = {}
+
+    def fresh(case, dev):
+        torch.set_num_threads(1 if dev == "cpu" else threads)
+        st, box, cfg = make_initializer(case)(side, SphConfig(),
+                                              device=dev)
+        return st, box, cfg.replace(cell_cap=128)
+
+    # TurbBdtVE, one cycle of 2 rungs
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        st, box, cfg = fresh("turbulence", dev)
+        grid = choose_cm_grid(box, float(st.p.h.max()) * 1.25, side ** 3)
+        eng = TurbBdtVE(box, grid, cfg, num_rungs=2, device=dev)
+        bst, ds = eng.run_cycle(eng.bind_bdt(st))
+        runs[dev] = ([{k: np.asarray(v.cpu()).tolist()
+                       for k, v in d._asdict().items()} for d in ds],
+                     bst.rung.cpu().numpy(), eng.unbind(bst.rv, side ** 3),
+                     eng.turb.phases.copy(), str(grid))
+    (a, ra, sa, pa, grid), (b, rb, sb, pb, _) = runs["cpu"], runs[DEVICE]
+    for x, y in zip(a, b):
+        assert x["overflow"] == y["overflow"] == 0
+        np.testing.assert_allclose(y["dt"], x["dt"], rtol=1e-5)
+        np.testing.assert_allclose(y["eint"], x["eint"], rtol=1e-6)
+        np.testing.assert_allclose(y["ecin"], x["ecin"], rtol=1e-3)
+        assert y["ecin"] > 0
+        assert y["rung_hist"] == x["rung_hist"], (y, x)
+        assert y["active_cell_frac"] == x["active_cell_frac"]
+    np.testing.assert_array_equal(rb, ra)
+    np.testing.assert_array_equal(pb, pa)
+    for fields, tol in ((("x", "y", "z", "vx", "vy", "vz", "temp", "h"),
+                         2e-3), (("alpha",), 1e-4)):
+        rows_close(f"TurbBdtVE {fields}", [getattr(sb.p, f) for f in fields],
+                   [getattr(sa.p, f) for f in fields], tol)
+    log(f"  {side}^3 TurbBdtVE {DEVICE} vs cpu, 1 cycle of 2 rungs on "
+        f"{grid}: rung_hist {[d['rung_hist'] for d in b]} equal, ecin "
+        f"{b[-1]['ecin']:.6e} vs {a[-1]['ecin']:.6e}, OU phases equal")
+    out["turb_bdt"] = dict(card=b, cpu=a, grid=grid)
+
+    # TurbVeProp and make_std_step, 2 steps each on the gather path
+    for name, case, tol_v in (("turb_ve", "turbulence", 2e-3),
+                              ("std", "noh", 1e-4)):
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            st, box, cfg = fresh(case, dev)
+            grid = CellGrid(choose_level(box, float(st.p.h.max()) * 1.25))
+            step = (TurbVeProp(box, grid, cfg, device=dev)
+                    if name == "turb_ve"
+                    else make_std_step(box, grid, cfg, device=dev))
+            ds = []
+            for _ in range(2):
+                st, d = step(st)
+                ds.append({k: float(getattr(d, k)) for k in (
+                    "dt", "etot", "eint", "ecin", "max_nc",
+                    "max_cell_count")})
+            runs[dev] = (ds, st)
+        (a, sa), (b, sb) = runs["cpu"], runs[DEVICE]
+        for x, y in zip(a, b):
+            assert y["max_nc"] == x["max_nc"]
+            assert y["max_cell_count"] == x["max_cell_count"]
+            for k in ("dt", "etot", "eint", "ecin"):
+                rtol = 1e-3 if k == "ecin" and name == "turb_ve" else 1e-5
+                np.testing.assert_allclose(y[k], x[k], rtol=rtol,
+                                           err_msg=f"{name} {k}")
+        for fields, tol in ((("x", "y", "z", "temp", "h", "alpha"), 1e-4),
+                            (("vx", "vy", "vz"), tol_v)):
+            rows_close(f"{name} {fields}", [getattr(sb.p, f) for f in fields],
+                       [getattr(sa.p, f) for f in fields], tol)
+        log(f"  {side}^3 {name} {DEVICE} vs cpu, 2 steps: dt "
+            f"{b[-1]['dt']:.6e} vs {a[-1]['dt']:.6e}, ecin "
+            f"{b[-1]['ecin']:.6e} vs {a[-1]['ecin']:.6e}, rows within "
+            f"tolerance")
+        out[name] = dict(card=b, cpu=a)
+    torch.set_num_threads(threads)
+    report["turb_engine_10"] = out
+
+
+def case_run(report, case, prop, n, steps, extra=()):
+    """(n) 2: main([...]) in this process (main_in_process) on one case
+    and prop. Gates: the slot-frame props launch their kernels and no
+    other; turbulence: Mach RMS > 0 and growing over the last two steps
+    (cycles); every other case: |etot - e0|/e0 < CLI_DRIFT_BOUND. A
+    fail-stop may follow an h or box re-grid (Noh's open box grows), as
+    in the JAX CLI. A slot-frame prop whose planner finds no grid is
+    recorded with the planner's refusal."""
+    from sphexa_tpu_torch import main as cli
+
+    key = " ".join([case, prop, str(n)] + [a for a in extra[:1]])
+    consts = os.path.join(ROOT, "chiprun_out", f"turb_{case}_{prop}"
+                          f"{'_glass' if extra else ''}_constants.txt")
+    argv = ["--init", case, "-n", str(n), "-s", str(steps), "--prop",
+            prop] + list(extra)
+    try:
+        r = main_in_process(argv, consts)
+    except (ValueError, RuntimeError) as e:
+        # the JAX CLI's answers for a slot-frame prop, kept by the port:
+        # its planner finds no grid; or the fail-stop on max_nc > ngpad,
+        # which its re-grid (cap headroom only) cannot lift (ROADMAP
+        # Queue 3)
+        if prop in cli._SLOT_FRAME and any(m in str(e) for m in (
+                "no (cap, grid)", "capacity overflow persists")):
+            log(f"  {key}: refused, as the JAX CLI refuses it: {e}")
+            report.setdefault("turb_cli_runs", {})[key] = dict(refused=str(e))
+            return None
+        raise
+    rows = r["rows"]
+    assert rows.shape[0] == steps, rows.shape
+    assert set(r["launches"]) == PROP_KERNELS.get(prop, set()), \
+        (key, r["launches"])
+    etot = rows[:, 3]
+    drift = abs(float(etot[-1]) - r["e0"]) / r["e0"]
+    res = dict(steps=steps, call_ms=r["call_ms"], step_ms=r["step_ms"],
+               fail_stops=len(r["fails"]),
+               fail_stop_lines=[r["lines"][i] for i in r["fails"]],
+               wall_s=r["wall"], peak_bytes=r["peak"], e0=r["e0"],
+               energy_drift=drift, rows=rows.tolist(),
+               launches=r["launches"], grid=str(r["made"][-1][2]),
+               n_particles=int(r["state"].p.alive.sum()))
+    if case == "turbulence":
+        mach = rows[:, 9]
+        assert mach[-1] > mach[-2] > 0, f"{key}: Mach RMS {mach}"
+        res["mach_rms"] = mach.tolist()
+        gate = f"Mach RMS {[float('%.6g' % m) for m in mach]}"
+    else:
+        assert drift < CLI_DRIFT_BOUND, f"{key}: energy drift {drift:.3e}"
+        gate = f"|etot - e0|/e0 = {drift:.3e}"
+    if prop.endswith("bdt"):
+        res["bdt_lines"] = [ln for ln in r["lines"]
+                            if ln.startswith("# bdt:")]
+    timed = r["step_ms"][1:] if prop.endswith("bdt") else r["step_ms"]
+    res["mean_ms"] = float(np.mean(timed))
+    log(f"  {key}: {res['mean_ms']:.3f} ms a "
+        f"{'cycle' if prop.endswith('bdt') else 'step'} (timed "
+        f"{[round(s, 3) for s in timed]}; all calls "
+        f"{[round(s, 3) for s in r['call_ms']]}), {r['wall']:.1f} s of "
+        f"main, {res['n_particles']} particles, peak "
+        f"{r['peak'] / 2 ** 30:.3f} GiB, fail-stops {len(r['fails'])}, "
+        f"grid {res['grid']}, {gate}, launches {r['launches']}")
+    report.setdefault("turb_cli_runs", {})[key] = res
+    return res
+
+
+def glass_run(report):
+    """(n) 2, --glass: a 2^3 template (a jittered lattice, written to
+    chiprun_out) makes kelvin-helmholtz at n = 50 take its glass branch
+    (its thin z hosts blocks of 2 x 1/50 there); the template is module
+    state of init/glass.py, cleared afterwards. Gated as case_run, and
+    the glass branch ran (another particle count than the lattice's)."""
+    from sphexa_tpu_torch.init.glass import set_glass_template
+    from sphexa_tpu_torch.init.lattice import jittered_lattice
+
+    tmpl = os.path.join(ROOT, "chiprun_out", "glass_template_2.npz")
+    x, y, z = jittered_lattice(2, jitter=0.3, seed=5)
+    np.savez(tmpl, x=x, y=y, z=z)
+    log(f"(n) main([... --init kelvin-helmholtz -n {CASE_SIDE} --prop ve "
+        f"--glass {os.path.basename(tmpl)} ...]):")
+    try:
+        res = case_run(report, "kelvin-helmholtz", "ve", CASE_SIDE, 2,
+                       ("--glass", tmpl))
+    finally:
+        set_glass_template(None)
+    lattice = report["turb_cli_runs"][f"kelvin-helmholtz ve {CASE_SIDE}"]
+    assert res["n_particles"] != lattice["n_particles"], \
+        "--glass: the lattice fallback ran"
+
+
+# at the turbulence frame the gas sits on its lattice and the momentum
+# stage's accelerations (and the IAD stage's velocity gradients) are
+# cancelling sums of rounding noise: where the comparison with the
+# plain float32 version fails, the kernel is held within this many
+# times the plain version's own distance from the same body in float64
+# (per output group, at its float64 scale; the exact rows exactly)
+NOISE_FACTOR = 4.0
+
+
+def noise_floor_compare(k, args, cells, ref, out, mask):
+    """(max abs err, rel, floor) of a stage's output against its body in
+    float64 on `cells`: each group of GROUPS within max(1e-4 of its
+    scale, NOISE_FACTOR x the plain float32 version's own error), the
+    EXACT rows equal to the plain version's. floor: per group, the
+    kernel's and the plain version's distance from float64, relative
+    to the group's scale."""
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    J, I2, g, c = args
+    name = stage_of(k.name)
+    ref64 = pv._run_plain(k.body, J.double(),
+                          None if I2 is None else I2.double(), g, k.fo,
+                          cells=cells, **k._body_kw(c))[:, mask]
+    o, r = out[:, mask].double(), ref[:, mask].double()
+    for row in EXACT.get(name, []):
+        if not bool((o[row] == r[row]).all()):
+            raise AssertionError(f"{name}: row {row} not exact")
+    floor = {}
+    for grp in GROUPS[name]:
+        grp = [x for x in grp if x not in EXACT.get(name, [])]
+        if not grp:
+            continue
+        scale = max(float(ref64[grp].abs().max()), 1e-30)
+        ek = float((o[grp] - ref64[grp]).abs().max())
+        ep = float((r[grp] - ref64[grp]).abs().max())
+        floor[str(grp)] = dict(kernel=ek / scale, plain=ep / scale)
+        if ek > max(1e-4 * scale, NOISE_FACTOR * ep):
+            raise AssertionError(
+                f"{name}: rows {grp} {ek / scale:.3e} of scale from "
+                f"float64, beyond {NOISE_FACTOR} x plain's {ep / scale:.3e}")
+    err = (o - r).abs()
+    rel = float((err.amax(1) / r.abs().amax(1).clamp_min(1e-30)).max())
+    return float(err.max()), rel, floor
+
+
+def turb_engine_path(report, rows):
+    """(n) 3: TurbBdtVE at turbulence 100^3 driven directly: one warm-up
+    cycle, one timed cycle (events after the resync and each substep;
+    counters zeroed just before, read just after); the rung histogram
+    and active fractions; a fully active substep split into the five
+    gated stages, the six ghost refreshes, the stirring sum and the
+    rest, each timed alone at its captured inputs; one more substep
+    under PyTorch's sync check set to errors; each gated stage against
+    its plain version on sampled cells, its invalid slots at their fill,
+    its time and bound at this frame (added to its kernel row as
+    turb_ms, turb_bound_ms, turb_bound_by)."""
+    import torch
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.init.factory import make_initializer
+    from sphexa_tpu_torch.main import _slot_grid
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.propagator.ve_bdt import TurbBdtVE
+
+    t0 = time.perf_counter()
+    state, box, cfg = make_initializer("turbulence")(TURB_SIDE, SphConfig(),
+                                                     device=DEVICE)
+    # the CLI's planner grid
+    grid = _slot_grid(box, cfg, float(state.p.h.max()), TURB_SIDE ** 3, {},
+                      state)
+    eng = TurbBdtVE(box, grid, cfg, num_rungs=TURB_RUNGS, device=DEVICE)
+    bst = eng.bind_bdt(state)
+    assert int(bst.rv.overflow) == 0, "slot overflow at bind"
+    bst, _ = eng.run_cycle(bst)                         # warm-up
+    torch.cuda.synchronize()
+    log(f"  setup + warm-up cycle {time.perf_counter() - t0:.1f} s; grid "
+        f"{grid}, Z {eng.pve_gated.zgroup}")
+
+    marks = []
+    resync, substep = eng.resync, eng.substep
+
+    def marked(fn, what):
+        def call(*a):
+            out = fn(*a)
+            marks.append((what, torch.cuda.Event(enable_timing=True)))
+            marks[-1][1].record()
+            return out
+        return call
+    eng.resync = marked(resync, "resync")
+    eng.substep = marked(substep, "substep")
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    bst, diags = eng.run_cycle(bst)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    del eng.resync, eng.substep
+    nsub = 1 << (TURB_RUNGS - 1)
+    used = {k.name for k in eng.pve_gated.kernels}
+    want = {k.name: nsub if k.name in used else 0 for k in kernels}
+    want["ghost_refresh"] = 5 * nsub
+    want["pair_gate"] = 5 * nsub
+    assert launches == want, (launches, want)
+    evs = [start] + [e for _, e in marks]
+    span = [a.elapsed_time(b) for a, b in zip(evs, evs[1:])]
+    d = {k: [np.asarray(getattr(x, k).cpu()).tolist() for x in diags]
+         for k in ("dt", "etot", "ecin", "active_frac", "active_cell_frac",
+                   "rung_hist", "overflow")}
+    assert max(d["overflow"]) == 0, "slot overflow"
+    for f in ("x", "y", "z", "h", "vx", "vy", "vz", "temp", "alpha"):
+        assert torch.isfinite(getattr(bst.rv, f)).all(), f"non-finite {f}"
+    assert d["ecin"][-1] > d["ecin"][0] > 0, d["ecin"]
+
+    # one fully active substep, split
+    b1, _ = eng.resync(bst)
+    dt_min = float(b1.dt_min)
+    eng.turb.update_noise(dt_min)
+    (pr, pi), = eng.turb.device_phases([eng.device])
+    torch.cuda.synchronize()
+    with Spy((pv.ghost_refresh,) + tuple(eng.pve_gated.kernels)) as spy:
+        eng.substep(b1, pr, pi)
+    torch.cuda.synchronize()
+    sub_ms = cuda_ms(lambda: eng.substep(b1, pr, pi), 3)
+    idx = eng.gravity_index(b1.rv.valid)
+    rv = b1.rv
+    stir_ms = cuda_ms(lambda: eng.stir.stir(rv.x[idx], rv.y[idx], rv.z[idx],
+                                            pr, pi), 5)
+    gated = [(k, a, o) for k, a, o in spy.calls
+             if getattr(k, "gated", False)]
+    refreshes = [(k, a, o) for k, a, o in spy.calls
+                 if k.name == "ghost_refresh"]
+    stage_ms = {k.name: cuda_ms(lambda: k._launch(*a), 5)
+                for k, a, _ in gated}
+    # a refresh rewrites the ghost slots of its stack from the interior:
+    # repeated on one copy it redoes the same work
+    ghost_ms = sum(cuda_ms(lambda a=a, st=a[0].clone(): k._launch(st, *a[1:]),
+                           5) for k, a, _ in refreshes)
+    rest = sub_ms - sum(stage_ms.values()) - ghost_ms - stir_ms
+    split = dict(substep_ms=sub_ms, gated_stages_ms=stage_ms,
+                 gated_total_ms=sum(stage_ms.values()),
+                 ghost_refresh_ms=ghost_ms, refreshes=len(refreshes),
+                 stirring_ms=stir_ms, stirring_rows=int(idx.numel()),
+                 rest_ms=rest)
+    # the stirring sum's bound: x, y, z read and three rows written, and
+    # per row and mode the angle (3 FMA), cos and sin, and the two
+    # products' 6 FMA (12 flops), against the fp32 peak
+    rows_n = int(idx.numel())
+    stir_ops = rows_n * 112 * (6 + 2 + 12)
+    split["stirring_bound_ms"] = max(stir_ops / FP32_PEAK,
+                                     24 * rows_n / HBM_BW) * 1e3
+    # the substep takes no host sync with its phases on the device
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.substep(b1, pr, pi)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    # the gated stages at this frame: against plain on sampled cells,
+    # their fill values, their bound
+    xh_args = next(a for k, a, _ in gated if k.name == "pair_xh_gated")
+    J = xh_args[0]
+    act = xh_args[4][0]
+    on = pv.supercell_active(act, grid, eng.pve_gated.zgroup)
+    occupied = (valid_slots(J) & eng.intmask).view(-1, grid.cap).any(1)
+    assert bool((on | ~occupied).all()), "an occupied cell inactive"
+    nc_sph = pv.pair_xh._launch(J, None, grid, xh_args[3])[2] + 1
+    cand, inside, per_slot = pair_counts(J, eng, grid, nc_sph)
+    recount, moved, _ = xh_recounts(J, grid, xh_args[3], per_slot)
+    n_int = float(eng.intmask.sum())
+    by_name = {r["name"]: r for r in rows}
+    checks = {}
+    for i, (kg, args, out) in enumerate(gated):
+        J, I2, g, c, (act, prev), zgroup = args
+        k = next(x for x in pv.PAIR_KERNELS
+                 if not x.gated and x.name == stage_of(kg.name))
+        cells = sample_occupied_cells(g, valid_slots(J), eng.intmask,
+                                      TURB_SAMPLE_CELLS, 50 + i)
+        ref = pv._run_plain(k.body, J, I2, g, k.fo, cells=cells,
+                            **k._body_kw(c))
+        slots = torch.zeros(g.n_slots, dtype=torch.bool, device=DEVICE)
+        lane = torch.arange(g.cap, device=DEVICE)
+        slots[(cells[:, None] * g.cap + lane).reshape(-1)] = True
+        mask = valid_slots(J) & slots & eng.intmask
+        try:
+            err, rel = compare(kg.name, ref, out, mask, per_row=False)
+            floor = None
+        except AssertionError as e:
+            err, rel, floor = noise_floor_compare(k, args[:4], cells, ref,
+                                                  out, mask)
+            log(f"  {kg.name}: {e}; held at its float32 noise floor: "
+                f"{floor}")
+        nfill = check_fill(kg, J, out, eng.intmask)
+        ops = cand * GEO_FLOPS + inside * BODY_FLOPS[k.name]
+        if k.name == "pair_xh":
+            ops += recount * RECOUNT_FLOPS
+        fi2 = I2.shape[0] if I2 is not None else 0
+        # every interior slot active: J rows read once, I2 and the
+        # outputs once, act once
+        nbytes = 4 * (J.shape[0] * n_int + fi2 * n_int + g.n_slots
+                      + kg.fo * n_int)
+        bound, by = pair_bound(ops, nbytes)
+        ms = stage_ms[kg.name]
+        checks[kg.name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
+                               bound_ms=bound, bound_by=by, noise=floor,
+                               fill_slots=nfill, cells=int(cells.numel()))
+        if kg.name in by_name:
+            by_name[kg.name].update(turb_ms=ms, turb_bound_ms=bound,
+                                    turb_bound_by=by)
+        log(f"  cap {g.cap} {kg.name:20s} {ms:8.3f} ms  bound {bound:.4f} "
+            f"ms ({by}); {cells.numel()} cells against plain: err "
+            f"{err:.3e} (rel {rel:.3e}); {nfill} invalid slots at fill")
+    hist = d["rung_hist"][-1]
+    log(f"  {TURB_SIDE}^3 TurbBdtVE: {sum(span):.3f} ms the cycle (resync "
+        f"{span[0]:.3f}; substeps {[round(x, 3) for x in span[1:]]}); "
+        f"rung_hist {hist}; active_frac {d['active_frac']}; "
+        f"active_cell_frac {d['active_cell_frac']}")
+    log(f"  substep split: {sub_ms:.3f} ms = gated stages "
+        f"{split['gated_total_ms']:.3f} ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+        + f"), {len(refreshes)} ghost refreshes {ghost_ms:.3f}, stirring "
+          f"{stir_ms:.3f} over {rows_n} rows (bound "
+          f"{split['stirring_bound_ms']:.4f}), rest {rest:.3f}; the "
+          f"substep ran with no host sync; candidates {cand:.4e}, "
+          f"in-support pairs {inside:.4e}")
+    report["turb_engine_path"] = dict(
+        grid=str(grid), cycle_ms=sum(span), resync_ms=span[0],
+        substeps_ms=span[1:], diags=d, launches=launches, split=split,
+        candidates=cand, in_support=inside, xh_recount_candidates=recount,
+        xh_h_moved=moved, gated=checks)
+
+
+def turb_sharded_path(report, D=2):
+    """(n) 4: TurbShardedBdtVE at turbulence 100^3, D shards on the one
+    card, sized by plan_slab as (k) sizes ShardedBdtVE: one warm-up and
+    one timed cycle (counters zeroed just before, read just after);
+    overflow 0 and lost 0 (run_cycle raises on either), rows finite, the
+    stirring did work."""
+    import torch
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.domain.mesh import SlabMesh
+    from sphexa_tpu_torch.init.factory import make_initializer
+    from sphexa_tpu_torch.propagator.ve_bdt_sharded import TurbShardedBdtVE
+    from sphexa_tpu_torch.propagator.ve_sharded import plan_slab
+
+    state, box, cfg = make_initializer("turbulence")(TURB_SIDE, SphConfig(),
+                                                     device=DEVICE)
+    host = {c: getattr(state.p, c).cpu().numpy() for c in "xyz"}
+    grid, sc = plan_slab(host, box, float(state.p.h.max()), D)
+    eng = TurbShardedBdtVE(box, grid, cfg, sc, SlabMesh(D, devices=[DEVICE]),
+                           num_rungs=TURB_RUNGS)
+    bsts, _ = eng.run_cycle(eng.distribute_bind(state))
+    torch.cuda.synchronize()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    bsts, ds = eng.run_cycle(bsts)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b)
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    nsub = 1 << (TURB_RUNGS - 1)
+    assert launches["ghost_refresh_xy"] == D * (5 * nsub + 1), launches
+    assert launches["pair_gate"] == D * 5 * nsub, launches
+    for bst in bsts:
+        for f in ("x", "y", "z", "h", "vx", "vy", "vz", "temp", "alpha"):
+            assert torch.isfinite(getattr(bst.rv, f)).all(), f
+    assert float(ds[-1].ecin) > 0
+    out = eng.unbind(bsts, TURB_SIDE ** 3)
+    assert bool(out.p.alive.all()), "rows lost"
+    hist = ds[-1].rung_hist.tolist()
+    log(f"  {TURB_SIDE}^3 TurbShardedBdtVE D={D} ({grid}, {sc}): {ms:.3f} "
+        f"ms/cycle; overflow 0, lost 0, rows finite, every particle back "
+        f"at unbind; rung_hist {hist}; ecin {float(ds[-1].ecin):.6e}; "
+        f"launches {launches}")
+    report["turb_sharded_path"] = dict(D=D, grid=str(grid), cycle_ms=ms,
+                                       rung_hist=hist, launches=launches,
+                                       ecin=float(ds[-1].ecin))
+
+
+def turb_phase(report, rows):
+    """Phase (n): subsonic turbulence, the std formulation and the
+    remaining cases on the card."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    log("(n) the new engines on the card against the CPU:")
+    turb_engine_check(report)
+    log(f"  {time.perf_counter() - t0:.1f} s into phase (n)")
+    for case, prop, n, steps in TURB_RUNS + CASE_RUNS:
+        log(f"(n) main([... --init {case} -n {n} --prop {prop} ...]):")
+        case_run(report, case, prop, n, steps)
+        log(f"  {time.perf_counter() - t0:.1f} s into phase (n)")
+    glass_run(report)
+    log(f"  {time.perf_counter() - t0:.1f} s into phase (n)")
+    log(f"(n) TurbBdtVE at turbulence {TURB_SIDE}^3, driven directly:")
+    turb_engine_path(report, rows)
+    log(f"  {time.perf_counter() - t0:.1f} s into phase (n)")
+    log(f"(n) TurbShardedBdtVE at turbulence {TURB_SIDE}^3:")
+    turb_sharded_path(report)
+    report["turb_phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase (n): {report['turb_phase_seconds']:.1f} s")
 
 
 def compare_mm():
@@ -3621,6 +4183,25 @@ def cli_main() -> int:
     return 0
 
 
+def turb_main() -> int:
+    """--turb: the build and phase (n) alone (no result lines); details
+    to chiprun_out/chip_smoke_turb.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"smi": smi_line()}
+    log(report["smi"])
+    _cuda.build()
+    turb_phase(report, [])
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_turb.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--compare"]:
@@ -3632,6 +4213,8 @@ def main() -> int:
         return gravity_main()
     if sys.argv[1:2] == ["--cli"]:
         return cli_main()
+    if sys.argv[1:2] == ["--turb"]:
+        return turb_main()
     sys.path.insert(0, ROOT)
     from sphexa_tpu_torch.ops import _cuda
 
@@ -3716,6 +4299,7 @@ def main() -> int:
 
     gravity_phase(report)
     cli_phase(report)
+    turb_phase(report, rows)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

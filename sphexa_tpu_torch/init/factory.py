@@ -2,9 +2,10 @@
 
 Counterpart of sphexa_tpu/init/factory.py: named test cases map to
 builder functions returning (SimState, Box, SphConfig). The port has
-the cases `sedov` and `evrard`; the JAX package's others (noh,
-isobaric-cube, gresho-chan, kelvin-helmholtz, wind-shock, turbulence)
-wait for ROADMAP Queue 1 item 6.
+the JAX package's cases sedov, noh, isobaric-cube, gresho-chan,
+kelvin-helmholtz, wind-shock, evrard and turbulence; evrard-cooling
+(the std-cooling prop's case) waits for ROADMAP Queue 1 item 9, and
+main.py refuses it by name.
 """
 
 from __future__ import annotations
@@ -26,18 +27,28 @@ def available_cases():
 
 def _ensure_loaded():
     from sphexa_tpu_torch.init.evrard import init_evrard
+    from sphexa_tpu_torch.init.gresho_chan import init_gresho_chan
+    from sphexa_tpu_torch.init.isobaric_cube import init_isobaric_cube
+    from sphexa_tpu_torch.init.kelvin_helmholtz import init_kelvin_helmholtz
+    from sphexa_tpu_torch.init.noh import init_noh
     from sphexa_tpu_torch.init.sedov import init_sedov
-    _CASES.setdefault("sedov", init_sedov)
-    _CASES.setdefault("evrard", init_evrard)
+    from sphexa_tpu_torch.init.turbulence import init_turbulence
+    from sphexa_tpu_torch.init.wind_shock import init_wind_shock
+    for name, fn in (("sedov", init_sedov), ("noh", init_noh),
+                     ("isobaric-cube", init_isobaric_cube),
+                     ("gresho-chan", init_gresho_chan),
+                     ("kelvin-helmholtz", init_kelvin_helmholtz),
+                     ("wind-shock", init_wind_shock),
+                     ("evrard", init_evrard),
+                     ("turbulence", init_turbulence)):
+        _CASES.setdefault(name, fn)
 
 
 def make_initializer(name: str):
     _ensure_loaded()
     if name not in _CASES:
         raise ValueError(
-            f"unknown test case '{name}'; available: {available_cases()} "
-            f"(the JAX package's other cases wait for ROADMAP Queue 1 "
-            f"item 6)")
+            f"unknown test case '{name}'; available: {available_cases()}")
     fn = _CASES[name]
 
     def build(*args, **kw):

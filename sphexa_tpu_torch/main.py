@@ -13,13 +13,20 @@ It runs on the GPU, and raises without one. SPHEXA_PLATFORM=cpu (the
 JAX CLI's platform variable) runs it on the CPU, through the kernels'
 plain PyTorch versions.
 
-Propagators: ve (the gather path, propagator/ve.py; the default),
-ve-pallas (make_ve_step_cellmajor: K1, K3-K7), ve-bdt (BdtVE: K1, K2g)
-and nbody. The others, and --profile, --glass, --viz-every and
---split > 1, raise NotImplementedError naming the ROADMAP item that
-will port them. --debug-nans checks after each step that every row of
-the state is finite and raises FloatingPointError naming the first
-field that is not (jax_debug_nans at a step's granularity).
+Propagators: ve (the gather path, propagator/ve.py; the default), std
+(the std formulation on the gather path, propagator/std.py),
+turbulence-ve (the gather path with OU stirring, propagator/turb_ve.py),
+ve-pallas (make_ve_step_cellmajor: K1, K3-K7), ve-bdt (BdtVE: K1, K2g),
+turbulence-ve-bdt (TurbBdtVE: K1, K2g and the stirring) and nbody.
+Cases: sedov, noh, isobaric-cube, gresho-chan, kelvin-helmholtz,
+wind-shock, evrard and turbulence (init/factory.py); --glass installs a
+glass template for the glass-tiled cases (init/glass.py). The other
+props (tiers, std-cooling, the multi-device ones), --init
+evrard-cooling, --profile, --viz-every and --split > 1 raise
+NotImplementedError naming the ROADMAP item that will port them.
+--debug-nans checks after each step that every row of the state is
+finite and raises FloatingPointError naming the first field that is
+not (jax_debug_nans at a step's granularity).
 """
 
 from __future__ import annotations
@@ -50,9 +57,6 @@ MULTICHIP_PROPS = ("ve-hilbert", "ve-pallas-sharded", "ve-bdt-sharded",
 
 # props the port does not run yet -> the ROADMAP Queue 1 item porting them
 _REFUSED_PROPS = {
-    "std": "item 6 (sph/hydro_std.py, propagator/std.py)",
-    "turbulence-ve": "item 3 (physics/turbulence.py, propagator/turb_ve.py)",
-    "turbulence-ve-bdt": "item 3 (TurbBdtVE)",
     "ve-tiered": "item 8 (propagator/ve_tiered.py)",
     "ve-tiered-resident": "item 8 (propagator/ve_tiered.py)",
     "ve-tiered-bdt": "item 8 (propagator/ve_tiered_bdt.py)",
@@ -62,7 +66,7 @@ _REFUSED_PROPS = {
 }
 
 # the slot-frame engines: diag.max_cell_count counts dropped particles
-_SLOT_FRAME = ("ve-pallas", "ve-bdt")
+_SLOT_FRAME = ("ve-pallas", "ve-bdt", "turbulence-ve-bdt")
 
 
 def _not_ported(what: str, item: str):
@@ -76,8 +80,6 @@ def _check_flags(args):
     refuses the props)."""
     if args.profile:
         _not_ported("--profile", "item 2 (stage tables and a trace)")
-    if args.glass:
-        _not_ported("--glass", "item 6 (init/glass.py)")
     if args.viz_every:
         _not_ported("--viz-every", "item 5 (io/viz.py)")
 
@@ -142,7 +144,7 @@ def parse_args(argv=None):
                                 description="SPH simulation on one GPU "
                                             "(the PyTorch/CUDA port)")
     p.add_argument("--init", required=True,
-                   help="test case name (sedov, evrard) or checkpoint "
+                   help="test case name (sedov, noh, ...) or checkpoint "
                         "file.h5[:step] / dump.txt[:step] to restart from")
     p.add_argument("-n", type=int, default=50,
                    help="cube side; N = n^3 particles")
@@ -152,7 +154,8 @@ def parse_args(argv=None):
                    help="stop when simulation time reached")
     p.add_argument("--prop", default="ve", choices=PROPS,
                    help="propagator choice (reference: --prop); the port "
-                        "runs ve, ve-pallas, ve-bdt and nbody and refuses "
+                        "runs ve, std, ve-pallas, ve-bdt, nbody, "
+                        "turbulence-ve and turbulence-ve-bdt and refuses "
                         "the others")
     p.add_argument("-w", "--output-every", default="0",
                    help="output frequency: integer = every N iterations, "
@@ -185,8 +188,10 @@ def parse_args(argv=None):
                         "(available: rho, p; reference -f outputFields, "
                         "sphexa.cpp:86)")
     p.add_argument("--glass", default=None,
-                   help="pre-relaxed glass template file (not ported: "
-                        "ROADMAP item 6)")
+                   help="pre-relaxed glass template file (HDF5 with "
+                        "x/y/z or .npz) used by the glass-tiled cases "
+                        "(reference --glass, sphexa.cpp:82); default: "
+                        "a self-relaxed cached template")
     p.add_argument("--debug-nans", action="store_true",
                    help="after every step, check that every row of the "
                         "state is finite; raise FloatingPointError naming "
@@ -270,12 +275,15 @@ def _slot_grid(box, cfg, h_max, n, extras, state):
 
 def _bdt_adapter(bdt, restore):
     """One call = one full rung cycle (2^(num_rungs-1) substeps) of
-    BdtVE, with the main loop's step contract."""
+    BdtVE (or TurbBdtVE, whose OU state the adapter exposes as .turb for
+    the writer), with the main loop's step contract."""
 
     class _BdtAdapter:
         def __init__(self):
             self.bst = None
             self.bdt = bdt
+            if getattr(bdt, "turb", None) is not None:
+                self.turb = bdt.turb
 
         def checkpoint_state(self, n_capacity):
             """Rung state for the writer (timestep.h:29-34 analog);
@@ -322,15 +330,39 @@ def make_stepper(args, box, cfg, h_max, n, extras=None, state=None,
             make_ve_step_cellmajor
         grid = _slot_grid(box, cfg, h_max, n, extras, state)
         return make_ve_step_cellmajor(box, grid, cfg, device=device), grid
-    if args.prop == "ve-bdt":
-        from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
+    if args.prop in ("ve-bdt", "turbulence-ve-bdt"):
+        from sphexa_tpu_torch.propagator.ve_bdt import BdtVE, TurbBdtVE
         grid = _slot_grid(box, cfg, h_max, n, extras, state)
-        return (_bdt_adapter(BdtVE(box, grid, cfg, device=device),
-                             extras.get("bdt")), grid)
+        if args.prop == "turbulence-ve-bdt":
+            # reference TurbVeBdtProp (turb_ve.hpp:114-118)
+            bdt = TurbBdtVE(box, grid, cfg, turb=_turbulence(args, extras),
+                            device=device)
+        else:
+            bdt = BdtVE(box, grid, cfg, device=device)
+        return _bdt_adapter(bdt, extras.get("bdt")), grid
     from sphexa_tpu_torch.neighbors import CellGrid, choose_level
-    from sphexa_tpu_torch.propagator.ve import make_ve_step
     grid = CellGrid(choose_level(box, h_max * 1.25))
+    if args.prop == "turbulence-ve":
+        from sphexa_tpu_torch.propagator.turb_ve import TurbVeProp
+        return TurbVeProp(box, grid, cfg, turb=_turbulence(args, extras),
+                          device=device), grid
+    if args.prop == "std":
+        from sphexa_tpu_torch.propagator.std import make_std_step
+        return make_std_step(box, grid, cfg, device=device), grid
+    from sphexa_tpu_torch.propagator.ve import make_ve_step
     return make_ve_step(box, grid, cfg, device=device), grid
+
+
+def _turbulence(args, extras):
+    """A fresh OU driver from the reference constants, or, on an HDF5
+    restart, the dump's phases and RNG state. As in the JAX CLI, every
+    make_stepper call (a re-grid too) starts from there (ROADMAP Queue
+    3)."""
+    from sphexa_tpu_torch.physics.turbulence import TurbulenceData
+    turb = TurbulenceData.create(verbose=not args.quiet)
+    if "turb" in extras:
+        turb.restore(extras["turb"])
+    return turb
 
 
 def _check_finite(state):
@@ -376,6 +408,9 @@ def main(argv=None):
     args = parse_args(argv)
     _check_flags(args)
     device = _device()
+    if args.glass:
+        from sphexa_tpu_torch.init.glass import set_glass_template
+        set_glass_template(args.glass)
     state, box, cfg, extras = build_sim(args, device)
 
     alive = host(state.p.alive)
@@ -523,6 +558,9 @@ def main(argv=None):
                                              t_now)
                          or (wall_exceeded and write_enabled))
             if writer and triggered:
+                turb_state = None
+                if hasattr(step_fn, "turb"):
+                    turb_state = step_fn.turb.checkpoint_state()
                 bdt_state = None
                 if hasattr(step_fn, "checkpoint_state"):
                     bdt_state = step_fn.checkpoint_state(state.p.n)
@@ -536,7 +574,7 @@ def main(argv=None):
                     if isinstance(v, torch.Tensor) and v.ndim == 1:
                         out_fields[name] = v
                 writer.write_step(state, cfg, box, fields=out_fields or None,
-                                  bdt_state=bdt_state)
+                                  turb_state=turb_state, bdt_state=bdt_state)
 
             it += 1
             if args.sim_time is not None and float(diag.ttot) >= args.sim_time:

@@ -3,7 +3,8 @@
 Counterpart of sphexa_tpu/propagator/ve_bdt.py (BdtVE; reference:
 main/src/propagator/ve_hydro_bdt.hpp, sph/include/sph/ts_rungs.hpp:
 117-157). Single device, avClean off; the moment-matmul options
-(mxu_moments, mxu_momentum) run their gated bodies. Self-gravity
+(mxu_moments, mxu_momentum) run their gated bodies. TurbBdtVE adds the
+turbulence stirring (ve_bdt.py:424-451 of the JAX package). Self-gravity
 (gravG != 0) is recomputed every substep on the drifted positions of
 all slots and committed with the active slots' kick forces; its
 acceleration limits each particle's dt at the rung assignment.
@@ -174,9 +175,12 @@ class BdtVE(ResidentVE):
         return self._resync_1chip(bst)
 
     # ---- one substep -------------------------------------------------------
-    def substep(self, bst: BDTState):
+    def substep(self, bst: BDTState, phases_real=None, phases_imag=None):
         """One substep of dt_min: the five gated stages and five ghost
-        refreshes. Returns (new state, BDTDiag); takes no host sync."""
+        refreshes. With phases (the projected OU phases [M, 3] as float32
+        tensors on the engine's device) it adds the turbulence stirring
+        (TurbBdtVE). Returns (new state, BDTDiag); takes no host sync
+        (the stirring's slot index is built at the resync)."""
         cfg = self.cfg
         rv = bst.rv
         validint = rv.valid & self.intmask
@@ -196,6 +200,21 @@ class BdtVE(ResidentVE):
                       cij=(bst.c11, bst.c12, bst.c13, bst.c22, bst.c23,
                            bst.c33), divv=bst.divv, alpha=rv.alpha,
                       ax=bst.axk, ay=bst.ayk, az=bst.azk, du=bst.duk))
+        if phases_real is not None:
+            # turbulence stirring on the drifted positions (TurbVeBdtProp,
+            # turb_ve.hpp:114-118: driveTurbulence after the force step),
+            # committed with the active slots' kick acceleration. The JAX
+            # package sums it over every slot; here over the valid
+            # interior slots, the only ones whose kick state takes it.
+            if self.stir is None:
+                raise ValueError("phases given to an engine without "
+                                 "stirring modes (use TurbBdtVE)")
+            idx = self.gravity_index(rv.valid)
+            stirred = self.stir.stir(rv.x[idx], rv.y[idx], rv.z[idx],
+                                     phases_real, phases_imag)
+            out = dict(out, **{
+                k: out[k] + torch.zeros_like(rv.x).index_copy_(0, idx, a)
+                for k, a in zip(("ax", "ay", "az"), stirred)})
         # self-gravity recomputed every substep from the drifted
         # positions; inactive slots keep their frozen kick acceleration,
         # gravity included
@@ -366,6 +385,41 @@ class BdtVE(ResidentVE):
                            ticks=torch.zeros_like(bst.ticks),
                            dt_min=dt_min,
                            substep=torch.zeros_like(bst.substep))
+
+
+class TurbBdtVE(BdtVE):
+    """Turbulence-stirred block-time-step engine (reference:
+    TurbVeBdtProp, main/src/propagator/turb_ve.hpp:114-118).
+
+    The OU noise advances on the host once per substep with the cycle's
+    base dt, as the JAX package's TurbBdtVE (ve_bdt.py:424-451): the
+    resync's dt_min before substep 0, and the dt_min that substep 0
+    assigns before each later one. So a cycle reads the device dt_min
+    twice (after the resync and after substep 0), and the substeps
+    themselves take no host sync. The projected phases go to the device
+    (pinned, without waiting) and the stirring is committed with the
+    active slots' kick forces."""
+
+    def __init__(self, box: Box, grid: CMGrid, cfg: SphConfig, turb=None,
+                 num_rungs: int = 4, verbose: bool = False, device=None):
+        from sphexa_tpu_torch.physics.turbulence import (StirModes,
+                                                         TurbulenceData)
+        super().__init__(box, grid, cfg, num_rungs=num_rungs, device=device)
+        self.turb = turb or TurbulenceData.create(verbose=verbose)
+        self.stir = StirModes(self.turb, self.device)
+
+    def run_cycle(self, bst: BDTState):
+        bst, _ = self.resync(bst)
+        dt_min = float(bst.dt_min)
+        diags = []
+        for s in range(1 << (self.num_rungs - 1)):
+            self.turb.update_noise(dt_min)
+            (pr, pi), = self.turb.device_phases([self.device])
+            bst, d = self.substep(bst, pr, pi)
+            diags.append(d)
+            if s == 0:          # the cycle's base dt, set by substep 0
+                dt_min = float(bst.dt_min)
+        return bst, diags
 
 
 def _run_pipeline_gated(pve: PairVE, refresh, base, m, vx, vy, vz, temp,

@@ -21,9 +21,10 @@ kick interval dt_m1k ride as payload), rebuild the local layout, rebind.
 
 The shards are SlabMesh threads, each with its own engine object bound
 to its ShardComm and device (_ShardBdtVE). States are lists of one
-BDTState per shard. Not ported: self-gravity (_gravity, the sharded FMM)
-and turbulence stirring (run_cycle_stirred, TurbShardedBdtVE) raise
-NotImplementedError.
+BDTState per shard. Turbulence stirring (run_cycle_stirred,
+TurbShardedBdtVE): the OU phases are drawn once a substep on the host
+and given to every shard's substep, replicated. Not ported: self-gravity
+(_gravity, the sharded FMM) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -108,7 +109,8 @@ class _ShardBdtVE(BdtVE):
         rv = self._gather(layout, fields, sc_scalars, gid)
         st = self.rf(torch.stack([getattr(rv, f) for f in _BIND_ROWS]),
                      xyz_rows=(0, 1, 2))
-        rv = rv.replace(**{f: st[i] for i, f in enumerate(_BIND_ROWS)})
+        rv = self._indexed(rv.replace(
+            **{f: st[i] for i, f in enumerate(_BIND_ROWS)}))
         dt_m1k_cm = to_cm(layout, dt_m1k, fill=1.0)
         return self._fresh(rv, torch.where(rv.valid, dt_m1k_cm, 1.0),
                            scalars["dt"])
@@ -222,10 +224,35 @@ class ShardedBdtVE:
             raise RuntimeError("sharded BDT slot overflow")
         return bsts, diags
 
-    def run_cycle_stirred(self, bsts, turb):
-        raise NotImplementedError(
-            "turbulence stirring is not ported yet (TurbBdtVE, "
-            "TurbShardedBdtVE)")
+    def run_cycle_stirred(self, bsts: list, turb):
+        """run_cycle with turbulence stirring (TurbVeBdtProp under MPI,
+        turb_ve.hpp:114-118): the OU noise advances on the host once a
+        substep with the cycle's base dt (read from shard 0 after the
+        resync and after substep 0, as TurbBdtVE reads it), and the
+        projected phases go to every shard's substep replicated, never
+        drawn per shard. Each shard gets the stirring modes of `turb`
+        before the resync, which builds the slot index the stirring
+        runs on. Fail-stops as run_cycle."""
+        from sphexa_tpu_torch.physics.turbulence import StirModes
+        for eng in self.shards:
+            eng.stir = StirModes(turb, eng.device)
+        bsts, lost = self.resync(bsts)
+        if int(lost) != 0:
+            raise RuntimeError(f"sharded BDT sync lost {int(lost)} rows")
+        dt_min = float(bsts[0].dt_min)
+        devices = [eng.device for eng in self.shards]
+        diags = []
+        for s in range(1 << (self.num_rungs - 1)):
+            turb.update_noise(dt_min)
+            res = self._run(lambda eng, b, ph: BdtVE.substep(eng, b, *ph),
+                            bsts, turb.device_phases(devices))
+            bsts = [r[0] for r in res]
+            diags.append(res[0][1])
+            if s == 0:          # the cycle's base dt, set by substep 0
+                dt_min = float(bsts[0].dt_min)
+        if any(int(d.overflow) != 0 for d in diags):
+            raise RuntimeError("sharded BDT slot overflow")
+        return bsts, diags
 
     # ---- shards -> host ----------------------------------------------------
     def _slot_rows(self, bsts: list, rows):
@@ -282,3 +309,23 @@ class ShardedBdtVE:
         return SimState(p=p, ttot=rv.ttot.clone(), dt=rv.dt.clone(),
                         dt_m1=rv.dt_m1.clone(),
                         iteration=rv.iteration.clone())
+
+
+class TurbShardedBdtVE(ShardedBdtVE):
+    """Turbulence-stirred sharded BDT, the JAX package's production
+    composition (ve_bdt_sharded.py:427-450; reference TurbVeBdtProp under
+    MPI, turb_ve.hpp:114-118 with ve_hydro_bdt.hpp:171-288), here
+    without self-gravity (item 10). The OU state is global and small
+    (112 modes from the reference constants), so it lives on the host
+    and every shard's substep gets the same phases, as every MPI rank of
+    the reference updates them from one shared RNG sequence."""
+
+    def __init__(self, box: Box, grid: CMGrid, cfg: SphConfig,
+                 sc: SlabConfig, mesh: SlabMesh, turb=None,
+                 num_rungs: int = 4, verbose: bool = False):
+        from sphexa_tpu_torch.physics.turbulence import TurbulenceData
+        super().__init__(box, grid, cfg, sc, mesh, num_rungs=num_rungs)
+        self.turb = turb or TurbulenceData.create(verbose=verbose)
+
+    def run_cycle(self, bsts: list):
+        return self.run_cycle_stirred(bsts, self.turb)

@@ -27,3 +27,16 @@ def eos_ve(temp, m, kx, xm, gradh, mui, gamma):
     p, c = ideal_gas_eos(temp, rho, mui, gamma)
     prho = p / (kx * m * m * gradh)
     return rho, p, c, prho
+
+
+def polytropic_eos(rho):
+    """1.4 M_sun / 12.8 km neutron-star polytrope (eos.hpp:50-60)."""
+    kpol = 2.246341237993810232e-10
+    gammapol = 3.0
+    p = kpol * torch.pow(rho, gammapol)
+    return p, torch.sqrt(gammapol * p / rho)
+
+
+def eos_std(temp, rho, mui, gamma):
+    """std-SPH ideal-gas EOS on the precomputed density."""
+    return ideal_gas_eos(temp, rho, mui, gamma)

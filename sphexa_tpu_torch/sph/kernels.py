@@ -3,9 +3,12 @@
 Counterpart of sphexa_tpu/sph/kernels.py (reference: kernels.hpp:11-32,
 sph_kernel_tables.hpp): the analytic sinc^n kernel as a polynomial in
 v^2 (w_sinc, w_sinc_derivative: the gather path's pair stages), its
-3D normalization, the h controller and the Courant time. The
-polynomial coefficients here are also written into the CUDA kernels'
-generated header (ops/_cuda.py), so the two cannot drift apart.
+3D normalization, the h controller, the Courant time, the std
+formulation's pair artificial viscosity, and the kernel and its
+derivative in float64 on the host (the normalization, the glass
+relaxation). The polynomial coefficients here are also written into the
+CUDA kernels' generated header (ops/_cuda.py), so the two cannot drift
+apart.
 """
 
 from __future__ import annotations
@@ -27,6 +30,16 @@ def wharmonic_np(v):
     with np.errstate(invalid="ignore", divide="ignore"):
         w = np.where(v == 0.0, 1.0, np.sin(pv) / pv)
     return w
+
+
+def wharmonic_derivative_np(v):
+    """d/dv sinc(pi/2 * v), float64 numpy (host)."""
+    v = np.asarray(v, dtype=np.float64)
+    pv = (np.pi / 2.0) * v
+    with np.errstate(invalid="ignore", divide="ignore"):
+        sinc = np.where(v == 0.0, 1.0, np.sin(pv) / pv)
+        d = sinc * (np.pi / 2.0) * (np.cos(pv) / np.sin(pv) - 1.0 / pv)
+    return np.where(v == 0.0, 0.0, d)
 
 
 def simpson(a: float, b: float, n: int, func) -> float:
@@ -115,6 +128,14 @@ def w_sinc_derivative(v, sinc_index: float = 6.0):
         wnm1 = torch.pow(torch.clamp_min(sinc, 0.0), sinc_index - 1.0)
     d = sinc_index * wnm1 * dsinc
     return torch.where(v < SUPPORT, d, torch.zeros_like(d))
+
+
+def artificial_viscosity(alpha_i, alpha_j, c_i, c_j, w_ij):
+    """Pair AV from the alpha-weighted signal velocity, beta = 2
+    (kernels.hpp:71-84)."""
+    beta = 2.0
+    vij_signal = (alpha_i + alpha_j) / 4.0 * (c_i + c_j) - beta * w_ij
+    return torch.where(w_ij < 0.0, -vij_signal * w_ij, 0.0)
 
 
 def update_h(ng0: int, nc, h, h_cap: float = 0.0):

@@ -312,9 +312,6 @@ def test_debug_nans(cpu, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--prop", "std"], "item 6"),
-    (["--prop", "turbulence-ve"], "item 3"),
-    (["--prop", "turbulence-ve-bdt"], "item 3"),
     (["--prop", "ve-tiered"], "item 8"),
     (["--prop", "ve-tiered-resident"], "item 8"),
     (["--prop", "ve-tiered-bdt"], "item 8"),
@@ -326,7 +323,6 @@ def test_debug_nans(cpu, tmp_path):
     (["--prop", "turbulence-ve-bdt-sharded"], "item 10"),
     (["--prop", "ve-pallas-tiles"], "item 10"),
     (["--profile"], "item 2"),
-    (["--glass", "g.h5"], "item 6"),
     (["--viz-every", "2"], "item 5"),
     (["--init", "evrard-cooling"], "item 9")])
 def test_refusals(cpu, argv, item):
@@ -335,8 +331,8 @@ def test_refusals(cpu, argv, item):
 
 
 def test_refused_inputs(cpu, tmp_path):
-    with pytest.raises(ValueError, match="item 6"):
-        run("--init", "noh", "-s", 1, "--constants", "")
+    with pytest.raises(ValueError, match="unknown test case 'no-such-case'"):
+        run("--init", "no-such-case", "-s", 1, "--constants", "")
     _, _, _, ts, tb, tc = _jax_state()
     path = str(tmp_path / "c.h5")
     t_hdf5.save_checkpoint(path, ts, tc, tb)

@@ -5,7 +5,8 @@ copies of radial.py and sedov_solution.py) and init settings
 Bounds: the conserved quantities at rtol 1e-6 (the momenta, round-off
 around 0 on a symmetric state, are given a seeded velocity field here);
 the constants lines' numbers at the same; the numpy copies equal to the
-JAX package's; settings layering and init specs equal.
+JAX package's; settings layering and init specs equal; the observable
+classes selected as the JAX factory selects them.
 """
 
 import dataclasses
@@ -94,15 +95,31 @@ def test_constants_lines(moving):
 
 
 def test_observables_selection():
-    for case in (None, "sedov", "evrard"):
-        assert isinstance(make_observables(case), TimeEnergyObs)
-    for case, settings in (("wind-shock", None), ("turbulence", None),
-                           ("kelvin-helmholtz", None),
-                           ("sedov", {"observeGravWaves": 1.0,
-                                      "gravWaveTheta": 0.0,
-                                      "gravWavePhi": 0.0})):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            make_observables(case, settings)
+    """Each class as the JAX factory selects it, with its columns and
+    its constructor's values."""
+    from sphexa_tpu.observables.factory import \
+        make_observables as j_make_observables
+    from sphexa_tpu_torch.observables import factory as tf
+    for case in (None, "sedov", "evrard", "noh", "gresho-chan"):
+        assert type(make_observables(case)) is TimeEnergyObs
+    for case, settings, cls in (
+            ("wind-shock", None, tf.WindBubbleObs),
+            ("wind-shock", {"rhoInt": 5.0, "rSphere": 0.05},
+             tf.WindBubbleObs),
+            ("turbulence", None, tf.TurbMachObs),
+            ("kelvin-helmholtz", None, tf.TimeEnergyGrowthObs),
+            ("sedov", {"observeGravWaves": 1.0, "gravWaveTheta": 0.5,
+                       "gravWavePhi": 0.25}, tf.GravWaveObs),
+            ("turbulence", {"observeGravWaves": 1.0, "gravWaveTheta": 0.0,
+                            "gravWavePhi": 0.0}, tf.GravWaveObs)):
+        got = make_observables(case, settings)
+        want = j_make_observables(case, settings)
+        assert type(got) is cls
+        assert type(want).__name__ == cls.__name__
+        assert got.header() == want.header()
+        # the JAX WindBubbleObs also keeps temp_wind, always None
+        assert vars(got) == {k: v for k, v in vars(want).items()
+                             if k != "temp_wind"}
     with pytest.raises(ValueError, match="gravWaveTheta"):
         make_observables("sedov", {"observeGravWaves": 1.0})
 
@@ -157,9 +174,11 @@ def test_apply_settings():
 
 
 def test_init_factory():
-    assert available_cases() == ["evrard", "sedov"]
+    from sphexa_tpu.init.factory import available_cases as j_available
+    assert available_cases() == j_available()
+    assert "turbulence" in available_cases() and "noh" in available_cases()
     state, box, cfg = make_initializer("evrard")(6, config_from_dict({}),
                                                  device="cpu")
     assert cfg.uniform_mass and cfg.gravG == 1.0 and box.lx == 2.0
-    with pytest.raises(ValueError, match=r"available: \['evrard', 'sedov'\]"):
-        make_initializer("gresho-chan")
+    with pytest.raises(ValueError, match=r"available: \['evrard', "):
+        make_initializer("evrard-cooling")

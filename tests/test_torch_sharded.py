@@ -40,7 +40,8 @@ from sphexa_tpu_torch.domain.slab import SlabConfig, migrate
 from sphexa_tpu_torch.interop import box_from_numpy
 from sphexa_tpu_torch.ops import cellmajor as tcm
 from sphexa_tpu_torch.ops import pair_ve as tpv
-from sphexa_tpu_torch.propagator.ve_bdt_sharded import ShardedBdtVE
+from sphexa_tpu_torch.propagator.ve_bdt_sharded import (ShardedBdtVE,
+                                                         TurbShardedBdtVE)
 from sphexa_tpu_torch.propagator.ve_pallas_sharded import (
     make_ve_step_pallas_sharded, make_zxchg)
 from sphexa_tpu_torch.propagator.ve_sharded import distribute, plan_slab
@@ -347,6 +348,9 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 
 
 def test_gravity_and_stirring_refused():
+    """The sharded engines refuse self-gravity (ROADMAP Queue 1 item 10),
+    the turbulence-stirred one too (stirring itself runs since PR 14:
+    tests/test_torch_turb_bdt.py)."""
     box = _tbox(_box(JB.periodic, JB.periodic))
     grid = tcm.CMGrid(n=4, cap=64, nzi=2)
     sc = SlabConfig(n_slabs=2, cap=256, halo_cap=8, mig_cap=64)
@@ -355,9 +359,8 @@ def test_gravity_and_stirring_refused():
         make_ve_step_pallas_sharded(box, grid, SphConfig(gravG=1.0), sc, mesh)
     with pytest.raises(NotImplementedError):
         ShardedBdtVE(box, grid, SphConfig(gravG=1.0), sc, mesh)
-    eng = ShardedBdtVE(box, grid, SphConfig(), sc, mesh, num_rungs=2)
     with pytest.raises(NotImplementedError):
-        eng.run_cycle_stirred(None, None)
+        TurbShardedBdtVE(box, grid, SphConfig(gravG=1.0), sc, mesh)
 
 
 def test_shard_exception_reaches_caller():
