@@ -119,17 +119,23 @@ Phases (any failure exits non-zero before the last line):
      turbulence-ve-bdt (one warm-up and 2 timed cycles) and
      turbulence-ve (2 steps), --prop std at Noh 100^3 (2 steps), and
      gresho-chan, isobaric-cube, kelvin-helmholtz and wind-shock at
-     n = 50 under --prop ve and ve-pallas (2 steps; a planner refusal
-     recorded as given), kelvin-helmholtz at n = 50 with --glass (a 2^3
-     template: its glass branch), gated on finite rows, no fail-stop after the
-     first accepted step, the RMS Mach number growing under stirring
-     and the energy drift < 5e-3 elsewhere; TurbBdtVE at 100^3 driven
-     directly (one warm-up and one timed cycle, the rung histogram, a
-     fully active substep split into the gated stages, the ghost
-     refreshes, the stirring sum and the rest, one substep under the
-     sync check; each gated stage against its plain version on sampled
-     cells, timed beside its bound at this frame); TurbShardedBdtVE at
-     100^3, D = 2 (one warm-up and one timed cycle);
+     n = 50 under --prop ve and ve-pallas (2 steps; kelvin-helmholtz
+     and wind-shock under ve-pallas must meet the planner's refusal,
+     EXPECTED_REFUSALS, and every other run must run),
+     kelvin-helmholtz at n = 50 with --glass (a 2^3 template: its glass
+     branch), gated on finite rows, one retried call a fail-stop (a
+     re-grid, which may follow the first accepted step where h or the
+     open box grows, as in the JAX CLI), the slot-frame props launching
+     their kernels, the RMS Mach number growing under stirring and the
+     energy drift < 5e-3 elsewhere; TurbBdtVE at 100^3 driven directly
+     (one warm-up and one timed cycle, the rung histogram, a fully
+     active substep split into the gated stages, the ghost refreshes,
+     the stirring sum and the rest, each gated stage timed beside its
+     ungated cell launch and its bound, one substep under the sync
+     check), then each gated stage against its plain version on
+     sampled cells of a fully active cap-128 check frame (the lattice
+     perturbed as the Sedov checks are); TurbShardedBdtVE at 100^3,
+     D = 2 (one warm-up and one timed cycle);
   14. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
@@ -481,6 +487,25 @@ class Spy:
             del k._launch
 
 
+def perturbed(state, seed):
+    """The state with its positions jittered by 3% of h, random
+    velocities (sigma 0.3) and alpha (uniform in [0.05, 0.5]), so that no
+    stage's output is a cancelling sum of rounding noise."""
+    import torch
+    r = np.random.default_rng(seed)
+    p = state.p
+    n, dev = p.x.numel(), p.x.device
+    h0 = float(p.h[0])
+    upd = {c: getattr(p, c) + torch.from_numpy(
+        r.normal(0, 0.03 * h0, n).astype(np.float32)).to(dev)
+        for c in "xyz"}
+    upd.update({c: torch.from_numpy(r.normal(0, 0.3, n).astype(
+        np.float32)).to(dev) for c in ("vx", "vy", "vz")})
+    upd["alpha"] = torch.from_numpy(r.uniform(0.05, 0.5, n).astype(
+        np.float32)).to(dev)
+    return state.replace(p=p.replace(**upd))
+
+
 def sedov(side, device, perturb_seed=None, flags=None):
     import torch
     from sphexa_tpu_torch.config import SphConfig
@@ -491,17 +516,7 @@ def sedov(side, device, perturb_seed=None, flags=None):
     cfg = cfg.replace(**(flags or {}))
     n = side ** 3
     if perturb_seed is not None:
-        r = np.random.default_rng(perturb_seed)
-        h0 = float(state.p.h[0])
-        p = state.p
-        upd = {c: getattr(p, c) + torch.from_numpy(
-            r.normal(0, 0.03 * h0, n).astype(np.float32)).to(device)
-            for c in "xyz"}
-        upd.update({c: torch.from_numpy(r.normal(0, 0.3, n).astype(
-            np.float32)).to(device) for c in ("vx", "vy", "vz")})
-        upd["alpha"] = torch.from_numpy(r.uniform(0.05, 0.5, n).astype(
-            np.float32)).to(device)
-        state = state.replace(p=p.replace(**upd))
+        state = perturbed(state, perturb_seed)
     xyz = [getattr(state.p, c).cpu().numpy() for c in "xyz"]
     cap, grid = choose_cap_and_grid(box, float(state.p.h.max()) * 1.2, n,
                                     *xyz)
@@ -3466,12 +3481,20 @@ TURB_SIDE = 100             # turbulence 100^3 (1,000,000 particles)
 TURB_CHECK_SIDE = 10        # card against CPU
 TURB_RUNGS = 4              # the CLI's BdtVE default
 TURB_SAMPLE_CELLS = 96      # cells of each gated launch held against plain
+TURB_CHECK_SEED = 7         # perturbed() of the gated stages' check frame
 CASE_SIDE = 50              # the other new cases through main
 # (case, prop, n, steps); turbulence-ve-bdt: one warm-up and 2 timed
 # cycles
 TURB_RUNS = (("turbulence", "turbulence-ve-bdt", TURB_SIDE, 3),
              ("turbulence", "turbulence-ve", TURB_SIDE, 2),
              ("noh", "std", TURB_SIDE, 2))
+# (case, prop) -> the JAX planner's refusal (ops/cellmajor.
+# choose_cap_and_grid): KH's z of 0.0625 and wind-shock's 4:1:1 box hold
+# no slot grid with a legal z-group below cap_max at n = 50
+EXPECTED_REFUSALS = {
+    (case, "ve-pallas"): "no (cap, grid) with a legal z-group fits these "
+                         "positions below cap_max=1024"
+    for case in ("kelvin-helmholtz", "wind-shock")}
 CASE_RUNS = tuple((case, prop, CASE_SIDE, 2)
                   for case in ("gresho-chan", "isobaric-cube",
                                "kelvin-helmholtz", "wind-shock")
@@ -3578,28 +3601,24 @@ def case_run(report, case, prop, n, steps, extra=()):
     other; turbulence: Mach RMS > 0 and growing over the last two steps
     (cycles); every other case: |etot - e0|/e0 < CLI_DRIFT_BOUND. A
     fail-stop may follow an h or box re-grid (Noh's open box grows), as
-    in the JAX CLI. A slot-frame prop whose planner finds no grid is
-    recorded with the planner's refusal."""
-    from sphexa_tpu_torch import main as cli
-
+    in the JAX CLI. The refusals of EXPECTED_REFUSALS are recorded with
+    the planner's message; any other refusal, or a run where one is
+    expected, fails the phase."""
     key = " ".join([case, prop, str(n)] + [a for a in extra[:1]])
     consts = os.path.join(ROOT, "chiprun_out", f"turb_{case}_{prop}"
                           f"{'_glass' if extra else ''}_constants.txt")
     argv = ["--init", case, "-n", str(n), "-s", str(steps), "--prop",
             prop] + list(extra)
+    refusal = EXPECTED_REFUSALS.get((case, prop))
     try:
         r = main_in_process(argv, consts)
-    except (ValueError, RuntimeError) as e:
-        # the JAX CLI's answers for a slot-frame prop, kept by the port:
-        # its planner finds no grid; or the fail-stop on max_nc > ngpad,
-        # which its re-grid (cap headroom only) cannot lift (ROADMAP
-        # Queue 3)
-        if prop in cli._SLOT_FRAME and any(m in str(e) for m in (
-                "no (cap, grid)", "capacity overflow persists")):
-            log(f"  {key}: refused, as the JAX CLI refuses it: {e}")
-            report.setdefault("turb_cli_runs", {})[key] = dict(refused=str(e))
-            return None
-        raise
+    except ValueError as e:
+        if refusal is None or refusal not in str(e):
+            raise
+        log(f"  {key}: refused, as the JAX CLI refuses it: {e}")
+        report.setdefault("turb_cli_runs", {})[key] = dict(refused=str(e))
+        return None
+    assert refusal is None, f"{key}: ran, where the planner refuses it"
     rows = r["rows"]
     assert rows.shape[0] == steps, rows.shape
     assert set(r["launches"]) == PROP_KERNELS.get(prop, set()), \
@@ -3661,62 +3680,24 @@ def glass_run(report):
         "--glass: the lattice fallback ran"
 
 
-# at the turbulence frame the gas sits on its lattice and the momentum
-# stage's accelerations (and the IAD stage's velocity gradients) are
-# cancelling sums of rounding noise: where the comparison with the
-# plain float32 version fails, the kernel is held within this many
-# times the plain version's own distance from the same body in float64
-# (per output group, at its float64 scale; the exact rows exactly)
-NOISE_FACTOR = 4.0
-
-
-def noise_floor_compare(k, args, cells, ref, out, mask):
-    """(max abs err, rel, floor) of a stage's output against its body in
-    float64 on `cells`: each group of GROUPS within max(1e-4 of its
-    scale, NOISE_FACTOR x the plain float32 version's own error), the
-    EXACT rows equal to the plain version's. floor: per group, the
-    kernel's and the plain version's distance from float64, relative
-    to the group's scale."""
-    from sphexa_tpu_torch.ops import pair_ve as pv
-
-    J, I2, g, c = args
-    name = stage_of(k.name)
-    ref64 = pv._run_plain(k.body, J.double(),
-                          None if I2 is None else I2.double(), g, k.fo,
-                          cells=cells, **k._body_kw(c))[:, mask]
-    o, r = out[:, mask].double(), ref[:, mask].double()
-    for row in EXACT.get(name, []):
-        if not bool((o[row] == r[row]).all()):
-            raise AssertionError(f"{name}: row {row} not exact")
-    floor = {}
-    for grp in GROUPS[name]:
-        grp = [x for x in grp if x not in EXACT.get(name, [])]
-        if not grp:
-            continue
-        scale = max(float(ref64[grp].abs().max()), 1e-30)
-        ek = float((o[grp] - ref64[grp]).abs().max())
-        ep = float((r[grp] - ref64[grp]).abs().max())
-        floor[str(grp)] = dict(kernel=ek / scale, plain=ep / scale)
-        if ek > max(1e-4 * scale, NOISE_FACTOR * ep):
-            raise AssertionError(
-                f"{name}: rows {grp} {ek / scale:.3e} of scale from "
-                f"float64, beyond {NOISE_FACTOR} x plain's {ep / scale:.3e}")
-    err = (o - r).abs()
-    rel = float((err.amax(1) / r.abs().amax(1).clamp_min(1e-30)).max())
-    return float(err.max()), rel, floor
-
-
 def turb_engine_path(report, rows):
     """(n) 3: TurbBdtVE at turbulence 100^3 driven directly: one warm-up
     cycle, one timed cycle (events after the resync and each substep;
     counters zeroed just before, read just after); the rung histogram
     and active fractions; a fully active substep split into the five
     gated stages, the six ghost refreshes, the stirring sum and the
-    rest, each timed alone at its captured inputs; one more substep
-    under PyTorch's sync check set to errors; each gated stage against
-    its plain version on sampled cells, its invalid slots at their fill,
-    its time and bound at this frame (added to its kernel row as
-    turb_ms, turb_bound_ms, turb_bound_by)."""
+    rest, each timed alone at its captured inputs, each gated stage
+    beside its ungated cell launch on the same inputs and its bound (all
+    added to its kernel row as turb_ms, turb_cell_ms, turb_bound_ms,
+    turb_bound_by); one more substep under PyTorch's sync check set to
+    errors. Then the check frame: the same lattice perturbed (perturbed(),
+    as the Sedov checks), bound to the same grid (cap 128) and fully
+    active at the resync's substep; each gated stage there against its
+    plain version on sampled cells at the per-row tolerances of the
+    perturbed Sedov checks, its invalid slots at their fill. (At rest on
+    the lattice the momentum stage's accelerations and the IAD stage's
+    velocity gradients are cancelling sums of rounding noise, which no
+    tolerance of kernel against plain can hold.)"""
     import torch
     from sphexa_tpu_torch.config import SphConfig
     from sphexa_tpu_torch.init.factory import make_initializer
@@ -3821,8 +3802,8 @@ def turb_engine_path(report, rows):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
 
-    # the gated stages at this frame: against plain on sampled cells,
-    # their fill values, their bound
+    # the gated stages at this frame: beside the ungated cell launch on
+    # the same inputs, and their bound
     xh_args = next(a for k, a, _ in gated if k.name == "pair_xh_gated")
     J = xh_args[0]
     act = xh_args[4][0]
@@ -3834,28 +3815,14 @@ def turb_engine_path(report, rows):
     recount, moved, _ = xh_recounts(J, grid, xh_args[3], per_slot)
     n_int = float(eng.intmask.sum())
     by_name = {r["name"]: r for r in rows}
+    ungated = {stage_of(kg.name): next(
+        x for x in pv.PAIR_KERNELS
+        if not x.gated and x.name == stage_of(kg.name)) for kg, _, _ in gated}
     checks = {}
-    for i, (kg, args, out) in enumerate(gated):
-        J, I2, g, c, (act, prev), zgroup = args
-        k = next(x for x in pv.PAIR_KERNELS
-                 if not x.gated and x.name == stage_of(kg.name))
-        cells = sample_occupied_cells(g, valid_slots(J), eng.intmask,
-                                      TURB_SAMPLE_CELLS, 50 + i)
-        ref = pv._run_plain(k.body, J, I2, g, k.fo, cells=cells,
-                            **k._body_kw(c))
-        slots = torch.zeros(g.n_slots, dtype=torch.bool, device=DEVICE)
-        lane = torch.arange(g.cap, device=DEVICE)
-        slots[(cells[:, None] * g.cap + lane).reshape(-1)] = True
-        mask = valid_slots(J) & slots & eng.intmask
-        try:
-            err, rel = compare(kg.name, ref, out, mask, per_row=False)
-            floor = None
-        except AssertionError as e:
-            err, rel, floor = noise_floor_compare(k, args[:4], cells, ref,
-                                                  out, mask)
-            log(f"  {kg.name}: {e}; held at its float32 noise floor: "
-                f"{floor}")
-        nfill = check_fill(kg, J, out, eng.intmask)
+    for kg, args, _ in gated:
+        J, I2, g, c = args[:4]
+        k = ungated[stage_of(kg.name)]
+        cell_ms = cuda_ms(lambda: k._launch(J, I2, g, c), 5)
         ops = cand * GEO_FLOPS + inside * BODY_FLOPS[k.name]
         if k.name == "pair_xh":
             ops += recount * RECOUNT_FLOPS
@@ -3866,15 +3833,50 @@ def turb_engine_path(report, rows):
                       + kg.fo * n_int)
         bound, by = pair_bound(ops, nbytes)
         ms = stage_ms[kg.name]
-        checks[kg.name] = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
-                               bound_ms=bound, bound_by=by, noise=floor,
-                               fill_slots=nfill, cells=int(cells.numel()))
+        checks[kg.name] = dict(ms=ms, cell_ms=cell_ms, bound_ms=bound,
+                               bound_by=by)
         if kg.name in by_name:
-            by_name[kg.name].update(turb_ms=ms, turb_bound_ms=bound,
-                                    turb_bound_by=by)
-        log(f"  cap {g.cap} {kg.name:20s} {ms:8.3f} ms  bound {bound:.4f} "
-            f"ms ({by}); {cells.numel()} cells against plain: err "
-            f"{err:.3e} (rel {rel:.3e}); {nfill} invalid slots at fill")
+            by_name[kg.name].update(turb_ms=ms, turb_cell_ms=cell_ms,
+                                    turb_bound_ms=bound, turb_bound_by=by)
+        log(f"  cap {g.cap} {kg.name:20s} {ms:8.3f} ms (cell launch "
+            f"{k.name} {cell_ms:.3f} ms, {ms / cell_ms:.3f}x)  bound "
+            f"{bound:.4f} ms ({by})")
+
+    # the check frame
+    pstate, _, _ = make_initializer("turbulence")(TURB_SIDE, SphConfig(),
+                                                  device=DEVICE)
+    bj = eng.bind_bdt(perturbed(pstate, TURB_CHECK_SEED))
+    assert int(bj.rv.overflow) == 0, "slot overflow at the check frame"
+    bj, _ = eng.resync(bj)
+    eng.turb.update_noise(float(bj.dt_min))
+    (qr, qi), = eng.turb.device_phases([eng.device])
+    with Spy(tuple(eng.pve_gated.kernels)) as spy:
+        eng.substep(bj, qr, qi)
+    torch.cuda.synchronize()
+    calls = [(k, a, o) for k, a, o in spy.calls if getattr(k, "gated", False)]
+    for i, (kg, args, out) in enumerate(calls):
+        J, I2, g, c, (act, _), _ = args
+        on = pv.supercell_active(act, g, eng.pve_gated.zgroup)
+        occupied = (valid_slots(J) & eng.intmask).view(-1, g.cap).any(1)
+        assert bool((on | ~occupied).all()), \
+            f"{kg.name}: an occupied cell inactive at the check frame"
+        k = ungated[stage_of(kg.name)]
+        cells = sample_occupied_cells(g, valid_slots(J), eng.intmask,
+                                      TURB_SAMPLE_CELLS, 50 + i)
+        ref = pv._run_plain(k.body, J, I2, g, k.fo, cells=cells,
+                            **k._body_kw(c))
+        slots = torch.zeros(g.n_slots, dtype=torch.bool, device=DEVICE)
+        lane = torch.arange(g.cap, device=DEVICE)
+        slots[(cells[:, None] * g.cap + lane).reshape(-1)] = True
+        mask = valid_slots(J) & slots & eng.intmask
+        err, rel = compare(kg.name, ref, out, mask, per_row=True)
+        nfill = check_fill(kg, J, out, eng.intmask)
+        checks[kg.name].update(max_abs_err=err, max_rel_err=rel,
+                               fill_slots=nfill, cells=int(cells.numel()))
+        log(f"  check frame {kg.name:20s} {cells.numel()} cells against "
+            f"plain: err {err:.3e} (rel {rel:.3e}); {nfill} invalid slots "
+            f"at fill")
+    assert {kg.name for kg, _, _ in calls} == set(checks), checks
     hist = d["rung_hist"][-1]
     log(f"  {TURB_SIDE}^3 TurbBdtVE: {sum(span):.3f} ms the cycle (resync "
         f"{span[0]:.3f}; substeps {[round(x, 3) for x in span[1:]]}); "
@@ -3892,7 +3894,7 @@ def turb_engine_path(report, rows):
         grid=str(grid), cycle_ms=sum(span), resync_ms=span[0],
         substeps_ms=span[1:], diags=d, launches=launches, split=split,
         candidates=cand, in_support=inside, xh_recount_candidates=recount,
-        xh_h_moved=moved, gated=checks)
+        xh_h_moved=moved, gated=checks, check_seed=TURB_CHECK_SEED)
 
 
 def turb_sharded_path(report, D=2):

@@ -111,6 +111,16 @@ class BdtVE(ResidentVE):
         self.num_rungs = num_rungs
         # refuses av_clean, as the JAX substep asserts (ve_bdt.py:217)
         self.pve_gated = PairVE(grid, cfg, gated=True)
+        # the OU state and its stirring modes on the device: set by
+        # TurbBdtVE (the modes on each shard by TurbShardedBdtVE), None
+        # without stirring
+        self.turb = self.stir = None
+
+    def _indexed(self, rst: RVState) -> RVState:
+        # the stirring runs on the valid interior slots, as self-gravity
+        if self.stir is not None:
+            self.gravity_index(rst.valid)
+        return super()._indexed(rst)
 
     # ---- global-reduction hooks: identity on one device (the sharded
     # engine of the JAX package swaps in pmin/pmax/psum) -----------------
@@ -333,13 +343,26 @@ class BdtVE(ResidentVE):
 
     def run_cycle(self, bst: BDTState):
         """Cycle-start sync (layout rebin), then one rung hierarchy of
-        2**(num_rungs-1) substeps (ve_hydro_bdt.hpp:171-212). Returns
-        (state, list of BDTDiag)."""
+        2**(num_rungs-1) substeps (ve_hydro_bdt.hpp:171-212). With
+        stirring (TurbBdtVE) the OU noise advances on the host before
+        each substep with the cycle's base dt, as the JAX package's
+        TurbBdtVE (ve_bdt.py:424-451): the resync's dt_min before
+        substep 0, the one substep 0 assigns before each later one; so
+        such a cycle reads the device dt_min twice and its substeps
+        take no host sync. Returns (state, list of BDTDiag)."""
         bst, _ = self.resync(bst)
+        turb = self.turb
+        dt_min = None if turb is None else float(bst.dt_min)
         diags = []
-        for _ in range(1 << (self.num_rungs - 1)):
-            bst, d = self.substep(bst)
+        for s in range(1 << (self.num_rungs - 1)):
+            phases = ()
+            if turb is not None:
+                turb.update_noise(dt_min)
+                (phases,) = turb.device_phases([self.device])
+            bst, d = self.substep(bst, *phases)
             diags.append(d)
+            if s == 0 and turb is not None:
+                dt_min = float(bst.dt_min)      # the cycle's base dt
         return bst, diags
 
     # ---- rung-state checkpointing (sph/timestep.h:29-34: a restarted
@@ -389,16 +412,11 @@ class BdtVE(ResidentVE):
 
 class TurbBdtVE(BdtVE):
     """Turbulence-stirred block-time-step engine (reference:
-    TurbVeBdtProp, main/src/propagator/turb_ve.hpp:114-118).
-
-    The OU noise advances on the host once per substep with the cycle's
-    base dt, as the JAX package's TurbBdtVE (ve_bdt.py:424-451): the
-    resync's dt_min before substep 0, and the dt_min that substep 0
-    assigns before each later one. So a cycle reads the device dt_min
-    twice (after the resync and after substep 0), and the substeps
-    themselves take no host sync. The projected phases go to the device
-    (pinned, without waiting) and the stirring is committed with the
-    active slots' kick forces."""
+    TurbVeBdtProp, main/src/propagator/turb_ve.hpp:114-118): BdtVE with
+    an OU state (.turb) and its stirring modes on the device, so that
+    run_cycle draws the projected phases once a substep on the host and
+    each substep commits the stirring with the active slots' kick
+    forces."""
 
     def __init__(self, box: Box, grid: CMGrid, cfg: SphConfig, turb=None,
                  num_rungs: int = 4, verbose: bool = False, device=None):
@@ -407,19 +425,6 @@ class TurbBdtVE(BdtVE):
         super().__init__(box, grid, cfg, num_rungs=num_rungs, device=device)
         self.turb = turb or TurbulenceData.create(verbose=verbose)
         self.stir = StirModes(self.turb, self.device)
-
-    def run_cycle(self, bst: BDTState):
-        bst, _ = self.resync(bst)
-        dt_min = float(bst.dt_min)
-        diags = []
-        for s in range(1 << (self.num_rungs - 1)):
-            self.turb.update_noise(dt_min)
-            (pr, pi), = self.turb.device_phases([self.device])
-            bst, d = self.substep(bst, pr, pi)
-            diags.append(d)
-            if s == 0:          # the cycle's base dt, set by substep 0
-                dt_min = float(bst.dt_min)
-        return bst, diags
 
 
 def _run_pipeline_gated(pve: PairVE, refresh, base, m, vx, vy, vz, temp,

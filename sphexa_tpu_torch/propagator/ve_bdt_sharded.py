@@ -168,6 +168,7 @@ class ShardedBdtVE:
         zxchg = make_zxchg(grid, box, mesh)
         self.shards = [_ShardBdtVE(box, grid, cfg, sc, comm, zxchg,
                                    num_rungs) for comm in mesh.comms]
+        self.turb = None      # the OU state of TurbShardedBdtVE
 
     def _run(self, fn, *args):
         return self.mesh.run(lambda comm, eng, *a: fn(eng, *a), self.shards,
@@ -203,56 +204,49 @@ class ShardedBdtVE:
         res = self._run(_ShardBdtVE._resync_local, bsts)
         return [r[0] for r in res], res[0][1]
 
-    def substep(self, bsts: list):
-        """One substep of dt_min on every shard: (states, BDTDiag). No
-        host sync."""
-        res = self._run(BdtVE.substep, bsts)
+    def substep(self, bsts: list, phases=None):
+        """One substep of dt_min on every shard: (states, BDTDiag). With
+        phases (one (real, imag) pair a shard, TurbulenceData.
+        device_phases) it adds the stirring. No host sync."""
+        res = self._run(lambda eng, b, ph: BdtVE.substep(eng, b, *ph), bsts,
+                        phases or [()] * len(self.shards))
         return [r[0] for r in res], res[0][1]
 
     def run_cycle(self, bsts: list):
         """Full sync, then one rung hierarchy (2^(num_rungs-1)
-        substeps). Fail-stops on any migration or pack loss and on slot
-        overflow."""
+        substeps). With stirring (TurbShardedBdtVE; TurbVeBdtProp under
+        MPI, turb_ve.hpp:114-118) the OU noise advances on the host once
+        a substep with the cycle's base dt, read from shard 0 as
+        BdtVE.run_cycle reads it, and the projected phases go to every
+        shard's substep replicated, never drawn per shard. Fail-stops on
+        any migration or pack loss and on slot overflow."""
         bsts, lost = self.resync(bsts)
         if int(lost) != 0:
             raise RuntimeError(f"sharded BDT sync lost {int(lost)} rows")
+        turb = self.turb
+        dt_min = None if turb is None else float(bsts[0].dt_min)
+        devices = [eng.device for eng in self.shards]
         diags = []
-        for _ in range(1 << (self.num_rungs - 1)):
-            bsts, d = self.substep(bsts)
+        for s in range(1 << (self.num_rungs - 1)):
+            phases = None
+            if turb is not None:
+                turb.update_noise(dt_min)
+                phases = turb.device_phases(devices)
+            bsts, d = self.substep(bsts, phases)
             diags.append(d)
+            if s == 0 and turb is not None:
+                dt_min = float(bsts[0].dt_min)  # the cycle's base dt
         if any(int(d.overflow) != 0 for d in diags):
             raise RuntimeError("sharded BDT slot overflow")
         return bsts, diags
 
     def run_cycle_stirred(self, bsts: list, turb):
-        """run_cycle with turbulence stirring (TurbVeBdtProp under MPI,
-        turb_ve.hpp:114-118): the OU noise advances on the host once a
-        substep with the cycle's base dt (read from shard 0 after the
-        resync and after substep 0, as TurbBdtVE reads it), and the
-        projected phases go to every shard's substep replicated, never
-        drawn per shard. Each shard gets the stirring modes of `turb`
-        before the resync, which builds the slot index the stirring
-        runs on. Fail-stops as run_cycle."""
-        from sphexa_tpu_torch.physics.turbulence import StirModes
-        for eng in self.shards:
-            eng.stir = StirModes(turb, eng.device)
-        bsts, lost = self.resync(bsts)
-        if int(lost) != 0:
-            raise RuntimeError(f"sharded BDT sync lost {int(lost)} rows")
-        dt_min = float(bsts[0].dt_min)
-        devices = [eng.device for eng in self.shards]
-        diags = []
-        for s in range(1 << (self.num_rungs - 1)):
-            turb.update_noise(dt_min)
-            res = self._run(lambda eng, b, ph: BdtVE.substep(eng, b, *ph),
-                            bsts, turb.device_phases(devices))
-            bsts = [r[0] for r in res]
-            diags.append(res[0][1])
-            if s == 0:          # the cycle's base dt, set by substep 0
-                dt_min = float(bsts[0].dt_min)
-        if any(int(d.overflow) != 0 for d in diags):
-            raise RuntimeError("sharded BDT slot overflow")
-        return bsts, diags
+        """The JAX package's name for the stirred cycle: run_cycle of a
+        TurbShardedBdtVE whose OU state is `turb`."""
+        if turb is None or turb is not self.turb:
+            raise ValueError("run_cycle_stirred takes the engine's own OU "
+                             "state (TurbShardedBdtVE.turb)")
+        return self.run_cycle(bsts)
 
     # ---- shards -> host ----------------------------------------------------
     def _slot_rows(self, bsts: list, rows):
@@ -318,14 +312,15 @@ class TurbShardedBdtVE(ShardedBdtVE):
     without self-gravity (item 10). The OU state is global and small
     (112 modes from the reference constants), so it lives on the host
     and every shard's substep gets the same phases, as every MPI rank of
-    the reference updates them from one shared RNG sequence."""
+    the reference updates them from one shared RNG sequence. Each
+    shard's engine holds the stirring modes on its device."""
 
     def __init__(self, box: Box, grid: CMGrid, cfg: SphConfig,
                  sc: SlabConfig, mesh: SlabMesh, turb=None,
                  num_rungs: int = 4, verbose: bool = False):
-        from sphexa_tpu_torch.physics.turbulence import TurbulenceData
+        from sphexa_tpu_torch.physics.turbulence import (StirModes,
+                                                         TurbulenceData)
         super().__init__(box, grid, cfg, sc, mesh, num_rungs=num_rungs)
         self.turb = turb or TurbulenceData.create(verbose=verbose)
-
-    def run_cycle(self, bsts: list):
-        return self.run_cycle_stirred(bsts, self.turb)
+        for eng in self.shards:
+            eng.stir = StirModes(self.turb, eng.device)

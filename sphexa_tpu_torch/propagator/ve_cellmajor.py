@@ -301,9 +301,6 @@ class ResidentVE:
         self.cell_edge = min(box.lx / grid.nx, box.ly / grid.n,
                              box.lz / grid.nz)
         self._gidx = (None, None)   # (valid row, its interior slot index)
-        # the stirring modes of a turbulence-stirred BDT engine
-        # (propagator/ve_bdt.TurbBdtVE), None for every other engine
-        self.stir = None
 
     def _scalar(self, v, dtype=torch.float32):
         return torch.tensor(v, dtype=dtype, device=self.device)
@@ -379,15 +376,14 @@ class ResidentVE:
     def gravity_index(self, valid):
         """Index of the valid interior slots of an occupancy row, built
         once per row (one host sync): bind and every rebin build it for
-        the row they make, so a step or substep that follows finds it.
-        Self-gravity and the turbulence stirring run on these slots."""
+        the row they make, so a step or substep that follows finds it."""
         if self._gidx[0] is not valid:
             self._gidx = (valid,
                           torch.nonzero(valid & self.intmask).reshape(-1))
         return self._gidx[1]
 
     def _indexed(self, rst: RVState) -> RVState:
-        if self.cfg.gravG != 0.0 or self.stir is not None:
+        if self.cfg.gravG != 0.0:
             self.gravity_index(rst.valid)
         return rst
 

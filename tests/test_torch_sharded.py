@@ -40,6 +40,7 @@ from sphexa_tpu_torch.domain.slab import SlabConfig, migrate
 from sphexa_tpu_torch.interop import box_from_numpy
 from sphexa_tpu_torch.ops import cellmajor as tcm
 from sphexa_tpu_torch.ops import pair_ve as tpv
+from sphexa_tpu_torch.physics.turbulence import TurbulenceData
 from sphexa_tpu_torch.propagator.ve_bdt_sharded import (ShardedBdtVE,
                                                          TurbShardedBdtVE)
 from sphexa_tpu_torch.propagator.ve_pallas_sharded import (
@@ -361,6 +362,26 @@ def test_gravity_and_stirring_refused():
         ShardedBdtVE(box, grid, SphConfig(gravG=1.0), sc, mesh)
     with pytest.raises(NotImplementedError):
         TurbShardedBdtVE(box, grid, SphConfig(gravG=1.0), sc, mesh)
+
+
+def test_stirring_modes_set_once():
+    """TurbShardedBdtVE puts the stirring modes of its own OU state on
+    each shard when it is built; a plain ShardedBdtVE's shards have none,
+    and run_cycle_stirred (the JAX package's name) takes only the
+    engine's own OU state."""
+    box = _tbox(_box(JB.periodic, JB.periodic))
+    grid = tcm.CMGrid(n=4, cap=64, nzi=2)
+    sc = SlabConfig(n_slabs=2, cap=256, halo_cap=8, mig_cap=64)
+    mesh = SlabMesh(2, devices=["cpu"])
+    plain = ShardedBdtVE(box, grid, SphConfig(), sc, mesh)
+    assert plain.turb is None
+    assert all(e.turb is None and e.stir is None for e in plain.shards)
+    stirred = TurbShardedBdtVE(box, grid, SphConfig(), sc, mesh)
+    km = torch.from_numpy(stirred.turb.modes.astype(np.float32))
+    assert all(torch.equal(e.stir.km, km) for e in stirred.shards)
+    for eng in (plain, stirred):
+        with pytest.raises(ValueError, match="own OU state"):
+            eng.run_cycle_stirred([], TurbulenceData.create(verbose=False))
 
 
 def test_shard_exception_reaches_caller():
