@@ -136,7 +136,28 @@ Phases (any failure exits non-zero before the last line):
      sampled cells of a fully active cap-128 check frame (the lattice
      perturbed as the Sedov checks are); TurbShardedBdtVE at 100^3,
      D = 2 (one warm-up and one timed cycle);
-  14. the kernel table as one JSON line, then the device line.
+  14. (o) the h-tier zoom grids: the CLI's ladder for Evrard 100
+     (choose_tiers_auto, cap_max 128) planned on the host from the
+     initial state, every tier's band, grid, cap, slots, frame and owned
+     rows beside the uniform frame of phase (l), the band audit (C) at 0
+     violations; on that ladder, under phase (l)'s FMM, the resident
+     tiered step (one warm-up and 3 timed steps; rebuilds, folds,
+     nf_truncated 0, energy drift, peak memory; the step split into the
+     tiered SPH forces, gravity and the rest beside PR 12's uniform
+     step), the CLI's re-plan after the first step on that state
+     (choose_tiers_robust), the particle-frame tiered step (1 + 2) and
+     TieredBdtVE (4 rungs, one timed cycle: active fraction, rungs,
+     fold); K3-K7 on every tier frame against their plain versions on
+     sampled occupied cells, timed beside their bounds from each tier's
+     in-support pairs (into the kernel rows as `tiers`), and K2g with
+     its gate pass on the finest tier under a seeded activity pattern;
+     main([...]) in this process at Evrard 100 under --prop
+     ve-tiered-resident, ve-tiered and ve-tiered-bdt (the FMM set on
+     the steppers it makes: the CLI has no solver flag), where a run may
+     end in the JAX CLI's own outcome, EXPECTED_TIER_FAULT (its re-plan
+     after the first step, choose_tiers_auto, finds no rung); and Sedov
+     100^3 under --prop ve-tiered (one tier, 2 steps);
+  15. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
 python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
@@ -148,7 +169,7 @@ to compare two checkouts of the repository in one call.
 python3 chip_smoke.py --gravity runs the build and phase (l) alone,
 with no result lines; python3 chip_smoke.py --cli, the build and phase
 (m) alone; python3 chip_smoke.py --turb, the build and phase (n)
-alone.
+alone; python3 chip_smoke.py --tiers, the build and phase (o) alone.
 """
 
 from __future__ import annotations
@@ -3269,14 +3290,22 @@ def gather_split(box, cfg, grid, state):
                 ngpad=cfg.ngpad, cell_cap=cfg.cell_cap, level=grid.level)
 
 
-def main_in_process(argv, consts):
+# the main loop's fail-stop lines, one a retried call
+FAIL_STOPS = ("# re-gridded with larger caps", "# slot overflow",
+              "# tier fold")
+
+
+def main_in_process(argv, consts, cfg_override=None, energy=None):
     """main(argv + --constants consts) in this process. Each call of the
     step function between CUDA events (a fail-stopped call is retried
     and precedes the first accepted step), the steppers made (box, cfg,
-    grid), e0 (the initial state's etot), the kernels' launch counts
-    (zeroed just before), peak memory, wall time and the printed
-    lines. Gates: one call a step and a retry a fail-stop, every row of
-    the final state finite."""
+    grid) and their step functions, each call's diagnostics, e0 (the
+    initial state's etot: energy(state, box, cfg) when given, else
+    ecin + eint), the kernels' launch counts (zeroed just before), peak
+    memory, wall time and the printed lines. cfg_override: SphConfig
+    fields set on every stepper main makes (the CLI has no flag for the
+    gravity solver, as the JAX CLI). Gates: one call a step and a retry
+    a fail-stop, every row of the final state finite."""
     import contextlib
     import io
 
@@ -3287,21 +3316,26 @@ def main_in_process(argv, consts):
 
     if os.path.exists(consts):
         os.remove(consts)
-    calls, made, e0 = [], [], []
+    calls, made, e0, fns, diags = [], [], [], [], []
     make_stepper = cli.make_stepper
 
     def timed_stepper(args, box, cfg, *a, **kw):
+        if cfg_override:
+            cfg = cfg.replace(**cfg_override)
         fn, grid = make_stepper(args, box, cfg, *a, **kw)
         made.append((box, cfg, grid))
+        fns.append(fn)
 
         def step(state):
             if not e0:
-                e0.append(float(conserved_quantities(state.p, cfg).etot))
+                e0.append(float(conserved_quantities(state.p, cfg).etot)
+                          if energy is None else energy(state, box, cfg))
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             out = fn(state)
             ev[1].record()
             calls.append(ev)
+            diags.append(out[1])
             return out
         return step, grid
 
@@ -3316,6 +3350,15 @@ def main_in_process(argv, consts):
     try:
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
             state = cli.main(list(argv) + ["--constants", consts])
+    except Exception as e:
+        # what ran before the raise, for a caller that expects it
+        torch.cuda.synchronize()
+        e.partial = dict(lines=buf.getvalue().splitlines(), made=made,
+                         call_ms=[a.elapsed_time(b) for a, b in calls],
+                         diags=diags, e0=e0)
+        for ln in e.partial["lines"]:
+            log(f"    {ln}")
+        raise
     finally:
         cli.make_stepper = make_stepper
     torch.cuda.synchronize()
@@ -3326,19 +3369,18 @@ def main_in_process(argv, consts):
     for ln in lines:
         log(f"    {ln}")
     steps = int(argv[argv.index("-s") + 1])
-    fails = [i for i, ln in enumerate(lines)
-             if ln.startswith(("# re-gridded with larger caps",
-                               "# slot overflow"))]
+    fails = [i for i, ln in enumerate(lines) if ln.startswith(FAIL_STOPS)]
     assert len(calls) == steps + len(fails), (len(calls), steps, fails)
     for f in _FIELDS[:-1]:
         assert torch.isfinite(getattr(state.p, f)).all(), f"{argv}: {f}"
     call_ms = [a.elapsed_time(b) for a, b in calls]
     # each call ends in a `### Check` line or a fail-stop line, in order
     accepted = [ln.startswith("### Check") for ln in lines
-                if ln.startswith(("### Check", "# re-gridded with larger "
-                                  "caps", "# slot overflow"))]
+                if ln.startswith(("### Check",) + FAIL_STOPS)]
     assert len(accepted) == len(calls), (accepted, len(calls))
-    return dict(state=state, made=made, e0=e0[0], launches=launches,
+    return dict(state=state, made=made, fns=fns,
+                diags=[d for d, ok in zip(diags, accepted) if ok],
+                e0=e0[0], launches=launches,
                 lines=lines, fails=fails, call_ms=call_ms,
                 step_ms=[t for t, ok in zip(call_ms, accepted) if ok],
                 wall=wall, peak=peak, rows=np.loadtxt(consts, ndmin=2))
@@ -3970,6 +4012,551 @@ def turb_phase(report, rows):
     log(f"  phase (n): {report['turb_phase_seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# (o) the h-tier zoom grids
+# ---------------------------------------------------------------------------
+
+TIER_SIDE = 100             # Evrard 100 (523,984 particles), as phase (l)
+TIER_CAP_MAX = 128          # the CLI's choose_tiers_auto budget
+TIER_DT0 = "3e-5"           # phase (l)'s dt0
+# (prop, calls of the step function): one warm-up, then timed ones
+TIER_RUNS = (("ve-tiered-resident", 4), ("ve-tiered", 3),
+             ("ve-tiered-bdt", 1))
+TIER_SEDOV = 100            # Sedov 100^3 under ve-tiered (one tier)
+TIER_SEDOV_STEPS = 2
+TIER_SAMPLE_CELLS = 48      # cells of each tier launch held against plain
+TIER_GATED_SEED = 11        # activity_pattern() of the finest tier
+# the FMM of phase (l) on every stepper the CLI makes (no CLI flag)
+TIER_FMM = dict(gravity_solver="fmm", fmm_level=EVRARD_LEVEL)
+# PR 12's uniform resident Evrard 100 step on this card (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md section 5): the comparison of (o) 2
+UNIFORM_STEP_MS = 1053.812
+UNIFORM_HYDRO_MS = 29.366
+# the JAX CLI's own outcome at Evrard 100 (main.py:207-224): its
+# tiered props re-plan with choose_tiers_auto after the first step (the
+# open box grows around the sphere), where no rung of the ladder may pass
+# the band audit (ROADMAP Queue 3); a main run may end so, after an
+# accepted step
+EXPECTED_TIER_FAULT = "no feasible (slack, theta) tier ladder rung"
+_TIER_STAGES = ("pair_xh", "pair_gradh", "pair_iad", "pair_av",
+                "pair_momentum")
+PROP_KERNELS["ve-tiered"] = set(_TIER_STAGES)
+PROP_KERNELS["ve-tiered-resident"] = set(_TIER_STAGES)
+PROP_KERNELS["ve-tiered-bdt"] = {"pair_gate"} | {
+    s + "_gated" for s in _TIER_STAGES}
+
+
+def tier_ladder(box, p, tiers):
+    """Per tier: its h band, grid, cap, slots, frame and owned rows,
+    sub-box, boundaries, cell edge and support bound (host numbers)."""
+    from sphexa_tpu_torch.ops.cellmajor import legal_zgroup
+    from sphexa_tpu_torch.propagator.ve_tiered import (tier_coords,
+                                                       tier_edge,
+                                                       tier_support_bound)
+    alive = p.alive.cpu().numpy()
+    x, y, z, h = (getattr(p, c).cpu().numpy()[alive] for c in "xyzh")
+    xr, yr, zr = tier_coords(box, tiers[0].shift, x, y, z)
+    out = []
+    for ti, t in enumerate(tiers):
+        s = t.sub
+        inbox = ((xr >= s.xmin) & (xr <= s.xmax) & (yr >= s.ymin)
+                 & (yr <= s.ymax) & (zr >= s.zmin) & (zr <= s.zmax))
+        owned = (h >= t.h_lo) & ((h < t.h_hi) if ti else True)
+        g = t.grid
+        zg = legal_zgroup(g.npz, g.cap)
+        assert g.cap % 32 == 0 and g.cap <= 1024 and zg > 0, \
+            f"tier {ti}: {g} outside PairVE's caps or without a z-group"
+        out.append(dict(
+            h_lo=float(t.h_lo), h_hi=float(t.h_hi), cutoff=float(t.cutoff),
+            grid=str(g), cap=g.cap, n_slots=g.n_slots, zgroup=zg,
+            frame_rows=int((inbox & (h >= t.cutoff)).sum()),
+            owned_rows=int(owned.sum()),
+            sub=[float(v) for v in (s.xmin, s.xmax, s.ymin, s.ymax, s.zmin,
+                                    s.zmax)],
+            boundaries=[b.name for b in (s.bx, s.by, s.bz)],
+            edge=tier_edge(t), support_bound=tier_support_bound(t)))
+    return out
+
+
+def tier_plan(report):
+    """(o) 1: the CLI's ladder for Evrard 100 (choose_tiers_auto,
+    cap_max 128), planned on the host from the initial state; the band
+    audit (C) must count 0; the total slots beside the uniform frame of
+    phase (l)."""
+    from sphexa_tpu_torch.propagator.ve_tiered import (audit_tiers,
+                                                       choose_tiers_auto)
+    state, box, cfg, ugrid = evrard(TIER_SIDE, DEVICE, "fmm", EVRARD_LEVEL)
+    p = state.p
+    xyzh = [getattr(p, c).cpu().numpy() for c in "xyzh"]
+    alive = p.alive.cpu().numpy()
+    t0 = time.perf_counter()
+    tiers = choose_tiers_auto(box, *xyzh, alive=alive, cap_max=TIER_CAP_MAX,
+                              verbose=True)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    viol = audit_tiers(tiers, box, *xyzh, alive=alive)
+    audit_s = time.perf_counter() - t0
+    assert viol == 0, f"band audit: {viol} violations"
+    ladder = tier_ladder(box, p, tiers)
+    for i, t in enumerate(ladder):
+        log(f"  tier {i}: h [{t['h_lo']:.5g}, {t['h_hi']:.5g}) cutoff "
+            f"{t['cutoff']:.5g}, {t['grid']} (Z {t['zgroup']}), "
+            f"{t['n_slots']} slots, frame {t['frame_rows']} rows, owns "
+            f"{t['owned_rows']}; sub-box {[round(v, 4) for v in t['sub']]} "
+            f"{t['boundaries']}, edge {t['edge']:.5g}, support bound "
+            f"{t['support_bound']:.5g}")
+    total = sum(t["n_slots"] for t in ladder)
+    log(f"  {int(alive.sum())} particles; {len(tiers)} tiers, {total} "
+        f"slots in all, beside the uniform frame's {ugrid.n_slots} "
+        f"({ugrid}); planned in {plan_s:.1f} s, audit {viol} violations "
+        f"in {audit_s:.2f} s")
+    report["tier_plan"] = dict(ladder=ladder, total_slots=total,
+                               uniform_slots=ugrid.n_slots,
+                               uniform_grid=str(ugrid), plan_s=plan_s,
+                               audit_violations=viol, audit_s=audit_s)
+    return state, box, cfg, tiers
+
+
+def tier_cli_run(report, prop, steps, case="evrard", n=None):
+    """(o) 3, 5: main([...]) in this process (main_in_process). Evrard
+    runs under phase (l)'s FMM (TIER_FMM) with e0 from state_energy.
+    Gates: the state on the card, the prop's kernels launched (each
+    stage as often as the others) and no other, nf_truncated 0, every
+    fold retried (main raises past three re-tiers), |etot - e0|/e0 <
+    CLI_DRIFT_BOUND. At Evrard 100 the run may end in the JAX CLI's own
+    outcome, EXPECTED_TIER_FAULT, raised by the re-plan that follows an
+    accepted step; it is recorded with the calls that ran before it."""
+    import torch
+    n = TIER_SIDE if n is None else n
+    consts = os.path.join(ROOT, "chiprun_out",
+                          f"tiers_{case}_{prop}_constants.txt")
+    argv = ["--init", case, "-n", str(n), "-s", str(steps), "--dt0",
+            TIER_DT0, "--prop", prop]
+    grav = case == "evrard"
+    key = f"{case} {n} {prop}"
+    try:
+        r = main_in_process(argv, consts,
+                            cfg_override=TIER_FMM if grav else None,
+                            energy=state_energy if grav else None)
+    except ValueError as e:
+        part = getattr(e, "partial", None)
+        # the loop re-plans (box or h re-grid) before it logs the step
+        if (not grav or EXPECTED_TIER_FAULT not in str(e) or part is None
+                or not part["call_ms"]):
+            raise
+        for d in part["diags"]:
+            assert int(getattr(d, "nf_truncated", 0)) == 0, "FMM truncation"
+        folds = sum(ln.startswith(FAIL_STOPS) for ln in part["lines"])
+        res = dict(expected_fault=str(e), call_ms=part["call_ms"],
+                   accepted=len(part["call_ms"]) - folds, folds=folds,
+                   fold_counts=[int(d.max_cell_count)
+                                for d in part["diags"]],
+                   plans=len(part["made"]),
+                   lines=[ln for ln in part["lines"] if ln.startswith(
+                       ("### Check", "# tiers", "# box", "# re-gridded",
+                        "# tiered-bdt"))])
+        log(f"  {key}: {res['accepted']} accepted call(s) "
+            f"{[round(t, 3) for t in part['call_ms']]} ms (folds {folds}; "
+            f"{len(part['made'])} plan(s)), then the JAX "
+            f"CLI's outcome at the next re-plan (EXPECTED_TIER_FAULT): {e}")
+        report.setdefault("tier_cli_runs", {})[key] = res
+        return None, res
+    state = r["state"]
+    assert state.p.device.type == torch.device(DEVICE).type, \
+        f"{prop}: the state left the card"
+    assert set(r["launches"]) == PROP_KERNELS[prop], (prop, r["launches"])
+    stage = [v for k, v in r["launches"].items() if k != "pair_gate"]
+    assert len(set(stage)) == 1, r["launches"]
+    for d in r["diags"]:
+        assert int(getattr(d, "nf_truncated", 0)) == 0, "FMM truncation"
+    rows = r["rows"]
+    assert rows.shape[0] == steps, rows.shape
+    drift = abs(float(rows[-1, 3]) - r["e0"]) / abs(r["e0"])
+    assert drift < CLI_DRIFT_BOUND, f"{prop}: energy drift {drift:.3e}"
+    tiers = r["made"][-1][2]
+    per = "cycle" if prop.endswith("bdt") else "step"
+    timed = r["step_ms"][1:] if len(r["step_ms"]) > 1 else r["step_ms"]
+    res = dict(case=case, n=n, steps=steps, call_ms=r["call_ms"],
+               step_ms=r["step_ms"], mean_ms=float(np.mean(timed)),
+               fail_stops=len(r["fails"]),
+               fail_stop_lines=[r["lines"][i] for i in r["fails"]],
+               re_plans=len(r["made"]) - 1, wall_s=r["wall"],
+               peak_bytes=r["peak"], e0=r["e0"], energy_drift=drift,
+               etot=rows[:, 3].tolist(), launches=r["launches"],
+               n_tiers=len(tiers), tiers=tier_ladder(r["made"][-1][0],
+                                                     state.p, tiers),
+               tier_lines=[ln for ln in r["lines"]
+                           if ln.startswith("# tiers:")])
+    if prop == "ve-tiered-resident":
+        # every stepper main made (a re-tier or a box re-grid makes a new
+        # one, which binds anew): the in-step rebuilds of those that ran
+        res["rebuilds"] = sum(int(f.carry.rebuilds) for f in r["fns"]
+                              if f.carry is not None)
+    if prop.endswith("bdt"):
+        res["bdt_lines"] = [ln for ln in r["lines"]
+                            if ln.startswith("# tiered-bdt:")]
+    log(f"  {key}: {res['mean_ms']:.3f} ms a {per} "
+        f"(CUDA events, timed {[round(t, 3) for t in timed]}; all calls "
+        f"{[round(t, 3) for t in r['call_ms']]}), {r['wall']:.1f} s of "
+        f"main, peak {r['peak'] / 2 ** 30:.3f} GiB, {len(tiers)} tier(s) "
+        f"({[t['grid'] for t in res['tiers']]}), folds "
+        f"{len(r['fails'])}, re-plans {res['re_plans']}, "
+        + (f"in-step rebuilds {res['rebuilds']}, "
+           if "rebuilds" in res else "")
+        + (f"{res['bdt_lines']}, " if "bdt_lines" in res else "")
+        + f"nf_truncated 0, |etot - e0|/|e0| = {drift:.3e}, launches "
+          f"{r['launches']}")
+    report.setdefault("tier_cli_runs", {})[key] = res
+    return r, res
+
+
+def tier_steps(step, carry, n, diag_of):
+    """n calls of step(carry) -> (carry, diag), a CUDA event after each.
+    Returns (carry, diags, ms of each call)."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    diags = []
+    ev[0].record()
+    for i in range(n):
+        carry, d = step(carry)
+        ev[i + 1].record()
+        diags.append(diag_of(d))
+    torch.cuda.synchronize()
+    return carry, diags, [ev[i].elapsed_time(ev[i + 1]) for i in range(n)]
+
+
+def tier_replan(report, box, cfg, st, d, h_max0):
+    """(o) 2: the re-plan the CLI's main loop makes after the first step,
+    on the engine's state: the open box grows around the sphere
+    (_grow_box), and a grown box or h_max past 1.25 h_max0 re-plans the
+    tiers. The CLI's choose_tiers_auto (JAX main.py:207-224) meets
+    EXPECTED_TIER_FAULT there, as the main runs below show; recorded
+    here is choose_tiers_robust on the same state (the JAX bench's
+    planner, bench.py:427-431: it clips the h tail where no rung
+    fits)."""
+    from sphexa_tpu_torch import main as cli
+    from sphexa_tpu_torch.propagator.ve_tiered import choose_tiers_robust
+    p = st.p
+    xyzh = [getattr(p, c).cpu().numpy() for c in "xyzh"]
+    alive = p.alive.cpu().numpy()
+    h_max = float(xyzh[3][alive].max())
+    grown = cli._grow_box(box, d.bounds, h_max0)
+    out = dict(h_max0=h_max0, h_max=h_max,
+               grown=None if grown is None else [
+                   float(v) for v in (grown.xmin, grown.xmax)],
+               h_regrid=h_max > 1.25 * h_max0)
+    pbox = grown or box
+    t0 = time.perf_counter()
+    tiers, clip = choose_tiers_robust(pbox, *xyzh, alive=alive,
+                                      cap_max=TIER_CAP_MAX)
+    out["robust"] = None if tiers is None else [str(t.grid) for t in tiers]
+    out["robust_clip"] = clip
+    out["robust_clipped_rows"] = (None if clip is None else
+                                  int((xyzh[3][alive] > clip).sum()))
+    out["robust_s"] = time.perf_counter() - t0
+    log(f"  the CLI's re-plan after step 1: box grown to {out['grown']}, "
+        f"h_max {h_max0:.5g} -> {h_max:.5g}; choose_tiers_robust "
+        f"({out['robust_s']:.1f} s): {out['robust']}, h clip {clip} "
+        f"({out['robust_clipped_rows']} rows above it)")
+    report["tier_replan"] = out
+
+
+def tier_engine_runs(report, state, box, cfg, tiers):
+    """(o) 2-3 on the engines directly, on the initial plan from the
+    initial Evrard 100 state (FMM level 6): make_ve_step_tiered_resident
+    one warm-up and 3 timed steps (rebuilds, folds, nf_truncated 0,
+    |etot - e0|/|e0| < CLI_DRIFT_BOUND, peak memory; the CLI's re-plan
+    on the state after the warm-up step, tier_replan), its parts on the
+    last state (tier_split); make_ve_step_tiered one warm-up and 2 timed
+    steps; TieredBdtVE (4 rungs) one timed cycle (active fraction, rung
+    histogram, fold). Counters zeroed just before each timed run and
+    read just after: every tier's five stages each call."""
+    import torch
+    from sphexa_tpu_torch.propagator.ve_tiered import (
+        make_ve_step_tiered, make_ve_step_tiered_resident)
+    from sphexa_tpu_torch.propagator.ve_tiered_bdt import TieredBdtVE
+
+    nt = len(tiers)
+    e0 = state_energy(state, box, cfg)
+    h_max0 = float(state.p.h[state.p.alive].max())
+    kernels = all_kernels()
+
+    def zero():
+        for k in kernels:
+            k.launches = 0
+
+    def launched():
+        return {k.name: k.launches for k in kernels if k.launches}
+
+    def gates(d, what):
+        assert int(d["nf_truncated"]) == 0, f"{what}: FMM truncation"
+        assert np.isfinite(d["dt"]), f"{what}: dt {d['dt']}"
+
+    def step_diag(d):
+        return {k: float(getattr(d, k)) for k in (
+            "dt", "etot", "ecin", "eint", "egrav", "max_cell_count",
+            "nf_truncated", "h_max")}
+
+    out = {}
+    # resident
+    torch.cuda.reset_peak_memory_stats()
+    bind, rstep = make_ve_step_tiered_resident(box, tiers, cfg,
+                                               device=DEVICE)
+    c = bind(state)
+    c, d0, w_ms = tier_steps(rstep, c, 1, lambda d: d)
+    tier_replan(report, box, cfg, c.state, d0[0], h_max0)
+    zero()
+    c, diags, ms = tier_steps(rstep, c, 3, step_diag)
+    launches = launched()
+    assert launches == {k: 3 * nt for k in _TIER_STAGES}, launches
+    for d in diags:
+        gates(d, "resident")
+    drift = abs(diags[-1]["etot"] - e0) / abs(e0)
+    assert drift < CLI_DRIFT_BOUND, f"resident: energy drift {drift:.3e}"
+    for f in ("x", "y", "z", "h", "vx", "vy", "vz", "temp", "alpha"):
+        assert torch.isfinite(getattr(c.state.p, f)).all(), f"non-finite {f}"
+    res = dict(warmup_ms=w_ms[0], step_ms=ms, mean_ms=float(np.mean(ms)),
+               rebuilds=int(c.rebuilds), diags=diags, e0=e0,
+               energy_drift=drift, peak_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches,
+               folds=[int(d["max_cell_count"]) for d in diags])
+    log(f"  resident: {res['mean_ms']:.3f} ms a step (CUDA events, "
+        f"{[round(t, 3) for t in ms]} after a {w_ms[0]:.3f} ms warm-up), "
+        f"in-step rebuilds {res['rebuilds']}, folds {res['folds']}, "
+        f"nf_truncated 0, |etot - e0|/|e0| = {drift:.3e}, peak "
+        f"{res['peak_bytes'] / 2 ** 30:.3f} GiB, launches {launches}")
+    out["resident"] = res
+    r = dict(made=[(box, cfg, tiers)], state=c.state)
+    engines, layouts = tier_split(report, r, res)
+    del bind, rstep
+
+    # the particle-frame step
+    step = make_ve_step_tiered(box, tiers, cfg, device=DEVICE)
+    st, _, w_ms = tier_steps(step, state, 1, lambda d: d)
+    zero()
+    st, diags, ms = tier_steps(step, st, 2, step_diag)
+    launches = launched()
+    assert launches == {k: 2 * nt for k in _TIER_STAGES}, launches
+    for d in diags:
+        gates(d, "ve-tiered")
+    out["particle"] = dict(warmup_ms=w_ms[0], step_ms=ms,
+                           mean_ms=float(np.mean(ms)), diags=diags,
+                           folds=[int(d["max_cell_count"]) for d in diags],
+                           launches=launches)
+    log(f"  particle-frame step: {out['particle']['mean_ms']:.3f} ms a "
+        f"step ({[round(t, 3) for t in ms]} after {w_ms[0]:.3f}), folds "
+        f"{out['particle']['folds']}, launches {launches}")
+    del st, step
+
+    # block time-steps
+    teng = TieredBdtVE(box, tiers, cfg, num_rungs=4, device=DEVICE)
+    bst = teng.bind(state)
+    zero()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    bst, bd = teng.run_cycle(bst, check=False)
+    b.record()
+    torch.cuda.synchronize()
+    launches = launched()
+    nsub = len(bd)
+    want = {k + "_gated": nsub * nt for k in _TIER_STAGES}
+    want["pair_gate"] = 5 * nsub * nt
+    assert launches == want, (launches, want)
+    cyc = a.elapsed_time(b)
+    for x in bd:
+        assert int(x.nf_truncated) == 0, "BDT: FMM truncation"
+    for f in ("x", "y", "z", "h", "vx", "vy", "vz", "temp", "alpha"):
+        assert torch.isfinite(getattr(bst.p, f)).all(), f"non-finite {f}"
+    drift = abs(float(bd[-1].etot) - e0) / abs(e0)
+    assert drift < CLI_DRIFT_BOUND, f"BDT: energy drift {drift:.3e}"
+    out["bdt"] = dict(
+        cycle_ms=cyc, substep_ms=cyc / nsub, energy_drift=drift,
+        active_frac=[float(x.active_frac) for x in bd],
+        rung_hist=[x.rung_hist.tolist() for x in bd],
+        fold=[int(x.fold) for x in bd],
+        fold_parts=[x.fold_parts.tolist() for x in bd], launches=launches)
+    log(f"  TieredBdtVE, 4 rungs: {cyc:.3f} ms a cycle ({cyc / nsub:.3f} "
+        f"ms a substep), active fraction "
+        f"{[round(v, 4) for v in out['bdt']['active_frac']]}, rungs "
+        f"{out['bdt']['rung_hist'][-1]}, fold {out['bdt']['fold']} (parts "
+        f"of the last {out['bdt']['fold_parts'][-1]}), |etot - e0|/|e0| = "
+        f"{drift:.3e}")
+    del teng, bst
+    report["tier_engines"] = out
+    return r, engines, layouts
+
+
+def tier_split(report, r, res):
+    """(o) 2: the parts of a tiered step, each timed alone on the run's
+    last state: the tiered SPH forces (every tier's five stages and the
+    merges), gravity (the FMM on the alive rows) and the rest; beside
+    PR 12's uniform resident step."""
+    import torch
+    from sphexa_tpu_torch.propagator.ve_cellmajor import _add_gravity
+    from sphexa_tpu_torch.propagator.ve_tiered import (_build_layouts,
+                                                       _tier_engines,
+                                                       _tiered_forces)
+    box, cfg, tiers = r["made"][-1]
+    st = r["state"]
+    ps = st.p
+    engines = _tier_engines(tiers, cfg, DEVICE)
+    layouts = _build_layouts(engines, box, ps)
+    idx = torch.nonzero(ps.alive).reshape(-1)
+    z = torch.zeros_like(ps.x)
+    forces_ms = cuda_ms(lambda: _tiered_forces(ps, st.dt, layouts, engines,
+                                               box, cfg), 2)
+    layout_ms = cuda_ms(lambda: _build_layouts(engines, box, ps), 2)
+    grav_ms = cuda_ms(lambda: _add_gravity(dict(ax=z, ay=z, az=z), ps.x,
+                                           ps.y, ps.z, ps.m, idx, box, cfg),
+                      2)
+    rest = res["mean_ms"] - forces_ms - grav_ms
+    split = dict(tiered_forces_ms=forces_ms, layouts_ms=layout_ms,
+                 gravity_ms=grav_ms, rest_ms=rest,
+                 uniform_step_ms=UNIFORM_STEP_MS,
+                 uniform_hydro_ms=UNIFORM_HYDRO_MS)
+    log(f"  split (each part alone on the last state): tiered SPH forces "
+        f"{forces_ms:.3f} ms (every tier, merges included; the tier "
+        f"layouts alone {layout_ms:.3f}), gravity {grav_ms:.3f}, rest "
+        f"{rest:.3f}; PR 12's uniform resident step on this card "
+        f"{UNIFORM_STEP_MS} ms, its hydro pipeline {UNIFORM_HYDRO_MS} ms")
+    res["split"] = split
+    return engines, layouts
+
+
+def tier_pair_check(report, rows, r, engines, layouts):
+    """(o) 4: K3-K7 on every tier frame at the inputs of one more tiered
+    force pass on the resident run's last state: each launch against its
+    plain version on sampled occupied cells (as evrard_pair_check), its
+    invalid interior slots at their fill value, timed beside its bound
+    from that tier's in-support pairs; then K2g (gate pass and the five
+    gated stages) on the finest tier under a seeded activity pattern
+    against its gated plain version (inactive supercells bit-equal to
+    prev). Each tier's times go into the kernel rows (`tiers`,
+    `tier_gated`)."""
+    import types
+
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.propagator.ve_tiered import _tiered_forces
+
+    box, cfg, tiers = r["made"][-1]
+    st = r["state"]
+    with Spy(pv.KERNELS) as spy:
+        _tiered_forces(st.p, st.dt, layouts, engines, box, cfg)
+    torch.cuda.synchronize()
+    nt = len(engines)
+    calls = [c for c in spy.calls if c[0].name != "ghost_refresh"]
+    assert [c[0].name for c in calls] == [s for s in _TIER_STAGES
+                                          for _ in range(nt)], \
+        [c[0].name for c in calls]
+    by_name = {x["name"]: x for x in rows}
+    res = {}
+    counts = {}
+    for i, (k, args, out) in enumerate(calls):
+        ti = i % nt
+        J, I2, g, c = args
+        e = engines[ti]
+        assert g == e.spec.grid, (g, e.spec.grid)
+        if k.name == "pair_xh":
+            counts[ti] = pair_counts(
+                J, types.SimpleNamespace(intmask=e.intmask), g, out[2] + 1)
+        cand, inside, _ = counts[ti]
+        cells = sample_occupied_cells(g, valid_slots(J), e.intmask,
+                                      TIER_SAMPLE_CELLS, 100 + i)
+        ref = pv._run_plain(k.body, J, I2, g, k.fo, cells=cells,
+                            **k._body_kw(c))
+        slots = torch.zeros(g.n_slots, dtype=torch.bool, device=DEVICE)
+        lane = torch.arange(g.cap, device=DEVICE)
+        slots[(cells[:, None] * g.cap + lane).reshape(-1)] = True
+        err, rel = compare(k.name, ref, out, valid_slots(J) & slots
+                           & e.intmask, per_row=False)
+        nfill = check_fill(k, J, out, e.intmask)
+        ms = cuda_ms(lambda: k._launch(J, I2, g, c), 3)
+        nbytes = 4 * (J.numel() + (I2.numel() if I2 is not None else 0)
+                      + out.numel())
+        bound, by = pair_bound(cand * GEO_FLOPS + inside * BODY_FLOPS[k.name],
+                               nbytes)
+        row = dict(tier=ti, grid=str(g), cap=g.cap, ms=ms, bound_ms=bound,
+                   bound_by=by, max_abs_err=err, max_rel_err=rel,
+                   candidates=cand, in_support=inside, fill_slots=nfill,
+                   cells=int(cells.numel()))
+        res.setdefault(k.name, []).append(row)
+        if k.name in by_name:
+            by_name[k.name].setdefault("tiers", []).append(
+                {q: row[q] for q in ("tier", "cap", "ms", "bound_ms",
+                                     "bound_by", "max_abs_err")})
+        log(f"  tier {ti} cap {g.cap} {k.name:14s} {ms:8.3f} ms  bound "
+            f"{bound:.4f} ms ({by}); {cells.numel()} cells against plain: "
+            f"err {err:.3e} (rel {rel:.3e}); {nfill} invalid interior "
+            f"slots at fill; {inside:.4e} in-support pairs of {cand:.4e}")
+
+    # K2g on the finest tier, under a seeded activity pattern
+    ti = nt - 1
+    e = engines[ti]
+    g = e.spec.grid
+    fine = [c for i, c in enumerate(calls) if i % nt == ti]
+    act, kinds = activity_pattern(g, valid_slots(fine[0][1][0]),
+                                  TIER_GATED_SEED)
+    assert kinds["active"] > 0 and kinds["inactive"] > 0, kinds
+    gate = pv.pair_gate
+    n_gate = gate.launches
+    rng = np.random.default_rng(TIER_GATED_SEED)
+    gres = {}
+    for k, (J, I2, _, c), out in fine:
+        kg = next(x for x in pv.GATED_KERNELS if stage_of(x.name) == k.name)
+        prev = torch.from_numpy(rng.normal(0, 1, (kg.fo, g.n_slots)).astype(
+            np.float32)).to(DEVICE)
+        args = (J, I2, g, c, (act, prev), 0)
+        gout = kg._launch(*args)
+        err, rel = gated_compare(kg, args, gout, e.intmask, per_row=False)
+        ms = cuda_ms(lambda: kg._launch(*args), 3)
+        cell_ms = cuda_ms(lambda: k._launch(J, I2, g, c), 3)
+        gres[kg.name] = dict(ms=ms, cell_ms=cell_ms, max_abs_err=err,
+                             max_rel_err=rel)
+        if kg.name in by_name:
+            by_name[kg.name]["tier_gated"] = dict(tier=ti, cap=g.cap, ms=ms,
+                                                  cell_ms=cell_ms,
+                                                  max_abs_err=err)
+        log(f"  tier {ti} cap {g.cap} {kg.name:20s} {ms:8.3f} ms (the "
+            f"ungated launch {cell_ms:.3f}); inactive supercells bit-equal "
+            f"to prev, active err {err:.3e} (rel {rel:.3e})")
+    assert gate.launches > n_gate, "the gate pass did not run"
+    log(f"  tier {ti} activity (Z {pv.resolve_zgroup(g)}): {kinds}")
+    report["tier_kernels"] = dict(stages=res, gated=gres, kinds=kinds)
+
+
+def tier_phase(report, rows):
+    """Phase (o): the h-tier zoom grids on the card."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+
+    def at():
+        log(f"  {time.perf_counter() - t0:.1f} s into phase (o)")
+
+    log(f"(o) the tier ladder of Evrard {TIER_SIDE} (choose_tiers_auto, "
+        f"cap_max {TIER_CAP_MAX}):")
+    state, box, cfg, tiers = tier_plan(report)
+    at()
+    log(f"(o) the tiered engines at Evrard {TIER_SIDE} on that ladder, the "
+        f"FMM at level {EVRARD_LEVEL}:")
+    r, engines, layouts = tier_engine_runs(report, state, box, cfg, tiers)
+    at()
+    log(f"(o) K3-K7 and K2g on the tier frames of Evrard {TIER_SIDE}:")
+    tier_pair_check(report, rows, r, engines, layouts)
+    del state, r, engines, layouts
+    at()
+    for prop, steps in TIER_RUNS:
+        log(f"(o) main([... --init evrard -n {TIER_SIDE} --prop {prop} "
+            f"...]), the FMM at level {EVRARD_LEVEL}:")
+        tier_cli_run(report, prop, steps)
+        at()
+    log(f"(o) main([... --init sedov -n {TIER_SEDOV} --prop ve-tiered "
+        f"...]):")
+    tier_cli_run(report, "ve-tiered", TIER_SEDOV_STEPS, case="sedov",
+                 n=TIER_SEDOV)
+    report["tier_phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase (o): {report['tier_phase_seconds']:.1f} s")
+
 def compare_mm():
     """--compare's moment-matmul part: K8, K9 and K10 (float32, bf16) at
     the inputs of a Sedov 100^3 step under mxu_moments + mxu_momentum, 3 x 5
@@ -4204,6 +4791,25 @@ def turb_main() -> int:
     return 0
 
 
+def tiers_main() -> int:
+    """--tiers: the build and phase (o) alone (no result lines); details
+    to chiprun_out/chip_smoke_tiers.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"smi": smi_line()}
+    log(report["smi"])
+    _cuda.build()
+    tier_phase(report, [])
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_tiers.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--compare"]:
@@ -4217,6 +4823,8 @@ def main() -> int:
         return cli_main()
     if sys.argv[1:2] == ["--turb"]:
         return turb_main()
+    if sys.argv[1:2] == ["--tiers"]:
+        return tiers_main()
     sys.path.insert(0, ROOT)
     from sphexa_tpu_torch.ops import _cuda
 
@@ -4302,6 +4910,7 @@ def main() -> int:
     gravity_phase(report)
     cli_phase(report)
     turb_phase(report, rows)
+    tier_phase(report, rows)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

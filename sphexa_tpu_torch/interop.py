@@ -16,8 +16,10 @@ import numpy as np
 import torch
 
 from sphexa_tpu_torch.config import SphConfig
+from sphexa_tpu_torch.ops.cellmajor import CMGrid
 from sphexa_tpu_torch.propagator.ve_bdt import BDTState
 from sphexa_tpu_torch.propagator.ve_cellmajor import RVState
+from sphexa_tpu_torch.propagator.ve_tiered import TierSpec
 from sphexa_tpu_torch.sfc.box import Box, Boundary
 from sphexa_tpu_torch.state import _FIELDS, Particles, SimState
 from sphexa_tpu_torch.util.device import resolve_device
@@ -45,6 +47,24 @@ def box_from_numpy(bounds, boundaries) -> Box:
     b = [float(v) for v in np.asarray(bounds, dtype=np.float64)]
     bx, by, bz = (Boundary(int(c)) for c in boundaries)
     return Box(*b, bx, by, bz)
+
+
+def tiers_from_numpy(tiers) -> list:
+    """The port's TierSpecs from the JAX package's (read by attribute:
+    h_lo, h_hi, cutoff, grid (n, cap, nzi, nxi), sub (xmin ... zmax,
+    bx, by, bz) and shift). The sub-box bounds keep their scalar types
+    (float32 or float64 numpy scalars, or floats), so its edge lengths
+    round as they did where the tiers were planned."""
+    out = []
+    for t in tiers:
+        g, b = t.grid, t.sub
+        sub = Box(b.xmin, b.xmax, b.ymin, b.ymax, b.zmin, b.zmax,
+                  *(Boundary(int(c.value)) for c in (b.bx, b.by, b.bz)))
+        out.append(TierSpec(
+            h_lo=t.h_lo, h_hi=t.h_hi, cutoff=t.cutoff,
+            grid=CMGrid(n=g.n, cap=g.cap, nzi=g.nzi, nxi=g.nxi), sub=sub,
+            shift=tuple(t.shift)))
+    return out
 
 
 def state_from_numpy(fields: dict, ttot, dt, dt_m1, iteration,

@@ -17,13 +17,18 @@ Propagators: ve (the gather path, propagator/ve.py; the default), std
 (the std formulation on the gather path, propagator/std.py),
 turbulence-ve (the gather path with OU stirring, propagator/turb_ve.py),
 ve-pallas (make_ve_step_cellmajor: K1, K3-K7), ve-bdt (BdtVE: K1, K2g),
-turbulence-ve-bdt (TurbBdtVE: K1, K2g and the stirring) and nbody.
+turbulence-ve-bdt (TurbBdtVE: K1, K2g and the stirring), the h-tier
+zoom grids ve-tiered (make_ve_step_tiered: K3-K7 on every tier grid),
+ve-tiered-resident (make_ve_step_tiered_resident) and ve-tiered-bdt
+(TieredBdtVE: K2g on every tier grid; SPHEXA_BDT_RUNGS rungs, default
+4), and nbody. The tiered props plan their tiers from the current state
+(choose_tiers_auto, cap_max 128) and re-plan them on a fold.
 Cases: sedov, noh, isobaric-cube, gresho-chan, kelvin-helmholtz,
 wind-shock, evrard and turbulence (init/factory.py); --glass installs a
 glass template for the glass-tiled cases (init/glass.py). The other
-props (tiers, std-cooling, the multi-device ones), --init
-evrard-cooling, --profile, --viz-every and --split > 1 raise
-NotImplementedError naming the ROADMAP item that will port them.
+props (std-cooling, the multi-device ones), --init evrard-cooling,
+--profile, --viz-every and --split > 1 raise NotImplementedError naming
+the ROADMAP item that will port them.
 --debug-nans checks after each step that every row of the state is
 finite and raises FloatingPointError naming the first field that is
 not (jax_debug_nans at a step's granularity).
@@ -57,16 +62,15 @@ MULTICHIP_PROPS = ("ve-hilbert", "ve-pallas-sharded", "ve-bdt-sharded",
 
 # props the port does not run yet -> the ROADMAP Queue 1 item porting them
 _REFUSED_PROPS = {
-    "ve-tiered": "item 8 (propagator/ve_tiered.py)",
-    "ve-tiered-resident": "item 8 (propagator/ve_tiered.py)",
-    "ve-tiered-bdt": "item 8 (propagator/ve_tiered_bdt.py)",
     "std-cooling": "item 9 (physics/cooling.py, propagator/std_cooling.py)",
     **{p: "item 10 (multi-device, MultiChipAdapter)"
        for p in MULTICHIP_PROPS},
 }
 
 # the slot-frame engines: diag.max_cell_count counts dropped particles
-_SLOT_FRAME = ("ve-pallas", "ve-bdt", "turbulence-ve-bdt")
+# (the tiered ones: the fold)
+TIERED_PROPS = ("ve-tiered", "ve-tiered-resident", "ve-tiered-bdt")
+_SLOT_FRAME = ("ve-pallas", "ve-bdt", "turbulence-ve-bdt") + TIERED_PROPS
 
 
 def _not_ported(what: str, item: str):
@@ -154,7 +158,8 @@ def parse_args(argv=None):
                    help="stop when simulation time reached")
     p.add_argument("--prop", default="ve", choices=PROPS,
                    help="propagator choice (reference: --prop); the port "
-                        "runs ve, std, ve-pallas, ve-bdt, nbody, "
+                        "runs ve, std, ve-pallas, ve-bdt, ve-tiered, "
+                        "ve-tiered-resident, ve-tiered-bdt, nbody, "
                         "turbulence-ve and turbulence-ve-bdt and refuses "
                         "the others")
     p.add_argument("-w", "--output-every", default="0",
@@ -322,6 +327,8 @@ def make_stepper(args, box, cfg, h_max, n, extras=None, state=None,
     extras = extras or {}
     if args.prop in _REFUSED_PROPS:
         _not_ported(f"--prop {args.prop}", _REFUSED_PROPS[args.prop])
+    if args.prop in TIERED_PROPS:
+        return _tiered_stepper(args, box, cfg, state, device)
     if args.prop == "nbody":
         from sphexa_tpu_torch.propagator.nbody import make_nbody_step
         return make_nbody_step(box, cfg, device=device), None
@@ -351,6 +358,85 @@ def make_stepper(args, box, cfg, h_max, n, extras=None, state=None,
         return make_std_step(box, grid, cfg, device=device), grid
     from sphexa_tpu_torch.propagator.ve import make_ve_step
     return make_ve_step(box, grid, cfg, device=device), grid
+
+
+def _tiered_stepper(args, box, cfg, state, device):
+    """(step function, tiers) of a tiered prop: the h-tier zoom grids
+    planned from the current state (JAX main.py:207-296)."""
+    from sphexa_tpu_torch.propagator.ve_tiered import (
+        choose_tiers_auto, make_ve_step_tiered, make_ve_step_tiered_resident)
+    if state is None:
+        raise ValueError(f"--prop {args.prop} plans its tiers from the "
+                         f"current state")
+    p = state.p
+    tiers = choose_tiers_auto(box, *(host(getattr(p, c)) for c in "xyzh"),
+                              alive=host(p.alive), cap_max=128,
+                              verbose=not args.quiet)
+    if not args.quiet:
+        print("# tiers: " + "; ".join(
+            f"h[{t.h_lo:.3g},{t.h_hi:.3g}) n={t.grid.n} cap={t.grid.cap}"
+            for t in tiers))
+    if args.prop == "ve-tiered-bdt":
+        from sphexa_tpu_torch.propagator.ve_tiered_bdt import TieredBdtVE
+        nr = int(os.environ.get("SPHEXA_BDT_RUNGS", "4"))
+        return _tiered_bdt_adapter(
+            TieredBdtVE(box, tiers, cfg, num_rungs=nr, device=device),
+            args.quiet), tiers
+    if args.prop == "ve-tiered-resident":
+        bind, rstep = make_ve_step_tiered_resident(box, tiers, cfg,
+                                                   device=device)
+        return _tiered_resident_adapter(bind, rstep), tiers
+    return make_ve_step_tiered(box, tiers, cfg, device=device), tiers
+
+
+def _tiered_resident_adapter(bind, rstep):
+    """The resident tiered step with the main loop's contract: the carry
+    rides in the adapter; a re-tier (a fresh make_stepper) binds anew."""
+
+    class _TieredResAdapter:
+        def __init__(self):
+            self.carry = None
+
+        def __call__(self, state):
+            if self.carry is None:
+                self.carry = bind(state)
+            self.carry, diag = rstep(self.carry)
+            return self.carry.state, diag
+
+    return _TieredResAdapter()
+
+
+def _tiered_bdt_adapter(teng, quiet):
+    """One call = one rung cycle of TieredBdtVE; a fold routes through
+    the main loop's re-tier path. Its diagnostics are the JAX adapter's
+    minimal set, max_nc 0 included (ROADMAP Queue 3)."""
+
+    class _TieredBdtAdapter:
+        def __init__(self):
+            self.bst = None
+            self.teng = teng
+
+        def __call__(self, state):
+            if self.bst is None:
+                self.bst = teng.bind(state)
+            self.bst, diags = teng.run_cycle(self.bst, check=False)
+            d = diags[-1]
+            out = teng.unbind(self.bst)
+            if not quiet:
+                fr = float(np.mean([float(x.active_frac) for x in diags]))
+                print(f"# tiered-bdt: active fraction {fr:.2f}, rungs "
+                      f"{host(d.rung_hist).tolist()}")
+            diag = types.SimpleNamespace(
+                dt=d.dt, ttot=d.ttot, etot=d.etot, ecin=d.ecin, eint=d.eint,
+                egrav=d.egrav,
+                h_max=torch.max(torch.where(out.p.alive, out.p.h, 0.0)),
+                nc_mean=0.0, max_nc=0,
+                max_cell_count=max(int(x.fold) for x in diags),
+                maxvsignal=0.0,
+                nf_truncated=max(int(x.nf_truncated) for x in diags))
+            return out, diag
+
+    return _TieredBdtAdapter()
 
 
 def _turbulence(args, extras):
@@ -452,6 +538,9 @@ def main(argv=None):
 
     try:
         t_start = time.perf_counter()
+        # the resident tiered step takes no retry point (the JAX engine
+        # donates its frame): on a fold it re-tiers from the current state
+        can_retry = args.prop != "ve-tiered-resident"
         consec_fails = 0
         it = 0
         while it < args.steps:
@@ -460,7 +549,7 @@ def main(argv=None):
             # candidate sets, so its outputs are discarded (the reference
             # throws instead, xmass_gpu.cu:120-128). No stepper writes
             # into its input, so holding it is free.
-            prev_state = state
+            prev_state = state if can_retry else None
             state, diag = step_fn(state)
             dt_wall = time.perf_counter() - t0
             if args.debug_nans:
@@ -483,8 +572,17 @@ def main(argv=None):
                         f"{consec_fails - 1} re-grids (max_nc="
                         f"{int(diag.max_nc)}, max_cell="
                         f"{int(diag.max_cell_count)})")
-                state = prev_state   # discard the truncated step
-                if slot_frame:
+                if prev_state is not None:
+                    state = prev_state   # discard the truncated step
+                if args.prop in TIERED_PROPS:
+                    # re-tier: make_stepper re-plans the tiers from the
+                    # state's h distribution
+                    if not args.quiet:
+                        print(f"# tier fold ({int(diag.max_cell_count)}): "
+                              f"re-tiering from "
+                              f"{'restored' if can_retry else 'current'} "
+                              f"state", file=sys.stderr)
+                elif slot_frame:
                     # slot overflow: re-pick (cap, grid) with more
                     # headroom from the restored positions
                     extras["cap_headroom"] = int(

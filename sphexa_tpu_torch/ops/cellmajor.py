@@ -8,15 +8,19 @@ cell owns `cap` slots; per-particle fields live field-major as
 neighbour blocks as contiguous [F, cap] tiles.
 
 The host planners (choose_cm_grid, choose_cap_and_grid,
-choose_grid_with_hcap) stay numpy and return the same (cap, grid) as the
-JAX package, so both packages run on identical frames.
+choose_grid_with_hcap) stay on the host, with the cell counts in C
+(util/native.py) as the JAX package counts them, and return the same
+(cap, grid) as the JAX package, so both packages run on identical
+frames.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -122,16 +126,31 @@ def legal_zgroup(npz: int, cap: int, max_lanes: int = 1024) -> int:
 
 def max_cell_count(grid: CMGrid, box: Box, xs, ys, zs) -> int:
     """Host-side: the largest per-cell particle count of the given
-    (alive) positions binned into `grid`."""
-    ix = np.clip(((np.asarray(xs) - box.xmin) / box.lx * grid.nx).astype(int),
+    (alive) positions binned into `grid`, in C (util/native.py), as the
+    JAX package counts it; max_cell_count_plain is its numpy form."""
+    from sphexa_tpu_torch.util import native
+    return native.max_cell_count(*native.unit_coords(xs, ys, zs, box),
+                                 grid.nx, grid.n, grid.nz)
+
+
+def max_cell_count_plain(grid: CMGrid, box: Box, xs, ys, zs) -> int:
+    """numpy form of max_cell_count (the bins in float64, as in C)."""
+    xs, ys, zs = (np.asarray(v, np.float64) for v in (xs, ys, zs))
+    ix = np.clip(((xs - box.xmin) / box.lx * grid.nx).astype(int),
                  0, grid.nx - 1)
-    iy = np.clip(((np.asarray(ys) - box.ymin) / box.ly * grid.n).astype(int),
+    iy = np.clip(((ys - box.ymin) / box.ly * grid.n).astype(int),
                  0, grid.n - 1)
-    iz = np.clip(((np.asarray(zs) - box.zmin) / box.lz * grid.nz).astype(int),
+    iz = np.clip(((zs - box.zmin) / box.lz * grid.nz).astype(int),
                  0, grid.nz - 1)
     cnt = np.bincount((ix * grid.n + iy) * grid.nz + iz,
                       minlength=grid.nx * grid.n * grid.nz)
     return int(cnt.max())
+
+
+@functools.lru_cache(maxsize=1)
+def _pool() -> concurrent.futures.ThreadPoolExecutor:
+    return concurrent.futures.ThreadPoolExecutor(
+        max_workers=min(8, os.cpu_count() or 1))
 
 
 def _cap_aligned(g0: CMGrid, cap: int) -> bool:
@@ -153,10 +172,18 @@ def choose_cap_and_grid(box: Box, h_eff: float, n_global: int, xs, ys, zs,
     cap; return the candidate with the least n_cells * cap^2."""
     L = min(box.lx, box.ly, box.lz)
     n_corr = max(2, int(math.floor(L / (2.0 * h_eff * 1.05))))
+    ns = range(n_corr, 1, -1)
+    # the counts of every resolution at once (the C counts release the
+    # GIL), on coordinates mapped to the unit cube once; the choice below
+    # stays the sequential scan
+    from sphexa_tpu_torch.util import native
+    uvw = native.unit_coords(xs, ys, zs, box)
+    counts = _pool().map(
+        lambda n: native.max_cell_count(*uvw, n, n, n), ns)
     best = None
-    for n in range(n_corr, 1, -1):
+    for n, count in zip(ns, counts):
         g0 = CMGrid(n=n)
-        need = max(cap_min, max_cell_count(g0, box, xs, ys, zs) + headroom)
+        need = max(cap_min, count + headroom)
         cap = int(np.ceil(need / 64) * 64)
         while cap <= cap_max and not _cap_aligned(g0, cap):
             cap += 64
@@ -325,6 +352,29 @@ def build_layout(grid: CMGrid, box: Box, x, y, z, alive=None) -> CMLayout:
                   for s in (gs.shift_x, gs.shift_y, gs.shift_z))
     return CMLayout(src=src, valid=valid, interior=interior, shift=shift,
                     ghost_pull=ghost_pull, slot_of=slot_of, overflow=overflow)
+
+
+@functools.lru_cache(maxsize=16)
+def _static_rows(grid: CMGrid, box: Box, device):
+    """The static rows of a CMLayout on `device`, made once per (grid,
+    box, device)."""
+    gs = ghost_static(grid, box)
+    return (torch.tensor(gs.interior, device=device),
+            tuple(torch.tensor(s, device=device)
+                  for s in (gs.shift_x, gs.shift_y, gs.shift_z)),
+            torch.tensor(gs.ghost_pull, device=device))
+
+
+def attach_static(grid: CMGrid, box: Box, src, valid, slot_of,
+                  overflow) -> CMLayout:
+    """A full CMLayout from its data-dependent rows (src, valid,
+    slot_of, overflow) and the static ghost maps: engines that carry
+    layouts between steps carry only those four (the JAX package's
+    attach_static, ops/cellmajor.py:348)."""
+    interior, shift, ghost_pull = _static_rows(grid, box, src.device)
+    return CMLayout(src=src, valid=valid, interior=interior, shift=shift,
+                    ghost_pull=ghost_pull, slot_of=slot_of,
+                    overflow=overflow)
 
 
 def to_cm(layout: CMLayout, field, fill=0.0):
