@@ -102,10 +102,11 @@ Phases (any failure exits non-zero before the last line):
      on the card against the CPU at Sedov 10^3 (3 steps) and Evrard 10
      with the FMM (2 steps), the first step's cell permutation and
      neighbour counts equal, rows within 1e-5 of scale; main([...]) in
-     this process at Sedov 100^3 (--dt0 3e-5) under --prop ve (2
-     steps, each step split into the cell list, the neighbour list, the
-     five stages, EOS and the rest, its device activities counted by
-     torch.profiler), ve-pallas (5 steps) and ve-bdt (1 cycle): ms a
+     this process at Sedov 100^3 (--dt0 3e-5) under --prop ve (1
+     step, after the fail-stop's re-grid; the step split into the cell
+     list, the neighbour list, the five stages, EOS and the rest, its
+     device activities counted by torch.profiler), ve-pallas (5 steps)
+     and ve-bdt (1 cycle): ms a
      step from CUDA events around each call of the step function, peak
      memory, the kernels' launches, energy drift < 5e-3 from the
      constants file, no fail-stop after the first accepted step, finite
@@ -117,9 +118,9 @@ Phases (any failure exits non-zero before the last line):
      make_std_step (Noh; 2 steps each) on the card against the CPU at
      10^3; main([...]) in this process at turbulence 100^3 under --prop
      turbulence-ve-bdt (one warm-up and 2 timed cycles) and
-     turbulence-ve (2 steps), --prop std at Noh 100^3 (2 steps), and
+     turbulence-ve (2 steps), --prop std at Noh 100^3 (1 step), and
      gresho-chan, isobaric-cube, kelvin-helmholtz and wind-shock at
-     n = 50 under --prop ve and ve-pallas (2 steps; kelvin-helmholtz
+     n = 50 under --prop ve and ve-pallas (1 step; kelvin-helmholtz
      and wind-shock under ve-pallas must meet the planner's refusal,
      EXPECTED_REFUSALS, and every other run must run),
      kelvin-helmholtz at n = 50 with --glass (a 2^3 template: its glass
@@ -136,24 +137,25 @@ Phases (any failure exits non-zero before the last line):
      sampled cells of a fully active cap-128 check frame (the lattice
      perturbed as the Sedov checks are); TurbShardedBdtVE at 100^3,
      D = 2 (one warm-up and one timed cycle);
-  14. (o) the h-tier zoom grids: the CLI's ladder for Evrard 100
-     (choose_tiers_auto, cap_max 128) planned on the host from the
-     initial state, every tier's band, grid, cap, slots, frame and owned
-     rows beside the uniform frame of phase (l), the band audit (C) at 0
+  14. (o) the h-tier zoom grids: main([...]) at Evrard 100 under
+     --prop ve-tiered-resident, whose ladder (choose_tiers_auto,
+     cap_max 128, planned on the host from the initial state) is
+     printed tier by tier (band, grid, cap, slots, frame and owned rows)
+     beside the uniform frame of phase (l), the band audit (C) at 0
      violations; on that ladder, under phase (l)'s FMM, the resident
      tiered step (one warm-up and 3 timed steps; rebuilds, folds,
      nf_truncated 0, energy drift, peak memory; the step split into the
      tiered SPH forces, gravity and the rest beside PR 12's uniform
-     step), the CLI's re-plan after the first step on that state
-     (choose_tiers_robust), the particle-frame tiered step (1 + 2) and
+     step), with --tiers the CLI's re-plan after the first step on that
+     state (choose_tiers_robust), the particle-frame tiered step (1 + 2) and
      TieredBdtVE (4 rungs, one timed cycle: active fraction, rungs,
      fold); K3-K7 on every tier frame against their plain versions on
      sampled occupied cells, timed beside their bounds from each tier's
      in-support pairs (into the kernel rows as `tiers`), and K2g with
      its gate pass on the finest tier under a seeded activity pattern;
-     main([...]) in this process at Evrard 100 under --prop
-     ve-tiered-resident, ve-tiered and ve-tiered-bdt (the FMM set on
-     the steppers it makes: the CLI has no solver flag), where a run may
+     main([...]) in this process at Evrard 100 under --prop ve-tiered
+     and ve-tiered-bdt as under ve-tiered-resident (the FMM set on the
+     steppers it makes: the CLI has no solver flag), where a run may
      end in the JAX CLI's own outcome, EXPECTED_TIER_FAULT (its re-plan
      after the first step, choose_tiers_auto, finds no rung); and Sedov
      100^3 under --prop ve-tiered (one tier, 2 steps);
@@ -3128,7 +3130,7 @@ def gravity_phase(report):
 
 CLI_SIDE = 100                  # main([...]) at Sedov 100^3
 CLI_DT0 = "3e-5"
-CLI_RUNS = (("ve", 2), ("ve-pallas", 5), ("ve-bdt", 1))   # steps (cycles)
+CLI_RUNS = (("ve", 1), ("ve-pallas", 5), ("ve-bdt", 1))   # steps (cycles)
 CLI_DRIFT_BOUND = 5e-3
 GATHER_CAP = 128                # holds the 125-row cells of Sedov 10^3
                                 # (and Evrard 10's 69) at grid level 1
@@ -3280,9 +3282,11 @@ def gather_split(box, cfg, grid, state):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(state)
         torch.cuda.synchronize()
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in dev) * 1e-3
+    # the profiler's raw events: prof.events() builds a Python object for
+    # each of the step's ~6e5 activities, which takes minutes
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.duration_ns() for e in dev) * 1e-6
     return dict(step_ms=step_ms, split_ms=split,
                 launches=len(dev) or None,
                 device_busy_ms=busy if dev else None,
@@ -3316,13 +3320,15 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
 
     if os.path.exists(consts):
         os.remove(consts)
-    calls, made, e0, fns, diags = [], [], [], [], []
+    calls, made, e0, fns, diags, make_s = [], [], [], [], [], []
     make_stepper = cli.make_stepper
 
     def timed_stepper(args, box, cfg, *a, **kw):
         if cfg_override:
             cfg = cfg.replace(**cfg_override)
+        t0 = time.perf_counter()
         fn, grid = make_stepper(args, box, cfg, *a, **kw)
+        make_s.append(time.perf_counter() - t0)
         made.append((box, cfg, grid))
         fns.append(fn)
 
@@ -3354,6 +3360,7 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
         # what ran before the raise, for a caller that expects it
         torch.cuda.synchronize()
         e.partial = dict(lines=buf.getvalue().splitlines(), made=made,
+                         make_s=make_s,
                          call_ms=[a.elapsed_time(b) for a, b in calls],
                          diags=diags, e0=e0)
         for ln in e.partial["lines"]:
@@ -3378,7 +3385,7 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
     accepted = [ln.startswith("### Check") for ln in lines
                 if ln.startswith(("### Check",) + FAIL_STOPS)]
     assert len(accepted) == len(calls), (accepted, len(calls))
-    return dict(state=state, made=made, fns=fns,
+    return dict(state=state, made=made, make_s=make_s, fns=fns,
                 diags=[d for d, ok in zip(diags, accepted) if ok],
                 e0=e0[0], launches=launches,
                 lines=lines, fails=fails, call_ms=call_ms,
@@ -3529,7 +3536,7 @@ CASE_SIDE = 50              # the other new cases through main
 # cycles
 TURB_RUNS = (("turbulence", "turbulence-ve-bdt", TURB_SIDE, 3),
              ("turbulence", "turbulence-ve", TURB_SIDE, 2),
-             ("noh", "std", TURB_SIDE, 2))
+             ("noh", "std", TURB_SIDE, 1))
 # (case, prop) -> the JAX planner's refusal (ops/cellmajor.
 # choose_cap_and_grid): KH's z of 0.0625 and wind-shock's 4:1:1 box hold
 # no slot grid with a legal z-group below cap_max at n = 50
@@ -3537,7 +3544,7 @@ EXPECTED_REFUSALS = {
     (case, "ve-pallas"): "no (cap, grid) with a legal z-group fits these "
                          "positions below cap_max=1024"
     for case in ("kelvin-helmholtz", "wind-shock")}
-CASE_RUNS = tuple((case, prop, CASE_SIDE, 2)
+CASE_RUNS = tuple((case, prop, CASE_SIDE, 1)
                   for case in ("gresho-chan", "isobaric-cube",
                                "kelvin-helmholtz", "wind-shock")
                   for prop in ("ve", "ve-pallas"))
@@ -4078,21 +4085,18 @@ def tier_ladder(box, p, tiers):
     return out
 
 
-def tier_plan(report):
+def tier_plan(report, tiers, plan_s):
     """(o) 1: the CLI's ladder for Evrard 100 (choose_tiers_auto,
-    cap_max 128), planned on the host from the initial state; the band
-    audit (C) must count 0; the total slots beside the uniform frame of
-    phase (l)."""
-    from sphexa_tpu_torch.propagator.ve_tiered import (audit_tiers,
-                                                       choose_tiers_auto)
+    cap_max 128, planned on the host by the first main run from the
+    initial state, in plan_s seconds): each tier's band, grid, slots,
+    frame and owned rows, the total slots beside the uniform frame of
+    phase (l), and the band audit (C), which must count 0. Returns the
+    initial state, box and config of that run."""
+    from sphexa_tpu_torch.propagator.ve_tiered import audit_tiers
     state, box, cfg, ugrid = evrard(TIER_SIDE, DEVICE, "fmm", EVRARD_LEVEL)
     p = state.p
     xyzh = [getattr(p, c).cpu().numpy() for c in "xyzh"]
     alive = p.alive.cpu().numpy()
-    t0 = time.perf_counter()
-    tiers = choose_tiers_auto(box, *xyzh, alive=alive, cap_max=TIER_CAP_MAX,
-                              verbose=True)
-    plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     viol = audit_tiers(tiers, box, *xyzh, alive=alive)
     audit_s = time.perf_counter() - t0
@@ -4114,7 +4118,7 @@ def tier_plan(report):
                                uniform_slots=ugrid.n_slots,
                                uniform_grid=str(ugrid), plan_s=plan_s,
                                audit_violations=viol, audit_s=audit_s)
-    return state, box, cfg, tiers
+    return state, box, cfg
 
 
 def tier_cli_run(report, prop, steps, case="evrard", n=None):
@@ -4125,7 +4129,9 @@ def tier_cli_run(report, prop, steps, case="evrard", n=None):
     fold retried (main raises past three re-tiers), |etot - e0|/e0 <
     CLI_DRIFT_BOUND. At Evrard 100 the run may end in the JAX CLI's own
     outcome, EXPECTED_TIER_FAULT, raised by the re-plan that follows an
-    accepted step; it is recorded with the calls that ran before it."""
+    accepted step; it is recorded with the calls that ran before it.
+    Returns (the run's record, its first plan's tiers, that plan's
+    seconds)."""
     import torch
     n = TIER_SIDE if n is None else n
     consts = os.path.join(ROOT, "chiprun_out",
@@ -4159,8 +4165,9 @@ def tier_cli_run(report, prop, steps, case="evrard", n=None):
             f"{[round(t, 3) for t in part['call_ms']]} ms (folds {folds}; "
             f"{len(part['made'])} plan(s)), then the JAX "
             f"CLI's outcome at the next re-plan (EXPECTED_TIER_FAULT): {e}")
+        res["plan_s"] = part["make_s"]
         report.setdefault("tier_cli_runs", {})[key] = res
-        return None, res
+        return res, part["made"][0][2], part["make_s"][0]
     state = r["state"]
     assert state.p.device.type == torch.device(DEVICE).type, \
         f"{prop}: the state left the card"
@@ -4206,8 +4213,9 @@ def tier_cli_run(report, prop, steps, case="evrard", n=None):
         + (f"{res['bdt_lines']}, " if "bdt_lines" in res else "")
         + f"nf_truncated 0, |etot - e0|/|e0| = {drift:.3e}, launches "
           f"{r['launches']}")
+    res["plan_s"] = r["make_s"]
     report.setdefault("tier_cli_runs", {})[key] = res
-    return r, res
+    return res, r["made"][0][2], r["make_s"][0]
 
 
 def tier_steps(step, carry, n, diag_of):
@@ -4261,7 +4269,7 @@ def tier_replan(report, box, cfg, st, d, h_max0):
     report["tier_replan"] = out
 
 
-def tier_engine_runs(report, state, box, cfg, tiers):
+def tier_engine_runs(report, state, box, cfg, tiers, replan):
     """(o) 2-3 on the engines directly, on the initial plan from the
     initial Evrard 100 state (FMM level 6): make_ve_step_tiered_resident
     one warm-up and 3 timed steps (rebuilds, folds, nf_truncated 0,
@@ -4270,7 +4278,8 @@ def tier_engine_runs(report, state, box, cfg, tiers):
     last state (tier_split); make_ve_step_tiered one warm-up and 2 timed
     steps; TieredBdtVE (4 rungs) one timed cycle (active fraction, rung
     histogram, fold). Counters zeroed just before each timed run and
-    read just after: every tier's five stages each call."""
+    read just after: every tier's five stages each call. replan: the
+    re-plan check (`--tiers` only: it plans twice more, ~20-40 s)."""
     import torch
     from sphexa_tpu_torch.propagator.ve_tiered import (
         make_ve_step_tiered, make_ve_step_tiered_resident)
@@ -4304,7 +4313,8 @@ def tier_engine_runs(report, state, box, cfg, tiers):
                                                device=DEVICE)
     c = bind(state)
     c, d0, w_ms = tier_steps(rstep, c, 1, lambda d: d)
-    tier_replan(report, box, cfg, c.state, d0[0], h_max0)
+    if replan:
+        tier_replan(report, box, cfg, c.state, d0[0], h_max0)
     zero()
     c, diags, ms = tier_steps(rstep, c, 3, step_diag)
     launches = launched()
@@ -4525,27 +4535,34 @@ def tier_pair_check(report, rows, r, engines, layouts):
     report["tier_kernels"] = dict(stages=res, gated=gres, kinds=kinds)
 
 
-def tier_phase(report, rows):
-    """Phase (o): the h-tier zoom grids on the card."""
+def tier_phase(report, rows, replan=False):
+    """Phase (o): the h-tier zoom grids on the card. replan: run the
+    re-plan check of tier_engine_runs (`--tiers`)."""
     t0 = time.perf_counter()
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
 
     def at():
         log(f"  {time.perf_counter() - t0:.1f} s into phase (o)")
 
-    log(f"(o) the tier ladder of Evrard {TIER_SIDE} (choose_tiers_auto, "
+    prop, steps = TIER_RUNS[0]
+    log(f"(o) main([... --init evrard -n {TIER_SIDE} --prop {prop} ...]), "
+        f"the FMM at level {EVRARD_LEVEL}:")
+    _, tiers, plan_s = tier_cli_run(report, prop, steps)
+    at()
+    log(f"(o) its tier ladder for Evrard {TIER_SIDE} (choose_tiers_auto, "
         f"cap_max {TIER_CAP_MAX}):")
-    state, box, cfg, tiers = tier_plan(report)
+    state, box, cfg = tier_plan(report, tiers, plan_s)
     at()
     log(f"(o) the tiered engines at Evrard {TIER_SIDE} on that ladder, the "
         f"FMM at level {EVRARD_LEVEL}:")
-    r, engines, layouts = tier_engine_runs(report, state, box, cfg, tiers)
+    r, engines, layouts = tier_engine_runs(report, state, box, cfg, tiers,
+                                           replan)
     at()
     log(f"(o) K3-K7 and K2g on the tier frames of Evrard {TIER_SIDE}:")
     tier_pair_check(report, rows, r, engines, layouts)
     del state, r, engines, layouts
     at()
-    for prop, steps in TIER_RUNS:
+    for prop, steps in TIER_RUNS[1:]:
         log(f"(o) main([... --init evrard -n {TIER_SIDE} --prop {prop} "
             f"...]), the FMM at level {EVRARD_LEVEL}:")
         tier_cli_run(report, prop, steps)
@@ -4803,7 +4820,7 @@ def tiers_main() -> int:
     report = {"smi": smi_line()}
     log(report["smi"])
     _cuda.build()
-    tier_phase(report, [])
+    tier_phase(report, [], replan=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_tiers.json"),
               "w") as f:
         json.dump(report, f, indent=1, default=str)

@@ -153,6 +153,18 @@ def _pool() -> concurrent.futures.ThreadPoolExecutor:
         max_workers=min(8, os.cpu_count() or 1))
 
 
+def _cap_for(g0: CMGrid, count: int, cap_min: int, headroom: int,
+             cap_max: int) -> int:
+    """The smallest legal cap for `count` particles a cell (+headroom,
+    at least cap_min, a multiple of 64) on g0; past cap_max when none
+    fits. It never falls as the count rises."""
+    need = max(cap_min, count + headroom)
+    cap = int(np.ceil(need / 64) * 64)
+    while cap <= cap_max and not _cap_aligned(g0, cap):
+        cap += 64
+    return cap
+
+
 def _cap_aligned(g0: CMGrid, cap: int) -> bool:
     """The JAX planner's (grid, cap) legality rule: cap % 128 == 0, or
     exactly 64 with an even z-group and even nz."""
@@ -173,20 +185,24 @@ def choose_cap_and_grid(box: Box, h_eff: float, n_global: int, xs, ys, zs,
     L = min(box.lx, box.ly, box.lz)
     n_corr = max(2, int(math.floor(L / (2.0 * h_eff * 1.05))))
     ns = range(n_corr, 1, -1)
-    # the counts of every resolution at once (the C counts release the
-    # GIL), on coordinates mapped to the unit cube once; the choice below
-    # stays the sequential scan
     from sphexa_tpu_torch.util import native
     uvw = native.unit_coords(xs, ys, zs, box)
-    counts = _pool().map(
-        lambda n: native.max_cell_count(*uvw, n, n, n), ns)
+    every8 = [np.ascontiguousarray(c[::8]) for c in uvw]
+
+    def count(n):
+        # a subset's count is a lower bound: where it already puts the cap
+        # past cap_max, so would the full count (the cap rises with it)
+        low = native.max_cell_count(*every8, n, n, n)
+        if _cap_for(CMGrid(n=n), low, cap_min, headroom, cap_max) > cap_max:
+            return low
+        return native.max_cell_count(*uvw, n, n, n)
+
+    # every resolution at once (the C counts release the GIL); the choice
+    # below stays the sequential scan
     best = None
-    for n, count in zip(ns, counts):
+    for n, c in zip(ns, _pool().map(count, ns)):
         g0 = CMGrid(n=n)
-        need = max(cap_min, count + headroom)
-        cap = int(np.ceil(need / 64) * 64)
-        while cap <= cap_max and not _cap_aligned(g0, cap):
-            cap += 64
+        cap = _cap_for(g0, c, cap_min, headroom, cap_max)
         if cap > cap_max:
             continue
         g = CMGrid(n=n, cap=cap)

@@ -189,6 +189,10 @@ def choose_tiers(box: Box, x, y, z, h, alive=None, cap_max: int = 128,
     shift = choose_shift(box, x, y, z)
     if any(s != 0.0 for s in shift):
         x, y, z = tier_coords(box, shift, x, y, z)
+    # in h order, a band and a frame's cutoff are index ranges (nothing
+    # below depends on the order of the particles)
+    order = np.argsort(h, kind="stable")
+    x, y, z, h = x[order], y[order], z[order], h[order]
 
     def fit(h_hi: float, h_lo: float, top: bool = False):
         """(grid, sub) for tier [h_lo, h_hi), or None past the cap
@@ -204,20 +208,21 @@ def choose_tiers(box: Box, x, y, z, h, alive=None, cap_max: int = 128,
         return r
 
     def _fit(h_hi, h_lo, h_eff, cutoff, limit):
-        sel = (h >= h_lo) & (h < h_hi)
-        if not sel.any():
+        i0, i1, ic = np.searchsorted(h, [h_lo, h_hi, cutoff])
+        if i1 <= i0:
             return None
+        sel = slice(i0, i1)
         sub = _subbox(box, x[sel], y[sel], z[sel],
                       margin=2.0 * 2.0 * h_eff * SLACK)
-        inbox = ((x >= sub.xmin) & (x <= sub.xmax) & (y >= sub.ymin)
-                 & (y <= sub.ymax) & (z >= sub.zmin) & (z <= sub.zmax))
-        frame = inbox & (h >= cutoff)
+        xc, yc, zc = x[ic:], y[ic:], z[ic:]
+        frame = ((xc >= sub.xmin) & (xc <= sub.xmax) & (yc >= sub.ymin)
+                 & (yc <= sub.ymax) & (zc >= sub.zmin) & (zc <= sub.zmax))
         try:
             # headroom: slots past the realized max count, for a few
             # steps of drift between host re-tierings
             cap, grid = choose_cap_and_grid(
                 sub, h_eff, int(frame.sum()),
-                x[frame], y[frame], z[frame], cap_min=32, cap_max=limit,
+                xc[frame], yc[frame], zc[frame], cap_min=32, cap_max=limit,
                 headroom=headroom)
         except ValueError:
             return None
