@@ -145,9 +145,10 @@ Phases (any failure exits non-zero before the last line):
      violations; on that ladder, under phase (l)'s FMM, the resident
      tiered step (one warm-up and 3 timed steps; rebuilds, folds,
      nf_truncated 0, energy drift, peak memory; the step split into the
-     tiered SPH forces, gravity and the rest beside PR 12's uniform
-     step), with --tiers the CLI's re-plan after the first step on that
-     state (choose_tiers_robust), the particle-frame tiered step (1 + 2) and
+     tiered SPH forces, gravity and the rest beside the uniform
+     resident step of phase (l)), with --tiers the CLI's re-plan after
+     the first step on that state (choose_tiers_robust), the
+     particle-frame tiered step (1 + 2) and
      TieredBdtVE (4 rungs, one timed cycle: active fraction, rungs,
      fold); K3-K7 on every tier frame against their plain versions on
      sampled occupied cells, timed beside their bounds from each tier's
@@ -4035,8 +4036,9 @@ TIER_SAMPLE_CELLS = 48      # cells of each tier launch held against plain
 TIER_GATED_SEED = 11        # activity_pattern() of the finest tier
 # the FMM of phase (l) on every stepper the CLI makes (no CLI flag)
 TIER_FMM = dict(gravity_solver="fmm", fmm_level=EVRARD_LEVEL)
-# PR 12's uniform resident Evrard 100 step on this card (NVIDIA H100
-# 80GB HBM3, 700 W; PERF.md section 5): the comparison of (o) 2
+# the uniform resident Evrard 100 step of phase (l) on this card
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5): the comparison of
+# (o) 2
 UNIFORM_STEP_MS = 1053.812
 UNIFORM_HYDRO_MS = 29.366
 # the JAX CLI's own outcome at Evrard 100 (main.py:207-224): its
@@ -4327,7 +4329,8 @@ def tier_engine_runs(report, state, box, cfg, tiers, replan):
         assert torch.isfinite(getattr(c.state.p, f)).all(), f"non-finite {f}"
     res = dict(warmup_ms=w_ms[0], step_ms=ms, mean_ms=float(np.mean(ms)),
                rebuilds=int(c.rebuilds), diags=diags, e0=e0,
-               energy_drift=drift, peak_bytes=torch.cuda.max_memory_allocated(),
+               energy_drift=drift,
+               peak_bytes=torch.cuda.max_memory_allocated(),
                launches=launches,
                folds=[int(d["max_cell_count"]) for d in diags])
     log(f"  resident: {res['mean_ms']:.3f} ms a step (CUDA events, "
@@ -4400,7 +4403,7 @@ def tier_split(report, r, res):
     """(o) 2: the parts of a tiered step, each timed alone on the run's
     last state: the tiered SPH forces (every tier's five stages and the
     merges), gravity (the FMM on the alive rows) and the rest; beside
-    PR 12's uniform resident step."""
+    phase (l)'s uniform resident step."""
     import torch
     from sphexa_tpu_torch.propagator.ve_cellmajor import _add_gravity
     from sphexa_tpu_torch.propagator.ve_tiered import (_build_layouts,
@@ -4427,7 +4430,7 @@ def tier_split(report, r, res):
     log(f"  split (each part alone on the last state): tiered SPH forces "
         f"{forces_ms:.3f} ms (every tier, merges included; the tier "
         f"layouts alone {layout_ms:.3f}), gravity {grav_ms:.3f}, rest "
-        f"{rest:.3f}; PR 12's uniform resident step on this card "
+        f"{rest:.3f}; phase (l)'s uniform resident step on this card "
         f"{UNIFORM_STEP_MS} ms, its hydro pipeline {UNIFORM_HYDRO_MS} ms")
     res["split"] = split
     return engines, layouts
