@@ -102,11 +102,10 @@ Phases (any failure exits non-zero before the last line):
      on the card against the CPU at Sedov 10^3 (3 steps) and Evrard 10
      with the FMM (2 steps), the first step's cell permutation and
      neighbour counts equal, rows within 1e-5 of scale; main([...]) in
-     this process at Sedov 100^3 (--dt0 3e-5) under --prop ve (1
-     step, after the fail-stop's re-grid; the step split into the cell
-     list, the neighbour list, the five stages, EOS and the rest, its
-     device activities counted by torch.profiler), ve-pallas (5 steps)
-     and ve-bdt (1 cycle): ms a
+     this process at Sedov 100^3 (--dt0 3e-5) under --prop ve (2
+     steps, each step split into the cell list, the neighbour list, the
+     five stages, EOS and the rest, its device activities counted by
+     torch.profiler), ve-pallas (5 steps) and ve-bdt (1 cycle): ms a
      step from CUDA events around each call of the step function, peak
      memory, the kernels' launches, energy drift < 5e-3 from the
      constants file, no fail-stop after the first accepted step, finite
@@ -118,9 +117,9 @@ Phases (any failure exits non-zero before the last line):
      make_std_step (Noh; 2 steps each) on the card against the CPU at
      10^3; main([...]) in this process at turbulence 100^3 under --prop
      turbulence-ve-bdt (one warm-up and 2 timed cycles) and
-     turbulence-ve (2 steps), --prop std at Noh 100^3 (1 step), and
+     turbulence-ve (2 steps), --prop std at Noh 100^3 (2 steps), and
      gresho-chan, isobaric-cube, kelvin-helmholtz and wind-shock at
-     n = 50 under --prop ve and ve-pallas (1 step; kelvin-helmholtz
+     n = 50 under --prop ve and ve-pallas (2 steps; kelvin-helmholtz
      and wind-shock under ve-pallas must meet the planner's refusal,
      EXPECTED_REFUSALS, and every other run must run),
      kelvin-helmholtz at n = 50 with --glass (a 2^3 template: its glass
@@ -157,9 +156,11 @@ Phases (any failure exits non-zero before the last line):
      main([...]) in this process at Evrard 100 under --prop ve-tiered
      and ve-tiered-bdt as under ve-tiered-resident (the FMM set on the
      steppers it makes: the CLI has no solver flag), where a run may
-     end in the JAX CLI's own outcome, EXPECTED_TIER_FAULT (its re-plan
-     after the first step, choose_tiers_auto, finds no rung); and Sedov
-     100^3 under --prop ve-tiered (one tier, 2 steps);
+     end in the JAX CLI's own outcome, EXPECTED_TIER_FAULT (the re-plan
+     that an h re-grid or a box growth asks for after an accepted step,
+     choose_tiers_auto, finds no rung), with no fold before it and the
+     calls before it gated as a whole run is (tier_fault_gates); and
+     Sedov 100^3 under --prop ve-tiered (one tier, 2 steps);
   15. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
@@ -3131,7 +3132,7 @@ def gravity_phase(report):
 
 CLI_SIDE = 100                  # main([...]) at Sedov 100^3
 CLI_DT0 = "3e-5"
-CLI_RUNS = (("ve", 1), ("ve-pallas", 5), ("ve-bdt", 1))   # steps (cycles)
+CLI_RUNS = (("ve", 2), ("ve-pallas", 5), ("ve-bdt", 1))   # steps (cycles)
 CLI_DRIFT_BOUND = 5e-3
 GATHER_CAP = 128                # holds the 125-row cells of Sedov 10^3
                                 # (and Evrard 10's 69) at grid level 1
@@ -3310,7 +3311,11 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
     memory, wall time and the printed lines. cfg_override: SphConfig
     fields set on every stepper main makes (the CLI has no flag for the
     gravity solver, as the JAX CLI). Gates: one call a step and a retry
-    a fail-stop, every row of the final state finite."""
+    a fail-stop, every row of the final state finite. A raise from main
+    carries `partial`: what ran before it (the lines, the steppers made,
+    the (box, h_max) of every stepper asked for, the stepper each call
+    used, the last call's state, the diagnostics, e0 and the launch
+    counts)."""
     import contextlib
     import io
 
@@ -3322,16 +3327,19 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
     if os.path.exists(consts):
         os.remove(consts)
     calls, made, e0, fns, diags, make_s = [], [], [], [], [], []
+    tried, used, last = [], [], []
     make_stepper = cli.make_stepper
 
-    def timed_stepper(args, box, cfg, *a, **kw):
+    def timed_stepper(args, box, cfg, h_max, *a, **kw):
         if cfg_override:
             cfg = cfg.replace(**cfg_override)
+        tried.append((box, float(h_max)))
         t0 = time.perf_counter()
-        fn, grid = make_stepper(args, box, cfg, *a, **kw)
+        fn, grid = make_stepper(args, box, cfg, h_max, *a, **kw)
         make_s.append(time.perf_counter() - t0)
         made.append((box, cfg, grid))
         fns.append(fn)
+        which = len(made) - 1
 
         def step(state):
             if not e0:
@@ -3343,6 +3351,8 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
             ev[1].record()
             calls.append(ev)
             diags.append(out[1])
+            used.append(which)
+            last[:] = [out[0]]
             return out
         return step, grid
 
@@ -3361,9 +3371,12 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
         # what ran before the raise, for a caller that expects it
         torch.cuda.synchronize()
         e.partial = dict(lines=buf.getvalue().splitlines(), made=made,
-                         make_s=make_s,
+                         make_s=make_s, tried=tried, used=used,
+                         state=last[0] if last else None,
                          call_ms=[a.elapsed_time(b) for a, b in calls],
-                         diags=diags, e0=e0)
+                         diags=diags, e0=e0,
+                         launches={k.name: k.launches for k in kernels
+                                   if k.launches})
         for ln in e.partial["lines"]:
             log(f"    {ln}")
         raise
@@ -3537,7 +3550,7 @@ CASE_SIDE = 50              # the other new cases through main
 # cycles
 TURB_RUNS = (("turbulence", "turbulence-ve-bdt", TURB_SIDE, 3),
              ("turbulence", "turbulence-ve", TURB_SIDE, 2),
-             ("noh", "std", TURB_SIDE, 1))
+             ("noh", "std", TURB_SIDE, 2))
 # (case, prop) -> the JAX planner's refusal (ops/cellmajor.
 # choose_cap_and_grid): KH's z of 0.0625 and wind-shock's 4:1:1 box hold
 # no slot grid with a legal z-group below cap_max at n = 50
@@ -3545,7 +3558,7 @@ EXPECTED_REFUSALS = {
     (case, "ve-pallas"): "no (cap, grid) with a legal z-group fits these "
                          "positions below cap_max=1024"
     for case in ("kelvin-helmholtz", "wind-shock")}
-CASE_RUNS = tuple((case, prop, CASE_SIDE, 1)
+CASE_RUNS = tuple((case, prop, CASE_SIDE, 2)
                   for case in ("gresho-chan", "isobaric-cube",
                                "kelvin-helmholtz", "wind-shock")
                   for prop in ("ve", "ve-pallas"))
@@ -4123,6 +4136,59 @@ def tier_plan(report, tiers, plan_s):
     return state, box, cfg
 
 
+def tier_fault_gates(key, prop, part):
+    """The gates of a tiered main run that ended in EXPECTED_TIER_FAULT
+    (main_in_process's `partial`): every call accepted (no fold: a fold
+    that a re-tier cannot clear is a failure, not the JAX CLI's
+    outcome), the plan that raised asked for by an h re-grid or a box
+    growth after an accepted step, the last state on the card and
+    finite, nf_truncated 0, |etot - e0|/|e0| < CLI_DRIFT_BOUND on the
+    last call's state, and the prop's kernels launched, each stage once
+    per tier per call (BDT: each stage as often as the others, a
+    multiple of the tiers)."""
+    import torch
+    from sphexa_tpu_torch.observables import conserved_quantities
+    lines, made, tried = part["lines"], part["made"], part["tried"]
+    folds = sum(ln.startswith(FAIL_STOPS) for ln in lines)
+    assert folds == 0, f"{key}: {folds} fold(s) before the re-plan fault"
+    checks = sum(ln.startswith("### Check") for ln in lines)
+    # the step whose re-plan raised is accepted but not yet logged
+    assert checks == len(part["call_ms"]) - 1, (key, checks)
+    assert len(tried) == len(made) + 1, (key, len(tried), len(made))
+    (box_p, h_p), (box_f, h_f) = tried[-2], tried[-1]
+    re_plan = ("box growth" if box_f != box_p
+               else "h re-grid" if h_f > 1.25 * h_p else None)
+    assert re_plan, f"{key}: the fault came from no box growth or h re-grid"
+    for d in part["diags"]:
+        assert int(getattr(d, "nf_truncated", 0)) == 0, "FMM truncation"
+    state = part["state"]
+    assert state.p.device.type == torch.device(DEVICE).type, \
+        f"{key}: the state left the card"
+    for f in ("x", "y", "z", "h", "vx", "vy", "vz", "temp", "alpha"):
+        assert torch.isfinite(getattr(state.p, f)).all(), f"{key}: {f}"
+    cfg = made[part["used"][-1]][1]
+    etot = float(conserved_quantities(
+        state.p, cfg, egrav=float(part["diags"][-1].egrav)).etot)
+    drift = abs(etot - part["e0"][0]) / abs(part["e0"][0])
+    assert drift < CLI_DRIFT_BOUND, f"{key}: energy drift {drift:.3e}"
+    launches = part["launches"]
+    assert set(launches) == PROP_KERNELS[prop], (key, launches)
+    per_call = sum(len(made[i][2]) for i in part["used"])
+    stage = {k: v for k, v in launches.items() if k != "pair_gate"}
+    if prop.endswith("bdt"):
+        assert len(set(stage.values())) == 1, launches
+        assert min(stage.values()) % len(made[0][2]) == 0, launches
+    else:
+        assert stage == {k: per_call for k in stage}, (key, launches)
+    return dict(accepted=len(part["call_ms"]), folds=0, re_plan=re_plan,
+                plans=len(made), launches=launches, energy_drift=drift,
+                e0=part["e0"][0], etot=etot,
+                h_max=[h for _, h in tried],
+                lines=[ln for ln in lines if ln.startswith(
+                    ("### Check", "# tiers", "# box", "# re-gridded",
+                     "# tiered-bdt"))])
+
+
 def tier_cli_run(report, prop, steps, case="evrard", n=None):
     """(o) 3, 5: main([...]) in this process (main_in_process). Evrard
     runs under phase (l)'s FMM (TIER_FMM) with e0 from state_energy.
@@ -4152,22 +4218,15 @@ def tier_cli_run(report, prop, steps, case="evrard", n=None):
         if (not grav or EXPECTED_TIER_FAULT not in str(e) or part is None
                 or not part["call_ms"]):
             raise
-        for d in part["diags"]:
-            assert int(getattr(d, "nf_truncated", 0)) == 0, "FMM truncation"
-        folds = sum(ln.startswith(FAIL_STOPS) for ln in part["lines"])
-        res = dict(expected_fault=str(e), call_ms=part["call_ms"],
-                   accepted=len(part["call_ms"]) - folds, folds=folds,
-                   fold_counts=[int(d.max_cell_count)
-                                for d in part["diags"]],
-                   plans=len(part["made"]),
-                   lines=[ln for ln in part["lines"] if ln.startswith(
-                       ("### Check", "# tiers", "# box", "# re-gridded",
-                        "# tiered-bdt"))])
+        res = tier_fault_gates(key, prop, part)
+        res.update(expected_fault=str(e), call_ms=part["call_ms"],
+                   plan_s=part["make_s"])
         log(f"  {key}: {res['accepted']} accepted call(s) "
-            f"{[round(t, 3) for t in part['call_ms']]} ms (folds {folds}; "
-            f"{len(part['made'])} plan(s)), then the JAX "
-            f"CLI's outcome at the next re-plan (EXPECTED_TIER_FAULT): {e}")
-        res["plan_s"] = part["make_s"]
+            f"{[round(t, 3) for t in part['call_ms']]} ms (folds 0; "
+            f"{len(part['made'])} plan(s); launches {res['launches']}; "
+            f"|etot - e0|/|e0| = {res['energy_drift']:.3e}), then the "
+            f"{res['re_plan']} re-plan meets the JAX CLI's outcome "
+            f"(EXPECTED_TIER_FAULT): {e}")
         report.setdefault("tier_cli_runs", {})[key] = res
         return res, part["made"][0][2], part["make_s"][0]
     state = r["state"]

@@ -124,12 +124,21 @@ def legal_zgroup(npz: int, cap: int, max_lanes: int = 1024) -> int:
     return 0
 
 
+def _unit_coords(xs, ys, zs, box: Box):
+    """(x - xmin) / lx (and y, z) in float64: the coordinates the C
+    counts bin, mapped once for a scan over resolutions."""
+    return tuple(np.ascontiguousarray(
+        (np.asarray(c, np.float64) - lo) / ln)
+        for c, lo, ln in ((xs, box.xmin, box.lx), (ys, box.ymin, box.ly),
+                          (zs, box.zmin, box.lz)))
+
+
 def max_cell_count(grid: CMGrid, box: Box, xs, ys, zs) -> int:
     """Host-side: the largest per-cell particle count of the given
     (alive) positions binned into `grid`, in C (util/native.py), as the
     JAX package counts it; max_cell_count_plain is its numpy form."""
     from sphexa_tpu_torch.util import native
-    return native.max_cell_count(*native.unit_coords(xs, ys, zs, box),
+    return native.max_cell_count(*_unit_coords(xs, ys, zs, box),
                                  grid.nx, grid.n, grid.nz)
 
 
@@ -186,7 +195,7 @@ def choose_cap_and_grid(box: Box, h_eff: float, n_global: int, xs, ys, zs,
     n_corr = max(2, int(math.floor(L / (2.0 * h_eff * 1.05))))
     ns = range(n_corr, 1, -1)
     from sphexa_tpu_torch.util import native
-    uvw = native.unit_coords(xs, ys, zs, box)
+    uvw = _unit_coords(xs, ys, zs, box)
     every8 = [np.ascontiguousarray(c[::8]) for c in uvw]
 
     def count(n):
@@ -316,6 +325,19 @@ def ghost_static(grid: CMGrid, box: Box) -> GhostStatic:
 # layout
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=16)
+def _static_rows(grid: CMGrid, box: Box, device):
+    """ghost_static on `device` (interior, shift, ghost_pull, fillable),
+    uploaded once per (grid, box, device): build_layout and attach_static
+    read these tensors and never write them."""
+    gs = ghost_static(grid, box)
+    return (torch.tensor(gs.interior, device=device),
+            tuple(torch.tensor(s, device=device)
+                  for s in (gs.shift_x, gs.shift_y, gs.shift_z)),
+            torch.tensor(gs.ghost_pull, device=device),
+            torch.tensor(gs.fillable, device=device))
+
+
 def build_layout(grid: CMGrid, box: Box, x, y, z, alive=None) -> CMLayout:
     """Bin particles into cell slots (stable sort by cell id) and derive
     the ghost slots. Dead rows are parked past the last cell."""
@@ -357,28 +379,11 @@ def build_layout(grid: CMGrid, box: Box, x, y, z, alive=None) -> CMLayout:
     valid[slot_sorted] = True
     valid = valid[:grid.n_slots]
 
-    gs = ghost_static(grid, box)
-    ghost_pull = torch.tensor(gs.ghost_pull, device=dev)
-    interior = torch.tensor(gs.interior, device=dev)
-    fillable = torch.tensor(gs.fillable, device=dev)
+    interior, shift, ghost_pull, fillable = _static_rows(grid, box, dev)
     src = torch.where(interior, src, src[ghost_pull])
     valid = torch.where(interior, valid, valid[ghost_pull] & fillable)
-
-    shift = tuple(torch.tensor(s, device=dev)
-                  for s in (gs.shift_x, gs.shift_y, gs.shift_z))
     return CMLayout(src=src, valid=valid, interior=interior, shift=shift,
                     ghost_pull=ghost_pull, slot_of=slot_of, overflow=overflow)
-
-
-@functools.lru_cache(maxsize=16)
-def _static_rows(grid: CMGrid, box: Box, device):
-    """The static rows of a CMLayout on `device`, made once per (grid,
-    box, device)."""
-    gs = ghost_static(grid, box)
-    return (torch.tensor(gs.interior, device=device),
-            tuple(torch.tensor(s, device=device)
-                  for s in (gs.shift_x, gs.shift_y, gs.shift_z)),
-            torch.tensor(gs.ghost_pull, device=device))
 
 
 def attach_static(grid: CMGrid, box: Box, src, valid, slot_of,
@@ -387,7 +392,7 @@ def attach_static(grid: CMGrid, box: Box, src, valid, slot_of,
     slot_of, overflow) and the static ghost maps: engines that carry
     layouts between steps carry only those four (the JAX package's
     attach_static, ops/cellmajor.py:348)."""
-    interior, shift, ghost_pull = _static_rows(grid, box, src.device)
+    interior, shift, ghost_pull, _ = _static_rows(grid, box, src.device)
     return CMLayout(src=src, valid=valid, interior=interior, shift=shift,
                     ghost_pull=ghost_pull, slot_of=slot_of,
                     overflow=overflow)

@@ -409,13 +409,9 @@ def _band_audit_plain(xi, yi, zi, hi, xj, yj, zj, box: Box, nx: int,
     return violations
 
 
-def audit_tiers(tiers, box: Box, x, y, z, h, alive=None,
-                plain: bool = False) -> int:
-    """Exact host-side frame-completeness audit: the (excluded j,
-    in-tier i) pairs with d(i, j) < 2 h_i, counted once per j and tier:
-    particles a tier frame dropped (theta band or outside the subbox)
-    that the physics needs. Zero means every tier frame is complete. The
-    scan runs in C (native.band_audit); plain=True runs its numpy form."""
+def _audit_sets(tiers, box: Box, x, y, z, h, alive=None):
+    """Per tier with both: the arguments of native.band_audit (and of
+    _band_audit_plain) for its in-tier i and its excluded j."""
     x = np.asarray(x, np.float64)
     y = np.asarray(y, np.float64)
     z = np.asarray(z, np.float64)
@@ -423,8 +419,6 @@ def audit_tiers(tiers, box: Box, x, y, z, h, alive=None,
     if alive is not None:
         keep = np.asarray(alive)
         x, y, z, h = x[keep], y[keep], z[keep], h[keep]
-    scan = _band_audit_plain if plain else native.band_audit
-    violations = 0
     for t in tiers:
         sel_i = (h >= t.h_lo) & (h < t.h_hi)
         sub = t.sub
@@ -437,9 +431,19 @@ def audit_tiers(tiers, box: Box, x, y, z, h, alive=None,
         if not excl.any() or not sel_i.any():
             continue
         hi = h[sel_i]
-        violations += scan(x[sel_i], y[sel_i], z[sel_i], hi, x[excl],
-                           y[excl], z[excl], box, *_audit_grid(box, hi))
-    return violations
+        yield (x[sel_i], y[sel_i], z[sel_i], hi, x[excl], y[excl], z[excl],
+               box, *_audit_grid(box, hi))
+
+
+def audit_tiers(tiers, box: Box, x, y, z, h, alive=None) -> int:
+    """Exact host-side frame-completeness audit: the (excluded j,
+    in-tier i) pairs with d(i, j) < 2 h_i, counted once per j and tier:
+    particles a tier frame dropped (theta band or outside the subbox)
+    that the physics needs. Zero means every tier frame is complete. The
+    scan runs in C (native.band_audit; its numpy form is
+    _band_audit_plain)."""
+    return sum(native.band_audit(*a)
+               for a in _audit_sets(tiers, box, x, y, z, h, alive))
 
 
 # ---------------------------------------------------------------------------

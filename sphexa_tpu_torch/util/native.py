@@ -86,18 +86,10 @@ def _checked(r: int, what: str) -> int:
     return int(r)
 
 
-def unit_coords(x, y, z, box):
-    """(x - xmin) / lx (and y, z) in float64: the coordinates
-    max_cell_count bins, mapped once for a scan over resolutions."""
-    return tuple(np.ascontiguousarray(
-        (np.asarray(c, np.float64) - lo) / ln)
-        for c, lo, ln in ((x, box.xmin, box.lx), (y, box.ymin, box.ly),
-                          (z, box.zmin, box.lz)))
-
-
 def max_cell_count(u, v, w, nx: int, ny: int, nz: int) -> int:
-    """Max per-cell count of unit_coords(x, y, z, box) binned into (nx,
-    ny, nz) cells (ops/cellmajor.max_cell_count_plain's numpy form)."""
+    """Max per-cell count of coordinates mapped to the unit cube
+    (ops/cellmajor._unit_coords) binned into (nx, ny, nz) cells (the
+    binding of ops/cellmajor.max_cell_count)."""
     uk, up = _dp(u)
     _, vp = _dp(v)
     _, wp = _dp(w)

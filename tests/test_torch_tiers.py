@@ -217,7 +217,8 @@ def test_audit_matches(plans, case):
     tt = tiers_from_numpy(jt)
     want = J.audit_tiers(jt, jb, *xyzh, alive=alive)
     got = T.audit_tiers(tt, _tbox(jb), *xyzh, alive=alive)
-    plain = T.audit_tiers(tt, _tbox(jb), *xyzh, alive=alive, plain=True)
+    plain = sum(T._band_audit_plain(*a) for a in T._audit_sets(
+        tt, _tbox(jb), *xyzh, alive=alive))
     assert got == plain == want
     assert (want > 0) == case.endswith("planted")
 
