@@ -161,7 +161,26 @@ Phases (any failure exits non-zero before the last line):
      choose_tiers_auto, finds no rung), with no fold before it and the
      calls before it gated as a whole run is (tier_fault_gates); and
      Sedov 100^3 under --prop ve-tiered (one tier, 2 steps);
-  15. the kernel table as one JSON line, then the device line.
+  15. (p) radiative cooling, the split restart, --profile and
+     --viz-every: (p1) make_std_cooling_step on the card against the CPU
+     at Evrard-cooling n = 10 (2 steps, without and with chemistry,
+     direct sum and FMM); (p2) main([...]) at --init evrard-cooling
+     -n 100 (523,984 particles, the FMM at level 7 set on its steppers),
+     2 accepted steps and an ASCII dump: ms a step, which of the hydro
+     dt and dt_cool binds, the temperature range, fail-stops and
+     re-grids, gated on finite rows, the chemistry's fractions in [0, 1]
+     summing to 1, temp >= t_floor / temp_to_k, egrav < 0, nf_truncated
+     0, no fail-stop after the first accepted step and etot not rising
+     past 5e-3 of |e0|; (p3) Sedov 50^3 built on the card and split
+     S = 8 by io/hdf5.split_state (1,000,000 particles), 2 steps of the
+     CLI's ve-pallas stepper (K1, K3-K7; counters zeroed just before,
+     read just after), gated on overflow 0, finite rows, the drift gate
+     and the total mass; (p4) main([...]) at Sedov 100^3 under
+     --prop ve-pallas --profile --viz-every 1 (2 steps): the trace
+     written, the table's rows for K1 and K3-K7 with as many calls as
+     their wrappers counted, a PNG a step (a line says so where
+     matplotlib is missing, and that is not a pass);
+  16. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
 python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
@@ -173,7 +192,8 @@ to compare two checkouts of the repository in one call.
 python3 chip_smoke.py --gravity runs the build and phase (l) alone,
 with no result lines; python3 chip_smoke.py --cli, the build and phase
 (m) alone; python3 chip_smoke.py --turb, the build and phase (n)
-alone; python3 chip_smoke.py --tiers, the build and phase (o) alone.
+alone; python3 chip_smoke.py --tiers, the build and phase (o) alone;
+python3 chip_smoke.py --cool, the build and phase (p) alone.
 """
 
 from __future__ import annotations
@@ -4636,6 +4656,403 @@ def tier_phase(report, rows, replan=False):
     report["tier_phase_seconds"] = time.perf_counter() - t0
     log(f"  phase (o): {report['tier_phase_seconds']:.1f} s")
 
+
+# ---------------------------------------------------------------------------
+# (p) radiative cooling, the split restart, --profile and --viz-every
+# ---------------------------------------------------------------------------
+
+COOL_CHECK_SIDE = 10        # card against CPU (tests/test_torch_std_cooling.py)
+COOL_SIDE = 100             # main --init evrard-cooling: 523,984 particles
+COOL_STEPS = 2
+# the FMM at level 7: the CLI grows the open box to +-1.29 after the
+# first step (as the JAX CLI does), and at level 6 the densest leaf then
+# holds more than leaf_cap 128 (nf_truncated 288 on the second step)
+COOL_FMM = dict(gravity_solver="fmm", fmm_level=EVRARD_LEVEL + 1)
+COOL_RISE_BOUND = 5e-3      # etot may fall (cooling), not rise past this
+SPLIT_SIDE = 50             # Sedov 50^3 split S = 8: 1,000,000 particles
+SPLIT_S = 8
+SPLIT_STEPS = 2
+PROFILE_SIDE = 100          # --profile --viz-every 1 at Sedov 100^3
+PROFILE_STEPS = 2
+# each ve-pallas kernel's row of the --profile table: a part of its
+# demangled name as util/xprofile.short_name prints it
+PROFILE_NAMES = {"ghost_refresh": "ghost_refresh_kernel",
+                 "pair_xh": "cell_xh<false, false>",
+                 "pair_gradh": "GradhStage, false, false>",
+                 "pair_iad": "IadStage, false, false>",
+                 "pair_av": "AvStage, false, false>",
+                 "pair_momentum": "MomStage<false>, false, false>"}
+
+
+def cool_check(report):
+    """(p1) make_std_cooling_step on the card against the CPU at
+    Evrard-cooling n = 10, 2 steps, without and with chemistry, under the
+    direct sum and the FMM (level 4), set up as
+    tests/test_torch_std_cooling.py sets it (chunk 512, cell_cap 256,
+    ngpad 256, dt0 1e-4, grid level from 1.3 h_max): max_nc,
+    max_cell_count and nf_truncated equal; dt, etot, eint, ecin, egrav
+    at rtol 1e-5; rows and chemistry within 1e-4 of their scale. The CPU
+    reference on one thread."""
+    import torch
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.init.evrard_cooling import init_evrard_cooling
+    from sphexa_tpu_torch.neighbors import CellGrid, choose_level
+    from sphexa_tpu_torch.physics.chemistry import FIELDS as CHEM
+    from sphexa_tpu_torch.propagator.std_cooling import make_std_cooling_step
+    from sphexa_tpu_torch.state import _FIELDS
+
+    keys = ("dt", "etot", "eint", "ecin", "egrav", "max_nc",
+            "max_cell_count", "nf_truncated")
+    threads = torch.get_num_threads()
+    out = {}
+    for solver in ("direct", "fmm"):
+        for chem in (False, True):
+            runs = {}
+            for dev in (DEVICE, "cpu"):
+                torch.set_num_threads(1 if dev == "cpu" else threads)
+                cfg = SphConfig(chunk=512, cell_cap=256, ngpad=256,
+                                gravity_solver=solver)
+                st, box, cfg, ex = init_evrard_cooling(
+                    COOL_CHECK_SIDE, cfg, dt0=1e-4, device=dev)
+                grid = CellGrid(choose_level(box, float(st.p.h.max()) * 1.3))
+                step = make_std_cooling_step(
+                    box, grid, cfg, params=ex["cooling_params"],
+                    with_chemistry=chem, device=dev)
+                c = ex["chem"]
+                ds = []
+                for _ in range(2):
+                    if chem:
+                        st, d, c = step(st, c)
+                    else:
+                        st, d = step(st)
+                    ds.append({k: float(getattr(d, k)) for k in keys})
+                runs[dev] = (ds, st, c)
+            torch.set_num_threads(threads)
+            (a, sa, ca), (b, sb, cb) = runs["cpu"], runs[DEVICE]
+            for x, y in zip(a, b):
+                for k in ("max_nc", "max_cell_count", "nf_truncated"):
+                    assert y[k] == x[k], (solver, chem, k, y[k], x[k])
+                for k in ("dt", "etot", "eint", "ecin", "egrav"):
+                    np.testing.assert_allclose(y[k], x[k], rtol=1e-5,
+                                               err_msg=f"{solver} {k}")
+                assert y["egrav"] < 0
+            err = rows_close(f"std-cooling {solver}",
+                             [getattr(sb.p, f) for f in _FIELDS[:-1]],
+                             [getattr(sa.p, f) for f in _FIELDS[:-1]], 1e-4)
+            if chem:
+                err = max(err, rows_close(
+                    f"chemistry {solver}", [getattr(cb, f) for f in CHEM],
+                    [getattr(ca, f) for f in CHEM], 1e-4))
+            key = f"{solver}{' chem' if chem else ''}"
+            log(f"  Evrard-cooling {COOL_CHECK_SIDE} {key}: {DEVICE} vs "
+                f"cpu, 2 steps on level {grid.level}: dt {b[-1]['dt']:.6e} "
+                f"vs {a[-1]['dt']:.6e}, egrav {b[-1]['egrav']:.6f} vs "
+                f"{a[-1]['egrav']:.6f}, rows{' and chemistry' if chem else ''}"
+                f" within {err:.3e} of scale")
+            out[key] = dict(card=b, cpu=a, worst_row_err=err)
+    report["cool_check_10"] = out
+
+
+def chem_gates(chem, alive):
+    """Every species fraction in [0, 1] on the alive rows, each
+    element's fractions summing to 1 within 1e-6. Returns the largest
+    distance of a sum from 1."""
+    import torch
+    fr = {f: getattr(chem, f)[alive].double()
+          for f in ("x_HI", "x_HII", "x_HeI", "x_HeII", "x_HeIII")}
+    for f, v in fr.items():
+        assert bool(((v >= 0) & (v <= 1)).all()), f"chemistry {f} out of [0, 1]"
+    off = max(float((fr["x_HI"] + fr["x_HII"] - 1).abs().max()),
+              float((fr["x_HeI"] + fr["x_HeII"] + fr["x_HeIII"] - 1)
+                    .abs().max()))
+    assert off <= 1e-6, f"chemistry fractions sum off 1 by {off:.3e}"
+    assert bool(torch.isfinite(chem.x_e[alive]).all())
+    return off
+
+
+def cool_cli_run(report):
+    """(p2) main([...]) at --init evrard-cooling -n 100 (523,984
+    particles; the FMM at level 7 set on the steppers it makes, see
+    COOL_FMM), 2 accepted steps and an ASCII dump (checked, then
+    removed: ~66 MB). Records ms a call,
+    which of the hydro dt and dt_cool binds each step (the step's
+    cooling_timestep, recorded), the temperature range, the fail-stops
+    and re-grids. Gates: rows finite, the chemistry's fractions in
+    [0, 1] summing to 1, temp >= t_floor / temp_to_k, egrav < 0,
+    nf_truncated 0, no fail-stop after the first accepted step, etot not
+    rising past 5e-3 of |e0| (e0 with the FMM's egrav). The energy drift
+    gate of the other phases does not hold under cooling."""
+    import torch
+    from sphexa_tpu_torch import main as cli
+    from sphexa_tpu_torch.propagator import std_cooling
+
+    consts = os.path.join(ROOT, "chiprun_out", "cool_evrard_constants.txt")
+    dump = os.path.join(ROOT, "chiprun_out", "cool_evrard.txt")
+    if os.path.exists(dump):
+        os.remove(dump)
+    argv = ["--init", "evrard-cooling", "-n", str(COOL_SIDE), "-s",
+            str(COOL_STEPS), "--ascii", "-w", str(COOL_STEPS), "-o", dump]
+    real_build, real_dt = cli.build_sim, std_cooling.cooling_timestep
+    seen, dt_cool = {}, []
+
+    def build_sim(args, device):
+        out = real_build(args, device)
+        seen["extras"] = out[3]
+        return out
+
+    def cooling_timestep(*a, **kw):
+        dt_cool.append(real_dt(*a, **kw))
+        return dt_cool[-1]
+
+    cli.build_sim, std_cooling.cooling_timestep = build_sim, cooling_timestep
+    try:
+        r = main_in_process(argv, consts, cfg_override=COOL_FMM,
+                            energy=state_energy)
+    finally:
+        cli.build_sim, std_cooling.cooling_timestep = real_build, real_dt
+    state, ex = r["state"], seen["extras"]
+    params = ex["cooling_params"]
+    alive = state.p.alive
+    checks = [i for i, ln in enumerate(r["lines"])
+              if ln.startswith("### Check")]
+    assert not r["fails"] or max(r["fails"]) < checks[0], \
+        "evrard-cooling: a fail-stop after the first accepted step"
+    assert r["made"][-1][1].gravity_solver == "fmm"
+    binds = []
+    for d, dc in zip(r["diags"], dt_cool[-COOL_STEPS:]):
+        assert float(d.egrav) < 0, float(d.egrav)
+        assert int(d.nf_truncated) == 0, int(d.nf_truncated)
+        binds.append("cooling" if float(dc) <= float(d.dt) else "hydro")
+    temp = state.p.temp[alive].double()
+    floor = params.t_floor / params.temp_to_k
+    assert float(temp.min()) >= floor * (1 - 1e-6), (float(temp.min()),
+                                                     floor)
+    off = chem_gates(ex["chem"], alive)
+    etot = r["rows"][:, 3]
+    assert len(etot) == COOL_STEPS
+    rise = (float(etot.max()) - r["e0"]) / abs(r["e0"])
+    assert rise <= COOL_RISE_BOUND, f"etot rose by {rise:.3e} of |e0|"
+    regrids = [ln for ln in r["lines"] if ln.startswith(
+        ("# re-gridded", "# box expanded"))]
+    p, box = state.p, r["made"][-1][0]
+    leaves = {lvl: int(leaf_counts(p.x[alive], p.y[alive], p.z[alive], box,
+                                   lvl).max()) for lvl in (EVRARD_LEVEL,
+                                                           EVRARD_LEVEL + 1)}
+    # the dump (~66 MB of text) is checked and removed, so that
+    # chiprun_out stays small
+    dump_bytes = os.path.getsize(dump)
+    with open(dump) as f:
+        head = [next(f) for _ in range(3)]
+    os.remove(dump)
+    assert dump_bytes > 0 and all(head), head
+    res = dict(call_ms=r["call_ms"], step_ms=r["step_ms"],
+               mean_ms=float(np.mean(r["step_ms"])),
+               fail_stops=len(r["fails"]),
+               fail_stop_lines=[r["lines"][i] for i in r["fails"]],
+               regrids=regrids, wall_s=r["wall"], peak_bytes=r["peak"],
+               e0=r["e0"], etot=etot.tolist(), etot_rise=rise,
+               dt=[float(d.dt) for d in r["diags"]],
+               dt_cool=[float(v) for v in dt_cool], binds=binds,
+               temp_code=[float(temp.min()), float(temp.max())],
+               temp_k=[float(temp.min()) * params.temp_to_k,
+                       float(temp.max()) * params.temp_to_k],
+               egrav=[float(d.egrav) for d in r["diags"]],
+               chem_sum_off=off, launches=r["launches"],
+               densest_leaf=leaves, box=[box.xmin, box.xmax],
+               n_particles=int(alive.sum()), grid=str(r["made"][-1][2]),
+               cfg=dict(cell_cap=r["made"][-1][1].cell_cap,
+                        ngpad=r["made"][-1][1].ngpad),
+               dump_bytes=dump_bytes)
+    log(f"  evrard-cooling {COOL_SIDE}: {res['mean_ms']:.3f} ms a step "
+        f"(CUDA events, {[round(s, 3) for s in r['step_ms']]}; all calls "
+        f"{[round(s, 3) for s in r['call_ms']]}), {r['wall']:.1f} s of "
+        f"main, {res['n_particles']} particles, peak "
+        f"{r['peak'] / 2 ** 30:.3f} GiB; dt {res['dt']} bound by {binds} "
+        f"(dt_cool of every call {[float('%.4g' % v) for v in res['dt_cool']]}"
+        f"); temp {res['temp_k'][0]:.1f}-{res['temp_k'][1]:.1f} K; etot "
+        f"{[float('%.8g' % e) for e in etot]} (e0 {r['e0']:.8g}, rise "
+        f"{rise:.3e}); egrav {res['egrav']}; chemistry sums within "
+        f"{off:.2e} of 1; densest FMM leaf on the last box "
+        f"[{box.xmin:.4g}, {box.xmax:.4g}] by level {leaves}; fail-stops "
+        f"{len(r['fails'])} {res['fail_stop_lines']}"
+        f"; re-grids {regrids}; cell_cap {res['cfg']['cell_cap']}, ngpad "
+        f"{res['cfg']['ngpad']}; ASCII dump {dump_bytes} bytes (removed); "
+        f"launches {r['launches'] or 'none (plain PyTorch)'}")
+    report["cool_cli_run"] = res
+
+
+def split_run(report):
+    """(p3) Sedov 50^3 built on the card, put through io/hdf5.split_state
+    with S = 8 (1,000,000 particles), then 2 steps of the CLI's ve-pallas
+    stepper (cli.make_stepper: make_ve_step_cellmajor on the planner's
+    grid), each between CUDA events, the counters zeroed just before and
+    read just after (K1 and K3-K7). Gates: m sums to the dump's total
+    (rtol 1e-6), overflow 0, rows finite, |etot - e0|/e0 < 5e-3 (e0 the
+    split state's ecin + eint)."""
+    import torch
+    from sphexa_tpu_torch import main as cli
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.init.sedov import init_sedov
+    from sphexa_tpu_torch.io.hdf5 import split_state
+    from sphexa_tpu_torch.propagator.common import compute_energies
+    from sphexa_tpu_torch.state import _FIELDS
+
+    state, box, cfg = init_sedov(SPLIT_SIDE, SphConfig(), dt0=3e-5,
+                                 device=DEVICE)
+    t0 = time.perf_counter()
+    st = split_state(state, box, SPLIT_S)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    n = int(st.p.alive.sum())
+    assert n == SPLIT_S * SPLIT_SIDE ** 3 and st.p.device == state.p.device
+    m0, m1 = float(state.p.m.double().sum()), float(st.p.m.double().sum())
+    assert abs(m1 - m0) <= 1e-6 * m0, (m1, m0)
+    e0 = float(sum(compute_energies(st.p, cfg)))
+    args = cli.parse_args(["--init", "sedov", "--prop", "ve-pallas",
+                           "--quiet"])
+    h_max = float(st.p.h[st.p.alive].max())
+    t0 = time.perf_counter()
+    step, grid = cli.make_stepper(args, box, cfg, h_max, n, {}, state=st,
+                                  device=DEVICE)
+    plan_s = time.perf_counter() - t0
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    ms, diags = [], []
+    for _ in range(SPLIT_STEPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        st, d = step(st)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+        diags.append(d)
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    assert set(launches) == PROP_KERNELS["ve-pallas"], launches
+    for d in diags:
+        assert int(d.max_cell_count) == 0, f"overflow {int(d.max_cell_count)}"
+    for f in _FIELDS[:-1]:
+        assert torch.isfinite(getattr(st.p, f)).all(), f
+    etot = float(diags[-1].etot)
+    drift = abs(etot - e0) / e0
+    assert drift < CLI_DRIFT_BOUND, f"split: energy drift {drift:.3e}"
+    res = dict(n_particles=n, split_s=split_s, plan_s=plan_s, grid=str(grid),
+               step_ms=ms, launches=launches, e0=e0, etot=etot,
+               energy_drift=drift, m_dump=m0, m_split=m1,
+               dt=[float(d.dt) for d in diags])
+    log(f"  Sedov {SPLIT_SIDE}^3 split S = {SPLIT_S}: {n} particles "
+        f"(split_state {split_s:.2f} s on the host, plan {plan_s:.2f} s, "
+        f"{grid}), m {m1:.9f} vs {m0:.9f}; ve-pallas {[round(t, 3) for t in ms]}"
+        f" ms a step (CUDA events), overflow 0, |etot - e0|/e0 = "
+        f"{drift:.3e}, dt {res['dt']}, launches {launches}")
+    report["split_run"] = res
+
+
+def profile_table(lines):
+    """The --profile table's rows, name -> (ms a step, calls), from the
+    lines main printed (util/xprofile.print_table's format)."""
+    at = lines.index("# profile trace written to ./sphexa-trace")
+    rows = {}
+    for ln in lines[at + 2:]:
+        if not ln.startswith("# ") or ln.startswith("# done"):
+            break
+        name, rest = ln[2:58].rstrip(), ln[58:].split()
+        if len(rest) == 2:
+            rows[name] = (float(rest[0]), int(rest[1]))
+    return rows
+
+
+def profile_run(report):
+    """(p4) main([... --prop ve-pallas --profile --viz-every 1 ...]) at
+    Sedov 100^3 for 2 steps, in chiprun_out/profile (./sphexa-trace and
+    the PNGs go there). Gates: the trace written; the table lists the
+    five stage kernels (K3-K7) and K1, each with as many calls as its
+    wrapper counted launches in the run (the table divides its ms by
+    the state's iteration, steps + 1 on a fresh run, as the JAX table
+    does); the PNG of each step, unless matplotlib is missing (said on
+    its own line, and not counted as a pass)."""
+    import importlib.util
+
+    here = os.getcwd()
+    work = os.path.join(ROOT, "chiprun_out", "profile")
+    os.makedirs(work, exist_ok=True)
+    for f in os.listdir(work):
+        if f.endswith(".png"):
+            os.remove(os.path.join(work, f))
+    consts = os.path.join(work, "constants.txt")
+    argv = ["--init", "sedov", "-n", str(PROFILE_SIDE), "-s",
+            str(PROFILE_STEPS), "--dt0", CLI_DT0, "--prop", "ve-pallas",
+            "--profile", "--viz-every", "1"]
+    os.chdir(work)
+    try:
+        r = main_in_process(argv, consts)
+    finally:
+        os.chdir(here)
+    trace = os.path.join(work, "sphexa-trace", "trace.json")
+    assert os.path.getsize(trace) > 0
+    table = profile_table(r["lines"])
+    iters = int(r["state"].iteration)
+    kern = {}
+    for k, part in PROFILE_NAMES.items():
+        hits = {n: v for n, v in table.items() if part in n}
+        assert hits, (f"--profile table: no row for {k} ({part}) among "
+                      f"{sorted(table)}")
+        calls = sum(c for _, c in hits.values())
+        assert calls == r["launches"][k], (k, calls, r["launches"][k])
+        kern[k] = dict(rows=sorted(hits), calls=calls,
+                       calls_per_step=calls / PROFILE_STEPS,
+                       ms_per_step=sum(m for m, _ in hits.values()) * iters
+                       / PROFILE_STEPS)
+    total = [ln for ln in r["lines"] if ln.startswith("# TOTAL device")]
+    assert len(total) == 1, total
+    pngs = sorted(f for f in os.listdir(work) if f.endswith(".png"))
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    if has_mpl:
+        assert len(pngs) == PROFILE_STEPS, pngs
+    res = dict(step_ms=r["step_ms"], call_ms=r["call_ms"], wall_s=r["wall"],
+               table_rows=len(table), kernels=kern,
+               total_device_ms_per_step=float(total[0].split()[-1]) * iters
+               / PROFILE_STEPS, trace_bytes=os.path.getsize(trace),
+               pngs=pngs, matplotlib=has_mpl, launches=r["launches"])
+    log(f"  --profile --viz-every 1, ve-pallas at Sedov {PROFILE_SIDE}^3: "
+        f"{[round(s, 3) for s in r['step_ms']]} ms a step (CUDA events), "
+        f"{r['wall']:.1f} s of main; trace {res['trace_bytes']} bytes; "
+        f"table of {len(table)} rows, device total "
+        f"{res['total_device_ms_per_step']:.3f} ms a step; "
+        + "; ".join(f"{k} {v['calls_per_step']:g} calls and "
+                    f"{v['ms_per_step']:.3f} ms a step ({v['rows']})"
+                    for k, v in kern.items()))
+    if has_mpl:
+        log(f"  --viz-every 1 wrote {pngs}")
+    else:
+        log("  matplotlib is not installed: --viz-every 1 wrote no PNG "
+            "(not counted as a pass)")
+    report["profile_run"] = res
+
+
+def cool_phase(report):
+    """Phase (p): radiative cooling, the split restart, --profile and
+    --viz-every on the card."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+
+    def at():
+        log(f"  {time.perf_counter() - t0:.1f} s into phase (p)")
+    log("(p1) the std-cooling step on the card against the CPU:")
+    cool_check(report)
+    at()
+    log(f"(p2) main([... --init evrard-cooling -n {COOL_SIDE} ...]):")
+    cool_cli_run(report)
+    at()
+    log(f"(p3) Sedov {SPLIT_SIDE}^3 split S = {SPLIT_S} through ve-pallas:")
+    split_run(report)
+    at()
+    log(f"(p4) main([... --prop ve-pallas --profile --viz-every 1 ...]) at "
+        f"Sedov {PROFILE_SIDE}^3:")
+    profile_run(report)
+    report["cool_phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase (p): {report['cool_phase_seconds']:.1f} s")
+
 def compare_mm():
     """--compare's moment-matmul part: K8, K9 and K10 (float32, bf16) at
     the inputs of a Sedov 100^3 step under mxu_moments + mxu_momentum, 3 x 5
@@ -4889,6 +5306,25 @@ def tiers_main() -> int:
     return 0
 
 
+def cool_main() -> int:
+    """--cool: the build and phase (p) alone (no result lines); details
+    to chiprun_out/chip_smoke_cool.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"smi": smi_line()}
+    log(report["smi"])
+    _cuda.build()
+    cool_phase(report)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_cool.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--compare"]:
@@ -4904,6 +5340,8 @@ def main() -> int:
         return turb_main()
     if sys.argv[1:2] == ["--tiers"]:
         return tiers_main()
+    if sys.argv[1:2] == ["--cool"]:
+        return cool_main()
     sys.path.insert(0, ROOT)
     from sphexa_tpu_torch.ops import _cuda
 
@@ -4990,6 +5428,7 @@ def main() -> int:
     cli_phase(report)
     turb_phase(report, rows)
     tier_phase(report, rows)
+    cool_phase(report)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

@@ -3,9 +3,10 @@
 Counterpart of sphexa_tpu/init/factory.py: named test cases map to
 builder functions returning (SimState, Box, SphConfig). The port has
 the JAX package's cases sedov, noh, isobaric-cube, gresho-chan,
-kelvin-helmholtz, wind-shock, evrard and turbulence; evrard-cooling
-(the std-cooling prop's case) waits for ROADMAP Queue 1 item 9, and
-main.py refuses it by name.
+kelvin-helmholtz, wind-shock, evrard and turbulence. evrard-cooling
+is not a factory case in either package: main.py builds it with
+init/evrard_cooling.py, which also returns its chemistry and cooling
+parameters.
 """
 
 from __future__ import annotations

@@ -9,8 +9,10 @@ the reference's compare_*.py tooling read the other's dumps. A dump
 holding every conserved field is a checkpoint. h5py is imported inside
 the functions that need it.
 
-The upsampled restart (load_split_checkpoint, --split > 1) needs
-sfc/hilbert.py and waits for ROADMAP Queue 1 item 5.
+The upsampled restart (load_split_checkpoint, --split > 1) is the HDF5
+read of load_checkpoint followed by split_state, a host function on a
+state, so that a state built without h5py (on a host that lacks it)
+splits the same way.
 """
 
 from __future__ import annotations
@@ -200,3 +202,78 @@ def load_checkpoint(path: str, cfg: SphConfig, step: int = -1,
                       krho=float(_scalar(attrs["Krho"])),
                       uniform_mass=bool(m.min() == m.max()))
     return state, box, cfg
+
+
+def split_state(state: SimState, box: Box, num_splits: int,
+                capacity: int | None = None) -> SimState:
+    """The FileSplitInit analog (reference: main/src/init/
+    file_init.hpp:103-235) on a state: each alive particle becomes
+    `num_splits` particles placed along the Hilbert curve between its
+    key and its successor's (the last particle interpolates backward);
+    m scales 1/S, h 1/cbrt(S), velocities/temp/alpha replicate, the
+    Press-2 history resets (du_m1 = 0, x_m1 = v*dt), and dt shrinks by
+    100*S for a gentle re-equilibration; iteration restarts at 1. Runs
+    on the host in numpy (the keys by sfc/hilbert.py on CPU tensors), as
+    the JAX load_split_checkpoint (io/hdf5.py:185-245) does, and returns
+    the new state on the state's device."""
+    from sphexa_tpu_torch.sfc.hilbert import (MAX_LEVEL, hilbert_decode,
+                                              hilbert_encode)
+
+    S = int(num_splits)
+    if S < 1:
+        raise ValueError(f"num_splits {num_splits} < 1")
+    ps = state.p
+    alive = host(ps.alive)
+    f = {k: host(getattr(ps, k))[alive] for k in CONSERVED_FIELDS}
+    n0 = f["x"].shape[0]
+
+    side = 1 << MAX_LEVEL
+    to_i = lambda v, lo, L: np.clip(((v - lo) / L * side).astype(np.int64),
+                                    0, side - 1)
+    keys = host(hilbert_encode(*(torch.from_numpy(v) for v in (
+        to_i(f["x"], box.xmin, box.lx), to_i(f["y"], box.ymin, box.ly),
+        to_i(f["z"], box.zmin, box.lz))))).astype(np.int64)
+    order = np.argsort(keys, kind="stable")
+    keys = keys[order]
+    f = {k: v[order] for k, v in f.items()}
+
+    # clone keys interpolate toward the next particle's key (the last
+    # particle interpolates backward, as the reference does)
+    delta = np.empty(n0, np.int64)
+    delta[:-1] = (keys[1:] - keys[:-1]) // S
+    delta[-1] = -(keys[-1] - keys[-2]) // (S + 1) if n0 > 1 else 0
+    j = np.arange(S)
+    ck = (keys[:, None] + delta[:, None] * j[None, :]).reshape(-1)
+    ck = np.clip(ck, 0, (1 << (3 * MAX_LEVEL)) - 1)
+    ix, iy, iz = (host(v) for v in hilbert_decode(torch.from_numpy(ck)))
+    x = (box.xmin + ix.astype(np.float64) * box.lx / side).astype(np.float32)
+    y = (box.ymin + iy.astype(np.float64) * box.ly / side).astype(np.float32)
+    z = (box.zmin + iz.astype(np.float64) * box.lz / side).astype(np.float32)
+    # the original particle keeps its exact position (clone j = 0)
+    x[::S], y[::S], z[::S] = f["x"], f["y"], f["z"]
+
+    rep = lambda v, scale=1.0: np.repeat(v * scale, S)
+    n = n0 * S
+    dt = float(state.dt) / (100.0 * S)
+    fields = dict(
+        x=x, y=y, z=z, m=rep(f["m"], 1.0 / S),
+        h=rep(f["h"], S ** (-1.0 / 3.0)),
+        vx=rep(f["vx"]), vy=rep(f["vy"]), vz=rep(f["vz"]),
+        temp=rep(f["temp"]), alpha=rep(f["alpha"]),
+        du_m1=np.zeros(n, np.float32))
+    fields["x_m1"] = fields["vx"] * dt
+    fields["y_m1"] = fields["vy"] * dt
+    fields["z_m1"] = fields["vz"] * dt
+    ps = make_particles(capacity or n, n, device=state.p.device, **fields)
+    # make_state sets dt_m1 = dt and iteration 1, as the JAX loader does
+    return make_state(ps, dt0=dt, ttot=float(state.ttot))
+
+
+def load_split_checkpoint(path: str, cfg: SphConfig, num_splits: int,
+                          step: int = -1, capacity: int | None = None,
+                          device=None):
+    """Upsampled restart (--split > 1): load_checkpoint, then
+    split_state on the loaded state (JAX io/hdf5.py:185-245). Returns
+    (state, box, cfg) on `device` (default: the GPU)."""
+    state, box, cfg = load_checkpoint(path, cfg, step=step, device=device)
+    return split_state(state, box, num_splits, capacity=capacity), box, cfg

@@ -21,14 +21,21 @@ turbulence-ve-bdt (TurbBdtVE: K1, K2g and the stirring), the h-tier
 zoom grids ve-tiered (make_ve_step_tiered: K3-K7 on every tier grid),
 ve-tiered-resident (make_ve_step_tiered_resident) and ve-tiered-bdt
 (TieredBdtVE: K2g on every tier grid; SPHEXA_BDT_RUNGS rungs, default
-4), and nbody. The tiered props plan their tiers from the current state
-(choose_tiers_auto, cap_max 128) and re-plan them on a fold.
+4), nbody, and std-cooling (the std step with radiative cooling,
+propagator/std_cooling.py; the case's cooling parameters under the
+settings file's cooling:: keys, the chemistry carried in extras). The
+tiered props plan their tiers from the current state (choose_tiers_auto,
+cap_max 128) and re-plan them on a fold.
 Cases: sedov, noh, isobaric-cube, gresho-chan, kelvin-helmholtz,
-wind-shock, evrard and turbulence (init/factory.py); --glass installs a
-glass template for the glass-tiled cases (init/glass.py). The other
-props (std-cooling, the multi-device ones), --init evrard-cooling,
---profile, --viz-every and --split > 1 raise NotImplementedError naming
-the ROADMAP item that will port them.
+wind-shock, evrard and turbulence (init/factory.py), and evrard-cooling
+(init/evrard_cooling.py, which sets --prop std-cooling); --glass
+installs a glass template for the glass-tiled cases (init/glass.py).
+--split S > 1 upsamples an HDF5 restart S-fold along the Hilbert curve
+(io/hdf5.load_split_checkpoint); --viz-every N renders a PNG every N
+iterations (io/viz.py); --profile records the run with torch.profiler,
+writes ./sphexa-trace and prints a ms-a-step table (util/xprofile.py).
+The multi-device props raise NotImplementedError naming the ROADMAP
+item that will port them.
 --debug-nans checks after each step that every row of the state is
 finite and raises FloatingPointError naming the first field that is
 not (jax_debug_nans at a step's granularity).
@@ -61,11 +68,8 @@ MULTICHIP_PROPS = ("ve-hilbert", "ve-pallas-sharded", "ve-bdt-sharded",
                    "ve-pallas-tiles")
 
 # props the port does not run yet -> the ROADMAP Queue 1 item porting them
-_REFUSED_PROPS = {
-    "std-cooling": "item 9 (physics/cooling.py, propagator/std_cooling.py)",
-    **{p: "item 10 (multi-device, MultiChipAdapter)"
-       for p in MULTICHIP_PROPS},
-}
+_REFUSED_PROPS = {p: "item 10 (multi-device, MultiChipAdapter)"
+                  for p in MULTICHIP_PROPS}
 
 # the slot-frame engines: diag.max_cell_count counts dropped particles
 # (the tiered ones: the fold)
@@ -77,15 +81,6 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to sphexa_tpu_torch yet (ROADMAP Queue 1 "
         f"{item})")
-
-
-def _check_flags(args):
-    """Refuse, by name, the flags the port does not run yet (make_stepper
-    refuses the props)."""
-    if args.profile:
-        _not_ported("--profile", "item 2 (stage tables and a trace)")
-    if args.viz_every:
-        _not_ported("--viz-every", "item 5 (io/viz.py)")
 
 
 def _device() -> torch.device:
@@ -158,10 +153,10 @@ def parse_args(argv=None):
                    help="stop when simulation time reached")
     p.add_argument("--prop", default="ve", choices=PROPS,
                    help="propagator choice (reference: --prop); the port "
-                        "runs ve, std, ve-pallas, ve-bdt, ve-tiered, "
-                        "ve-tiered-resident, ve-tiered-bdt, nbody, "
-                        "turbulence-ve and turbulence-ve-bdt and refuses "
-                        "the others")
+                        "refuses the multi-device props (ve-hilbert, "
+                        "ve-pallas-sharded, ve-bdt-sharded, "
+                        "ve-tiered-sharded, turbulence-ve-bdt-sharded, "
+                        "ve-pallas-tiles)")
     p.add_argument("-w", "--output-every", default="0",
                    help="output frequency: integer = every N iterations, "
                         "float = every dt of simulation time (reference "
@@ -183,10 +178,11 @@ def parse_args(argv=None):
                    help="override initial timestep")
     p.add_argument("--split", type=int, default=1,
                    help="upsample a checkpoint restart N-fold along the "
-                        "Hilbert curve (not ported: ROADMAP item 5)")
+                        "Hilbert curve (FileSplitInit analog)")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--profile", action="store_true",
-                   help="per-stage timings (not ported: ROADMAP item 2)")
+                   help="print per-kernel timings (torch.profiler; the "
+                        "trace goes to ./sphexa-trace)")
     p.add_argument("-f", "--fields", default="rho,p",
                    help="comma list of DERIVED columns to add to each "
                         "output step beyond the conserved set "
@@ -202,8 +198,8 @@ def parse_args(argv=None):
                         "state is finite; raise FloatingPointError naming "
                         "the first field that is not")
     p.add_argument("--viz-every", type=int, default=0,
-                   help="render a PNG slice every N iterations (not "
-                        "ported: ROADMAP item 5)")
+                   help="render a PNG slice every N iterations (in-situ "
+                        "viz hook; 0 = off)")
     return p.parse_args(argv)
 
 
@@ -219,11 +215,14 @@ def build_sim(args, device):
     if kind == "checkpoint":
         from sphexa_tpu_torch.io.hdf5 import (load_bdt_state,
                                               load_checkpoint,
+                                              load_split_checkpoint,
                                               load_turbulence_state)
-        if args.split > 1:
-            _not_ported("--split > 1 (load_split_checkpoint)",
-                        "item 5 (sfc/hilbert.py, sfc/hilbert64.py)")
         path, step = name, extra
+        if args.split > 1:
+            # upsampled restart (FileSplitInit, file_init.hpp:103)
+            state, box, cfg = load_split_checkpoint(path, cfg, args.split,
+                                                    step=step, device=device)
+            return state, box, cfg, extras
         state, box, cfg = load_checkpoint(path, cfg, step=step,
                                           device=device)
         ts = load_turbulence_state(path, step)
@@ -250,11 +249,15 @@ def build_sim(args, device):
         args.init = name
     extras["case"] = args.init
     if args.init == "evrard-cooling":
-        _not_ported("--init evrard-cooling (and its std-cooling prop)",
-                    "item 9 (init/evrard_cooling.py, physics/cooling.py)")
-    from sphexa_tpu_torch.init.factory import make_initializer
-    state, box, cfg = make_initializer(args.init)(args.n, cfg, dt0=args.dt0,
+        from sphexa_tpu_torch.init.evrard_cooling import init_evrard_cooling
+        state, box, cfg, ex = init_evrard_cooling(args.n, cfg, dt0=args.dt0,
                                                   device=device)
+        extras.update(ex)
+        args.prop = "std-cooling"
+    else:
+        from sphexa_tpu_torch.init.factory import make_initializer
+        state, box, cfg = make_initializer(args.init)(
+            args.n, cfg, dt0=args.dt0, device=device)
     if "settings" in extras:  # file overrides win over case constants
         cfg = apply_settings(cfg, extras["settings"])
     return state, box, cfg, extras
@@ -329,6 +332,8 @@ def make_stepper(args, box, cfg, h_max, n, extras=None, state=None,
         _not_ported(f"--prop {args.prop}", _REFUSED_PROPS[args.prop])
     if args.prop in TIERED_PROPS:
         return _tiered_stepper(args, box, cfg, state, device)
+    if args.prop == "std-cooling":
+        return _std_cooling_stepper(box, cfg, h_max, extras, device)
     if args.prop == "nbody":
         from sphexa_tpu_torch.propagator.nbody import make_nbody_step
         return make_nbody_step(box, cfg, device=device), None
@@ -358,6 +363,38 @@ def make_stepper(args, box, cfg, h_max, n, extras=None, state=None,
         return make_std_step(box, grid, cfg, device=device), grid
     from sphexa_tpu_torch.propagator.ve import make_ve_step
     return make_ve_step(box, grid, cfg, device=device), grid
+
+
+def _std_cooling_stepper(box, cfg, h_max, extras, device):
+    """(step function, grid) of std-cooling (JAX main.py:297-322): the
+    case's CoolingParams (defaults without one) under the settings
+    file's cooling::<name> keys (the reference's GRACKLE attribute
+    surface, cooler.hpp:130). With extras["chem"], the step carries the
+    chemistry there: each call, an accepted or a fail-stopped one,
+    stores the chemistry it returns, permuted by its cell sort. The
+    loop's retry restores the state only (ROADMAP Queue 3)."""
+    from sphexa_tpu_torch.neighbors import CellGrid, choose_level
+    from sphexa_tpu_torch.physics.cooling import CoolingParams
+    from sphexa_tpu_torch.propagator.std_cooling import make_std_cooling_step
+    grid = CellGrid(choose_level(box, h_max * 1.25))
+    cparams = extras.get("cooling_params", CoolingParams())
+    if "settings" in extras and any(
+            k.startswith("cooling::") for k in extras["settings"]):
+        merged = dict(cparams.to_settings())
+        merged.update({k: v for k, v in extras["settings"].items()
+                       if k.startswith("cooling::")})
+        cparams = CoolingParams.from_settings(merged)
+    if "chem" not in extras:
+        return make_std_cooling_step(box, grid, cfg, params=cparams,
+                                     device=device), grid
+    raw = make_std_cooling_step(box, grid, cfg, params=cparams,
+                                with_chemistry=True, device=device)
+
+    def step_with_chem(state):
+        new_state, diag, extras["chem"] = raw(state, extras["chem"])
+        return new_state, diag
+
+    return step_with_chem, grid
 
 
 def _tiered_stepper(args, box, cfg, state, device):
@@ -492,7 +529,6 @@ def _grow_box(box, bounds, h_max):
 
 def main(argv=None):
     args = parse_args(argv)
-    _check_flags(args)
     device = _device()
     if args.glass:
         from sphexa_tpu_torch.init.glass import set_glass_template
@@ -532,9 +568,21 @@ def main(argv=None):
         if write_header:
             const_f.write(obs.header() + "\n")
 
+    viz = None
+    if args.viz_every:
+        from sphexa_tpu_torch.io.viz import VizHook
+        viz = VizHook(every=args.viz_every)
+
     if not args.quiet:
         print(f"# sphexa-tpu-torch: {args.init} N={n_active} "
               f"prop={args.prop} grid={grid} device={device}", flush=True)
+
+    prof = None
+    if args.profile:
+        # per-kernel device times (the analog of the reference's
+        # per-substage Timer, util/timer.hpp): traces to ./sphexa-trace
+        from sphexa_tpu_torch.util import xprofile
+        prof = xprofile.start_trace(device)
 
     try:
         t_start = time.perf_counter()
@@ -673,6 +721,8 @@ def main(argv=None):
                         out_fields[name] = v
                 writer.write_step(state, cfg, box, fields=out_fields or None,
                                   turb_state=turb_state, bdt_state=bdt_state)
+            if viz:
+                viz.execute(state, box, int(state.iteration) - 1)
 
             it += 1
             if args.sim_time is not None and float(diag.ttot) >= args.sim_time:
@@ -682,6 +732,14 @@ def main(argv=None):
                     print(f"# wall-clock limit {args.duration}s reached")
                 break
 
+        if prof is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            done, prof = prof, None    # stopped here, not in the finally
+            xprofile.stop_trace(done)
+            print(f"# profile trace written to ./{xprofile.TRACE_DIR}")
+            xprofile.print_table(done, steps=max(int(state.iteration), 1))
+
         wall = time.perf_counter() - t_start
         if not args.quiet:
             its = int(state.iteration) - 1
@@ -689,6 +747,8 @@ def main(argv=None):
                   f"{n_active * max(it, 1) / wall / 1e6:.2f}M "
                   f"particle-updates/s")
     finally:
+        if prof is not None:   # a raise inside the loop
+            prof.stop()
         if writer:
             writer.close()
         if const_f:
