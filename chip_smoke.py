@@ -180,7 +180,24 @@ Phases (any failure exits non-zero before the last line):
      written, the table's rows for K1 and K3-K7 with as many calls as
      their wrappers counted, a PNG a step (a line says so where
      matplotlib is missing, and that is not a pass);
-  16. the kernel table as one JSON line, then the device line.
+  16. (q) multi-device through the command line, SPHEXA_NUM_DEVICES=2
+     (every shard a thread on the card): the five props at Evrard,
+     Sedov and turbulence 10 on the card against the CPU (the CPU runs
+     in processes of their own, beside the card's runs); main([...]) at
+     full size: ve-bdt-sharded at Evrard 100 (the slab FMM; its first
+     cycle's rung histograms equal BdtVE's on the same global grid; the
+     h re-grid after it may meet the slab plan's fail-stop,
+     EXPECTED_SLAB_FAULT), ve-hilbert at Evrard 100 (the generic FMM,
+     2 steps) and at Evrard 50 with D = 4, ve-tiered-sharded at Evrard
+     100 (2 steps), ve-pallas-sharded at Sedov 100^3 (2 steps),
+     turbulence-ve-bdt-sharded at turbulence 100^3 (1 cycle), each
+     gated on the adapter's fail-stops (lost, overflow, n_owned), finite
+     rows, the energy drift and, for Evrard, the density L1, with ms a
+     call beside the single-device runs; every K3-K7 (slab) and K2g
+     (BDT substep 1, every tier) launch of one more call against its
+     plain version on sampled active cells (turbulence: on the run's
+     state perturbed as phase (n)'s check frame); dryrun_multichip(4);
+  17. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
 python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
@@ -193,7 +210,8 @@ python3 chip_smoke.py --gravity runs the build and phase (l) alone,
 with no result lines; python3 chip_smoke.py --cli, the build and phase
 (m) alone; python3 chip_smoke.py --turb, the build and phase (n)
 alone; python3 chip_smoke.py --tiers, the build and phase (o) alone;
-python3 chip_smoke.py --cool, the build and phase (p) alone.
+python3 chip_smoke.py --cool, the build and phase (p) alone;
+python3 chip_smoke.py --multi, the build and phase (q) alone.
 """
 
 from __future__ import annotations
@@ -3242,11 +3260,38 @@ def once_ms(fn) -> float:
     return a.elapsed_time(b)
 
 
+def stage_chunks(parts, K, cfg_chunk):
+    """(m) 2: the five gather stages (gather_split's parts), ms and peak
+    bytes above what was allocated before them, in run_pair_stage's
+    chunks of CHUNK_ELEMS // K rows and in chunks of SphConfig.chunk
+    rows (CHUNK_ELEMS set to cfg_chunk * K for that call)."""
+    import torch
+    from sphexa_tpu_torch.ops import pair
+
+    stages = ("xmass", "gradh", "iad_divv", "av_switches", "momentum")
+    default = pair.CHUNK_ELEMS
+    out = {}
+    for name, elems in (("CHUNK_ELEMS", default),
+                        ("cfg.chunk", cfg_chunk * K)):
+        pair.CHUNK_ELEMS = elems
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = sum(once_ms(parts[k]) for k in stages)
+            peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            pair.CHUNK_ELEMS = default
+        out[name] = dict(rows=elems // K, ms=ms, peak_bytes=peak)
+    return out
+
+
 def gather_split(box, cfg, grid, state):
     """(m) 2: one gather step at the run's last state, each part timed
     alone (CUDA events, one call each after the call that built its
     inputs): the cell list, the neighbour list (with the permutation),
-    the five stages, EOS and the whole step; rest = step - parts. Device
+    the five stages, EOS and the whole step; rest = step - parts; the
+    five stages under both chunk rules (stage_chunks). Device
     activities (kernels, copies) and their busy time in one step from
     torch.profiler (None where it saw none)."""
     import torch
@@ -3299,6 +3344,7 @@ def gather_split(box, cfg, grid, state):
     split = {k: once_ms(fn) for k, fn in parts.items()}
     step_ms = once_ms(lambda: step(state))
     split["rest"] = step_ms - sum(split.values())
+    chunks = stage_chunks(parts, cfg.ngpad, cfg.chunk)
     del xm, kx, gradh, rho, c, prho, iad, alpha
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3309,7 +3355,7 @@ def gather_split(box, cfg, grid, state):
     dev = [e for e in prof.profiler.kineto_results.events()
            if e.device_type() == torch.autograd.DeviceType.CUDA]
     busy = sum(e.duration_ns() for e in dev) * 1e-6
-    return dict(step_ms=step_ms, split_ms=split,
+    return dict(step_ms=step_ms, split_ms=split, stage_chunks=chunks,
                 launches=len(dev) or None,
                 device_busy_ms=busy if dev else None,
                 idx_bytes=nl.idx.numel() * nl.idx.element_size(),
@@ -3332,8 +3378,9 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
     fields set on every stepper main makes (the CLI has no flag for the
     gravity solver, as the JAX CLI). Gates: one call a step and a retry
     a fail-stop, every row of the final state finite. A raise from main
-    carries `partial`: what ran before it (the lines, the steppers made,
-    the (box, h_max) of every stepper asked for, the stepper each call
+    carries `partial`: what ran before it (the lines, the steppers made
+    and their step functions, the (box, h_max) of every stepper asked
+    for, the stepper each call
     used, the last call's state, the diagnostics, e0 and the launch
     counts)."""
     import contextlib
@@ -3391,7 +3438,7 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
         # what ran before the raise, for a caller that expects it
         torch.cuda.synchronize()
         e.partial = dict(lines=buf.getvalue().splitlines(), made=made,
-                         make_s=make_s, tried=tried, used=used,
+                         make_s=make_s, tried=tried, used=used, fns=fns,
                          state=last[0] if last else None,
                          call_ms=[a.elapsed_time(b) for a, b in calls],
                          diags=diags, e0=e0,
@@ -3419,7 +3466,7 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
     accepted = [ln.startswith("### Check") for ln in lines
                 if ln.startswith(("### Check",) + FAIL_STOPS)]
     assert len(accepted) == len(calls), (accepted, len(calls))
-    return dict(state=state, made=made, make_s=make_s, fns=fns,
+    return dict(state=state, made=made, make_s=make_s, fns=fns, tried=tried,
                 diags=[d for d, ok in zip(diags, accepted) if ok],
                 e0=e0[0], launches=launches,
                 lines=lines, fails=fails, call_ms=call_ms,
@@ -3477,6 +3524,10 @@ def cli_run(report, prop, steps):
               f"{sp['device_busy_ms']} ms busy; idx "
               f"{sp['idx_bytes'] / 2 ** 20:.1f} MiB (ngpad {sp['ngpad']}, "
               f"cell_cap {sp['cell_cap']}, level {sp['level']})")
+        log("  the five stages by chunk rule: " + "; ".join(
+            f"{k} ({v['rows']} rows a chunk) {v['ms']:.3f} ms, peak "
+            f"{v['peak_bytes'] / 2 ** 20:.1f} MiB above their inputs"
+            for k, v in sp["stage_chunks"].items()))
     report.setdefault("cli_runs", {})[prop] = res
 
 
@@ -4658,6 +4709,522 @@ def tier_phase(report, rows, replan=False):
 
 
 # ---------------------------------------------------------------------------
+# (q) multi-device through the command line: the Hilbert domain, sharded
+# self-gravity and MultiChipAdapter, every shard a thread on the one card
+# ---------------------------------------------------------------------------
+
+MULTI_D = 2
+MULTI_CHECK_SIDE = 10
+# card against CPU through main at D = 2: (prop, case, steps or cycles)
+MULTI_CHECK = (("ve-hilbert", "evrard", 2), ("ve-pallas-sharded", "sedov", 2),
+               ("ve-bdt-sharded", "evrard", 1),
+               ("turbulence-ve-bdt-sharded", "turbulence", 1),
+               ("ve-tiered-sharded", "evrard", 2))
+# the full-size runs through main at D = 2: (prop, case, n, steps)
+MULTI_RUNS = (("ve-bdt-sharded", "evrard", 100, 1),
+              ("ve-hilbert", "evrard", 100, 2),
+              ("ve-tiered-sharded", "evrard", 100, 2),
+              ("ve-pallas-sharded", "sedov", 100, 2),
+              ("turbulence-ve-bdt-sharded", "turbulence", 100, 1))
+MULTI_D4 = ("ve-hilbert", "evrard", 50, 2)      # once at D = 4
+MULTI_DT0 = "3e-5"
+MULTI_FMM = dict(gravity_solver="fmm", fmm_level=EVRARD_LEVEL)
+MULTI_SAMPLE_CELLS = 48
+# the single-device (and earlier sharded) times these runs stand beside
+# (PERF.md; NVIDIA H100 80GB HBM3, 700 W)
+MULTI_BESIDE = {"ve-bdt-sharded": "BdtVE Evrard 100 8297.222 ms a cycle",
+                "ve-tiered-sharded": "resident tiered step Evrard 100 "
+                                     "1035.080-1042.685 ms",
+                "ve-pallas-sharded": "sharded step Sedov 100^3 D = 2 "
+                                     "54.129 ms",
+                "turbulence-ve-bdt-sharded": "TurbShardedBdtVE 100^3 D = 2 "
+                                             "509.739 ms a cycle",
+                "ve-hilbert": "resident step Evrard 100 1053.812 ms"}
+_GATED = {"pair_gate", "pair_xh_gated", "pair_gradh_gated",
+          "pair_iad_gated", "pair_av_gated", "pair_momentum_gated"}
+PROP_KERNELS["ve-pallas-sharded"] = (PROP_KERNELS["ve-pallas"]
+                                     - {"ghost_refresh"}) | {"ghost_refresh_xy"}
+PROP_KERNELS["ve-bdt-sharded"] = _GATED | {"ghost_refresh_xy"}
+PROP_KERNELS["turbulence-ve-bdt-sharded"] = PROP_KERNELS["ve-bdt-sharded"]
+PROP_KERNELS["ve-tiered-sharded"] = _GATED
+PROP_KERNELS["ve-hilbert"] = set()
+
+
+class _Env:
+    """Environment variables set for a block, restored after."""
+
+    def __init__(self, **kw):
+        self.kw, self.old = kw, {}
+
+    def __enter__(self):
+        for k, v in self.kw.items():
+            self.old[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cpu_ref_main() -> int:
+    """--cpu-ref PROP CASE N STEPS OUT: one CPU reference run of phase (q)
+    1 in a process of its own (SPHEXA_PLATFORM=cpu, SPHEXA_NUM_DEVICES
+    from the parent, one torch thread: the CPU references of phase (m)
+    run on one thread), its final frame's alive rows and its constants
+    rows saved to OUT (.npz)."""
+    import contextlib
+    import io
+
+    import torch
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch import main as cli
+
+    prop, case, n, steps, out = sys.argv[2:7]
+    torch.set_num_threads(1)
+    consts = out + ".txt"
+    argv = ["--init", case, "-n", n, "-s", steps,
+            "--prop", prop, "--constants", consts]
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        state = cli.main(argv)
+    a = state.p.alive
+    np.savez(out, rows=np.loadtxt(consts, ndmin=2),
+             **{f: getattr(state.p, f)[a].numpy() for f in
+                ("x", "y", "z", "vx", "h")})
+    return 0
+
+
+def cpu_refs_start():
+    """The CPU references of phase (q) 1, one process a prop, started
+    together (the card's runs go on meanwhile). Returns [(prop, process,
+    path)]."""
+    procs = []
+    env = dict(os.environ, SPHEXA_PLATFORM="cpu",
+               SPHEXA_NUM_DEVICES=str(MULTI_D), OMP_NUM_THREADS="1")
+    for prop, case, steps in MULTI_CHECK:
+        out = os.path.join(ROOT, "chiprun_out", f"multi_check_{prop}_cpu")
+        for p in (out + ".npz", out + ".txt"):
+            if os.path.exists(p):
+                os.remove(p)
+        procs.append((prop, subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--cpu-ref", prop, case, str(MULTI_CHECK_SIDE), str(steps),
+             out], cwd=ROOT, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True),
+            out + ".npz"))
+    return procs
+
+
+def cpu_refs_stop(procs):
+    """Kill whatever reference process still runs."""
+    for _, p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def matched_rows(pa, b, fields):
+    """The CPU reference's alive rows (a dict of numpy rows) and the
+    card's concatenated shard frames matched by position (the shards
+    migrate, so their order may differ): {field: max error over the
+    field's scale}, and the largest position distance."""
+    from scipy.spatial import cKDTree
+    pa = {f: np.asarray(pa[f], np.float64) for f in ("x", "y", "z") + fields}
+    pb = {f: getattr(b.p, f)[b.p.alive].cpu().double().numpy()
+          for f in ("x", "y", "z") + fields}
+    assert len(pa["x"]) == len(pb["x"]), (len(pa["x"]), len(pb["x"]))
+    dist, j = cKDTree(np.c_[pa["x"], pa["y"], pa["z"]]).query(
+        np.c_[pb["x"], pb["y"], pb["z"]])
+    assert len(np.unique(j)) == len(j), "rows matched twice"
+    return {f: float(np.abs(pb[f] - pa[f][j]).max()
+                     / max(np.abs(pa[f]).max(), 1e-30)) for f in fields}, \
+        float(dist.max())
+
+
+def multi_check_card():
+    """(q) 1, the card's side: each prop of MULTI_CHECK through main at
+    MULTI_D shards here (main_in_process). Returns {prop: its record}."""
+    gpu = {}
+    with _Env(SPHEXA_NUM_DEVICES=MULTI_D):
+        for prop, case, steps in MULTI_CHECK:
+            argv = ["--init", case, "-n", str(MULTI_CHECK_SIDE), "-s",
+                    str(steps), "--prop", prop]
+            gpu[prop] = main_in_process(argv, os.path.join(
+                ROOT, "chiprun_out", f"multi_check_{prop}_card.txt"))
+    return gpu
+
+
+def multi_check(report, procs, gpu):
+    """(q) 1: each prop through main at MULTI_D shards, on the card
+    (multi_check_card) and on the CPU (the kernels' plain versions) in
+    the processes of cpu_refs_start, at Evrard, Sedov and turbulence
+    10: the constants
+    file's time and dt at rtol 1e-5, etot, eint and egrav at 1e-5, ecin
+    at 1e-3; the final rows matched by position within 1e-5 of the box,
+    vx and h within 2e-3 of scale (two steps of float32 rounding through
+    migration, as phase (k) holds the sharded step against one card)."""
+    out = {}
+    for (prop, case, steps), (_, proc, path) in zip(MULTI_CHECK, procs):
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, f"{prop} CPU reference: {err[-2000:]}"
+        ref = np.load(path)
+        crows, grows = ref["rows"], gpu[prop]["rows"]
+        assert grows.shape == crows.shape, (grows.shape, crows.shape)
+        for col, name, rtol in ((1, "time", 1e-5), (2, "dt", 1e-5),
+                                (3, "etot", 1e-5), (5, "eint", 1e-5),
+                                (6, "egrav", 1e-5)):
+            np.testing.assert_allclose(grows[:, col], crows[:, col],
+                                       rtol=rtol, atol=1e-12,
+                                       err_msg=f"{prop} {name}")
+        np.testing.assert_allclose(grows[:, 4], crows[:, 4], rtol=1e-3,
+                                   atol=1e-12, err_msg=f"{prop} ecin")
+        errs, dmax = matched_rows(ref, gpu[prop]["state"], ("vx", "h"))
+        assert dmax < 1e-5, (prop, dmax)
+        assert max(errs.values()) < 2e-3, (prop, errs)
+        launches = gpu[prop]["launches"]
+        assert set(launches) == PROP_KERNELS[prop], (prop, launches)
+        out[prop] = dict(case=case, steps=steps, pos_err=dmax, errs=errs,
+                         etot_card=grows[:, 3].tolist(),
+                         etot_cpu=crows[:, 3].tolist(), launches=launches)
+        log(f"  {prop} {case} {MULTI_CHECK_SIDE}: card vs CPU, {steps} "
+            f"{'cycle' if 'bdt' in prop else 'step'}(s): etot "
+            f"{grows[-1, 3]:.9g} vs {crows[-1, 3]:.9g}, rows matched "
+            f"within {dmax:.2e}, vx/h err {errs}")
+    report["multi_check"] = out
+
+
+def evrard_l1(state, box, cfg):
+    """bench.py's Evrard gate on a state: rho of one resident hydro pass
+    against 1/(2 pi r), mean relative error over 0.05 < r < 0.9. The
+    grid is choose_grid_with_hcap's (the coarsest whose cells fit the
+    kernels' cap) with h clipped to the h_cap it supports: after the
+    outer shell's h has grown, no grid with cells of 2 h_max fits the
+    core's rows in one cap (the bench's Evrard path, the same clip)."""
+    import torch
+    from sphexa_tpu_torch.ops.cellmajor import choose_grid_with_hcap
+    from sphexa_tpu_torch.ops.pair_ve import MAX_CAP
+    from sphexa_tpu_torch.propagator.ve_cellmajor import (ResidentVE,
+                                                          _run_pipeline)
+    p = state.p
+    a = p.alive
+    _, grid, h_cap = choose_grid_with_hcap(
+        box, int(a.sum()), *(getattr(p, c)[a].cpu().numpy() for c in "xyz"),
+        cap_max=MAX_CAP)
+    cfg = cfg.replace(gravG=0.0, h_cap=float(h_cap))
+    state = state.replace(p=p.replace(h=torch.clamp_max(p.h, h_cap)))
+    eng = ResidentVE(box, grid, cfg, device=DEVICE)
+    rst = eng.bind(state)
+    validint = rst.valid & eng.intmask
+    out = _run_pipeline(eng.pve, eng.rf, [rst.x, rst.y, rst.z, rst.h,
+                                          rst.gid], rst.m, rst.vx, rst.vy,
+                        rst.vz, rst.temp, rst.alpha, rst.dt, validint)
+    rho = out["rho"][validint].double()
+    r = torch.sqrt(rst.x[validint].double() ** 2
+                   + rst.y[validint].double() ** 2
+                   + rst.z[validint].double() ** 2)
+    sel = (r > 0.05) & (r < 0.9)
+    ana = 1.0 / (2.0 * np.pi * r[sel].clamp_min(1e-6))
+    return float(((rho[sel] - ana).abs() / ana).mean())
+
+
+def gated_sample_check(kg, args, out, intmask, seed):
+    """A K2g launch against its plain version on sampled cells of its
+    active supercells (the plain body on those cells), its inactive
+    supercells' interior slots bit-equal to prev, nothing outside the
+    interior. Returns (max abs err, active and inactive supercells)."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    J, I2, g, c, (act, prev), zg = args
+    Z = pv.resolve_zgroup(g, zg)
+    on = pv.supercell_active(act, g, Z).repeat_interleave(g.cap)
+    keep = intmask & ~on
+    if not torch.equal(out[:, keep], prev[:, keep]):
+        raise AssertionError(f"{kg.name}: inactive supercells != prev")
+    if out[:, ~intmask].any():
+        raise AssertionError(f"{kg.name}: slots outside the interior != 0")
+    cells = sample_occupied_cells(g, valid_slots(J) & on, intmask,
+                                  MULTI_SAMPLE_CELLS, seed)
+    ref = pv._run_plain(kg.body, J, I2, g, kg.fo, cells=cells,
+                        **kg._body_kw(c))
+    slots = torch.zeros(g.n_slots, dtype=torch.bool, device=J.device)
+    lane = torch.arange(g.cap, device=J.device)
+    slots[(cells[:, None] * g.cap + lane).reshape(-1)] = True
+    err, _ = compare(kg.name, ref, out, valid_slots(J) & slots & intmask
+                     & on, per_row=False)
+    sc_on = int(pv.supercell_active(act, g, Z).sum()) // Z
+    return err, sc_on
+
+
+def multi_gated_calls(report, key, calls, intmasks):
+    """Every recorded K2g launch held by gated_sample_check; the gate
+    pass ran before each. Returns {stage: max abs err}."""
+    errs, active = {}, []
+    stages = [c for c in calls if c[0].name != "pair_gate"
+              and c[0].name.endswith("_gated")]
+    assert stages, f"{key}: no gated launch recorded"
+    for i, (k, args, out) in enumerate(stages):
+        err, on = gated_sample_check(k, args, out, intmasks[args[2]],
+                                     300 + i)
+        errs[k.name] = max(errs.get(k.name, 0.0), err)
+        active.append(on)
+    log(f"  {key}: {len(stages)} gated launches against plain on sampled "
+        f"active cells, inactive supercells bit-equal to prev; max abs err "
+        f"{errs}; active supercells a launch {min(active)}-{max(active)}")
+    return errs
+
+
+def multi_run(report, rows, prop, case, n, steps, D=MULTI_D):
+    """(q) 2: main([...]) in this process at full size with D shards
+    (main_in_process): the gates (the adapter's own fail-stops on lost,
+    overflow and n_owned; no fail-stop after the first accepted step;
+    the prop's kernels; rows finite; energy drift < CLI_DRIFT_BOUND but
+    under stirring; Evrard: density L1 < EVRARD_L1_BOUND), ms a call
+    beside the single-device runs, then the pair launches of one more
+    call held against their plain versions."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.ops.cellmajor import interior_mask
+
+    grav = case == "evrard"
+    key = f"{prop} {case} {n} D={D}"
+    consts = os.path.join(ROOT, "chiprun_out",
+                          f"multi_{prop}_{case}{n}_D{D}.txt")
+    argv = ["--init", case, "-n", str(n), "-s", str(steps), "--dt0",
+            MULTI_DT0, "--prop", prop]
+    t0 = time.perf_counter()
+    fault = None
+    try:
+        with _Env(SPHEXA_NUM_DEVICES=D):
+            r = main_in_process(argv, consts,
+                                cfg_override=MULTI_FMM if grav else None,
+                                energy=state_energy if grav else None)
+    except RuntimeError as e:
+        r = slab_fault(key, e)
+        fault = str(e)
+    state, launches = r["state"], r["launches"]
+    checks = [i for i, ln in enumerate(r["lines"])
+              if ln.startswith("### Check")]
+    assert not r["fails"] or not checks or max(r["fails"]) < checks[0], \
+        f"{key}: a fail-stop after the first accepted step"
+    assert set(launches) == PROP_KERNELS[prop], (key, launches)
+    assert state.p.device.type == torch.device(DEVICE).type, \
+        f"{key}: the state left the card"
+    for f in ("x", "y", "z", "h", "vx", "vy", "vz", "temp", "alpha"):
+        assert torch.isfinite(getattr(state.p, f)).all(), f"{key}: {f}"
+    adapter = r["fns"][-1]
+    box, cfg, grid = r["made"][-1]
+    for d in r["diags"]:
+        raw = d.raw
+        for k in ("lost", "overflow", "fold"):
+            assert int(getattr(raw, k, 0)) == 0, (key, k)
+        if hasattr(raw, "n_owned"):
+            assert int(raw.n_owned) == adapter.n_global, key
+    etot = r["rows"][:, 3]
+    drift = abs(float(etot[-1]) - r["e0"]) / abs(r["e0"])
+    if case != "turbulence":
+        assert drift < CLI_DRIFT_BOUND, f"{key}: energy drift {drift:.3e}"
+    else:
+        assert float(r["rows"][-1, 4]) > 0, f"{key}: no kinetic energy"
+    res = dict(n=int(state.p.alive.sum()), steps=steps, D=adapter.D,
+               call_ms=r["call_ms"], step_ms=r["step_ms"],
+               mean_ms=float(np.mean(r["step_ms"])),
+               fail_stops=len(r["fails"]),
+               fail_stop_lines=[r["lines"][i] for i in r["fails"]],
+               wall_s=r["wall"], peak_bytes=r["peak"], e0=r["e0"],
+               etot=etot.tolist(), energy_drift=drift, launches=launches,
+               grid=str(grid), beside=MULTI_BESIDE.get(prop),
+               lines=[ln for ln in r["lines"] if ln.startswith(
+                   ("# multichip", "# gravity band_cap", "# tiers",
+                    "# bdt", "# multichip: shrunk"))],
+               expected_fault=fault,
+               h_max=[h for _, h in r["tried"]])
+    if hasattr(adapter, "hc"):
+        res["hc"] = dataclasses.asdict(adapter.hc)
+        res["imbalance"] = [float(d.raw.imbalance) for d in r["diags"]]
+    if hasattr(adapter, "sc"):
+        res["sc"] = dataclasses.asdict(adapter.sc)
+    res["gravity_band_cap"] = adapter.cfg.gravity_band_cap
+    if grav:
+        res["density_l1"] = evrard_l1(state, box, cfg)
+        assert res["density_l1"] < EVRARD_L1_BOUND, (key, res["density_l1"])
+
+    # the pair launches of one more call, held against plain
+    by_name = {x["name"]: x for x in rows}
+    errs = {}
+    if prop == "ve-pallas-sharded":
+        with Spy(pv.KERNELS[1:]) as spy:
+            adapter(state)
+        torch.cuda.synchronize()
+        errs = sharded_pair_check(adapter.grid, spy.calls)
+    elif prop in ("ve-bdt-sharded", "turbulence-ve-bdt-sharded"):
+        # substep 1 of a cycle: the rungs > 0 sit out (substep 0 is all
+        # active at a cycle start)
+        bdt = adapter.bdt
+        ph, bsts = None, adapter.bst
+        if bdt.turb is not None:
+            # the lattice at rest makes every stage's output a cancelling
+            # sum of rounding noise, so the check frame is the run's
+            # state perturbed as phase (n)'s (TURB_CHECK_SEED), on the
+            # run's engine and grid, stirred with the OU state's current
+            # phases as run_cycle hands them to a substep
+            bsts, lost = bdt.resync(bdt.distribute_bind(
+                perturbed(state, TURB_CHECK_SEED)))
+            assert int(lost) == 0, f"{key}: the check frame lost rows"
+            ph = bdt.turb.device_phases([e.device for e in bdt.shards])
+        bsts, d0 = bdt.substep(bsts, ph)
+        with Spy(pv.GATED_KERNELS) as spy:
+            _, d1 = bdt.substep(bsts, ph)
+        torch.cuda.synchronize()
+        assert int(d0.overflow) == int(d1.overflow) == 0, key
+        g = bdt.grid
+        errs = multi_gated_calls(report, key, spy.calls,
+                                 {g: interior_mask(g, DEVICE)})
+    elif prop == "ve-tiered-sharded":
+        with Spy(pv.GATED_KERNELS) as spy:
+            adapter(state)
+        torch.cuda.synchronize()
+        masks = {t.grid: interior_mask(t.grid, DEVICE) for t in adapter.grid}
+        errs = multi_gated_calls(report, key, spy.calls, masks)
+    for k, e in errs.items():
+        res.setdefault("pair_errs", {})[k] = e
+        if k in by_name:
+            by_name[k].setdefault("multi", {})[prop] = e
+    per = "cycle" if "bdt" in prop else "step"
+    log(f"  {key}: {res['mean_ms']:.3f} ms a {per} (CUDA events; all calls "
+        f"{[round(t, 3) for t in r['call_ms']]}), beside {res['beside']}; "
+        f"{r['wall']:.1f} s of main, peak {r['peak'] / 2 ** 30:.3f} GiB, "
+        f"fail-stops {len(r['fails'])} (before the first step), "
+        f"|etot - e0|/|e0| = {drift:.3e}"
+        + (f", density L1 {res['density_l1']:.4f}" if grav else "")
+        + f", grid {grid}, band_cap {res['gravity_band_cap']}, launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s in all")
+    for ln in res["lines"]:
+        log(f"    {ln}")
+    report.setdefault("multi_runs", {})[key] = res
+    return r, res
+
+
+# the slab plan's own fail-stop (plan_slab): past 2 h_max no grid of
+# the slab engines fits Evrard 100 within the kernels' cap
+EXPECTED_SLAB_FAULT = "too clustered for the slab-sharded engines"
+
+
+def slab_fault(key, e):
+    """A slab-prop run that ended in EXPECTED_SLAB_FAULT: the h re-grid
+    after an accepted call asks plan_slab for a grid whose cells are
+    wider than 2 h_max, and none fits the kernels' cap. The calls before
+    it are gated as a whole run (multi_run): this returns the run's
+    record from main_in_process's `partial`, its last call accepted (the
+    loop re-plans before it logs the step), the last state's energies
+    as its one constants row."""
+    import torch
+    from sphexa_tpu_torch.observables import conserved_quantities
+    part = getattr(e, "partial", None)
+    if EXPECTED_SLAB_FAULT not in str(e) or part is None \
+            or not part["call_ms"]:
+        raise e
+    tried = part["tried"]
+    assert len(tried) == len(part["made"]) + 1, (key, tried)
+    (box_p, h_p), (box_f, h_f) = tried[-2], tried[-1]
+    assert box_f == box_p and h_f > 1.25 * h_p, \
+        f"{key}: the fault came from no h re-grid"
+    folds = sum(ln.startswith(FAIL_STOPS) for ln in part["lines"])
+    assert folds == 0, f"{key}: {folds} fail-stop(s) before the fault"
+    state, d = part["state"], part["diags"][-1]
+    cfg = part["made"][part["used"][-1]][1]
+    q = conserved_quantities(state.p, cfg, egrav=float(d.egrav))
+    torch.cuda.synchronize()
+    log(f"  {key}: {len(part['call_ms'])} accepted call(s), then the h "
+        f"re-grid ({h_p:.5f} -> {h_f:.5f}) meets the slab plan's "
+        f"fail-stop (EXPECTED_SLAB_FAULT): {e}")
+    return dict(state=state, made=part["made"], fns=part["fns"],
+                diags=part["diags"], launches=part["launches"],
+                lines=part["lines"], fails=[], call_ms=part["call_ms"],
+                step_ms=part["call_ms"], wall=float("nan"),
+                peak=torch.cuda.max_memory_allocated(), e0=part["e0"][0],
+                tried=tried,
+                rows=np.array([[0.0, float(d.ttot), float(d.dt),
+                                float(q.etot), float(q.ecin), float(q.eint),
+                                float(q.egrav)]]))
+
+
+def multi_bdt_rungs(report, r):
+    """(q) 3: the first cycle's rung histograms of the ve-bdt-sharded run
+    against BdtVE's on the same initial state and the same global grid
+    (n x n x D nz; the JAX dry run's leg 3 asserts the same), substep by
+    substep."""
+    import torch
+    from sphexa_tpu_torch.ops.cellmajor import CMGrid
+    from sphexa_tpu_torch.init.evrard import init_evrard
+    from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
+
+    adapter = r["fns"][0]
+    box, cfg, g = r["made"][0]
+    diags = r["diags"][0].diags
+    state, _, _ = init_evrard(MULTI_RUNS[0][2], cfg, dt0=float(MULTI_DT0),
+                              device=DEVICE)
+    grid = CMGrid(n=g.n, cap=g.cap, nzi=adapter.D * g.nz)
+    eng = BdtVE(box, grid, cfg, num_rungs=adapter.bdt.num_rungs,
+                device=DEVICE)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    bst = eng.bind_bdt(state)
+    a.record()
+    _, ones = eng.run_cycle(bst)
+    b.record()
+    torch.cuda.synchronize()
+    h1 = [x.rung_hist.cpu().tolist() for x in ones]
+    hN = [x.rung_hist.cpu().tolist() for x in diags]
+    assert h1 == hN, f"rung histograms: one card {h1} vs shards {hN}"
+    log(f"  ve-bdt-sharded first cycle rung histograms equal BdtVE's on "
+        f"{grid}: {hN[0]} ... {hN[-1]}; BdtVE {a.elapsed_time(b):.3f} ms "
+        f"a cycle there")
+    report["multi_bdt_rungs"] = dict(grid=str(grid), hist=hN,
+                                     bdt_cycle_ms=a.elapsed_time(b))
+
+
+def multi_phase(report, rows):
+    """Phase (q): multi-device through the command line on the card."""
+    from sphexa_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    # the CPU references run in processes of their own beside the card
+    procs = cpu_refs_start()
+    try:
+        log(f"(q) the multi-device props through main on the card, D = "
+            f"{MULTI_D} (held against the CPU after the full-size runs):")
+        gpu = multi_check_card()
+        log(f"  {time.perf_counter() - t0:.1f} s into phase (q)")
+        for prop, case, n, steps in MULTI_RUNS:
+            log(f"(q) main([... --prop {prop} ...]) at {case} {n}, "
+                f"D = {MULTI_D}:")
+            r, _ = multi_run(report, rows, prop, case, n, steps)
+            if prop == "ve-bdt-sharded":
+                multi_bdt_rungs(report, r)
+            del r
+            log(f"  {time.perf_counter() - t0:.1f} s into phase (q)")
+        log(f"(q) the card against the CPU at {MULTI_CHECK_SIDE}:")
+        multi_check(report, procs, gpu)
+    finally:
+        cpu_refs_stop(procs)
+    log(f"  {time.perf_counter() - t0:.1f} s into phase (q)")
+    prop, case, n, steps = MULTI_D4
+    log(f"(q) main([... --prop {prop} ...]) at {case} {n}, D = 4:")
+    multi_run(report, rows, prop, case, n, steps, D=4)
+    log("(q) dryrun_multichip(4) on the card:")
+    report["multi_dryrun"] = dryrun_multichip(4, device=DEVICE)
+    report["multi_phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase (q): {report['multi_phase_seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # (p) radiative cooling, the split restart, --profile and --viz-every
 # ---------------------------------------------------------------------------
 
@@ -5325,10 +5892,31 @@ def cool_main() -> int:
     return 0
 
 
+def multi_main() -> int:
+    """--multi: the build and phase (q) alone (no result lines); details
+    to chiprun_out/chip_smoke_multi.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"smi": smi_line()}
+    log(report["smi"])
+    _cuda.build()
+    multi_phase(report, [])
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_multi.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--compare"]:
         return compare_main(sys.argv[2] if len(sys.argv) > 2 else "")
+    if sys.argv[1:2] == ["--cpu-ref"]:      # a CPU reference of phase (q)
+        return cpu_ref_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -5342,6 +5930,8 @@ def main() -> int:
         return tiers_main()
     if sys.argv[1:2] == ["--cool"]:
         return cool_main()
+    if sys.argv[1:2] == ["--multi"]:
+        return multi_main()
     sys.path.insert(0, ROOT)
     from sphexa_tpu_torch.ops import _cuda
 
@@ -5429,6 +6019,7 @@ def main() -> int:
     turb_phase(report, rows)
     tier_phase(report, rows)
     cool_phase(report)
+    multi_phase(report, rows)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

@@ -79,7 +79,7 @@ class SphConfig:
 
     # neighbor-engine shape parameters
     cell_cap: int = 64
-    chunk: int = 4096
+    chunk: int = 4096         # rows a chunk of the neighbour search
     h_iter: int = 2           # coupled h/neighbor-count iterations
 
     @property

@@ -1,9 +1,12 @@
 """The shard group of the slab-sharded engines and its collectives.
 
 Counterpart of sphexa_tpu/domain/mesh.py (make_slab_mesh) and of the
-jax.lax collectives that the slab engines call inside jax.shard_map:
-ppermute on the +-1 ring (ShardComm.ring_pair: both directions at
-once), pmin, pmax, psum and axis_index (ShardComm.me).
+jax.lax collectives that the sharded engines call inside
+jax.shard_map: ppermute on the +-1 ring (ShardComm.ring_pair: both
+directions at once), pmin, pmax, psum, all_gather, all_to_all (the
+Hilbert domain's one-hop exchange, domain/hilbert.py) and axis_index
+(ShardComm.me). The Hilbert domain runs on the same group: SlabMesh is
+the port's one mesh of shards, whatever the domain.
 
 JAX runs these engines single-controller: one Python process drives
 every device of the mesh (the JAX tests on 8 virtual CPU devices). The
@@ -105,6 +108,28 @@ class ShardComm:
 
     def psum(self, x):
         return self._reduce(x, torch.add)
+
+    def all_gather(self, x):
+        """jax.lax.all_gather: every shard's x stacked [D, ...] in shard
+        order. x is a tensor or a tuple of tensors (one rendezvous for
+        all of them; a tuple comes back as a tuple of stacks)."""
+        vals = self.exchange(x)
+        if isinstance(x, tuple):
+            return tuple(torch.stack([self._here(v[k]) for v in vals])
+                         for k in range(len(x)))
+        return torch.stack([self._here(v) for v in vals])
+
+    def all_to_all(self, x):
+        """jax.lax.all_to_all(split_axis=0, concat_axis=0) of a [D, ...]
+        buffer, one row per destination: shard s gets row s of every
+        shard's buffer, stacked in source order. x is a tensor or a
+        tuple of tensors (one rendezvous for all of them)."""
+        vals = self.exchange(x)
+        me = self.me
+        if isinstance(x, tuple):
+            return tuple(torch.stack([self._here(v[k][me]) for v in vals])
+                         for k in range(len(x)))
+        return torch.stack([self._here(v[me]) for v in vals])
 
     def pmin(self, x):
         return self._reduce(x, torch.minimum)

@@ -17,8 +17,19 @@ PyTorch:
   P2P   direct sum over the (2 min_sep - 1)^3 leaf-cell near field
 
 The box must be cubic (open boundaries); periodic boxes take
-gravity/ewald.py. The sharded solvers of the JAX module
-(fmm_gravity_sharded, fmm_gravity_sharded_generic) are not ported.
+gravity/ewald.py.
+
+The sharded solvers (JAX fmm.py:653-943) run inside SlabMesh.run and
+take the shard's ShardComm where the JAX functions take the axis name:
+every shard P2Ms its own particles, one psum of the dense leaf moment
+grid makes the global multipoles, every shard runs the downsweep and
+evaluates its own rows; the near field comes from the neighbours' band
+rows, the +-rings bands along one axis (fmm_gravity_sharded, slab
+domains) or the occupancy-dilated surface bands of every shard
+(fmm_gravity_sharded_generic, any domain shape). The psum adds the
+shards in order 0..D-1; XLA may add them in another order, so the
+sharded fields agree with the JAX package's to float32 rounding, and
+the counters (nf_truncated, the band overflow) exactly.
 
 M2L runs in float32: TF32 is switched off around the convolutions
 (cuDNN would otherwise round their operands to TF32 on the card)."""
@@ -544,18 +555,257 @@ def _l2p(local, co, cid, box, fc: FmmConfig):
     return pot_far, ax_far, ay_far, az_far
 
 
+# the sharded far field psums a dense [NCH_M, 8^level] float32 stack
+# (level 6: 20 MB, level 7: 160 MB); past this budget it refuses
+MOMENT_PSUM_BYTE_CAP = 64 << 20
+
+
 def moment_grid_bytes(level: int) -> int:
-    """Bytes of the dense [NCH_M, 8^level] float32 leaf moment grid."""
+    """Bytes of the dense [NCH_M, 8^level] float32 leaf moment grid
+    (what the sharded far field psums per shard)."""
     return NCH_M * (8 ** level) * 4
 
 
+def _check_psum_budget(fc: FmmConfig):
+    b = moment_grid_bytes(fc.level)
+    if b > MOMENT_PSUM_BYTE_CAP:
+        raise ValueError(
+            f"sharded FMM level {fc.level} psums {b / 2**20:.0f} MB of "
+            f"dense moments per rank (> {MOMENT_PSUM_BYTE_CAP / 2**20:.0f}"
+            " MB cap); the dense moment-grid design stops paying past "
+            "level 6: shard the grid or lower the level")
+
+
+def min_level_for_bands(n_ranks: int, extent_frac: float = 1.0,
+                        min_sep: int = 3) -> int:
+    """Smallest FMM level whose near-field reach (min_sep - 1 leaf
+    cells) fits inside one rank's slab, so the sharded P2P needs only
+    the +-1 neighbour bands: n >= (min_sep - 1) * n_ranks / extent_frac."""
+    need = (min_sep - 1) * n_ranks / max(extent_frac, 1e-9)
+    return max(2, int(np.ceil(np.log2(need))))
+
+
+def _far_and_cells(comm, x, y, z, mm, alive, box, fc: FmmConfig):
+    """The sharded far field: this shard's P2M, one psum of the moment
+    grid, the downsweep and the L2P of this shard's rows. Every shard
+    holds the same psum'd grid, so shard 0 runs the downsweep once and
+    hands its local expansions to the others (the JAX package runs it on
+    every rank: the same values, D times the launches)."""
+    n = 1 << fc.level
+    cid = _leaf_binning(fc, box, x, y, z, alive)
+    co = _box_centered(box, x, y, z)
+    mom = comm.psum(_raw_leaf_moments(co, mm, cid, n))
+    local = comm._move(comm.exchange(
+        _far_field(mom, box, fc) if comm.me == 0 else None)[0])
+    return cid, _l2p(local, co, cid, box, fc)
+
+
+def _compact(mask, band_cap: int):
+    """The JAX package's band compaction: the first band_cap rows of a
+    stable sort that puts the masked rows first. Returns (idx, sel,
+    overflow)."""
+    order = torch.argsort(torch.where(mask, 0, 1).to(torch.int32),
+                          stable=True)
+    cnt = torch.sum(mask, dtype=torch.int32)
+    idx = order[:band_cap]
+    sel = (torch.arange(band_cap, device=mask.device)
+           < torch.clamp_max(cnt, band_cap))
+    return idx, sel, torch.clamp_min(cnt - band_cap, 0)
+
+
+def fmm_gravity_sharded(comm, x, y, z, m, alive, box, G: float,
+                        fc: FmmConfig, eps: float, dim: int = 2,
+                        band_cap: int = 0, rings: int = 1):
+    """The sharded FMM of a 1-D spatial decomposition along `dim`
+    (z-slabs), inside SlabMesh.run (JAX fmm.py:679). Far field: the
+    psum'd moment grid. Near field: each shard's rows within the P2P
+    reach (min_sep - 1 leaf cells) of its occupied extent's two edges,
+    compacted to band_cap slots, go to the shards +-1 .. +-rings away
+    (one rendezvous). A rank within reach but more than `rings` hops
+    away counts into the band overflow (the ring-coverage fail-stop),
+    as do band rows past band_cap.
+
+    Returns (ax, ay, az, pot, nf_truncated, band_overflow) for the
+    local rows; the two counters are psum'd and must stay 0."""
+    _check_psum_budget(fc)
+    me, n_ranks = comm.me, comm.n
+    cap = x.shape[0]
+    if band_cap <= 0:
+        band_cap = cap
+    n = 1 << fc.level
+    dev = x.device
+    mm = torch.where(alive, m, 0.0)
+    cid, (pot_far, ax_far, ay_far, az_far) = _far_and_cells(
+        comm, x, y, z, mm, alive, box, fc)
+
+    reach = fc.min_sep - 1
+    coord = (x, y, z)[dim]
+    lo_b = (box.xmin, box.ymin, box.zmin)[dim]
+    ln_b = (box.lx, box.ly, box.lz)[dim]
+    leaf_d = torch.clamp(((coord - lo_b) / ln_b * n).to(torch.int32),
+                         0, n - 1)
+    lo = torch.min(torch.where(alive, leaf_d, 2 * n))
+    hi = torch.max(torch.where(alive, leaf_d, -1))
+
+    def band(mask):
+        idx, sel, ovf = _compact(mask, band_cap)
+        return (x[idx], y[idx], z[idx], mm[idx], sel), ovf
+
+    # everything within `reach` cells of my occupied extent's edges: the
+    # extents are ordered along dim, so one band serves every hop
+    down, ovf_d = band(alive & (leaf_d <= lo + reach))
+    up, ovf_u = band(alive & (leaf_d >= hi - reach))
+    band_overflow = ovf_d + ovf_u
+
+    lo_all, hi_all = comm.all_gather((lo, hi))
+    ranks = torch.arange(n_ranks, device=dev)
+    needs = (hi_all >= lo - reach) & (lo_all <= hi + reach)
+    band_overflow = band_overflow + torch.sum(
+        needs & (torch.abs(ranks - me) > rings) & (hi_all >= lo_all),
+        dtype=torch.int32)
+
+    # the 2 * rings ppermutes in one rendezvous: from rank me - j its up
+    # band, from rank me + j its down band; with open ends the
+    # wrap-around bands are no neighbours
+    vals = comm.exchange((up, down))
+    recv = []
+    for j in range(1, rings + 1):
+        for src, which, edge in (((me - j) % n_ranks, 0, me < j),
+                                 ((me + j) % n_ranks, 1,
+                                  me >= n_ranks - j)):
+            b = comm._move(vals[src][which])
+            recv.append(b[:4] + (b[4] & (not edge),))
+
+    ux = torch.cat([x] + [b[0] for b in recv])
+    uy = torch.cat([y] + [b[1] for b in recv])
+    uz = torch.cat([z] + [b[2] for b in recv])
+    um = torch.cat([mm] + [torch.where(b[4], b[3], 0.0) for b in recv])
+    ualive = torch.cat([alive] + [b[4] for b in recv])
+    ucid = _leaf_binning(fc, box, ux, uy, uz, ualive)
+    ax_nf, ay_nf, az_nf, pot_nf, nf_trunc = _p2p(
+        ux, uy, uz, um, ucid, n, fc.leaf_cap, eps, reach=reach, n_out=cap)
+    return (G * (ax_far + ax_nf[:cap]), G * (ay_far + ay_nf[:cap]),
+            G * (az_far + az_nf[:cap]), G * (pot_far + pot_nf[:cap]),
+            comm.psum(nf_trunc), comm.psum(band_overflow.to(torch.int32)))
+
+
+def _dilate(occ, n: int, reach: int):
+    """Max-pool dilation of an [n^3] 0/1 int32 grid by `reach` cells
+    (Chebyshev): cell c is marked iff a marked cell lies within the
+    (2 reach + 1)^3 window around c."""
+    d = F.max_pool3d(occ.to(torch.float32).reshape(1, 1, n, n, n),
+                     2 * reach + 1, stride=1, padding=reach)
+    return d.reshape(n ** 3).to(torch.int32)
+
+
+def _occupancy_dilated(cid, alive, n: int, reach: int):
+    """[n^3] int32 occupancy of `cid` (0/1) and its dilation by `reach`
+    cells (JAX fmm.py:800)."""
+    n_leaf = n ** 3
+    occ = torch.zeros(n_leaf + 1, dtype=torch.int32, device=cid.device)
+    occ.index_add_(0, cid.to(torch.int64), alive.to(torch.int32))
+    occ = torch.clamp_max(occ[:n_leaf], 1)
+    return occ, _dilate(occ, n, reach)
+
+
+def fmm_gravity_sharded_generic(comm, x, y, z, m, alive, box, G: float,
+                                fc: FmmConfig, eps: float,
+                                band_cap: int = 0):
+    """The sharded FMM of any domain shape (Hilbert key ranges), inside
+    SlabMesh.run (JAX fmm.py:815). Far field as fmm_gravity_sharded.
+    Near field: the occupancy grid of the other shards (one psum of an
+    [8^level] map), dilated by the P2P reach, marks this shard's rows
+    some other shard needs; those rows, compacted to band_cap slots, go
+    to every shard in one all_gather. Only cells within reach of this
+    shard's own occupied cells count toward nf_truncated (remote band
+    rows parked elsewhere may overflow leaf_cap harmlessly).
+
+    Returns (ax, ay, az, pot, nf_truncated, band_overflow) for the local
+    rows; the two counters are psum'd and must stay 0."""
+    _check_psum_budget(fc)
+    me, n_ranks = comm.me, comm.n
+    cap = x.shape[0]
+    if band_cap <= 0 or band_cap > cap:
+        band_cap = cap   # a band can never exceed the local rows
+    n = 1 << fc.level
+    n_leaf = n ** 3
+    dev = x.device
+    mm = torch.where(alive, m, 0.0)
+    cid, (pot_far, ax_far, ay_far, az_far) = _far_and_cells(
+        comm, x, y, z, mm, alive, box, fc)
+
+    reach = fc.min_sep - 1
+    occ_me, dil_me = _occupancy_dilated(cid, alive, n, reach)
+    occ_other = torch.clamp_max(comm.psum(occ_me) - occ_me, 1)
+    dil_other = _dilate(occ_other, n, reach)
+    cid_c = torch.clamp_max(cid, n_leaf - 1).to(torch.int64)
+    idx, sel, band_overflow = _compact(alive & (dil_other[cid_c] > 0),
+                                       band_cap)
+
+    bx, by, bz, bm, bsel = comm.all_gather(
+        (x[idx], y[idx], z[idx], torch.where(sel, mm[idx], 0.0), sel))
+    # my own band rows are already in the local arrays
+    bsel = bsel & (torch.arange(n_ranks, device=dev) != me)[:, None]
+    ux = torch.cat([x, bx.reshape(-1)])
+    uy = torch.cat([y, by.reshape(-1)])
+    uz = torch.cat([z, bz.reshape(-1)])
+    um = torch.cat([mm, torch.where(bsel, bm, 0.0).reshape(-1)])
+    ualive = torch.cat([alive, bsel.reshape(-1)])
+    ucid = _leaf_binning(fc, box, ux, uy, uz, ualive)
+    ax_nf, ay_nf, az_nf, pot_nf, nf_trunc = _p2p(
+        ux, uy, uz, um, ucid, n, fc.leaf_cap, eps, reach=reach,
+        trunc_mask=dil_me > 0, n_out=cap)
+    return (G * (ax_far + ax_nf[:cap]), G * (ay_far + ay_nf[:cap]),
+            G * (az_far + az_nf[:cap]), G * (pot_far + pot_nf[:cap]),
+            comm.psum(nf_trunc), comm.psum(band_overflow.to(torch.int32)))
+
+
+def estimate_band_cap(rank_cells: list, level: int, min_sep: int = 3,
+                      margin: float = 1.5, align: int = 128) -> int:
+    """Host-side band_cap sizing from the measured band occupancy
+    (numpy; JAX fmm.py:907). `rank_cells`: per rank, the leaf-cell ids
+    of its particles at `level`. For each rank, counts its particles
+    whose cell lies within the P2P reach of a cell another rank
+    occupies; returns the largest, times `margin`, rounded up to
+    `align`. The band-overflow fail-stop still guards drift past it."""
+    n = 1 << level
+    reach = min_sep - 1
+    occ = np.zeros((len(rank_cells), n, n, n), bool)
+    for r, cells in enumerate(rank_cells):
+        c = np.asarray(cells)
+        occ[r].reshape(-1)[np.unique(c[(c >= 0) & (c < n ** 3)])] = True
+    worst = 0
+    for r, cells in enumerate(rank_cells):
+        other = occ[[i for i in range(len(occ)) if i != r]].any(0)
+        dil = np.zeros_like(other)
+        for dx in range(-reach, reach + 1):
+            for dy in range(-reach, reach + 1):
+                for dz in range(-reach, reach + 1):
+                    src = other[
+                        max(0, -dx):n - max(0, dx),
+                        max(0, -dy):n - max(0, dy),
+                        max(0, -dz):n - max(0, dz)]
+                    dil[max(0, dx):n - max(0, -dx),
+                        max(0, dy):n - max(0, -dy),
+                        max(0, dz):n - max(0, -dz)] |= src
+        c = np.asarray(cells)
+        c = c[(c >= 0) & (c < n ** 3)]
+        worst = max(worst, int(dil.reshape(-1)[c].sum()))
+    cap = int(np.ceil(worst * margin / align) * align)
+    return max(cap, align)
+
+
 def _p2p(x, y, z, m, cid, n: int, cap: int, eps: float, chunk: int = 4096,
-         reach: int = 1):
+         reach: int = 1, trunc_mask=None, n_out=None):
     """Near-field direct sum: for each particle, all particles in the
     (2 reach + 1)^3 surrounding leaf cells (open boundaries: cells out
     of range are empty), at most `cap` from each. Returns (ax, ay, az,
     pot, nf_truncated): the last counts the particles beyond `cap` in
-    any leaf, whose pairs the gather drops."""
+    any leaf, whose pairs the gather drops; `trunc_mask` ([n^3] bool)
+    limits that count to the cells it marks. With `n_out` only the
+    binned rows among the first n_out are summed (the sharded solvers'
+    own rows; one host sync for their count), every other row gets 0;
+    the sums of those rows are the same as without it."""
     N = x.shape[0]
     dev = x.device
     n_leaf = n ** 3
@@ -565,13 +815,20 @@ def _p2p(x, y, z, m, cid, n: int, cap: int, eps: float, chunk: int = 4096,
     cell_start = torch.searchsorted(
         cs, torch.arange(n_leaf + 1, dtype=cs.dtype, device=dev))
     leaf_cnt = cell_start[1:] - cell_start[:-1]
-    nf_trunc = torch.sum(torch.clamp_min(leaf_cnt - cap, 0)).to(torch.int32)
+    over = torch.clamp_min(leaf_cnt - cap, 0)
+    if trunc_mask is not None:
+        over = torch.where(trunc_mask, over, 0)
+    nf_trunc = torch.sum(over).to(torch.int32)
     # a spare entry: the empty cell n^3 ends where it starts
     cell_end = torch.cat([cell_start[1:], cell_start[-1:]])
     xs, ys, zs, ms = x[order], y[order], z[order], m[order]
 
-    C = min(chunk, N)
-    n_chunks = -(-N // C)
+    rows, n_i = None, N
+    if n_out is not None:
+        rows = torch.nonzero((order < n_out) & (cs < n_leaf)).reshape(-1)
+        n_i = rows.shape[0]
+    C = min(chunk, max(n_i, 1))
+    n_chunks = -(-n_i // C)
     rr = range(-reach, reach + 1)
     offs = _device_const(("offsets", reach),
                          lambda: [(dx, dy, dz) for dx in rr for dy in rr
@@ -581,7 +838,9 @@ def _p2p(x, y, z, m, cid, n: int, cap: int, eps: float, chunk: int = 4096,
     lane = torch.arange(cap, dtype=torch.int64, device=dev)
     parts = []
     for c in range(n_chunks):
-        i_idx = chunk_rows(c, C, N, dev)
+        i_idx = (chunk_rows(c, C, N, dev) if rows is None
+                 else rows[c * C:(c + 1) * C])
+        Ci = i_idx.shape[0]
         ci = cs[i_idx]
         g = torch.stack([ci // (n * n), (ci // n) % n, ci % n], 1)
         j = g[:, None, :] + offs[None]                       # [C, K, 3]
@@ -593,8 +852,8 @@ def _p2p(x, y, z, m, cid, n: int, cap: int, eps: float, chunk: int = 4096,
 
         cand = st[:, :, None] + lane
         valid = lane < cnt[:, :, None]
-        cand = torch.where(valid, cand, 0).reshape(C, M)
-        valid = valid.reshape(C, M) & (cand != i_idx[:, None])
+        cand = torch.where(valid, cand, 0).reshape(Ci, M)
+        valid = valid.reshape(Ci, M) & (cand != i_idx[:, None])
 
         rx = xs[i_idx][:, None] - xs[cand]
         ry = ys[i_idx][:, None] - ys[cand]
@@ -609,7 +868,12 @@ def _p2p(x, y, z, m, cid, n: int, cap: int, eps: float, chunk: int = 4096,
     # results are in the sorted frame; scatter back to the input order
     out = []
     for i in range(4):
-        v = torch.cat([p[i] for p in parts])[:N]
+        if rows is None:
+            v = torch.cat([p[i] for p in parts])[:N]
+        else:
+            v = x.new_zeros(N)
+            if parts:
+                v[rows] = torch.cat([p[i] for p in parts])
         back = torch.empty_like(v)
         back[order] = v
         out.append(back)

@@ -3,9 +3,9 @@
 The inputs are plain numpy arrays, Python numbers and dicts (for
 example `dataclasses.asdict(cfg)` or `np.asarray` of each field), so
 this module imports nothing of JAX. The tests use it to run both
-packages on identical inputs. The JAX package's slab-sharded state is
-one global array of D x (per-shard length) rows per field; the
-sharded_* functions cut it into the port's per-shard states.
+packages on identical inputs. The JAX package's sharded state (slab or
+Hilbert domain) is one global array of D x (per-shard length) rows per
+field; the sharded_* functions cut it into the port's per-shard states.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from sphexa_tpu_torch.config import SphConfig
+from sphexa_tpu_torch.domain.hilbert import HilbertConfig
 from sphexa_tpu_torch.ops.cellmajor import CMGrid
 from sphexa_tpu_torch.propagator.ve_bdt import BDTState
 from sphexa_tpu_torch.propagator.ve_cellmajor import RVState
@@ -47,6 +48,13 @@ def box_from_numpy(bounds, boundaries) -> Box:
     b = [float(v) for v in np.asarray(bounds, dtype=np.float64)]
     bx, by, bz = (Boundary(int(c)) for c in boundaries)
     return Box(*b, bx, by, bz)
+
+
+def hilbert_config_from(hc) -> HilbertConfig:
+    """The port's HilbertConfig from the JAX package's (read by
+    attribute, every field of the port's dataclass)."""
+    return HilbertConfig(**{f.name: getattr(hc, f.name)
+                            for f in dataclasses.fields(HilbertConfig)})
 
 
 def tiers_from_numpy(tiers) -> list:
@@ -124,7 +132,8 @@ def _split(a, n_slabs: int) -> list:
 
 def sharded_states_from_numpy(fields: dict, ttot, dt, dt_m1, iteration,
                               mesh) -> list:
-    """Per-shard SimStates from the JAX package's slab-sharded state:
+    """Per-shard SimStates from the JAX package's sharded state (slab or
+    Hilbert domain):
     each field of state._FIELDS a global array of D x cap rows (as
     np.asarray gives it), cut at cap, shard i on mesh.devices[i]."""
     D = mesh.n_slabs

@@ -34,8 +34,13 @@ installs a glass template for the glass-tiled cases (init/glass.py).
 (io/hdf5.load_split_checkpoint); --viz-every N renders a PNG every N
 iterations (io/viz.py); --profile records the run with torch.profiler,
 writes ./sphexa-trace and prints a ms-a-step table (util/xprofile.py).
-The multi-device props raise NotImplementedError naming the ROADMAP
-item that will port them.
+The multi-device props ve-hilbert, ve-pallas-sharded, ve-bdt-sharded,
+turbulence-ve-bdt-sharded and ve-tiered-sharded run through
+propagator/multichip.MultiChipAdapter on SPHEXA_NUM_DEVICES shards (the
+JAX CLI's variable; the shards go round robin over the devices the port
+runs on, so on one card every shard is a thread on cuda:0); with fewer
+than 2 shards the adapter exits. ve-pallas-tiles raises
+NotImplementedError naming the ROADMAP item that will port it.
 --debug-nans checks after each step that every row of the state is
 finite and raises FloatingPointError naming the first field that is
 not (jax_debug_nans at a step's granularity).
@@ -53,6 +58,7 @@ import types
 import numpy as np
 import torch
 
+from sphexa_tpu_torch.propagator.multichip import MULTICHIP_PROPS
 from sphexa_tpu_torch.sfc.box import Boundary
 from sphexa_tpu_torch.util.device import host, resolve_device
 
@@ -62,19 +68,15 @@ PROPS = ["ve", "std", "ve-pallas", "ve-tiered", "ve-tiered-resident",
          "ve-pallas-sharded", "ve-bdt-sharded", "ve-tiered-sharded",
          "turbulence-ve-bdt-sharded", "ve-pallas-tiles"]
 
-# the JAX package's multi-device props (propagator/multichip.py:31)
-MULTICHIP_PROPS = ("ve-hilbert", "ve-pallas-sharded", "ve-bdt-sharded",
-                   "ve-tiered-sharded", "turbulence-ve-bdt-sharded",
-                   "ve-pallas-tiles")
-
 # props the port does not run yet -> the ROADMAP Queue 1 item porting them
-_REFUSED_PROPS = {p: "item 10 (multi-device, MultiChipAdapter)"
-                  for p in MULTICHIP_PROPS}
+_REFUSED_PROPS = {"ve-pallas-tiles": "item 10 (the 2-D tile domain of the "
+                                     "multi-device props, slice 17)"}
 
 # the slot-frame engines: diag.max_cell_count counts dropped particles
-# (the tiered ones: the fold)
+# (the tiered ones: the fold, ve-tiered-sharded's through the adapter)
 TIERED_PROPS = ("ve-tiered", "ve-tiered-resident", "ve-tiered-bdt")
-_SLOT_FRAME = ("ve-pallas", "ve-bdt", "turbulence-ve-bdt") + TIERED_PROPS
+_RETIER_PROPS = TIERED_PROPS + ("ve-tiered-sharded",)
+_SLOT_FRAME = ("ve-pallas", "ve-bdt", "turbulence-ve-bdt") + _RETIER_PROPS
 
 
 def _not_ported(what: str, item: str):
@@ -330,6 +332,14 @@ def make_stepper(args, box, cfg, h_max, n, extras=None, state=None,
     extras = extras or {}
     if args.prop in _REFUSED_PROPS:
         _not_ported(f"--prop {args.prop}", _REFUSED_PROPS[args.prop])
+    if args.prop in MULTICHIP_PROPS:
+        # every shard of SPHEXA_NUM_DEVICES (sphexa.cpp under mpiexec -np
+        # N); the adapter owns distribution and fail-stops
+        from sphexa_tpu_torch.propagator.multichip import MultiChipAdapter
+        adapter = MultiChipAdapter(args.prop, box, cfg, state, h_max,
+                                   quiet=args.quiet, extras=extras,
+                                   device=device)
+        return adapter, adapter.grid
     if args.prop in TIERED_PROPS:
         return _tiered_stepper(args, box, cfg, state, device)
     if args.prop == "std-cooling":
@@ -622,7 +632,7 @@ def main(argv=None):
                         f"{int(diag.max_cell_count)})")
                 if prev_state is not None:
                     state = prev_state   # discard the truncated step
-                if args.prop in TIERED_PROPS:
+                if args.prop in _RETIER_PROPS:
                     # re-tier: make_stepper re-plans the tiers from the
                     # state's h distribution
                     if not args.quiet:

@@ -76,10 +76,16 @@ def _neighbor_cell_ids(grid: CellGrid, box: Box, ix, iy, iz):
 
 def build_neighbor_list(grid: CellGrid, box: Box, cl: CellList,
                         x, y, z, h, cfg: SphConfig,
-                        adapt_h: bool = True, alive=None) -> NeighborList:
+                        adapt_h: bool = True, alive=None,
+                        rows=None) -> NeighborList:
     """x, y, z, h must already be in cell-sorted order (cl.perm applied).
     `alive` (sorted frame) excludes padding rows from search, h adaptation
-    and the overflow diagnostics."""
+    and the overflow diagnostics. `rows` (an index of sorted-frame rows)
+    limits the candidate search to those rows: every other row gets a
+    dead row's outputs (no neighbour, nc 0, h as given) and max_nc
+    counts the searched rows only, while max_cell_count still covers
+    every row's neighbour cells. The Hilbert domain passes its owned
+    rows, since the lists of its halo rows would be discarded."""
     N = x.shape[0]
     C = min(cfg.chunk, N)
     K = cfg.ngpad
@@ -94,9 +100,11 @@ def build_neighbor_list(grid: CellGrid, box: Box, cl: CellList,
     lane = torch.arange(CAP, dtype=cell_start.dtype, device=dev)
     ngmin = cfg.ng0 // 4
 
+    R = N if rows is None else rows.numel()
     idx_out, nc_out, nc_sph_out, h_out, max_cells = [], [], [], [], []
-    for c0 in range(0, N, C):
-        i_idx = torch.arange(c0, min(c0 + C, N), device=dev)
+    for c0 in range(0, R, C):
+        i_idx = (torch.arange(c0, min(c0 + C, N), device=dev) if rows is None
+                 else rows[c0:c0 + C].to(torch.int64))
         ci = i_idx.shape[0]
         xi, yi, zi, hi = x[i_idx], y[i_idx], z[i_idx], h[i_idx]
 
@@ -152,10 +160,35 @@ def build_neighbor_list(grid: CellGrid, box: Box, cl: CellList,
         h_out.append(hi)
         max_cells.append(torch.max(torch.where(nb_valid, sizes, 0)))
 
-    nc_sph = torch.cat(nc_sph_out)
-    return NeighborList(torch.cat(idx_out), torch.cat(nc_out), nc_sph,
-                        torch.cat(h_out),
-                        torch.max(torch.stack(max_cells)).to(torch.int32),
+    if rows is None:
+        nc_sph = torch.cat(nc_sph_out)
+        return NeighborList(torch.cat(idx_out), torch.cat(nc_out), nc_sph,
+                            torch.cat(h_out),
+                            torch.max(torch.stack(max_cells)).to(torch.int32),
+                            torch.max(nc_sph - 1))
+
+    # the rows not searched: a dead row's outputs; every row's neighbour
+    # cells enter max_cell_count
+    rows = rows.to(torch.int64)
+    i32 = dict(dtype=torch.int32, device=dev)
+    idx = torch.zeros((N, K), **i32)
+    nc = torch.zeros(N, **i32)
+    nc_sph = torch.ones(N, **i32)
+    h_all = h.clone()
+    if R:
+        idx[rows] = torch.cat(idx_out)
+        nc[rows] = torch.cat(nc_out)
+        nc_sph[rows] = torch.cat(nc_sph_out)
+        h_all[rows] = torch.cat(h_out)
+    # the neighbour cells of every row's cell: once a distinct cell
+    n = grid.cells_per_dim
+    cells = torch.unique((ix * n + iy) * n + iz)
+    nb_ids, nb_valid = _neighbor_cell_ids(grid, box, cells // (n * n),
+                                          (cells // n) % n, cells % n)
+    sizes = cell_start[nb_ids + 1] - cell_start[nb_ids]
+    return NeighborList(idx, nc, nc_sph, h_all,
+                        torch.max(torch.where(nb_valid, sizes, 0))
+                        .to(torch.int32),
                         torch.max(nc_sph - 1))
 
 

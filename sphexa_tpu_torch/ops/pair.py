@@ -4,8 +4,13 @@ Counterpart of sphexa_tpu/ops/pair.py: every stage is a dense batched
 computation over an i-chunk [C] and its padded neighbour axis [C, K]:
 gather j-fields through the neighbour index matrix, compute, mask, and
 reduce over K. The JAX package maps over the chunks with lax.map; here
-it is a Python loop over chunks of `chunk` rows (the last one short),
-which bounds the temporaries to O(C * K) as there.
+it is a Python loop over chunks of rows (the last one short), which
+bounds the temporaries to O(C * K) as there. The chunk's rows C are the
+most that keep C * K within CHUNK_ELEMS (64 MiB a float32 temporary),
+not SphConfig.chunk, which bounds the neighbour search alone: each
+stage launches a few hundred small kernels a chunk, and at chunks of
+4096 rows the launches, not the device, bound a step. Every row's sums
+are its own, so the chunking does not change which values are summed.
 """
 
 from __future__ import annotations
@@ -55,11 +60,16 @@ class PairChunk:
         return torch.sum(torch.where(self.mask, value, 0.0), dim=1)
 
 
-def run_pair_stage(stage: Callable, box: Box, x, y, z, h, idx, nc,
-                   chunk: int):
+# elements of a chunk's [C, K] temporaries (64 MiB a float32 one)
+CHUNK_ELEMS = 1 << 24
+
+
+def run_pair_stage(stage: Callable, box: Box, x, y, z, h, idx, nc):
     """Run `stage(PairChunk) -> [C] tensor or tuple of them` over all
-    particles; returns the same structure with [N] tensors."""
+    particles in chunks of CHUNK_ELEMS // K rows; returns the same
+    structure with [N] tensors."""
     N = x.shape[0]
+    chunk = max(CHUNK_ELEMS // max(idx.shape[1], 1), 1)
     outs = [stage(PairChunk(box, x, y, z, h, idx, nc,
                             torch.arange(c0, min(c0 + chunk, N),
                                          device=x.device)))

@@ -1120,6 +1120,10 @@ PAIR_KERNELS = KERNELS[1:] + MM_KERNELS + (pair_momentum_avclean,) \
 # stage collection (counterpart of PallasVE)
 # ---------------------------------------------------------------------------
 
+# the largest slot cap the pair kernels take (a multiple of 32)
+MAX_CAP = 1024
+
+
 class PairVE:
     """The five VE pair stages for one (grid, cfg), with the stage
     methods and J row orders of the JAX package's PallasVE.
@@ -1141,9 +1145,9 @@ class PairVE:
 
     def __init__(self, grid: CMGrid, cfg: SphConfig, gated: bool = False,
                  zgroup: int = 0, kernel_mode: str = "cell"):
-        if grid.cap % 32 or grid.cap > 1024:
+        if grid.cap % 32 or grid.cap > MAX_CAP:
             raise ValueError(f"cap {grid.cap}: must be a multiple of 32, "
-                             f"at most 1024")
+                             f"at most {MAX_CAP}")
         n_w = int(cfg.sinc_index)
         if float(n_w) != float(cfg.sinc_index) or n_w < 2:
             raise ValueError("the pair stages need an integer sinc index >= 2")

@@ -23,13 +23,18 @@ The shards are SlabMesh threads, each with its own engine object bound
 to its ShardComm and device (_ShardBdtVE). States are lists of one
 BDTState per shard. Turbulence stirring (run_cycle_stirred,
 TurbShardedBdtVE): the OU phases are drawn once a substep on the host
-and given to every shard's substep, replicated. Not ported: self-gravity
-(_gravity, the sharded FMM) raises NotImplementedError.
+and given to every shard's substep, replicated. Self-gravity
+(_gravity, JAX :146-165) runs every substep across the shards with the
+slab FMM (or the gathered direct or Ewald sum) on the valid interior
+slots, compacted to the slab's particle capacity so every shard hands
+the collectives rows of one length; its fail-stop count rides
+`overflow`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
@@ -40,10 +45,11 @@ from sphexa_tpu_torch.domain.slab import SlabConfig, _pack, migrate
 from sphexa_tpu_torch.ops.cellmajor import CMGrid, build_layout, to_cm
 from sphexa_tpu_torch.ops.pair_ve import ghost_refresh_xy
 from sphexa_tpu_torch.propagator.ve_bdt import BDTState, BdtVE
-from sphexa_tpu_torch.propagator.ve_cellmajor import _RVROWS, _no_gravity
+from sphexa_tpu_torch.propagator.ve_cellmajor import _RVROWS
 from sphexa_tpu_torch.propagator.ve_pallas_sharded import (local_frame_z,
                                                            make_zxchg)
-from sphexa_tpu_torch.propagator.ve_sharded import distribute
+from sphexa_tpu_torch.propagator.ve_sharded import (_sharded_gravity,
+                                                    distribute)
 from sphexa_tpu_torch.sfc.box import Box, Boundary, put_in_box
 from sphexa_tpu_torch.state import _FIELDS, Particles, SimState
 
@@ -91,6 +97,39 @@ class _ShardBdtVE(BdtVE):
 
     def _gsum(self, v):
         return self.comm.psum(v)
+
+    def _gravity(self, out, x, y, z, m, valid):
+        """Per-substep self-gravity across the shards (the syncGrav
+        composition, ve_hydro_bdt.hpp:171 + 277-288) on the drifted
+        positions of the valid interior slots. They are compacted to
+        sc.cap rows (a slab owns at most that many), dead rows after
+        them. The solver bins by global position, so slots that drifted
+        past the slab boundary between resyncs still land in their
+        global cells; the ring-coverage count fail-stops otherwise.
+        Returns (out, egrav, fail count), both psum'd."""
+        idx = self.gravity_index(valid)
+        cap = self.sc.cap
+        k = idx.shape[0]
+        if k > cap:
+            raise RuntimeError(f"{k} valid slots on shard {self.comm.me} "
+                               f"> slab cap {cap}")
+
+        def rows(v):
+            return torch.cat([v[idx], v.new_zeros(cap - k)])
+
+        alive = torch.arange(cap, device=x.device) < k
+        ps = types.SimpleNamespace(x=rows(x), y=rows(y), z=rows(z),
+                                   m=rows(m), alive=alive)
+        gax, gay, gaz, egrav, govf = _sharded_gravity(self.comm, ps,
+                                                      self.box, self.cfg,
+                                                      dim=2)
+
+        def scatter(v):
+            return torch.zeros_like(x).index_copy_(0, idx, v[:k])
+
+        out = dict(out, ax=out["ax"] + scatter(gax),
+                   ay=out["ay"] + scatter(gay), az=out["az"] + scatter(gaz))
+        return out, egrav, govf
 
     def _bind_local(self, ps: Particles, gid, dt_m1k, scalars: dict,
                     overflow0) -> BDTState:
@@ -158,7 +197,6 @@ class ShardedBdtVE:
 
     def __init__(self, box: Box, grid: CMGrid, cfg: SphConfig,
                  sc: SlabConfig, mesh: SlabMesh, num_rungs: int = 4):
-        _no_gravity(cfg)
         if mesh.n_slabs != sc.n_slabs:
             raise ValueError(f"mesh of {mesh.n_slabs} shards, SlabConfig "
                              f"of {sc.n_slabs} slabs")
@@ -308,12 +346,12 @@ class ShardedBdtVE:
 class TurbShardedBdtVE(ShardedBdtVE):
     """Turbulence-stirred sharded BDT, the JAX package's production
     composition (ve_bdt_sharded.py:427-450; reference TurbVeBdtProp under
-    MPI, turb_ve.hpp:114-118 with ve_hydro_bdt.hpp:171-288), here
-    without self-gravity (item 10). The OU state is global and small
-    (112 modes from the reference constants), so it lives on the host
-    and every shard's substep gets the same phases, as every MPI rank of
-    the reference updates them from one shared RNG sequence. Each
-    shard's engine holds the stirring modes on its device."""
+    MPI, turb_ve.hpp:114-118 with ve_hydro_bdt.hpp:171-288), self-gravity
+    included. The OU state is global and small (112 modes from the
+    reference constants), so it lives on the host and every shard's
+    substep gets the same phases, as every MPI rank of the reference
+    updates them from one shared RNG sequence. Each shard's engine holds
+    the stirring modes on its device."""
 
     def __init__(self, box: Box, grid: CMGrid, cfg: SphConfig,
                  sc: SlabConfig, mesh: SlabMesh, turb=None,

@@ -53,15 +53,6 @@ from sphexa_tpu_torch.util.device import resolve_device
 from sphexa_tpu_torch.util.kahan import kahan_sum
 
 
-def _no_gravity(cfg: SphConfig):
-    """The sharded engines' refusal: their cross-shard gravity (the
-    sharded FMM) is not ported (ROADMAP Queue 1 item 10)."""
-    if cfg.gravG != 0.0:
-        raise NotImplementedError(
-            "sharded self-gravity is not ported yet (ROADMAP Queue 1 item "
-            "10): the sharded engines run with gravG == 0 only")
-
-
 def _add_gravity(out, x, y, z, m, idx, box: Box, cfg: SphConfig):
     """Couple self-gravity into the force step (reference:
     ve_hydro.hpp:195-204) with the solver cfg.gravity_solver names

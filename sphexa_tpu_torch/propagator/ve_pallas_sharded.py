@@ -24,8 +24,11 @@ the position rows get the unshifted source positions, so a periodic x-y
 box loses its x-y images in this step (ROADMAP Queue 3 gives the size).
 The block-time-step engine (ve_bdt_sharded) passes them.
 
-Self-gravity (_sharded_gravity) is not ported: gravG != 0 raises
-NotImplementedError.
+Self-gravity (gravG != 0) runs after the pair stages on the particle
+frame, across the shards (ve_sharded._sharded_gravity with dim=2: the
+slab FMM, or the gathered direct or Ewald sum), as the JAX step does
+(:170-181): it adds to the accelerations, bounds dt by the acceleration
+criterion, adds egrav to etot and its fail-stop count to `lost`.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ from sphexa_tpu_torch.ops.cellmajor import (CMGrid, _cell_coords_all,
                                             build_layout, from_cm,
                                             interior_mask, to_cm)
 from sphexa_tpu_torch.ops.pair_ve import FILL_POS, PairVE, ghost_refresh_xy
-from sphexa_tpu_torch.propagator.ve_cellmajor import (_masked, _no_gravity,
-                                                      _run_pipeline)
+from sphexa_tpu_torch.propagator.ve_cellmajor import _masked, _run_pipeline
+from sphexa_tpu_torch.propagator.ve_sharded import _sharded_gravity
 from sphexa_tpu_torch.sfc.box import Box, Boundary
 from sphexa_tpu_torch.sph import timestep as ts
 from sphexa_tpu_torch.sph.eos import ideal_gas_cv
@@ -138,7 +141,6 @@ def make_ve_step_pallas_sharded(box: Box, grid: CMGrid, cfg: SphConfig,
     of migration. Returns step(states) -> (states, PallasShardedDiag):
     states holds one SimState per shard, on its device; the diagnostics
     are reduced over the shards and live on shard 0's device."""
-    _no_gravity(cfg)
     D = sc.n_slabs
     if mesh.n_slabs != D:
         raise ValueError(f"mesh of {mesh.n_slabs} shards, SlabConfig of "
@@ -178,17 +180,27 @@ def make_ve_step_pallas_sharded(box: Box, grid: CMGrid, cfg: SphConfig,
         def back(f, fill=0.0):
             return from_cm(layout, f, ps.n, fill)
 
+        ax_p, ay_p, az_p = back(out["ax"]), back(out["ay"]), back(out["az"])
+        egrav = torch.zeros((), dtype=torch.float32, device=ps.x.device)
+        if cfg.gravG != 0.0:
+            gax, gay, gaz, egrav, govf = _sharded_gravity(comm, ps, box,
+                                                          cfg, dim=2)
+            lost = lost + govf
+            ax_p, ay_p, az_p = ax_p + gax, ay_p + gay, az_p + gaz
+
         dt_local = torch.minimum(
             ts.courant_timestep(out["maxvsignal"], out["h"], out["c"],
                                 validint, cfg.kcour),
             ts.rho_timestep(out["divv"], validint, cfg.krho))
+        if cfg.gravG != 0.0:
+            dt_local = torch.minimum(dt_local, ts.acceleration_timestep(
+                ax_p, ay_p, az_p, ps.alive, cfg.eta_acc, cfg.eps))
         dt = comm.pmin(torch.minimum(cfg.max_dt_increase * dt_prev,
                                      dt_local))
         h_back = back(out["h"], 1.0)
         x, y, z, vxn, vyn, vzn, dx, dy, dz = position_update(
-            dt, dt_prev, ps.x, ps.y, ps.z, back(out["ax"]), back(out["ay"]),
-            back(out["az"]), ps.x_m1, ps.y_m1, ps.z_m1, box, h=h_back,
-            vx=ps.vx, vy=ps.vy, vz=ps.vz)
+            dt, dt_prev, ps.x, ps.y, ps.z, ax_p, ay_p, az_p, ps.x_m1,
+            ps.y_m1, ps.z_m1, box, h=h_back, vx=ps.vx, vy=ps.vy, vz=ps.vz)
         du = back(out["du"])
         temp_n = temp_update(ps.temp, dt, dt_prev, du, ps.du_m1, cfg.mui,
                              cfg.gamma)
@@ -205,7 +217,8 @@ def make_ve_step_pallas_sharded(box: Box, grid: CMGrid, cfg: SphConfig,
         eint = comm.psum(torch.sum(_masked(ps.m * cv * ps.temp, alive)))
         ttot = state.ttot + dt
         diag = PallasShardedDiag(
-            dt=dt, ttot=ttot, etot=ecin + eint, ecin=ecin, eint=eint,
+            dt=dt, ttot=ttot, etot=ecin + eint + egrav, ecin=ecin,
+            eint=eint,
             lost=comm.psum(lost),
             n_owned=comm.psum(torch.sum(alive, dtype=torch.int32)),
             max_nc=comm.pmax(torch.max(_masked(out["nc_sph"] - 1.0,

@@ -1,11 +1,13 @@
-"""Host-side set-up of the slab-sharded engines: distribution of the
-particles into slabs, and the slab planner.
+"""Host-side set-up of the slab-sharded engines (distribution of the
+particles into slabs, the slab planner) and the self-gravity of every
+sharded engine.
 
-Counterpart of `distribute` in sphexa_tpu/propagator/ve_sharded.py
-(:196-234) and of `MultiChipAdapter._slab_setup` in
-sphexa_tpu/propagator/multichip.py (:243-300), as the host function
-plan_slab. The XLA gather engine of ve_sharded (make_ve_step_sharded,
-exchange_halos) and the CLI adapter are not ported yet.
+Counterpart of `distribute` (:196-234) and `_sharded_gravity`
+(:237-310) in sphexa_tpu/propagator/ve_sharded.py, and of
+`MultiChipAdapter._slab_setup` in sphexa_tpu/propagator/multichip.py
+(:243-300), as the host function plan_slab. The XLA gather engine of
+ve_sharded (make_ve_step_sharded, the slab exchange_halos) is not
+ported.
 """
 
 from __future__ import annotations
@@ -13,9 +15,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sphexa_tpu_torch.domain.mesh import SlabMesh
+from sphexa_tpu_torch.config import SphConfig
+from sphexa_tpu_torch.domain.mesh import ShardComm, SlabMesh
 from sphexa_tpu_torch.domain.slab import SlabConfig
 from sphexa_tpu_torch.ops.cellmajor import CMGrid, choose_cm_grid
+from sphexa_tpu_torch.ops.pair_ve import MAX_CAP
 from sphexa_tpu_torch.sfc.box import Box
 from sphexa_tpu_torch.state import _FIELDS, Particles
 
@@ -63,14 +67,23 @@ def distribute(ps_host: dict, box: Box, sc: SlabConfig, mesh: SlabMesh,
     return shards, ext
 
 
-def plan_slab(host: dict, box: Box, h_max: float, n_slabs: int):
+def plan_slab(host: dict, box: Box, h_max: float, n_slabs: int,
+              cap_max: int = MAX_CAP):
     """Slab-domain sizing of the slab-sharded engines (the JAX adapter's
     _slab_setup): halve n_slabs while a slab is thinner than 2 h_max
     (the one-plane z exchange must cover the search radius), the global
     grid of choose_cm_grid split into n // D z-planes a shard, the cell
     cap from the measured occupancy, and the slab caps from the measured
     slab counts. host: numpy arrays of the alive particles. Returns
-    (local grid, SlabConfig); the SlabConfig's n_slabs is the D used."""
+    (local grid, SlabConfig); the SlabConfig's n_slabs is the D used.
+
+    cap_max (the pair kernels' limit by default): where the JAX rule's
+    cap exceeds it, the finer grids that the 2 h_max bound still allows
+    are measured and the finest within it taken (with the 1.3 margin if
+    one fits, else a headroom of 8 rows); none raises RuntimeError (a
+    slab too thin for 2 h_max at D = 2 raises ValueError). At caps
+    within it the plan is the JAX rule's, which ignores the kernels'
+    ceiling (ROADMAP Queue 3)."""
     D = n_slabs
     while D > 1 and box.lz / D < 2.0 * h_max * 1.05:
         D //= 2
@@ -81,20 +94,45 @@ def plan_slab(host: dict, box: Box, h_max: float, n_slabs: int):
     n_global = len(host["x"])
     n_per = n_global / D
 
-    gref = choose_cm_grid(box, h_max * 1.25, n_global)
-    nz_local = max(gref.n // D, 1)
-    if box.lz / (D * nz_local) < 2.0 * h_max:
-        nz_local = max(int(box.lz / D / (2.0 * h_max * 1.05)), 1)
-    gx = np.clip(((host["x"] - box.xmin) / box.lx * gref.n)
-                 .astype(np.int64), 0, gref.n - 1)
-    gy = np.clip(((host["y"] - box.ymin) / box.ly * gref.n)
-                 .astype(np.int64), 0, gref.n - 1)
-    gz = np.clip(((host["z"] - box.zmin) / box.lz * D * nz_local)
-                 .astype(np.int64), 0, D * nz_local - 1)
-    cell = (gx * gref.n + gy) * (D * nz_local) + gz
-    max_occ = int(np.bincount(cell).max())
+    def measure(n):
+        """(z planes a shard, the densest cell's count) on n x n x D nz."""
+        nz_local = max(n // D, 1)
+        if box.lz / (D * nz_local) < 2.0 * h_max:
+            nz_local = max(int(box.lz / D / (2.0 * h_max * 1.05)), 1)
+        gx = np.clip(((host["x"] - box.xmin) / box.lx * n)
+                     .astype(np.int64), 0, n - 1)
+        gy = np.clip(((host["y"] - box.ymin) / box.ly * n)
+                     .astype(np.int64), 0, n - 1)
+        gz = np.clip(((host["z"] - box.zmin) / box.lz * D * nz_local)
+                     .astype(np.int64), 0, D * nz_local - 1)
+        cell = (gx * n + gy) * (D * nz_local) + gz
+        return nz_local, int(np.bincount(cell).max())
+
+    n = choose_cm_grid(box, h_max * 1.25, n_global).n
+    nz_local, max_occ = measure(n)
     cap_cm = max(128, round_up(int(max_occ * 1.3) + 8, 128))
-    grid = CMGrid(n=gref.n, cap=cap_cm, nzi=nz_local)
+    if cap_cm > cap_max:
+        # finer grids within choose_cm_grid's 2 h_max bound on the cell
+        # edge: the finest whose cap fits, with the 1.3 margin if one
+        # does, else with the single-device planner's headroom of 8
+        L = min(box.lx, box.ly, box.lz)
+        n_corr = max(1, int(np.floor(L / (2.0 * h_max * 1.25 * 1.05))))
+        counts = {m: measure(m) for m in range(n, n_corr + 1)}
+        fits = []
+        for margin in (1.3, 1.0):
+            fits = [(m, max(128, round_up(int(c * margin) + 8, 128)))
+                    for m, (_, c) in sorted(counts.items(), reverse=True)]
+            fits = [f for f in fits if f[1] <= cap_max]
+            if fits:
+                break
+        if not fits:
+            raise RuntimeError(
+                f"the densest slot cell needs cap {cap_cm} > {cap_max} at "
+                f"every grid the 2 h_max bound allows ({n}..{n_corr} a "
+                f"side): too clustered for the slab-sharded engines")
+        n, cap_cm = fits[0]
+        nz_local = counts[n][0]
+    grid = CMGrid(n=n, cap=cap_cm, nzi=nz_local)
 
     # binned in the host arrays' own type, as the adapter does
     slab = np.clip(((host["z"] - box.zmin) / (box.lz / D))
@@ -105,3 +143,51 @@ def plan_slab(host: dict, box: Box, h_max: float, n_slabs: int):
         halo_cap=round_up(int(max_cnt * 0.6) + 64, 8),
         mig_cap=round_up(max(int(n_per * 0.25), 128), 8))
     return grid, sc
+
+
+def _sharded_gravity(comm: ShardComm, ps, box: Box, cfg: SphConfig,
+                     dim: int | None = None):
+    """Self-gravity across the shards, inside SlabMesh.run. `ps` has x,
+    y, z, m and alive rows of the same length on every shard. Returns
+    (ax, ay, az, egrav, ovf): egrav and the fail-stop count ovf
+    (near-field truncation + band overflow, must stay 0) are psum'd.
+
+    The FMM solver with `dim` set (z-slabs) runs fmm_gravity_sharded,
+    its level raised to min_level_for_bands(D) so the +-rings bands
+    cover the near field; with `dim` None (Hilbert ranges) it runs
+    fmm_gravity_sharded_generic with cfg.gravity_band_cap. The direct
+    and Ewald solvers all_gather every shard's rows and evaluate the
+    whole set (O(N) a shard), each shard keeping its own rows."""
+    from sphexa_tpu_torch.gravity import fmm
+    alive = ps.alive
+
+    def energy(pot):
+        return comm.psum(0.5 * torch.sum(torch.where(alive, ps.m * pot,
+                                                     0.0)))
+
+    if cfg.gravity_solver == "fmm":
+        if dim is not None:
+            fc = fmm.FmmConfig(min_sep=cfg.fmm_min_sep, level=max(
+                cfg.fmm_level, fmm.min_level_for_bands(comm.n)))
+            ax, ay, az, pot, nf, bo = fmm.fmm_gravity_sharded(
+                comm, ps.x, ps.y, ps.z, ps.m, alive, box, cfg.gravG, fc,
+                cfg.eps, dim=dim, rings=cfg.gravity_rings)
+        else:
+            fc = fmm.FmmConfig(level=cfg.fmm_level, min_sep=cfg.fmm_min_sep)
+            ax, ay, az, pot, nf, bo = fmm.fmm_gravity_sharded_generic(
+                comm, ps.x, ps.y, ps.z, ps.m, alive, box, cfg.gravG, fc,
+                cfg.eps, band_cap=cfg.gravity_band_cap)
+        return ax, ay, az, energy(pot), nf + bo
+
+    cap = ps.x.shape[0]
+    gx, gy, gz, gm, ga = (v.reshape(-1) for v in comm.all_gather(
+        (ps.x, ps.y, ps.z, torch.where(alive, ps.m, 0.0), alive)))
+    if cfg.gravity_solver == "ewald":
+        from sphexa_tpu_torch.gravity.ewald import ewald_gravity
+        g = ewald_gravity(gx, gy, gz, gm, ga, box, cfg.gravG, eps=cfg.eps)
+    else:
+        from sphexa_tpu_torch.gravity.direct import direct_gravity
+        g = direct_gravity(gx, gy, gz, gm, ga, cfg.gravG, cfg.eps)
+    mine = slice(comm.me * cap, (comm.me + 1) * cap)
+    ovf = torch.zeros((), dtype=torch.int32, device=ps.x.device)
+    return (g.ax[mine], g.ay[mine], g.az[mine], energy(g.pot[mine]), ovf)

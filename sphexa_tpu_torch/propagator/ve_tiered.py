@@ -499,7 +499,7 @@ def _build_layouts(engines, box: Box, ps):
 
 
 def _tiered_forces(ps, dt_prev, layouts, engines, box: Box, cfg: SphConfig,
-                   refresh=None, act_pf=None):
+                   refresh=None, owned=None, act_pf=None):
     """The five tiered pair stages on the particle frame `ps` (JAX
     ve_tiered.py:631). After every stage the tiers' outputs merge into
     the particle frame by owner mask; the next stage materializes its
@@ -508,7 +508,11 @@ def _tiered_forces(ps, dt_prev, layouts, engines, box: Box, cfg: SphConfig,
 
     refresh(dict) -> dict runs at each merge point (identity when None;
     the block-time-step engine overwrites inactive rows there from its
-    frozen store). With act_pf (block time-steps) the gated engines
+    frozen store; the sharded tiered step re-sends the halo rows from
+    their owners). `owned` marks the rows whose outputs this frame owns
+    (a shard's extended frame: its own rows, not its halo rows); only
+    they count toward the unowned, miss and clamp accounting. None means
+    ps.alive. With act_pf (block time-steps) the gated engines
     compute only supercells holding an active particle, and only
     active rows count toward the h clamps.
 
@@ -521,7 +525,8 @@ def _tiered_forces(ps, dt_prev, layouts, engines, box: Box, cfg: SphConfig,
     if refresh is None:
         def refresh(d):
             return d
-    owned = ps.alive
+    if owned is None:
+        owned = ps.alive
 
     sels = _tier_sels(engines, ps, h0)
     xr, yr, zr = _tier_frame_coords(engines, box, ps)

@@ -34,7 +34,7 @@ def compute_density(box: Box, x, y, z, h, m, idx, nc, cfg: SphConfig):
         rho0 = pc.gi(m) + pc.msum(wv * pc.gj(m))
         return K3d * rho0 / pc.hi ** 3
 
-    return run_pair_stage(stage, box, x, y, z, h, idx, nc, cfg.chunk)
+    return run_pair_stage(stage, box, x, y, z, h, idx, nc)
 
 
 def compute_iad_std(box: Box, x, y, z, h, m, rho, idx, nc, cfg: SphConfig):
@@ -73,7 +73,7 @@ def compute_iad_std(box: Box, x, y, z, h, m, rho, idx, nc, cfg: SphConfig):
             (t11 * t22 - t12 ** 2) * fac,
         )
 
-    return run_pair_stage(stage, box, x, y, z, h, idx, nc, cfg.chunk)
+    return run_pair_stage(stage, box, x, y, z, h, idx, nc)
 
 
 class MomentumEnergyStd(NamedTuple):
@@ -150,4 +150,4 @@ def compute_momentum_energy_std(box: Box, x, y, z, vx, vy, vz, h, m, rho, p,
         return MomentumEnergyStd(K3d * mom_x, K3d * mom_y, K3d * mom_z,
                                  -K3d * 0.5 * energy, maxvsignal)
 
-    return run_pair_stage(stage, box, x, y, z, h, idx, nc, cfg.chunk)
+    return run_pair_stage(stage, box, x, y, z, h, idx, nc)

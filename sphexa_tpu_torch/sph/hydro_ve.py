@@ -40,7 +40,7 @@ def compute_xmass(box: Box, x, y, z, h, m, idx, nc, cfg: SphConfig):
         h3 = pc.hi ** 3
         return pc.gi(m) * h3 / (K3d * rho0)
 
-    return run_pair_stage(stage, box, x, y, z, h, idx, nc, cfg.chunk)
+    return run_pair_stage(stage, box, x, y, z, h, idx, nc)
 
 
 def compute_ve_def_gradh(box: Box, x, y, z, h, m, xm, idx, nc, cfg: SphConfig):
@@ -71,7 +71,7 @@ def compute_ve_def_gradh(box: Box, x, y, z, h, m, xm, idx, nc, cfg: SphConfig):
         gradh = 1.0 - dhdrho * whomega
         return kx, gradh
 
-    return run_pair_stage(stage, box, x, y, z, h, idx, nc, cfg.chunk)
+    return run_pair_stage(stage, box, x, y, z, h, idx, nc)
 
 
 class IadDivvCurlv(NamedTuple):
@@ -153,7 +153,7 @@ def compute_iad_divv_curlv(box: Box, x, y, z, vx, vy, vz, h, kx, xm,
                             norm_kx * (dVx[2] + dVz[0]), norm_kx * dVy[1],
                             norm_kx * (dVy[2] + dVz[1]), norm_kx * dVz[2])
 
-    return run_pair_stage(stage, box, x, y, z, h, idx, nc, cfg.chunk)
+    return run_pair_stage(stage, box, x, y, z, h, idx, nc)
 
 
 def compute_av_switches(box: Box, x, y, z, vx, vy, vz, h, c, kx, xm, divv,
@@ -202,7 +202,7 @@ def compute_av_switches(box: Box, x, y, z, vx, vy, vz, h, c, kx, xm, divv,
         return torch.where(alphaloc >= alpha_i, alphaloc,
                            alpha_i + alphadot * dt)
 
-    return run_pair_stage(stage, box, x, y, z, h, idx, nc, cfg.chunk)
+    return run_pair_stage(stage, box, x, y, z, h, idx, nc)
 
 
 class MomentumEnergy(NamedTuple):
@@ -329,4 +329,4 @@ def compute_momentum_energy(box: Box, x, y, z, vx, vy, vz, h, m, prho, c,
         return MomentumEnergy(-K3d * mom_x, -K3d * mom_y, -K3d * mom_z,
                               du, maxvsignal)
 
-    return run_pair_stage(stage, box, x, y, z, h, idx, nc, cfg.chunk)
+    return run_pair_stage(stage, box, x, y, z, h, idx, nc)

@@ -13,8 +13,8 @@
   dumps byte-equal to the JAX writer's and read by both readers;
 - output on steps, times and --wextra, --duration, --debug-nans, the
   tiered props run, std-cooling, evrard-cooling, --profile, --viz-every
-  and --split 2 run, and the refusals of the multi-device props, each
-  naming its ROADMAP item.
+  and --split 2 run, the multi-device props run on 2 shards, and the
+  refusal of ve-pallas-tiles, naming its ROADMAP item.
 """
 
 import dataclasses
@@ -367,9 +367,21 @@ def test_lifted_refusals_run(cpu, tmp_path, monkeypatch, argv, rows):
     (["--prop", "ve-tiered-sharded"], "item 10"),
     (["--prop", "turbulence-ve-bdt-sharded"], "item 10"),
     (["--prop", "ve-pallas-tiles"], "item 10")])
-def test_refusals(cpu, argv, item):
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
-        run("-s", 1, "--quiet", "--constants", "", *argv)
+def test_refusals(cpu, monkeypatch, argv, item):
+    """ve-pallas-tiles refuses, naming its ROADMAP item. The five other
+    multi-device props, refused by the name of the same item until they
+    were ported, now run a step (a BDT cycle) on 2 shards
+    (SPHEXA_NUM_DEVICES=2) at Sedov 8^3 (at 6^3 a slab of half the box
+    is thinner than 2 h_max): every row finite, every particle alive."""
+    if argv[1] == "ve-pallas-tiles":
+        with pytest.raises(NotImplementedError, match=re.escape(item)):
+            run("-s", 1, "--quiet", "--constants", "", *argv)
+        return
+    monkeypatch.setenv("SPHEXA_NUM_DEVICES", "2")
+    st = run("-s", 1, "--quiet", "--constants", "", "-n", 8, *argv)
+    assert int(st.p.alive.sum()) == 8 ** 3
+    for f in _FIELDS[:-1]:
+        assert torch.isfinite(getattr(st.p, f)[st.p.alive]).all(), f
 
 
 def test_refused_inputs(cpu, tmp_path):

@@ -255,6 +255,27 @@ def test_stage(name, stage):
         close(f"{name} {stage} {k}", got[alive], want[alive])
 
 
+@pytest.mark.parametrize("rows", [1, 97])
+def test_pair_stage_chunking(rows, monkeypatch):
+    """run_pair_stage's chunks of CHUNK_ELEMS // K rows (here 1 and 97,
+    the last chunk short) give each row the sums of one whole chunk,
+    bit for bit."""
+    from sphexa_tpu_torch.ops import pair
+    f = frame("sedov10")
+    ps, nl = f["ps"], f["nl"]
+    tb, tcfg = tbox(f["box"]), config_from_dict(dataclasses.asdict(f["cfg"]))
+    x, y, z, h, m = (t(getattr(ps, c)) for c in ("x", "y", "z", "h", "m"))
+    idx, nc = t(nl.idx), t(nl.nc)
+    assert x.shape[0] % rows != 0 or rows == 1
+    whole = th.compute_ve_def_gradh(tb, x, y, z, h, m, t(f["xm"]), idx, nc,
+                                    tcfg)
+    monkeypatch.setattr(pair, "CHUNK_ELEMS", rows * idx.shape[1])
+    chunked = th.compute_ve_def_gradh(tb, x, y, z, h, m, t(f["xm"]), idx,
+                                      nc, tcfg)
+    for a, b in zip(whole, chunked):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, equal_nan=True)
+
+
 def test_finish_step_without_divv():
     """divv None (the std pipeline) leaves out the rho limit, as the
     JAX finish_step does: dt is the Courant limit alone."""

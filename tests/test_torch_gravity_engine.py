@@ -18,7 +18,8 @@ the FMM (level 4, min_sep 3).
   under the FMM (the particle frame drops the invalid slots each step).
 - BdtVE(num_rungs=1) against ResidentVE with gravity (port only): a
   one-rung cycle is one all-active step.
-- The sharded engines still refuse gravG != 0.
+- The sharded engines with the slab FMM: the gravitational energy of
+  their first step equals ResidentVE's.
 """
 
 import dataclasses
@@ -213,20 +214,47 @@ def test_bdt_one_rung_is_the_resident_step(solver):
 
 
 def test_sharded_engines_refuse_gravity():
+    """The sharded engines no longer refuse gravG != 0 (the name is kept
+    from when they did): on the Evrard 10 FMM frame (level 4) at D = 2,
+    on plan_slab's plan, the first step of make_ve_step_pallas_sharded
+    and the first substep of ShardedBdtVE (the slab FMM across the
+    shards) give the gravitational energy (etot - ecin - eint) of the
+    single-device ResidentVE's first step at rtol 1e-5, with no lost
+    row and no gravity or slot overflow."""
+    import torch
+
     from sphexa_tpu_torch.domain.mesh import SlabMesh
-    from sphexa_tpu_torch.domain.slab import SlabConfig
+    from sphexa_tpu_torch.propagator.multichip import _host_fields
     from sphexa_tpu_torch.propagator.ve_bdt_sharded import ShardedBdtVE
     from sphexa_tpu_torch.propagator.ve_pallas_sharded import (
         make_ve_step_pallas_sharded)
+    from sphexa_tpu_torch.propagator.ve_sharded import distribute, plan_slab
+    from sphexa_tpu_torch.state import SimState
 
     f = _frame("fmm")
+    tstate = state_from_numpy(*f["host"], device="cpu")
+    teng = ResidentVE(f["tb"], f["tgrid"], f["tcfg"], device="cpu")
+    _, d1 = teng.step(teng.bind(tstate))
+    eg1 = float(d1.etot) - float(d1.ecin) - float(d1.eint)
+    assert eg1 < 0.0
+
+    host = _host_fields(tstate.p)
+    grid, sc = plan_slab(host, f["tb"], float(host["h"].max()), 2)
     mesh = SlabMesh(2, devices=["cpu"])
-    grid = CMGrid(n=4, cap=32, nzi=2)
-    sc = SlabConfig(n_slabs=2, cap=64, halo_cap=64, mig_cap=64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        make_ve_step_pallas_sharded(f["tb"], grid, f["tcfg"], sc, mesh)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ShardedBdtVE(f["tb"], grid, f["tcfg"], sc, mesh)
+    states = [SimState(p=p, ttot=tstate.ttot, dt=tstate.dt,
+                       dt_m1=tstate.dt_m1, iteration=tstate.iteration)
+              for p in distribute(host, f["tb"], sc, mesh)]
+    step = make_ve_step_pallas_sharded(f["tb"], grid, f["tcfg"], sc, mesh)
+    _, d2 = step(states)
+    assert int(d2.lost) == 0 and int(d2.overflow) == 0
+    assert int(d2.n_owned) == len(host["x"])
+    eng = ShardedBdtVE(f["tb"], grid, f["tcfg"], sc, mesh, num_rungs=1)
+    _, d3 = eng.substep(eng.distribute_bind(tstate))
+    assert int(d3.overflow) == 0
+    for d in (d2, d3):
+        eg = float(d.etot) - float(d.ecin) - float(d.eint)
+        np.testing.assert_allclose(eg, eg1, rtol=1e-5)
+    assert torch.isfinite(d3.dt)
 
 
 def test_resident_ewald_on_periodic_box():

@@ -349,19 +349,37 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 
 
 def test_gravity_and_stirring_refused():
-    """The sharded engines refuse self-gravity (ROADMAP Queue 1 item 10),
-    the turbulence-stirred one too (stirring itself runs since PR 14:
-    tests/test_torch_turb_bdt.py)."""
+    """The sharded engines took self-gravity in (the name is kept from
+    when they refused it): all three build with gravG = 1, and a step of
+    the resident sharded engine at Sedov 8^3 (direct sum, D = 2) gives
+    the gravitational energy of the direct sum over every particle on
+    one device (rtol 1e-5), with no lost row."""
+    from sphexa_tpu_torch.gravity.direct import direct_gravity, egrav
+    from sphexa_tpu_torch.init.sedov import init_sedov
+    from sphexa_tpu_torch.propagator.multichip import _host_fields
+    from sphexa_tpu_torch.state import SimState
+
     box = _tbox(_box(JB.periodic, JB.periodic))
     grid = tcm.CMGrid(n=4, cap=64, nzi=2)
-    sc = SlabConfig(n_slabs=2, cap=256, halo_cap=8, mig_cap=64)
+    sc = SlabConfig(n_slabs=2, cap=384, halo_cap=8, mig_cap=64)
     mesh = SlabMesh(2, devices=["cpu"])
-    with pytest.raises(NotImplementedError):
-        make_ve_step_pallas_sharded(box, grid, SphConfig(gravG=1.0), sc, mesh)
-    with pytest.raises(NotImplementedError):
-        ShardedBdtVE(box, grid, SphConfig(gravG=1.0), sc, mesh)
-    with pytest.raises(NotImplementedError):
-        TurbShardedBdtVE(box, grid, SphConfig(gravG=1.0), sc, mesh)
+    state, box, cfg = init_sedov(8, SphConfig(), device="cpu")
+    cfg = cfg.replace(gravG=1.0)
+    step = make_ve_step_pallas_sharded(box, grid, cfg, sc, mesh)
+    ShardedBdtVE(box, grid, cfg, sc, mesh)
+    TurbShardedBdtVE(box, grid, cfg, sc, mesh)
+    host = _host_fields(state.p)
+    states = [SimState(p=p, ttot=state.ttot, dt=state.dt,
+                       dt_m1=state.dt_m1, iteration=state.iteration)
+              for p in distribute(host, box, sc, mesh)]
+    _, d = step(states)
+    assert int(d.lost) == 0 and int(d.overflow) == 0
+    p = state.p
+    g = direct_gravity(p.x, p.y, p.z, p.m, p.alive, 1.0, cfg.eps)
+    want = float(egrav(p.m, g.pot, p.alive))
+    assert want < 0.0
+    np.testing.assert_allclose(float(d.etot) - float(d.ecin)
+                               - float(d.eint), want, rtol=1e-5)
 
 
 def test_stirring_modes_set_once():
