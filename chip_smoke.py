@@ -12,7 +12,8 @@ Phases (any failure exits non-zero before the last line):
      version on a seeded activity pattern; then the resident engine on
      the card against the same engine on the CPU (plain versions) for 3
      steps at Sedov 10^3, and (b) the block-time-step engine BdtVE on the
-     card against the CPU for two rung cycles at Sedov 10^3;
+     card against the CPU for two rung cycles at Sedov 10^3 (its CPU
+     side in a child process from the build on, held after phase (k));
   4. the main path: ResidentVE on the card at Sedov 100^3 (1M particles),
      one warm-up step, then 10 timed steps with a forced rebin; launch
      counters are zeroed just before and read just after;
@@ -197,7 +198,23 @@ Phases (any failure exits non-zero before the last line):
      (BDT substep 1, every tier) launch of one more call against its
      plain version on sampled active cells (turbulence: on the run's
      state perturbed as phase (n)'s check frame); dryrun_multichip(4);
-  17. the kernel table as one JSON line, then the device line.
+  17. (r) the last multi-device engines, every shard a thread on the
+     card: (r1) the 2-D tiles (make_ve_step_pallas_tiles, 2 x 2), the
+     column ranges (make_ve_step_pallas_hilbert, D = 2) and the slab
+     gather engine (make_ve_step_sharded, D = 2) at Sedov 10^3 on the
+     card against the CPU (in processes of their own, beside the
+     card's runs), 2 steps each; (r2) main([...]) under --prop
+     ve-pallas-tiles at D = 4 at Evrard 100 (the generic FMM) and Sedov
+     100^3, 2 steps each, gated as phase (q)'s runs are and on span_ok
+     and n_total, with the tiles' imbalance; the column engine at Sedov
+     100^3 (2 steps) and the slab gather engine (1 step), D = 2, gated
+     on lost, overflow, row_span_ok, n_total, the gather caps, finite
+     rows and the energy drift, ms a call and peak memory beside the
+     runs they stand with; (r3) every K3-K7 launch of one more tile
+     call (both runs) and column call against its plain version on
+     sampled occupied cells, timed beside its bound from that shard's
+     in-support pairs, into the kernel rows (`tiles`, `columns`);
+  18. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
 python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
@@ -211,11 +228,13 @@ with no result lines; python3 chip_smoke.py --cli, the build and phase
 (m) alone; python3 chip_smoke.py --turb, the build and phase (n)
 alone; python3 chip_smoke.py --tiers, the build and phase (o) alone;
 python3 chip_smoke.py --cool, the build and phase (p) alone;
-python3 chip_smoke.py --multi, the build and phase (q) alone.
+python3 chip_smoke.py --multi, the build and phase (q) alone;
+python3 chip_smoke.py --domains, the build and phase (r) alone.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
@@ -377,9 +396,13 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    """ms a call of fn over `reps` calls between CUDA events, after one
+    warm-up call; warmup=False for the plain versions at 100^3 (one
+    call of each takes up to seconds, so a warm-up doubles its cost)."""
     import torch
-    fn()                                      # warm-up
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
@@ -1007,7 +1030,7 @@ def timing(report, eng, rst, grid, launches):
                            per_row=False)
         check_fill(k, J, out, eng.intmask)
         ms = cuda_ms(lambda: k._launch(J, I2, g, c), 5)
-        plain_ms = cuda_ms(lambda: k.plain(J, I2, g, c), 1)
+        plain_ms = cuda_ms(lambda: k.plain(J, I2, g, c), 1, warmup=False)
         ops = cand * GEO_FLOPS + inside * BODY_FLOPS[k.name]
         if k.name == "pair_xh":
             ops += recount * RECOUNT_FLOPS
@@ -1159,24 +1182,58 @@ def bdt_setup(side, device, num_rungs, grid=None, dt0=None, flags=None):
     return state, BdtVE(box, grid, cfg, num_rungs=num_rungs, device=device)
 
 
-def bdt_engine_check(report):
-    """Phase 3b: BdtVE on the card against BdtVE on the CPU (plain
-    versions), Sedov 10^3, CMGrid(n=4, cap=128), 3 rungs, two cycles;
-    bounds of tests/test_torch_bdt.py."""
+def bdt_engine_run(dev):
+    """BdtVE at Sedov 10^3 on CMGrid(n=4, cap=128), 3 rungs, two cycles
+    on `dev`: (each substep's diagnostics, the rungs after each cycle)."""
     from sphexa_tpu_torch.ops.cellmajor import CMGrid
 
-    runs = {}
-    for dev in (DEVICE, "cpu"):
-        state, eng = bdt_setup(10, dev, 3, CMGrid(n=4, cap=128), 2e-4)
-        bst = eng.bind_bdt(state)
-        ds, rungs = [], []
-        for _ in range(2):
-            bst, dd = eng.run_cycle(bst)
-            ds += [{k: np.asarray(v.cpu()).tolist()
-                    for k, v in d._asdict().items()} for d in dd]
-            rungs.append(bst.rung.cpu().numpy())
-        runs[dev] = (ds, rungs)
-    (a, ra), (b, rb) = runs["cpu"], runs[DEVICE]
+    state, eng = bdt_setup(10, dev, 3, CMGrid(n=4, cap=128), 2e-4)
+    bst = eng.bind_bdt(state)
+    ds, rungs = [], []
+    for _ in range(2):
+        bst, dd = eng.run_cycle(bst)
+        ds += [{k: np.asarray(v.cpu()).tolist()
+                for k, v in d._asdict().items()} for d in dd]
+        rungs.append(bst.rung.cpu().numpy())
+    return ds, rungs
+
+
+def bdt_cpu_ref_main() -> int:
+    """--cpu-ref-bdt OUT: bdt_engine_check's CPU side (bdt_engine_run on
+    the CPU, plain versions) in a process of its own, to OUT (.json)."""
+    sys.path.insert(0, ROOT)
+    ds, rungs = bdt_engine_run("cpu")
+    with open(sys.argv[2], "w") as f:
+        json.dump(dict(ds=ds, rungs=[r.tolist() for r in rungs]), f)
+    return 0
+
+
+def bdt_ref_start():
+    """bdt_engine_check's CPU reference, started as a child process at
+    the beginning of the script (it takes about a minute on the card's
+    host): (process, path)."""
+    path = os.path.join(ROOT, "chiprun_out", "bdt_engine_10_cpu.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--cpu-ref-bdt", path], cwd=ROOT, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True), path
+
+
+def bdt_engine_check(report, ref):
+    """Phase 3b: BdtVE on the card against BdtVE on the CPU (plain
+    versions), Sedov 10^3, CMGrid(n=4, cap=128), 3 rungs, two cycles;
+    bounds of tests/test_torch_bdt.py. ref: bdt_ref_start's child
+    process computing the CPU side."""
+    b, rb = bdt_engine_run(DEVICE)
+    proc, path = ref
+    _, err = proc.communicate(timeout=900)
+    assert proc.returncode == 0, f"BdtVE CPU reference: {err[-2000:]}"
+    with open(path) as f:
+        cpu = json.load(f)
+    a, ra = cpu["ds"], [np.asarray(r) for r in cpu["rungs"]]
     for x, y in zip(a, b):
         assert x["overflow"] == y["overflow"] == 0
         np.testing.assert_allclose(y["dt"], x["dt"], rtol=1e-5)
@@ -1368,7 +1425,7 @@ def bdt_timing(report, eng, bst, launches, cname=None):
             log_lanes(f"{kg.name} at cap {g.cap}, active supercells", lc)
         ms = cuda_ms(lambda: kg._launch(*args), 5)
         ungated_ms = cuda_ms(lambda: k._launch(J, I2, g, c), 5)
-        plain_ms = cuda_ms(lambda: kg.plain(*args), 1)
+        plain_ms = cuda_ms(lambda: kg.plain(*args), 1, warmup=False)
         # the same launch with no active supercell: the gate pass, the
         # blocks past the device count and the copy only; both also as
         # device time (a CUDA graph) and host dispatch
@@ -1712,7 +1769,7 @@ def mm_timing(report, eng, rst, grid, launches, bf16_launches=None):
             log_lanes(f"{name} at cap {g.cap} ({nfill} invalid interior "
                       f"slots at 0)", lc)
         ms = cuda_ms(lambda: k._launch(*args), 5)
-        plain_ms = cuda_ms(lambda: k.plain(*args), 1)
+        plain_ms = cuda_ms(lambda: k.plain(*args), 1, warmup=False)
         direct = next(x for x in pv.KERNELS if x.name == DIRECT[name])
         Jd = J[:direct.fj].contiguous()
         direct_ms = cuda_ms(lambda: direct._launch(Jd, I2, g, c), 5)
@@ -1919,7 +1976,7 @@ def column_timing(report, cname, eng, rst, launches):
                  for zseg in (1, 2, 4, 8, g.nz)}
         cell = cell_kernel(kc)
         cell_ms = cuda_ms(lambda: cell._launch(*args), 5)
-        plain_ms = cuda_ms(lambda: kc.plain(*args), 1)
+        plain_ms = cuda_ms(lambda: kc.plain(*args), 1, warmup=False)
         ops = cand * GEO_FLOPS + inside * BODY_FLOPS[name]
         if name == "pair_xh":
             ops += xh_recounts(J, g, c, per_slot)[0] * RECOUNT_FLOPS
@@ -5025,7 +5082,11 @@ def multi_run(report, rows, prop, case, n, steps, D=MULTI_D):
         for k in ("lost", "overflow", "fold"):
             assert int(getattr(raw, k, 0)) == 0, (key, k)
         if hasattr(raw, "n_owned"):
-            assert int(raw.n_owned) == adapter.n_global, key
+            # the tile diag's n_owned is the largest shard's, n_total
+            # the sum
+            assert int(getattr(raw, "n_total", raw.n_owned)) \
+                == adapter.n_global, key
+            assert bool(getattr(raw, "span_ok", True)), (key, "span_ok")
     etot = r["rows"][:, 3]
     drift = abs(float(etot[-1]) - r["e0"]) / abs(r["e0"])
     if case != "turbulence":
@@ -5222,6 +5283,407 @@ def multi_phase(report, rows):
     report["multi_dryrun"] = dryrun_multichip(4, device=DEVICE)
     report["multi_phase_seconds"] = time.perf_counter() - t0
     log(f"  phase (q): {report['multi_phase_seconds']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# (r) the last multi-device engines: 2-D tiles, column ranges and the slab
+#     gather engine
+# ---------------------------------------------------------------------------
+
+DOM_CHECK_SIDE = 10         # card against CPU
+DOM_CHECK_STEPS = 2
+DOM_SIDE = 100              # the full-width runs
+DOM_STEPS = 2               # the slab gather engine: 1 (~23 s a step)
+DOM_TILES_D = 4             # 2 x 2 tiles (x and z windowed)
+DOM_ENGINE_D = 2            # the column and slab gather engines
+# main([... --prop ve-pallas-tiles ...]) at D = 4: (case, n, steps)
+DOM_TILE_RUNS = (("evrard", 100, 2), ("sedov", 100, 2))
+DOM_SAMPLE_CELLS = 48
+# the runs these stand beside (PERF.md; NVIDIA H100 80GB HBM3, 700 W)
+DOM_BESIDE = {"evrard": "ve-hilbert Evrard 100 D = 2 11826.537 ms a step; "
+                        "resident step 1053.812",
+              "sedov": "ve-pallas-sharded Sedov 100^3 D = 4 136.199 ms",
+              "column": "ve-pallas-sharded Sedov 100^3 D = 2 54.129 ms; "
+                        "resident step 17.785",
+              "slab": "main --prop ve Sedov 100^3 (one card) 4841.296 ms"}
+PROP_KERNELS["ve-pallas-tiles"] = PROP_KERNELS["ve-pallas"] - {
+    "ghost_refresh"}
+FAIL_STOPS += ("# tile windows outgrown",)
+
+
+def dom_engine(engine, side, device):
+    """One of the three engines at Sedov side^3 on the shards of
+    `device`: 'tiles' (make_ve_step_pallas_tiles on DOM_TILES_D shards,
+    sized by plan_tile_domain as the command line's adapter sizes it),
+    'column' (make_ve_step_pallas_hilbert) or 'slab'
+    (make_ve_step_sharded, the gather path), both on DOM_ENGINE_D. The
+    column engine's slot grid is choose_cap_and_grid's at 1.05 h_max
+    (the window and band caps from the measured counts); the gather
+    grid is choose_level's at 1.4 h_max with cell_cap from the measured
+    densest cell. Returns (step, states, host state, box, cfg, info)."""
+    import torch
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.domain.mesh import SlabMesh
+    from sphexa_tpu_torch.init.sedov import init_sedov
+    from sphexa_tpu_torch.ops.cellmajor import CMGrid, choose_cap_and_grid
+    from sphexa_tpu_torch.propagator import ve_pallas_hilbert as vc
+    from sphexa_tpu_torch.propagator import ve_pallas_tiles as vt
+    from sphexa_tpu_torch.propagator.ve_sharded import round_up
+    from sphexa_tpu_torch.state import _FIELDS, SimState
+
+    D = DOM_TILES_D if engine == "tiles" else DOM_ENGINE_D
+    state, box, cfg = init_sedov(side, SphConfig(), dt0=3e-5, device="cpu")
+    host = {f: getattr(state.p, f).numpy() for f in _FIELDS[:-1]}
+    n = side ** 3
+    n_per = n / D
+    h_max = float(host["h"].max())
+    mesh = SlabMesh(D, devices=[device])
+    info = dict(engine=engine, side=side, D=D)
+    if engine == "tiles":
+        grid, td = vt.plan_tile_domain(box, host, h_max, n, D)
+        info["grid"] = str(grid)
+        step = vt.make_ve_step_pallas_tiles(box, td, grid.cap, cfg, mesh)
+        parts = vt.distribute_tiles(host, box, td, mesh)
+        info["domain"] = dataclasses.asdict(td)
+        info["local"] = str(CMGrid(n=grid.n, cap=grid.cap, nxi=td.rows_cap,
+                                   nzi=td.zcols_cap))
+    elif engine == "column":
+        _, grid = choose_cap_and_grid(box, h_max * 1.05, n, host["x"],
+                                      host["y"], host["z"], headroom=16)
+        info["grid"] = str(grid)
+        band = int(n * (grid.n + 1) / grid.n ** 2)
+        cd = vc.ColDomain(
+            n_ranks=D, n=grid.n, cap=round_up(int(n_per * 1.5) + 256, 8),
+            halo_cap=round_up(int(band * 1.5) + 256, 8),
+            mig_cap=round_up(max(int(n_per * 0.25), 128), 8))
+        step = vc.make_ve_step_pallas_hilbert(box, cd, grid.cap, cfg, mesh)
+        parts = vc.distribute_columns(host, box, cd, mesh)
+        info["domain"] = dataclasses.asdict(cd)
+        info["local"] = str(CMGrid(n=grid.n, cap=grid.cap, nxi=cd.rows))
+    else:
+        from sphexa_tpu_torch.neighbors import CellGrid, choose_level
+        from sphexa_tpu_torch.propagator.ve_sharded import (
+            distribute, make_ve_step_sharded, plan_slab)
+        level = choose_level(box, h_max * 1.4)
+        nn = 1 << level
+        g = [np.clip(((host[c] - lo) / ln * nn).astype(np.int64), 0, nn - 1)
+             for c, lo, ln in (("x", box.xmin, box.lx),
+                               ("y", box.ymin, box.ly),
+                               ("z", box.zmin, box.lz))]
+        occ = int(np.bincount((g[0] * nn + g[1]) * nn + g[2]).max())
+        cfg = cfg.replace(cell_cap=round_up(int(occ * 1.3) + 8, 32),
+                          ngpad=max(cfg.ngpad, 256))
+        _, sc = plan_slab(host, box, h_max, D)
+        step = make_ve_step_sharded(box, CellGrid(level), cfg, sc, mesh)
+        parts = distribute(host, box, sc, mesh)
+        info.update(level=level, cell_cap=cfg.cell_cap, ngpad=cfg.ngpad,
+                    domain=dataclasses.asdict(sc))
+    states = [SimState(p=p, ttot=torch.zeros((), device=p.device),
+                       dt=state.dt.to(p.device),
+                       dt_m1=state.dt_m1.to(p.device),
+                       iteration=state.iteration.to(p.device))
+              for p in parts]
+    return step, states, state, box, cfg, info
+
+
+def dom_gates(key, engine, d, n, cfg):
+    """A call's diagnostics: lost and overflow 0, the windows held
+    (span_ok / row_span_ok), every particle owned; the gather step's
+    densest cell and neighbour count within its caps."""
+    assert int(d.lost) == 0, (key, "lost", int(d.lost))
+    assert int(getattr(d, "overflow", 0)) == 0, (key, "overflow")
+    assert bool(getattr(d, "span_ok", True)), (key, "span_ok")
+    assert bool(getattr(d, "row_span_ok", True)), (key, "row_span_ok")
+    assert int(getattr(d, "n_total", d.n_owned)) == n, (key, "n_total")
+    if engine == "slab":
+        assert int(d.max_cell_count) <= cfg.cell_cap, (key, "cell_cap")
+        assert int(d.max_nc) <= cfg.ngpad, (key, "ngpad")
+        assert float(d.halo_frac) < 1.0, (key, "halo_frac")
+
+
+def dom_engine_run(engine, side, steps, device, spy_last=False):
+    """`steps` calls of dom_engine's step (each between CUDA events on
+    the card, the kernels' launch counts zeroed just before the first
+    and read after the last), gated by dom_gates; with spy_last, one
+    more call with every pair launch recorded. Returns its record."""
+    import torch
+    from sphexa_tpu_torch.observables import conserved_quantities
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    step, states, state0, box, cfg, info = dom_engine(engine, side, device)
+    n = side ** 3
+    e0 = float(conserved_quantities(state0.p, cfg).etot)
+    cuda = torch.device(device).type == "cuda"
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    call_ms, diags = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        else:
+            h0 = time.perf_counter()
+        states, d = step(states)
+        if cuda:
+            ev[1].record()
+            torch.cuda.synchronize()
+            call_ms.append(ev[0].elapsed_time(ev[1]))
+        else:
+            call_ms.append((time.perf_counter() - h0) * 1e3)
+        dom_gates(f"{engine} {side}", engine, d, n, cfg)
+        diags.append({k: float(v) for k, v in d._asdict().items()})
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    rows = {f: torch.cat([getattr(s.p, f)[s.p.alive] for s in states])
+            .cpu().numpy() for f in ("x", "y", "z", "vx", "h", "temp")}
+    for f, v in rows.items():
+        assert np.isfinite(v).all(), (engine, side, f)
+    rec = dict(info=info, call_ms=call_ms, diags=diags, e0=e0, rows=rows,
+               launches=launches, wall=wall,
+               peak=torch.cuda.max_memory_allocated() if cuda else 0)
+    if spy_last:
+        with Spy(pv.KERNELS[1:]) as spy:
+            states, d = step(states)
+        torch.cuda.synchronize()
+        rec["calls"] = spy.calls
+    return rec
+
+
+def dom_cpu_ref_main() -> int:
+    """--cpu-ref-dom ENGINE STEPS OUT: phase (r) 1's CPU reference of one
+    engine at Sedov DOM_CHECK_SIDE^3, in a process of its own (two torch
+    threads): its final alive rows and its diagnostics to OUT (.npz)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    engine, steps, out = sys.argv[2:5]
+    torch.set_num_threads(2)
+    rec = dom_engine_run(engine, DOM_CHECK_SIDE, int(steps), "cpu")
+    np.savez(out, **rec["rows"], **{
+        k: np.array([d[k] for d in rec["diags"]]) for k in rec["diags"][0]})
+    return 0
+
+
+def dom_refs_start():
+    """The CPU references of phase (r) 1, one process an engine, started
+    together (the card's runs go on meanwhile). Returns [(engine,
+    process, path)]."""
+    procs = []
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    env = dict(os.environ, SPHEXA_PLATFORM="cpu", OMP_NUM_THREADS="2")
+    for engine in ("tiles", "column", "slab"):
+        out = os.path.join(ROOT, "chiprun_out", f"dom_check_{engine}_cpu")
+        if os.path.exists(out + ".npz"):
+            os.remove(out + ".npz")
+        procs.append((engine, subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--cpu-ref-dom", engine, str(DOM_CHECK_STEPS), out], cwd=ROOT,
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True), out + ".npz"))
+    return procs
+
+
+def dom_check(report, procs, card):
+    """(r) 1: each engine at Sedov DOM_CHECK_SIDE^3 on the card
+    (dom_engine_run) against the CPU (the kernels' plain versions) in
+    the processes of dom_refs_start: dt and ttot at rtol 1e-5, etot and
+    eint at 1e-5, ecin at 1e-3, the integer diagnostics equal; the final
+    rows matched by position within 1e-5 of the box, vx, h and temp
+    within 2e-3 of their scale (as phase (q) holds the CLI's sharded
+    props)."""
+    from scipy.spatial import cKDTree
+    out = {}
+    for engine, proc, path in procs:
+        _, err = proc.communicate(timeout=900)
+        assert proc.returncode == 0, f"{engine} CPU reference: {err[-2000:]}"
+        ref = np.load(path)
+        g = card[engine]
+        for k in ("dt", "ttot", "etot", "eint"):
+            np.testing.assert_allclose([d[k] for d in g["diags"]], ref[k],
+                                       rtol=1e-5, err_msg=f"{engine} {k}")
+        np.testing.assert_allclose([d["ecin"] for d in g["diags"]],
+                                   ref["ecin"], rtol=1e-3,
+                                   err_msg=f"{engine} ecin")
+        for k in ("lost", "n_owned", "overflow"):
+            if k in ref:
+                assert [d[k] for d in g["diags"]] == ref[k].tolist(), \
+                    (engine, k)
+        a, b = ref, g["rows"]
+        assert len(a["x"]) == len(b["x"]), engine
+        dist, j = cKDTree(np.c_[a["x"], a["y"], a["z"]]).query(
+            np.c_[b["x"], b["y"], b["z"]])
+        assert len(np.unique(j)) == len(j), f"{engine}: rows matched twice"
+        errs = {f: float(np.abs(b[f] - a[f][j]).max()
+                         / max(np.abs(a[f]).max(), 1e-30))
+                for f in ("vx", "h", "temp")}
+        assert dist.max() < 1e-5 and max(errs.values()) < 2e-3, \
+            (engine, float(dist.max()), errs)
+        out[engine] = dict(info=g["info"], pos_err=float(dist.max()),
+                           errs=errs, launches=g["launches"],
+                           etot_card=[d["etot"] for d in g["diags"]],
+                           etot_cpu=ref["etot"].tolist())
+        log(f"  {engine} Sedov {DOM_CHECK_SIDE}^3 D = {g['info']['D']}: "
+            f"card vs CPU, {DOM_CHECK_STEPS} steps: etot "
+            f"{g['diags'][-1]['etot']:.9g} vs {ref['etot'][-1]:.9g}, rows "
+            f"matched within {dist.max():.2e}, {errs}; launches "
+            f"{g['launches']}")
+    report["dom_check"] = out
+
+
+def dom_pair_check(report, rows, key, frame, calls, intmasks):
+    """(r) 3: every K3-K7 launch of one more tile or column call against
+    its plain version on sampled occupied cells, its invalid interior
+    slots at their fill value, timed (CUDA events) beside its bound from
+    that shard's in-support pairs; into the kernel rows under `frame`
+    ('tiles' or 'columns'). Returns {stage: max abs err}."""
+    import types
+
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    by_name = {x["name"]: x for x in rows}
+    stages = [c for c in calls if c[0].name in PROP_KERNELS["ve-pallas"]]
+    assert stages, f"{key}: no pair launch recorded"
+    errs, counts, timed = {}, {}, {}
+    for i, (k, args, out) in enumerate(stages):
+        J, I2, g, c = args
+        im = intmasks[g]
+        shard = sum(1 for x in stages[:i] if x[0].name == k.name)
+        if k.name == "pair_xh":
+            counts[shard] = pair_counts(J, types.SimpleNamespace(intmask=im),
+                                        g, out[2] + 1)
+        cand, inside, _ = counts[shard]
+        cells = sample_occupied_cells(g, valid_slots(J), im,
+                                      DOM_SAMPLE_CELLS, 500 + i)
+        ref = pv._run_plain(k.body, J, I2, g, k.fo, cells=cells,
+                            **k._body_kw(c))
+        slots = torch.zeros(g.n_slots, dtype=torch.bool, device=DEVICE)
+        lane = torch.arange(g.cap, device=DEVICE)
+        slots[(cells[:, None] * g.cap + lane).reshape(-1)] = True
+        err, rel = compare(k.name, ref, out, valid_slots(J) & slots & im,
+                           per_row=False)
+        check_fill(k, J, out, im)
+        errs[k.name] = max(errs.get(k.name, 0.0), err)
+        ms = cuda_ms(lambda: k._launch(J, I2, g, c), 3)
+        nbytes = 4 * (J.numel() + (I2.numel() if I2 is not None else 0)
+                      + out.numel())
+        bound, by = pair_bound(cand * GEO_FLOPS + inside * BODY_FLOPS[k.name],
+                               nbytes)
+        t = timed.setdefault(k.name, dict(ms=0.0, bound_ms=0.0,
+                                          max_abs_err=0.0, launches=0))
+        t["ms"] += ms
+        t["bound_ms"] += bound
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        t["launches"] += 1
+        log(f"  {key} shard {shard} {g} {k.name:14s} {ms:8.3f} ms  bound "
+            f"{bound:.4f} ms ({by}); {cells.numel()} cells against plain: "
+            f"err {err:.3e} (rel {rel:.3e}); {inside:.4e} in-support pairs "
+            f"of {cand:.4e}")
+    for name, t in timed.items():
+        if name in by_name:
+            by_name[name].setdefault(frame, []).append(dict(
+                run=key, shards=t["launches"], ms=t["ms"],
+                bound_ms=t["bound_ms"], max_abs_err=t["max_abs_err"]))
+    report.setdefault("dom_kernels", {})[key] = timed
+    return errs
+
+
+def dom_tile_run(report, rows, case, n, steps):
+    """(r) 2: main([... --prop ve-pallas-tiles ...]) at full size on
+    DOM_TILES_D shards (main_in_process): multi_run's gates (the
+    adapter's fail-stops on lost, overflow and n_total, and on span_ok
+    as a re-plan; no fail-stop after the first accepted step; the
+    prop's kernels; finite rows; the energy drift; Evrard's density
+    L1), ms a call, the tiles' imbalance and peak memory; then every
+    K3-K7 launch of one more call against plain and timed."""
+    import torch
+    from sphexa_tpu_torch.ops.cellmajor import interior_mask
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    r, res = multi_run(report, rows, "ve-pallas-tiles", case, n, steps,
+                       D=DOM_TILES_D)
+    adapter = r["fns"][-1]
+    key = f"ve-pallas-tiles {case} {n} D={DOM_TILES_D}"
+    res["td"] = dataclasses.asdict(adapter.td)
+    res["imbalance"] = [float(d.raw.imbalance) for d in r["diags"]]
+    res["beside"] = DOM_BESIDE[case]
+    log(f"  {key}: tiles {adapter.td}, imbalance {res['imbalance']}, "
+        f"beside {res['beside']}")
+    with Spy(pv.KERNELS[1:]) as spy:
+        _, d = adapter(r["state"])
+    torch.cuda.synchronize()
+    assert bool(d.raw.span_ok) and int(d.raw.lost) == 0, key
+    g = spy.calls[0][1][2]
+    res["pair_errs"] = dom_pair_check(report, rows, key, "tiles", spy.calls,
+                                      {g: interior_mask(g, DEVICE)})
+    return res
+
+
+def dom_phase(report, rows, procs):
+    """Phase (r): the 2-D tile domain through main, the column-range and
+    the slab gather engines, on the card; procs: dom_refs_start's CPU
+    references (the whole script starts them before phase (l))."""
+    import torch
+    from sphexa_tpu_torch.ops.cellmajor import interior_mask
+
+    t0 = time.perf_counter()
+    try:
+        log(f"(r) the three engines at Sedov {DOM_CHECK_SIDE}^3 on the card "
+            f"(held against the CPU after the full-width runs):")
+        card = {e: dom_engine_run(e, DOM_CHECK_SIDE, DOM_CHECK_STEPS, DEVICE)
+                for e in ("tiles", "column", "slab")}
+        for case, n, steps in DOM_TILE_RUNS:
+            log(f"(r) main([... --prop ve-pallas-tiles ...]) at {case} {n}, "
+                f"D = {DOM_TILES_D}:")
+            dom_tile_run(report, rows, case, n, steps)
+            log(f"  {time.perf_counter() - t0:.1f} s into phase (r)")
+        for engine in ("column", "slab"):
+            log(f"(r) the {engine} engine at Sedov {DOM_SIDE}^3, D = "
+                f"{DOM_ENGINE_D}:")
+            rec = dom_engine_run(engine, DOM_SIDE,
+                                 DOM_STEPS if engine == "column" else 1,
+                                 DEVICE, spy_last=engine == "column")
+            key = f"{engine} Sedov {DOM_SIDE} D={DOM_ENGINE_D}"
+            etot = [d["etot"] for d in rec["diags"]]
+            drift = abs(etot[-1] - rec["e0"]) / abs(rec["e0"])
+            assert drift < CLI_DRIFT_BOUND, f"{key}: energy drift {drift}"
+            if engine == "column":
+                assert set(rec["launches"]) == PROP_KERNELS[
+                    "ve-pallas-tiles"], (key, rec["launches"])
+            else:
+                assert not rec["launches"], (key, rec["launches"])
+            res = dict(info=rec["info"], call_ms=rec["call_ms"],
+                       mean_ms=float(np.mean(rec["call_ms"])),
+                       energy_drift=drift, peak_bytes=rec["peak"],
+                       launches=rec["launches"], wall_s=rec["wall"],
+                       imbalance=[d.get("imbalance") for d in rec["diags"]],
+                       halo_frac=[d.get("halo_frac") for d in rec["diags"]],
+                       beside=DOM_BESIDE[engine])
+            if engine == "column":
+                g = rec["calls"][0][1][2]
+                res["pair_errs"] = dom_pair_check(
+                    report, rows, key, "columns", rec["calls"],
+                    {g: interior_mask(g, DEVICE)})
+            report.setdefault("dom_runs", {})[key] = res
+            log(f"  {key}: {rec['info']}; {res['mean_ms']:.3f} ms a step "
+                f"(CUDA events; all calls "
+                f"{[round(t, 3) for t in rec['call_ms']]}), beside "
+                f"{res['beside']}; peak {rec['peak'] / 2 ** 30:.3f} GiB, "
+                f"|etot - e0|/|e0| = {drift:.3e}, imbalance "
+                f"{res['imbalance']}, launches {rec['launches']}")
+            del rec
+            torch.cuda.empty_cache()
+            log(f"  {time.perf_counter() - t0:.1f} s into phase (r)")
+        log(f"(r) the card against the CPU at Sedov {DOM_CHECK_SIDE}^3:")
+        dom_check(report, procs, card)
+    finally:
+        cpu_refs_stop(procs)
+    report["dom_phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase (r): {report['dom_phase_seconds']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5911,12 +6373,39 @@ def multi_main() -> int:
     return 0
 
 
+def dom_main() -> int:
+    """--domains: the build and phase (r) alone (no result lines);
+    details to chiprun_out/chip_smoke_domains.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"smi": smi_line()}
+    log(report["smi"])
+    t0 = time.perf_counter()
+    _cuda.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    rows = [{"name": k.name} for k in all_kernels()]
+    dom_phase(report, rows, dom_refs_start())
+    report["rows"] = rows
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_domains.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--compare"]:
         return compare_main(sys.argv[2] if len(sys.argv) > 2 else "")
     if sys.argv[1:2] == ["--cpu-ref"]:      # a CPU reference of phase (q)
         return cpu_ref_main()
+    if sys.argv[1:2] == ["--cpu-ref-dom"]:  # a CPU reference of phase (r)
+        return dom_cpu_ref_main()
+    if sys.argv[1:2] == ["--cpu-ref-bdt"]:  # bdt_engine_check's CPU side
+        return bdt_cpu_ref_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -5932,6 +6421,8 @@ def main() -> int:
         return cool_main()
     if sys.argv[1:2] == ["--multi"]:
         return multi_main()
+    if sys.argv[1:2] == ["--domains"]:
+        return dom_main()
     sys.path.insert(0, ROOT)
     from sphexa_tpu_torch.ops import _cuda
 
@@ -5953,12 +6444,17 @@ def main() -> int:
     report["build_seconds"] = build_s
     report["ptxas"] = {s: i["ptxas"] for s, i in _cuda.build_info.items()}
 
+    def since():
+        log(f"  {time.perf_counter() - t0:.1f} s since the build began")
+
+    bdt_ref = bdt_ref_start()
+    atexit.register(lambda: bdt_ref[0].poll() is None and bdt_ref[0].kill())
     log("kernel check:")
     calls, eng30 = kernel_check(report)
     gated_check(report, calls, eng30)
     del calls, eng30
     engine_check(report)
-    bdt_engine_check(report)
+    since()
     log("main path:")
     eng, rst, grid, launches = main_path(report)
     log("timing:")
@@ -5970,6 +6466,7 @@ def main() -> int:
     rows += bdt_timing(report, beng, bst, blaunches)
     del beng, bst
 
+    since()
     log("(e) moment-matmul and avClean kernels against their plain "
         "versions:")
     mm_kernel_check(report)
@@ -5993,6 +6490,7 @@ def main() -> int:
     rows += bdt_timing(report, beng, bst, blaunches, "mm")
     del beng, bst
 
+    since()
     log("(i) the column launch K11 against its plain version and the cell "
         "launch at 30^3:")
     column_check(report)
@@ -6002,8 +6500,10 @@ def main() -> int:
         eng, rst, launches = column_main_path(report, cname)
         rows += column_timing(report, cname, eng, rst, launches)
         del eng, rst
+    since()
     log("(j) hardware probes P1-P5:")
     rows += probes_phase(report)
+    since()
 
     log("(k) the slab-sharded engines, all shards on the one card:")
     grids = {f"100^3 D={D}": sharded_setup(D)[3] for D in SHARD_D}
@@ -6013,13 +6513,20 @@ def main() -> int:
     k1z_rows = [sharded_main_path(report, D) for D in SHARD_D]
     rows.append(k1z_rows[0])
     sharded_bdt_main_path(report)
+    # its CPU side has run in a child process since the build
+    bdt_engine_check(report, bdt_ref)
+    since()
 
+    # phase (r)'s CPU references run beside phases (l)-(q)
+    dom_procs = dom_refs_start()
+    atexit.register(cpu_refs_stop, dom_procs)
     gravity_phase(report)
     cli_phase(report)
     turb_phase(report, rows)
     tier_phase(report, rows)
     cool_phase(report)
     multi_phase(report, rows)
+    dom_phase(report, rows, dom_procs)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

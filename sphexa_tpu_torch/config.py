@@ -59,7 +59,7 @@ class SphConfig:
     # clamp-form with the exp_pair polynomial (sph/kernels.py)
     uniform_mass: bool = False
 
-    # gravity solver and FMM settings (gravity is not ported yet)
+    # gravity solver and FMM settings
     gravity_solver: str = "direct"
     fmm_level: int = 4
     fmm_min_sep: int = 3

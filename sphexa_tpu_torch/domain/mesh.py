@@ -30,8 +30,9 @@ one shard to another is read on the stream that wrote it, after the
 write.
 
 Not ported: the slice-major device order of make_slab_mesh (TPU
-multi-slice `slice_index`, DCN) and a torch.distributed backend for
-several hosts.
+multi-slice `slice_index`, DCN). Like the JAX package, which has no
+multi-host path (no jax.distributed), the port runs its shards in one
+process on one host.
 """
 
 from __future__ import annotations

@@ -69,8 +69,7 @@ PROPS = ["ve", "std", "ve-pallas", "ve-tiered", "ve-tiered-resident",
          "turbulence-ve-bdt-sharded", "ve-pallas-tiles"]
 
 # props the port does not run yet -> the ROADMAP Queue 1 item porting them
-_REFUSED_PROPS = {"ve-pallas-tiles": "item 10 (the 2-D tile domain of the "
-                                     "multi-device props, slice 17)"}
+_REFUSED_PROPS = {}
 
 # the slot-frame engines: diag.max_cell_count counts dropped particles
 # (the tiered ones: the fold, ve-tiered-sharded's through the adapter)
@@ -622,7 +621,9 @@ def main(argv=None):
             slot_frame = args.prop in _SLOT_FRAME
             cell_bad = (int(diag.max_cell_count) > 0 if slot_frame
                         else int(diag.max_cell_count) > cfg.cell_cap)
-            if int(diag.max_nc) > cfg.ngpad or cell_bad:
+            # ve-pallas-tiles: a tile outgrew its static window
+            replan = bool(getattr(diag, "replan", False))
+            if int(diag.max_nc) > cfg.ngpad or cell_bad or replan:
                 consec_fails += 1
                 if consec_fails > 3:
                     raise RuntimeError(
@@ -640,6 +641,12 @@ def main(argv=None):
                               f"re-tiering from "
                               f"{'restored' if can_retry else 'current'} "
                               f"state", file=sys.stderr)
+                elif replan:
+                    # the new adapter plans the windows from the
+                    # restored state (plan_tile_caps)
+                    if not args.quiet:
+                        print("# tile windows outgrown: re-planning from "
+                              "the restored state", file=sys.stderr)
                 elif slot_frame:
                     # slot overflow: re-pick (cap, grid) with more
                     # headroom from the restored positions

@@ -26,6 +26,19 @@ Capacities come from the measured initial distribution: per-shard
 counts set the caps (x 1.7 margin), and with the FMM solver on the
 Hilbert domain the gravity band cap comes from fmm.estimate_band_cap on
 the realized leaf occupancy. Every overflow is a runtime fail-stop.
+
+ve-pallas-tiles (the 2-D tile domain) is sized as the JAX adapter sizes
+it (multichip.py:198-241), with four differences: the cell cap stays
+within the pair kernels' MAX_CAP (the JAX adapter allows 4096 in
+interpret mode), and where no grid fits the adapter exits; the halo
+cap rises to 1.3 x the measured halo (plan_tile_halo) + 64 where the
+JAX rule's max(0.6 N / D, 256) is below it; a shard count that
+R x C tiles do not factor exactly is refused (the JAX rule
+R = 2^floor(floor(log2 D) / 2), C = D // R runs 8 of 9 devices); and a
+step whose tiles outgrew their static windows (TileDiag.span_ok false,
+which the JAX adapter does not read) is handed back to the main loop as
+a re-plan (`_MCDiag.replan`): the loop restores the state and builds a
+new adapter, which re-plans the windows from it (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -38,12 +51,12 @@ import torch
 
 from sphexa_tpu_torch.config import SphConfig
 from sphexa_tpu_torch.domain.mesh import SlabMesh
+from sphexa_tpu_torch.propagator.ve_pallas_tiles import tile_factors
 from sphexa_tpu_torch.propagator.ve_sharded import plan_slab, round_up
 from sphexa_tpu_torch.sfc.box import Box
 from sphexa_tpu_torch.state import _FIELDS, Particles, SimState
 
-# the JAX package's multi-device props (multichip.py:31); this adapter
-# runs all but ve-pallas-tiles (the 2-D tile domain)
+# the JAX package's multi-device props (multichip.py:31)
 MULTICHIP_PROPS = ("ve-hilbert", "ve-pallas-sharded", "ve-bdt-sharded",
                    "ve-tiered-sharded", "turbulence-ve-bdt-sharded",
                    "ve-pallas-tiles")
@@ -72,7 +85,7 @@ class _MCDiag:
     bounds = None           # open-box growth: single-device only
     maxvsignal = 0.0
 
-    def __init__(self, d):
+    def __init__(self, d, replan: bool = False):
         self.dt, self.ttot = d.dt, d.ttot
         self.etot, self.ecin, self.eint = d.etot, d.ecin, d.eint
         self.egrav = float(d.etot) - float(d.ecin) - float(d.eint)
@@ -84,6 +97,8 @@ class _MCDiag:
         # the single-device gather step
         self.max_cell_count = int(getattr(d, "fold", 0)
                                   or getattr(d, "max_cell_count", 0))
+        # the tiles outgrew their windows: the step is void, re-plan
+        self.replan = replan
         self.raw = d
 
 
@@ -210,10 +225,10 @@ class MultiChipAdapter:
                                             turb=turb, num_rungs=BDT_RUNGS)
                 self.turb = turb
             self.bst = None
+        elif prop == "ve-pallas-tiles":
+            states0 = self._tile_setup(host, box, h_max, devices, quiet)
         else:
-            raise NotImplementedError(
-                f"--prop {prop} is not ported to sphexa_tpu_torch yet "
-                f"(ROADMAP Queue 1 item 10: the 2-D tile domain, slice 17)")
+            raise ValueError(f"unknown multi-device propagator {prop}")
 
         self._states0 = states0
         if not quiet:
@@ -236,6 +251,28 @@ class MultiChipAdapter:
         self.D = sc.n_slabs
         self.grid, self.sc = grid, sc
         return grid, sc
+
+    def _tile_setup(self, host, box, h_max, devices, quiet):
+        """The tile domain's sizing (plan_tile_domain: the JAX adapter's,
+        with the cell cap within MAX_CAP, the halo cap at least the
+        measured halo's and R x C = D exactly, else an exit); returns the
+        initial shards."""
+        from sphexa_tpu_torch.propagator.ve_pallas_tiles import (
+            distribute_tiles, make_ve_step_pallas_tiles, plan_tile_domain)
+        try:
+            grid, td = plan_tile_domain(box, host, h_max, self.n_global,
+                                        self.D)
+        except ValueError as e:
+            raise SystemExit(f"--prop ve-pallas-tiles: {e}") from None
+        self.td = td
+        if not quiet:
+            print(f"# tiles: R={td.n_rows} C={td.n_cols} "
+                  f"rows_cap={td.rows_cap} zcols_cap={td.zcols_cap}")
+        mesh = self.mesh = SlabMesh(self.D, devices)
+        self.grid = grid
+        self._step = make_ve_step_pallas_tiles(box, td, grid.cap, self.cfg,
+                                               mesh)
+        return distribute_tiles(host, box, td, mesh)
 
     def checkpoint_state(self, n_capacity):
         """Rung state for the writer (timestep.h:29-34), block-time-step
@@ -302,6 +339,10 @@ class MultiChipAdapter:
         else:
             states = self._split(state)
         states, d = self._step(states)
+        if not bool(getattr(d, "span_ok", True)):
+            # a tile outgrew its window: the step's clipped rows void it
+            # (its lost and overflow counts too); the loop re-plans
+            return self._join(states), _MCDiag(d, replan=True)
         # fail-stops (the reference throws on a capacity or exchange loss)
         lost = int(d.lost)
         if lost != 0:
@@ -312,7 +353,9 @@ class MultiChipAdapter:
         if ovf != 0:
             raise RuntimeError(
                 f"multichip fail-stop: {ovf} cell-major slot overflows")
-        n_owned = int(d.n_owned)
+        # the column and tile diags report the largest shard's count as
+        # n_owned and the sum as n_total
+        n_owned = int(getattr(d, "n_total", d.n_owned))
         if n_owned != self.n_global:
             raise RuntimeError(
                 f"conservation violation: {n_owned} owned vs "

@@ -1,31 +1,209 @@
-"""Host-side set-up of the slab-sharded engines (distribution of the
-particles into slabs, the slab planner) and the self-gravity of every
-sharded engine.
+"""The VE gather step on the slab domain, the host-side set-up of the
+slab-sharded engines (distribution of the particles into slabs, the
+slab planner) and the self-gravity of every sharded engine.
 
-Counterpart of `distribute` (:196-234) and `_sharded_gravity`
-(:237-310) in sphexa_tpu/propagator/ve_sharded.py, and of
-`MultiChipAdapter._slab_setup` in sphexa_tpu/propagator/multichip.py
-(:243-300), as the host function plan_slab. The XLA gather engine of
-ve_sharded (make_ve_step_sharded, the slab exchange_halos) is not
-ported.
+Counterpart of sphexa_tpu/propagator/ve_sharded.py: ShardedDiag (:33),
+_local_step (:48), make_ve_step_sharded (:172), distribute (:196-234)
+and _sharded_gravity (:237-310); and of `MultiChipAdapter._slab_setup`
+in sphexa_tpu/propagator/multichip.py (:243-300), as the host function
+plan_slab.
+
+make_ve_step_sharded is the single-device gather step (propagator/ve)
+on each shard's slab, the reference's ve_hydro.hpp:132-205 under MPI:
+migrate to the +-1 neighbours, extend the frame by the neighbours' halo
+bands within r_halo = 2.6 h_max (domain/slab.exchange_halos), cell-sort
+the extended frame, build the neighbour lists (the halo rows keep their
+exchanged h, the owners' adapted h is refreshed into them), run the
+five gather stages (sph/hydro_ve, plain PyTorch, as the JAX step is
+plain XLA) with the halo refreshes at the reference's exchange points,
+add the slab FMM (dim=2) under gravity, take the global dt by pmin,
+integrate, and pack the owned rows back into the [cap] frame. The
+neighbour search runs over the extended frame's alive rows (owned and
+halo, as the JAX step searches them); the dead padding rows get a dead
+row's outputs in both.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from sphexa_tpu_torch.config import SphConfig
 from sphexa_tpu_torch.domain.mesh import ShardComm, SlabMesh
-from sphexa_tpu_torch.domain.slab import SlabConfig
+from sphexa_tpu_torch.domain.slab import (SlabConfig, _pack, exchange_halos,
+                                          migrate, refresh_halo_fields)
+from sphexa_tpu_torch.neighbors import (CellGrid, build_cell_list,
+                                        build_neighbor_list)
 from sphexa_tpu_torch.ops.cellmajor import CMGrid, choose_cm_grid
 from sphexa_tpu_torch.ops.pair_ve import MAX_CAP
 from sphexa_tpu_torch.sfc.box import Box
-from sphexa_tpu_torch.state import _FIELDS, Particles
+from sphexa_tpu_torch.sph import hydro_ve
+from sphexa_tpu_torch.sph import timestep as ts
+from sphexa_tpu_torch.sph.eos import eos_ve, ideal_gas_cv
+from sphexa_tpu_torch.sph.kernels import update_h
+from sphexa_tpu_torch.sph.positions import position_update, temp_update
+from sphexa_tpu_torch.state import _FIELDS, Particles, SimState
 
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+class ShardedDiag(NamedTuple):
+    dt: torch.Tensor
+    ttot: torch.Tensor
+    etot: torch.Tensor
+    ecin: torch.Tensor
+    eint: torch.Tensor
+    lost: torch.Tensor       # migration (+ gravity band) losses, 0
+    n_owned: torch.Tensor    # total alive particles (conservation check)
+    max_nc: torch.Tensor
+    h_max: torch.Tensor
+    halo_frac: torch.Tensor  # r_halo / slab width; < 1 for the +-1
+                             # halo exchange to be complete
+    # the densest cell of any shard's extended frame against cell_cap
+    # (the gather step's fail-stop; the JAX ShardedDiag lacks it)
+    max_cell_count: torch.Tensor
+
+
+def _local_step(comm: ShardComm, ps: Particles, dt_prev, box: Box,
+                grid: CellGrid, cfg: SphConfig, sc: SlabConfig):
+    """One step of one shard. Returns (owned frame, dt, ShardedDiag)."""
+    # ---- domain sync: migration and the halo bands ----
+    ps, lost = migrate(comm, ps, box, sc)
+    h_max = comm.pmax(torch.max(torch.where(ps.alive, ps.h, 0.0)))
+    r_halo = 2.0 * h_max * 1.3   # slack for in-step h growth
+    ext, maps = exchange_halos(comm, ps, box, sc, r_halo)
+    dev = ps.x.device
+    owned_ext = torch.cat([ps.alive, torch.zeros(2 * sc.halo_cap,
+                                                 dtype=torch.bool,
+                                                 device=dev)])
+
+    # ---- cell sort of the extended frame ----
+    cl = build_cell_list(grid, box, ext.x, ext.y, ext.z, alive=ext.alive)
+    perm = cl.perm.to(torch.int64)
+    exts = ext.permute(perm)
+    owned = owned_ext[perm]
+    inv_perm = torch.empty_like(perm)
+    inv_perm[perm] = torch.arange(sc.ext, device=dev)
+
+    nl = build_neighbor_list(grid, box, cl, exts.x, exts.y, exts.z, exts.h,
+                             cfg, adapt_h=True, alive=exts.alive,
+                             rows=torch.nonzero(exts.alive).reshape(-1))
+
+    def refresh(fields):
+        return refresh_halo_fields(comm, fields, maps, sc, inv_perm=inv_perm)
+
+    # halo rows have incomplete neighbourhoods: keep their exchanged h
+    # and pull the owners' adapted values
+    (h,) = refresh((torch.where(owned, nl.h, exts.h),))
+    exts = exts.replace(h=h)
+    x, y, z = exts.x, exts.y, exts.z
+    idx, nc = nl.idx, nl.nc
+
+    # ---- pair stages with the reference-placed halo refreshes ----
+    xm = hydro_ve.compute_xmass(box, x, y, z, h, exts.m, idx, nc, cfg)
+    (xm,) = refresh((xm,))
+    kx, gradh = hydro_ve.compute_ve_def_gradh(box, x, y, z, h, exts.m, xm,
+                                              idx, nc, cfg)
+    rho, p, c, prho = eos_ve(exts.temp, exts.m, kx, xm, gradh, cfg.mui,
+                             cfg.gamma)
+    kx, prho, c = refresh((kx, prho, c))
+    iad = hydro_ve.compute_iad_divv_curlv(box, x, y, z, exts.vx, exts.vy,
+                                          exts.vz, h, kx, xm, idx, nc, cfg)
+    cij = refresh((iad.c11, iad.c12, iad.c13, iad.c22, iad.c23, iad.c33,
+                   iad.divv))
+    divv, cij = cij[6], cij[:6]
+    alpha = hydro_ve.compute_av_switches(box, x, y, z, exts.vx, exts.vy,
+                                         exts.vz, h, c, kx, xm, divv, cij,
+                                         exts.alpha, dt_prev, idx, nc, cfg)
+    (alpha,) = refresh((torch.where(owned, alpha, exts.alpha),))
+    exts = exts.replace(alpha=alpha)
+    me = hydro_ve.compute_momentum_energy(box, x, y, z, exts.vx, exts.vy,
+                                          exts.vz, h, exts.m, prho, c, cij,
+                                          kx, xm, alpha, idx, nc, cfg)
+    ax, ay, az = me.ax, me.ay, me.az
+    egrav = torch.zeros((), dtype=torch.float32, device=dev)
+    if cfg.gravG != 0.0:
+        # the slab FMM (or the gathered direct or Ewald sum) over the
+        # owned frame; its rows sit at the extended frame's first cap
+        gax, gay, gaz, egrav, govf = _sharded_gravity(comm, ps, box, cfg,
+                                                      dim=2)
+        lost = lost + govf
+
+        def ext_rows(v):
+            return torch.cat([v, v.new_zeros(2 * sc.halo_cap)])[perm]
+
+        ax, ay, az = ax + ext_rows(gax), ay + ext_rows(gay), \
+            az + ext_rows(gaz)
+
+    # ---- global timestep: local minima, then pmin ----
+    valid = owned & exts.alive
+    cands = [ts.courant_timestep(me.maxvsignal, h, c, valid, cfg.kcour),
+             ts.rho_timestep(iad.divv, valid, cfg.krho)]
+    if cfg.gravG != 0.0:
+        cands.append(ts.acceleration_timestep(ax, ay, az, valid,
+                                              cfg.eta_acc, cfg.eps))
+    dt = comm.pmin(torch.minimum(cfg.max_dt_increase * dt_prev,
+                                 torch.stack(cands).min()))
+
+    # ---- integrate the owned rows ----
+    xn, yn, zn, vxn, vyn, vzn, dxn, dyn, dzn = position_update(
+        dt, dt_prev, exts.x, exts.y, exts.z, ax, ay, az, exts.x_m1,
+        exts.y_m1, exts.z_m1, box, h=h, vx=exts.vx, vy=exts.vy, vz=exts.vz)
+    temp = temp_update(exts.temp, dt, dt_prev, me.du, exts.du_m1, cfg.mui,
+                       cfg.gamma)
+    exts = exts.replace(x=xn, y=yn, z=zn, vx=vxn, vy=vyn, vz=vzn, x_m1=dxn,
+                        y_m1=dyn, z_m1=dzn, temp=temp,
+                        h=update_h(cfg.ng0, nl.nc_sph, h), du_m1=me.du)
+
+    # ---- compact the owned alive rows back into the [cap] frame ----
+    packed, n_own = _pack(valid, [getattr(exts, f) for f in _FIELDS[:-1]],
+                          sc.cap)
+    alive = torch.arange(sc.cap, device=dev) < n_own
+    cols = dict(zip(_FIELDS[:-1], packed))
+    cols["h"] = torch.where(alive, cols["h"], 1.0)
+    ps_new = Particles(alive=alive, **cols)
+
+    # ---- diagnostics (psum = MPI_Allreduce SUM) ----
+    cv = ideal_gas_cv(cfg.mui, cfg.gamma)
+    ecin = comm.psum(0.5 * torch.sum(torch.where(
+        valid, exts.m * (vxn ** 2 + vyn ** 2 + vzn ** 2), 0.0)))
+    eint = comm.psum(torch.sum(torch.where(valid, exts.m * cv * temp, 0.0)))
+    diag = ShardedDiag(
+        dt=dt, ttot=torch.zeros_like(dt), etot=ecin + eint + egrav,
+        ecin=ecin, eint=eint, lost=comm.psum(lost), n_owned=comm.psum(n_own),
+        max_nc=comm.pmax(nl.max_nc), h_max=h_max,
+        halo_frac=r_halo / (box.lz / sc.n_slabs),
+        max_cell_count=comm.pmax(nl.max_cell_count))
+    return ps_new, dt, diag
+
+
+def make_ve_step_sharded(box: Box, grid: CellGrid, cfg: SphConfig,
+                         sc: SlabConfig, mesh: SlabMesh):
+    """step(states) -> (states, ShardedDiag): one SimState a shard (its
+    [cap] owned frame, on its device, as `distribute` gives it); the
+    diagnostics come from shard 0, reduced over the shards. `grid` is
+    the gather path's global cell grid."""
+    if mesh.n_slabs != sc.n_slabs:
+        raise ValueError(f"mesh of {mesh.n_slabs} shards, SlabConfig of "
+                         f"{sc.n_slabs} slabs")
+
+    def local(comm, state: SimState):
+        ps, dt, diag = _local_step(comm, state.p, state.dt, box, grid, cfg,
+                                   sc)
+        ttot = state.ttot + dt
+        return (SimState(p=ps, ttot=ttot, dt=dt, dt_m1=state.dt,
+                         iteration=state.iteration + 1),
+                diag._replace(ttot=ttot))
+
+    def step(states):
+        res = mesh.run(local, states)
+        return [r[0] for r in res], res[0][1]
+
+    return step
 
 
 def distribute(ps_host: dict, box: Box, sc: SlabConfig, mesh: SlabMesh,

@@ -55,6 +55,7 @@ from sphexa_tpu_torch.ops import pair_ve as tpv
 from test_torch_cuda import k9_noise_floor
 from test_torch_tile_schedule import (BOXES, GRIDS, TILE, av_switches_call,
                                       frame_inputs, tile_schedule)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # valid interior slots at K9's noise floor, of 1000 in each frame
 NAMED = {("cap256", "periodic"): 29, ("cap256", "open"): 21,

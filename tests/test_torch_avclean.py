@@ -42,6 +42,7 @@ from sphexa_tpu_torch.ops import pair_ve as tpv
 from sphexa_tpu_torch.ops.cellmajor import CMGrid
 from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
 from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE, eta_crit
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_STEPS = 3
 FORCE_REBIN_AT = 1

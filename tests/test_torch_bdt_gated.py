@@ -29,6 +29,7 @@ from sphexa_tpu.sph.eos import eos_ve as j_eos_ve
 from sphexa_tpu_torch.ops import pair_ve as tpv
 
 from test_torch_bdt import GRID, _tcfg, _tgrid
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _to_torch(a):

@@ -28,7 +28,7 @@ Bounds, and why:
     tests/test_torch_turbulence.py), ecin at rtol 1e-5, the momenta at
     1e-5 of sqrt(2 M ecin) (and that times the box's half diagonal for
     the angular one), as tests/test_torch_cli.py holds Sedov.
-The module runs on one torch thread (see one_torch_thread).
+The module runs on one torch thread (see tests/torch_threads.py).
 """
 
 import dataclasses
@@ -55,18 +55,10 @@ from sphexa_tpu_torch.interop import (box_from_numpy, config_from_dict,
 from sphexa_tpu_torch.main import main
 from sphexa_tpu_torch.observables import factory as t_obs
 from sphexa_tpu_torch.observables import gresho_solution, noh_solution
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = ("noh", "isobaric-cube", "gresho-chan", "kelvin-helmholtz",
          "wind-shock")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread (see tests/test_torch_gather.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -17,6 +17,7 @@ from sphexa_tpu.ops import cellmajor as jcm
 from sphexa_tpu.sfc.box import Box as JBox, Boundary as JBoundary
 from sphexa_tpu_torch.interop import box_from_numpy
 from sphexa_tpu_torch.ops import cellmajor as tcm
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tbox(jb):

@@ -13,8 +13,7 @@
   dumps byte-equal to the JAX writer's and read by both readers;
 - output on steps, times and --wextra, --duration, --debug-nans, the
   tiered props run, std-cooling, evrard-cooling, --profile, --viz-every
-  and --split 2 run, the multi-device props run on 2 shards, and the
-  refusal of ve-pallas-tiles, naming its ROADMAP item.
+  and --split 2 run, and the six multi-device props run on 2 shards.
 """
 
 import dataclasses
@@ -39,21 +38,9 @@ from sphexa_tpu_torch.main import main
 from sphexa_tpu_torch.ops.cellmajor import choose_cap_and_grid
 from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
 from sphexa_tpu_torch.propagator.ve_cellmajor import make_ve_step_cellmajor
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEDOV6 = ["--init", "sedov", "-n", "6", "--dt0", "1e-4"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread. With several, PyTorch's CPU backend here has
-    been seen to compute a whole 32768-element chunk of an elementwise
-    op's first use in a process from stale data (about 1 process in 7
-    at 8 threads, none in 40 at 1), which moves a stage's output by
-    ~1e-4 of its scale at random rows."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -368,15 +355,11 @@ def test_lifted_refusals_run(cpu, tmp_path, monkeypatch, argv, rows):
     (["--prop", "turbulence-ve-bdt-sharded"], "item 10"),
     (["--prop", "ve-pallas-tiles"], "item 10")])
 def test_refusals(cpu, monkeypatch, argv, item):
-    """ve-pallas-tiles refuses, naming its ROADMAP item. The five other
-    multi-device props, refused by the name of the same item until they
-    were ported, now run a step (a BDT cycle) on 2 shards
-    (SPHEXA_NUM_DEVICES=2) at Sedov 8^3 (at 6^3 a slab of half the box
-    is thinner than 2 h_max): every row finite, every particle alive."""
-    if argv[1] == "ve-pallas-tiles":
-        with pytest.raises(NotImplementedError, match=re.escape(item)):
-            run("-s", 1, "--quiet", "--constants", "", *argv)
-        return
+    """The six multi-device props, refused by the name of the same
+    ROADMAP item until they were ported, now run a step (a BDT cycle)
+    on 2 shards (SPHEXA_NUM_DEVICES=2) at Sedov 8^3 (at 6^3 a slab of
+    half the box is thinner than 2 h_max): every row finite, every
+    particle alive. ve-pallas-tiles runs there as 1 x 2 tiles."""
     monkeypatch.setenv("SPHEXA_NUM_DEVICES", "2")
     st = run("-s", 1, "--quiet", "--constants", "", "-n", 8, *argv)
     assert int(st.p.alive.sum()) == 8 ** 3

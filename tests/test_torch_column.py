@@ -49,6 +49,7 @@ from sphexa_tpu_torch.ops import pair_ve as tpv
 from sphexa_tpu_torch.ops.cellmajor import CMGrid
 from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE, eta_crit
 from sphexa_tpu_torch.sph.eos import eos_ve as t_eos_ve
+from torch_threads import one_torch_thread  # noqa: F401
 
 MM = dict(mxu_moments=True, mxu_momentum=True)
 

@@ -22,7 +22,7 @@ Tolerances:
     ChemistryData.create exact.
 The float32 guards: a row with rho 0 gives NaN in cooling_rate_du and
 in cooling_timestep in both packages (ROADMAP Queue 3).
-The module runs on one torch thread (see one_torch_thread).
+The module runs on one torch thread (see tests/torch_threads.py).
 """
 
 import dataclasses
@@ -39,6 +39,7 @@ from sphexa_tpu.physics import cooling as jcool
 from sphexa_tpu_torch.config import SphConfig
 from sphexa_tpu_torch.physics import chemistry as tchem
 from sphexa_tpu_torch.physics import cooling as tcool
+from torch_threads import one_torch_thread  # noqa: F401
 
 LAMBDA_RTOL = 2e-5
 RATE_RTOL = 3e-5
@@ -52,15 +53,6 @@ SETTINGS = {"cooling::Gamma": 1.4, "cooling::HydrogenFractionByMass": 0.7,
             "cooling::photoelectric_heating": "2",
             "cooling::UVbackground": 1, "cooling::DeuteriumToHydrogenRatio":
             6.8e-5, "other::unrelated": 5}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread (see tests/test_torch_gather.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(a):

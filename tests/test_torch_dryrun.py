@@ -11,21 +11,12 @@ overflow with the JAX package's own layout builder.
 """
 
 import numpy as np
-import pytest
-import torch
 
 from sphexa_tpu.config import SphConfig as JCfg
 from sphexa_tpu.init.sedov import init_sedov as j_init_sedov
 from sphexa_tpu.ops import cellmajor as jcm
 from sphexa_tpu_torch.dryrun import dryrun_multichip
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def test_dryrun_two_shards():

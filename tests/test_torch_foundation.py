@@ -35,6 +35,7 @@ from sphexa_tpu_torch.sph import kernels as tk
 from sphexa_tpu_torch.sph import positions as tpos
 from sphexa_tpu_torch.sph import timestep as tts
 from sphexa_tpu_torch.util.kahan import kahan_sum as t_kahan_sum
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-6
 PKG = pathlib.Path(__file__).resolve().parents[1] / "sphexa_tpu_torch"

@@ -39,6 +39,7 @@ from sphexa_tpu.ops import pallas_ve as jpv
 from sphexa_tpu.sfc.box import Box as JBox, Boundary as JBoundary
 from sphexa_tpu_torch.ops import pair_ve as tpv
 from sphexa_tpu_torch.ops.cellmajor import CMGrid, _interior_cells_np
+from torch_threads import one_torch_thread  # noqa: F401
 
 GRIDS = {"n4": dict(n=4, cap=64), "n10": dict(n=10, cap=64)}
 BOXES = ("periodic", "open")

@@ -47,21 +47,9 @@ from sphexa_tpu_torch.propagator.ve import make_ve_step
 from sphexa_tpu_torch.sfc.box import Box
 from sphexa_tpu_torch.sfc.morton import morton_decode, morton_encode
 from sphexa_tpu_torch.sph import hydro_ve as th
+from torch_threads import one_torch_thread  # noqa: F401
 
 FRAMES = ("sedov10", "sedov16", "evrard10")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread. With several, PyTorch's CPU backend here has
-    been seen to compute a whole 32768-element chunk of an elementwise
-    op's first use in a process from stale data (about 1 process in 7
-    at 8 threads, none in 40 at 1), which moves a stage's output by
-    ~1e-4 of its scale at random rows."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(a):

@@ -24,6 +24,7 @@ from sphexa_tpu.sfc.box import Box as JBox, Boundary as JB
 from sphexa_tpu_torch.interop import box_from_numpy
 from sphexa_tpu_torch.ops import cellmajor as tcm
 from sphexa_tpu_torch.ops import pair_ve as tpv
+from torch_threads import one_torch_thread  # noqa: F401
 
 BOXES = {"periodic": (JB.periodic,) * 3, "open": (JB.open,) * 3,
          "mixed": (JB.periodic, JB.open, JB.periodic)}

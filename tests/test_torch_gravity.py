@@ -37,6 +37,7 @@ from sphexa_tpu_torch.interop import (box_from_numpy, config_from_dict,
 from sphexa_tpu_torch.propagator.nbody import make_nbody_step as t_nbody
 from sphexa_tpu_torch.sfc.box import Box as TBox
 from sphexa_tpu_torch.sfc.box import Boundary as TBoundary
+from torch_threads import one_torch_thread  # noqa: F401
 
 EPS = 0.01
 

@@ -26,6 +26,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from sphexa_tpu.config import SphConfig as JCfg
 from sphexa_tpu.init.evrard import init_evrard as j_init_evrard
@@ -39,6 +40,7 @@ from sphexa_tpu_torch.ops.cellmajor import CMGrid
 from sphexa_tpu_torch.propagator.ve_bdt import BdtVE
 from sphexa_tpu_torch.propagator.ve_cellmajor import (ResidentVE,
                                                       make_ve_step_cellmajor)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SOLVERS = ("direct", "fmm")
 # (solver, step) pairs held against the JAX ResidentVE

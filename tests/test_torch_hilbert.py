@@ -26,6 +26,7 @@ from sphexa_tpu.sfc.box import Boundary as JBoundary
 from sphexa_tpu_torch.interop import box_from_numpy
 from sphexa_tpu_torch.sfc import hilbert as th
 from sphexa_tpu_torch.sfc import hilbert64 as th64
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def ints(a):

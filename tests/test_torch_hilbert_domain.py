@@ -41,6 +41,7 @@ from sphexa_tpu_torch.domain.mesh import SlabMesh
 from sphexa_tpu_torch.interop import box_from_numpy
 from sphexa_tpu_torch.sfc.hilbert64 import keys64_from_positions
 from sphexa_tpu_torch.state import Particles
+from torch_threads import two_torch_threads  # noqa: F401
 
 AXIS = jh.AXIS
 JBOX = JBox(-1.0, 1.0, -1.0, 1.0, -1.0, 1.0, JB.open, JB.open, JB.open)
@@ -55,14 +56,6 @@ CASES = {
     "d4_k64": (4, 160, 96, 160, 0, True),
     "d8_pool": (8, 64, 48, 64, 160, False),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cloud(D, cap, seed):

@@ -47,6 +47,7 @@ from sphexa_tpu_torch.config import SphConfig
 from sphexa_tpu_torch.interop import config_from_dict
 from sphexa_tpu_torch.ops import pair_ve as tpv
 from sphexa_tpu_torch.ops.cellmajor import CMGrid
+from torch_threads import one_torch_thread  # noqa: F401
 
 MM = dict(mxu_moments=True, mxu_momentum=True)
 FRAMES = {"cap64": (12, jcm.CMGrid(n=4, cap=64)),

@@ -53,6 +53,7 @@ from sphexa_tpu_torch.interop import (box_from_numpy, config_from_dict,
                                       state_from_numpy)
 from sphexa_tpu_torch.ops.cellmajor import CMGrid
 from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_STEPS = 3
 FORCE_REBIN_AT = 1

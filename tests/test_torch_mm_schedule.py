@@ -57,6 +57,7 @@ import test_torch_mm as tmm
 from sphexa_tpu.ops import cellmajor as jcm
 from sphexa_tpu.ops import pallas_ve as jpv
 from sphexa_tpu_torch.ops import pair_ve as tpv
+from torch_threads import one_torch_thread  # noqa: F401
 
 CELLS_AT_ONCE = 16
 STEPS_AT_ONCE = 64          # k-steps whose products are formed at once

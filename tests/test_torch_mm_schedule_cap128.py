@@ -9,6 +9,7 @@ frame and its JAX bodies on its own worker.
 import pytest
 
 import test_torch_mm_schedule as ms
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("frame", ["cap128"])

@@ -38,6 +38,7 @@ from sphexa_tpu_torch.interop import (box_from_numpy, config_from_dict,
 from sphexa_tpu_torch.main import main
 from sphexa_tpu_torch.propagator import multichip as tmc
 from sphexa_tpu_torch.state import SimState
+from torch_threads import one_torch_thread  # noqa: F401
 
 PROPS = ("ve-hilbert", "ve-pallas-sharded", "ve-bdt-sharded",
          "turbulence-ve-bdt-sharded", "ve-tiered-sharded")
@@ -45,14 +46,6 @@ CASE = {"ve-hilbert": ("evrard", 8), "ve-pallas-sharded": ("sedov", 8),
         "ve-bdt-sharded": ("evrard", 8),
         "turbulence-ve-bdt-sharded": ("turbulence", 8),
         "ve-tiered-sharded": ("evrard", 10)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -15,16 +15,9 @@ import torch
 from sphexa_tpu_torch.io import hdf5
 from sphexa_tpu_torch.main import main
 from sphexa_tpu_torch.propagator import multichip as tmc
+from torch_threads import one_torch_thread  # noqa: F401
 
 PROP = "turbulence-ve-bdt-sharded"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -13,7 +13,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 from sphexa_tpu.config import SphConfig as JCfg
 from sphexa_tpu.init.settings import apply_settings as j_apply
@@ -33,19 +32,7 @@ from sphexa_tpu_torch.observables.conserved import (conserved_quantities,
                                                     format_constants_line)
 from sphexa_tpu_torch.observables.factory import (TimeEnergyObs,
                                                   make_observables)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread. With several, PyTorch's CPU backend here has
-    been seen to compute a whole 32768-element chunk of an elementwise
-    op's first use in a process from stale data (about 1 process in 7
-    at 8 threads, none in 40 at 1), which moves a stage's output by
-    ~1e-4 of its scale at random rows."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,7 @@ from sphexa_tpu.sph.eos import eos_ve as j_eos_ve
 from sphexa_tpu_torch.interop import box_from_numpy, config_from_dict
 from sphexa_tpu_torch.ops import cellmajor as tcm
 from sphexa_tpu_torch.ops import pair_ve as tpv
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _tbox(jb):

@@ -25,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from scripts import dma_lab, mxu_micro, vpu_ceiling
 from sphexa_tpu_torch.probes import fma_ceiling, mma_micro, staging_lab
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -47,6 +47,7 @@ from sphexa_tpu_torch.propagator.ve_pallas_sharded import (
     make_ve_step_pallas_sharded, make_zxchg)
 from sphexa_tpu_torch.propagator.ve_sharded import distribute, plan_slab
 from sphexa_tpu_torch.state import Particles
+from torch_threads import one_torch_thread  # noqa: F401
 
 AXIS = jslab.AXIS
 

@@ -41,6 +41,7 @@ from sphexa_tpu_torch.interop import (box_from_numpy, config_from_dict,
                                       state_from_numpy)
 from sphexa_tpu_torch.ops.cellmajor import CMGrid
 from sphexa_tpu_torch.propagator.ve_bdt_sharded import ShardedBdtVE
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIDE = 12
 N = SIDE ** 3

@@ -15,7 +15,6 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
 from jax.sharding import Mesh
 
 from sphexa_tpu.config import SphConfig as JCfg
@@ -30,15 +29,7 @@ from sphexa_tpu_torch.interop import (box_from_numpy, config_from_dict,
                                       state_from_numpy)
 from sphexa_tpu_torch.ops.cellmajor import CMGrid
 from sphexa_tpu_torch.propagator.ve_bdt_sharded import ShardedBdtVE
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,7 @@ from sphexa_tpu.sfc.box import Box as JBox, Boundary as JB
 from sphexa_tpu_torch.domain.mesh import SlabMesh
 from sphexa_tpu_torch.gravity import fmm as tfmm
 from sphexa_tpu_torch.interop import box_from_numpy
+from torch_threads import two_torch_threads  # noqa: F401
 
 JBOX = JBox(-1.0, 1.0, -1.0, 1.0, -1.0, 1.0, JB.open, JB.open, JB.open)
 TBOX = box_from_numpy([-1, 1, -1, 1, -1, 1], [0, 0, 0])
@@ -49,14 +50,6 @@ CASES = {
     "gen_d4": (4, True, 0, 128, 0),
     "gen_d2_trunc": (2, True, 0, 8, 8),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _frame(D, seed):

@@ -60,6 +60,7 @@ from sphexa_tpu_torch.propagator.ve_cellmajor import make_ve_step_cellmajor
 from sphexa_tpu_torch.propagator.ve_pallas_sharded import (
     make_ve_step_pallas_sharded)
 from sphexa_tpu_torch.propagator.ve_sharded import distribute
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIDE = 12
 N = SIDE ** 3

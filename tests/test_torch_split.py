@@ -42,15 +42,7 @@ from sphexa_tpu_torch.io import hdf5 as t_hdf5
 from sphexa_tpu_torch.io.viz import VizHook
 from sphexa_tpu_torch.main import main
 from sphexa_tpu_torch.util import timer as t_timer
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread (see tests/test_torch_gather.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def tbox(jb):

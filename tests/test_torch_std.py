@@ -11,7 +11,7 @@ Tolerances, as tests/test_torch_gather.py holds the VE stages and step:
   - make_std_step against the JAX make_std_step for 2 steps: max_nc and
     max_cell_count equal, dt, etot, eint and ecin at rtol 1e-5, the
     fields at 1e-4 of their scale.
-The module runs on one torch thread (see one_torch_thread).
+The module runs on one torch thread (see tests/torch_threads.py).
 """
 
 import dataclasses
@@ -40,17 +40,9 @@ from sphexa_tpu_torch.neighbors import CellGrid
 from sphexa_tpu_torch.propagator.std import make_std_step
 from sphexa_tpu_torch.sph import hydro_std as th
 from sphexa_tpu_torch.sph.eos import eos_std, polytropic_eos
+from torch_threads import one_torch_thread  # noqa: F401
 
 FRAMES = ("sedov", "noh")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread (see tests/test_torch_gather.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(a):

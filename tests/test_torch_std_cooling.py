@@ -23,7 +23,7 @@ the JAX package.
 - the retry that leaves the chemistry un-rolled-back (JAX main.py:545
   restores the state only, :313-320 stored the discarded step's
   chemistry), shown in both packages (ROADMAP Queue 3).
-The module runs on one torch thread (see one_torch_thread).
+The module runs on one torch thread (see tests/torch_threads.py).
 """
 
 import dataclasses
@@ -49,6 +49,7 @@ from sphexa_tpu_torch.physics.chemistry import FIELDS as CHEM
 from sphexa_tpu_torch.physics.chemistry import ChemistryData
 from sphexa_tpu_torch.physics.cooling import CoolingParams
 from sphexa_tpu_torch.propagator.std_cooling import make_std_cooling_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIDE = 8
 STEPS = 2
@@ -57,15 +58,6 @@ EVRARD_COOLING = ["--init", "evrard-cooling", "-n", str(SIDE), "--dt0",
 COOLING_KEYS = {"cooling::metallicity": 0.3, "cooling::subcycles": 2.0,
                 "cooling::Compton_xray_heating": 1.0,
                 "cooling::UVbackground": 1.0}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread (see tests/test_torch_gather.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def close(what, got, want, rtol):

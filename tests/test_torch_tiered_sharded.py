@@ -49,17 +49,10 @@ from sphexa_tpu_torch.propagator.ve_hilbert import (distribute_hilbert,
 from sphexa_tpu_torch.propagator.ve_tiered_sharded import \
     make_ve_step_tiered_hilbert
 from sphexa_tpu_torch.state import SimState
+from torch_threads import two_torch_threads  # noqa: F401
 
 D, STEPS = 2, 2
 ROWS = ("x", "y", "z", "vx", "vy", "vz", "temp", "h", "alpha", "du_m1")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

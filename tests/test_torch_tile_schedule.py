@@ -54,6 +54,7 @@ from sphexa_tpu.sfc.box import Box as JBox, Boundary as JBoundary
 from sphexa_tpu_torch.interop import config_from_dict
 from sphexa_tpu_torch.ops import pair_ve as tpv
 from sphexa_tpu_torch.ops.cellmajor import CMGrid, _interior_cells_np
+from torch_threads import one_torch_thread  # noqa: F401
 
 GRIDS = {"cap256": (dict(n=2, cap=256), 1.0),
          "cap64": (dict(n=4, cap=64), 0.75)}   # (grid, h scale)

@@ -23,7 +23,7 @@ Tolerances, and why:
   - a checkpoint and restore of the OU state (the port's dict, the JAX
     package's dict and the port's through an HDF5 dump) gives phases
     bit-equal to an uninterrupted run.
-The module runs on one torch thread (see one_torch_thread).
+The module runs on one torch thread (see tests/torch_threads.py).
 """
 
 import dataclasses
@@ -51,19 +51,9 @@ from sphexa_tpu_torch.neighbors import CellGrid
 from sphexa_tpu_torch.observables.case_observables import turbulence_mach_rms
 from sphexa_tpu_torch.physics import turbulence as tt
 from sphexa_tpu_torch.propagator.turb_ve import TurbVeProp
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTS = (1e-4, 2.5e-4, 3e-4, 1.7e-3, 4e-4)     # OU update steps
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread (see tests/test_torch_gather.py: several have
-    been seen to compute a 32768-element chunk of an op's first use in a
-    process from stale data)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def tbox(jb):

@@ -52,6 +52,7 @@ from sphexa_tpu_torch.ops import pair_ve as tpv
 from sphexa_tpu_torch.ops.cellmajor import CMGrid, _interior_cells_np
 from sphexa_tpu_torch.sph.kernels import kernel_3d_k
 from sphexa_tpu_torch.util.fp import rdiv
+from torch_threads import one_torch_thread  # noqa: F401
 
 GRID = dict(n=2, cap=256)
 CASES = {"it2": dict(), "it3": dict(h_iter=3),
