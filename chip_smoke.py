@@ -185,10 +185,11 @@ Phases (any failure exits non-zero before the last line):
      (every shard a thread on the card): the five props at Evrard,
      Sedov and turbulence 10 on the card against the CPU (the CPU runs
      in processes of their own, beside the card's runs); main([...]) at
-     full size: ve-bdt-sharded at Evrard 100 (the slab FMM; its first
-     cycle's rung histograms equal BdtVE's on the same global grid; the
-     h re-grid after it may meet the slab plan's fail-stop,
-     EXPECTED_SLAB_FAULT), ve-hilbert at Evrard 100 (the generic FMM,
+     full size: ve-bdt-sharded at Evrard 100 (the slab FMM, the JAX
+     slab plan CMGrid(n=18, cap=1664, nzi=9); its first cycle's rung
+     histograms equal BdtVE's on the same global grid; 2 cycles, the
+     second on the plan of the h re-grid after the first, both plans
+     logged), ve-hilbert at Evrard 100 (the generic FMM,
      2 steps) and at Evrard 50 with D = 4, ve-tiered-sharded at Evrard
      100 (2 steps), ve-pallas-sharded at Sedov 100^3 (2 steps),
      turbulence-ve-bdt-sharded at turbulence 100^3 (1 cycle), each
@@ -214,7 +215,18 @@ Phases (any failure exits non-zero before the last line):
      call (both runs) and column call against its plain version on
      sampled occupied cells, timed beside its bound from that shard's
      in-support pairs, into the kernel rows (`tiles`, `columns`);
-  18. the kernel table as one JSON line, then the device line.
+  18. (s) every pair kernel past cap 1024: a seeded clump frame on
+     CMGrid(n=2) at caps 1152, 2048 and 4096 (the densest cell holding
+     more than 1024 rows at each, more than half the cap), the inputs of
+     one resident step under the direct, mm and avClean configurations;
+     K3-K7, K8-K10, K10-bf16 and K7c, K2g of K3-K10 with its gate pass
+     (the pass's list and flags against its plain version) under a
+     seeded activity pattern, and K11 (bit-equal to the cell launch on
+     the interior), each against its plain version on sampled occupied
+     cells (BIGCAP_CELLS) at the kernel checks' tolerances, timed beside
+     its bound from the frame's in-support pairs and its shared memory
+     (cell_pair.cu's pair_smem), into the kernel rows (`cap_past_1024`);
+  19. the kernel table as one JSON line, then the device line.
 Details go to chiprun_out/chip_smoke.json.
 
 python3 chip_smoke.py --compare [tag] times K1, K1z, K3-K7, 3 resident
@@ -229,7 +241,8 @@ with no result lines; python3 chip_smoke.py --cli, the build and phase
 alone; python3 chip_smoke.py --tiers, the build and phase (o) alone;
 python3 chip_smoke.py --cool, the build and phase (p) alone;
 python3 chip_smoke.py --multi, the build and phase (q) alone;
-python3 chip_smoke.py --domains, the build and phase (r) alone.
+python3 chip_smoke.py --domains, the build and phase (r) alone;
+python3 chip_smoke.py --bigcap, the build and phase (s) alone.
 """
 
 from __future__ import annotations
@@ -241,6 +254,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -515,16 +529,24 @@ def compare(name, ref, out, mask, per_row: bool):
     return float(err.max()), rel
 
 
-def bf16_compare(k, args, out, mask):
+def bf16_compare(k, args, out, mask, cells=None):
     """K10 under mxu_bf16 against its plain version: within BF16_SHARE of
     the plain bf16-to-float32 distance, and at least half that distance
     from float32 (the rounding is applied); maxvsignal (no bf16 operand)
-    rtol 1e-5. Returns (max abs error against plain bf16, the largest
-    error as a share of that distance)."""
+    rtol 1e-5. With `cells` the plain versions run on those cells only
+    (mask within them). Returns (max abs error against plain bf16, the
+    largest error as a share of that distance)."""
     import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
     J, I2, g, c = args
-    ref_b = k.plain(*args)[:, mask].double()
-    ref_f = k.plain(J, I2, g, c.replace(mxu_bf16=False))[:, mask].double()
+
+    def plain(cfg):
+        if cells is None:
+            return k.plain(J, I2, g, cfg)
+        return pv._run_plain(k.body, J, I2, g, k.fo, cells=cells,
+                             **k._body_kw(cfg))
+    ref_b = plain(c)[:, mask].double()
+    ref_f = plain(c.replace(mxu_bf16=False))[:, mask].double()
     o = out[:, mask].double()
     if not torch.isfinite(o).all():
         raise AssertionError("bf16: non-finite kernel output")
@@ -543,6 +565,78 @@ def bf16_compare(k, args, out, mask):
     if bad.any():
         raise AssertionError("bf16: maxvsignal beyond rtol 1e-5")
     return float((o - ref_b).abs().max()), worst
+
+
+def k9_noise_body(I, Jn, i2, *, cfg, K3d, n_w, icell=None):
+    """K9's alpha (pair_ve._av_mm_body) and its float32 rounding noise
+    relative to it, from the inputs, evaluated in the rows' dtype
+    (float64): the unit roundoff times the magnitude of graddivv's terms
+    (each moment sum of G_b taken over |terms|, G's combination through
+    |c_ij|) over |graddivv|, times alpha's relative sensitivity to
+    graddivv. No summation-length factor: the float32 orders measured
+    (kernel, plain, JAX) sit within 4.5 times it. icell: the whole own
+    cell, where _run_plain gives a slice of it (the origin's cell)."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    RC, _, RXM, RDIVV, RVX, RVY, RVZ = range(pv.NBASE, pv.NBASE + 7)
+    hinv = 1.0 / I[pv.RH]
+    ox, oy, oz, odv = pv._cell_means(I if icell is None else icell,
+                                     (pv.RX, pv.RY, pv.RZ, RDIVV))
+    xib = (I[pv.RX] - ox, I[pv.RY] - oy, I[pv.RZ] - oz)
+    xjc = (Jn[pv.RX] - ox, Jn[pv.RY] - oy, Jn[pv.RZ] - oz)
+    dvic = I[RDIVV] - odv
+    rx, ry, rz, d2 = pv._geo(I, Jn)
+    w = pv._w_v2(d2 * hinv * hinv, n_w)
+    volj = Jn[RXM] / Jn[RC + 1]
+    vd = volj * (Jn[RDIVV] - odv)
+
+    def S(t):
+        return torch.sum(w * t, dim=-1, keepdim=True)
+
+    G = [xib[b] * (dvic * S(volj) - S(vd)) - (dvic * S(volj * xjc[b])
+                                              - S(vd * xjc[b]))
+         for b in range(3)]
+    M = [xib[b].abs() * (dvic.abs() * S(volj) + S(vd.abs()))
+         + dvic.abs() * S(volj * xjc[b].abs()) + S((vd * xjc[b]).abs())
+         for b in range(3)]
+    c = [[i2[0], i2[1], i2[2]], [i2[1], i2[3], i2[4]],
+         [i2[2], i2[4], i2[5]]]
+    g = torch.sqrt(sum(sum(c[a][b] * G[b] for b in range(3)) ** 2
+                       for a in range(3)))
+    dg = torch.sqrt(sum(sum(c[a][b].abs() * M[b] for b in range(3)) ** 2
+                        for a in range(3)))
+    rv = (rx * (I[RVX] - Jn[RVX]) + ry * (I[RVY] - Jn[RVY])
+          + rz * (I[RVZ] - Jn[RVZ]))
+    vsig = torch.where((w > 0) & (rv < 0.0), I[RC] + Jn[RC] - 3.0 * rv
+                       * torch.rsqrt(torch.clamp_min(d2, 1e-30)), pv._NEG)
+    vs = torch.maximum(torch.amax(vsig, -1, keepdim=True), 1e-30 * I[RC])
+    scale = K3d * hinv ** 3
+
+    def alpha(gd):
+        return pv._alpha_tail(i2, gd, vs, I[RDIVV], I[pv.RH], I[RC], cfg)
+
+    a0, eps = alpha(g * scale), 1e-6
+    sens = (alpha(g * scale * (1 + eps)) - a0).abs() / eps
+    noise = 2.0 ** -24 * sens * dg / torch.clamp_min(g, 1e-300)
+    ok = pv._oki(I)
+    return [torch.where(ok, a0, 0.0),
+            torch.where(ok, noise / torch.clamp_min(a0.abs(), 1e-300), 0.0)]
+
+
+def k9_noise_floor(J, I2, grid, cfg, cells=None):
+    """K9's alpha from the inputs in float64 and its relative float32
+    noise floor (k9_noise_body), [n_slots] each, on J's device (on the
+    padded cell ids `cells` only, where given); and the slots at that
+    floor: where four times the noise reaches K9's rtol of 1e-5 (the mm
+    alpha property, ROADMAP Queue 3: graddivv is a difference of centred
+    moment sums). Such slots are held within 8 times their noise of the
+    float64 alpha, the others at rtol 1e-5 (tests/test_torch_cuda.py
+    past cap 128, phase (s))."""
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    k = pv.pair_av_mm
+    ref, noise = pv._run_plain(k9_noise_body, J.double(), I2.double(),
+                               grid, 2, cells=cells, **k._body_kw(cfg))
+    return ref, noise, 4.0 * noise >= 1e-5
 
 
 class Spy:
@@ -3524,7 +3618,7 @@ def main_in_process(argv, consts, cfg_override=None, energy=None):
                 if ln.startswith(("### Check",) + FAIL_STOPS)]
     assert len(accepted) == len(calls), (accepted, len(calls))
     return dict(state=state, made=made, make_s=make_s, fns=fns, tried=tried,
-                diags=[d for d, ok in zip(diags, accepted) if ok],
+                used=used, diags=[d for d, ok in zip(diags, accepted) if ok],
                 e0=e0[0], launches=launches,
                 lines=lines, fails=fails, call_ms=call_ms,
                 step_ms=[t for t, ok in zip(call_ms, accepted) if ok],
@@ -4778,7 +4872,8 @@ MULTI_CHECK = (("ve-hilbert", "evrard", 2), ("ve-pallas-sharded", "sedov", 2),
                ("turbulence-ve-bdt-sharded", "turbulence", 1),
                ("ve-tiered-sharded", "evrard", 2))
 # the full-size runs through main at D = 2: (prop, case, n, steps)
-MULTI_RUNS = (("ve-bdt-sharded", "evrard", 100, 1),
+# (ve-bdt-sharded: the second cycle runs on the plan of the h re-grid)
+MULTI_RUNS = (("ve-bdt-sharded", "evrard", 100, 2),
               ("ve-hilbert", "evrard", 100, 2),
               ("ve-tiered-sharded", "evrard", 100, 2),
               ("ve-pallas-sharded", "sedov", 100, 2),
@@ -5056,16 +5151,20 @@ def multi_run(report, rows, prop, case, n, steps, D=MULTI_D):
     argv = ["--init", case, "-n", str(n), "-s", str(steps), "--dt0",
             MULTI_DT0, "--prop", prop]
     t0 = time.perf_counter()
-    fault = None
-    try:
-        with _Env(SPHEXA_NUM_DEVICES=D):
-            r = main_in_process(argv, consts,
-                                cfg_override=MULTI_FMM if grav else None,
-                                energy=state_energy if grav else None)
-    except RuntimeError as e:
-        r = slab_fault(key, e)
-        fault = str(e)
+    with _Env(SPHEXA_NUM_DEVICES=D):
+        r = main_in_process(argv, consts,
+                            cfg_override=MULTI_FMM if grav else None,
+                            energy=state_energy if grav else None)
     state, launches = r["state"], r["launches"]
+    plans = [(g.n, g.cap, g.nzi) for _, _, g in r["made"]
+             if hasattr(g, "cap")]
+    if prop == "ve-bdt-sharded" and n == MULTI_RUNS[0][2]:
+        # Evrard 100: the h re-grid after the first cycle plans anew,
+        # and the second cycle runs on that plan, past cap 1024
+        assert len(r["step_ms"]) == steps and len(plans) >= 2, \
+            (key, r["step_ms"], plans)
+        assert r["used"][-1] == len(plans) - 1 and plans[-1][1] > 1024, \
+            (key, r["used"], plans)
     checks = [i for i, ln in enumerate(r["lines"])
               if ln.startswith("### Check")]
     assert not r["fails"] or not checks or max(r["fails"]) < checks[0], \
@@ -5104,8 +5203,7 @@ def multi_run(report, rows, prop, case, n, steps, D=MULTI_D):
                lines=[ln for ln in r["lines"] if ln.startswith(
                    ("# multichip", "# gravity band_cap", "# tiers",
                     "# bdt", "# multichip: shrunk"))],
-               expected_fault=fault,
-               h_max=[h for _, h in r["tried"]])
+               plans=plans, h_max=[h for _, h in r["tried"]])
     if hasattr(adapter, "hc"):
         res["hc"] = dataclasses.asdict(adapter.hc)
         res["imbalance"] = [float(d.raw.imbalance) for d in r["diags"]]
@@ -5166,54 +5264,13 @@ def multi_run(report, rows, prop, case, n, steps, D=MULTI_D):
         + (f", density L1 {res['density_l1']:.4f}" if grav else "")
         + f", grid {grid}, band_cap {res['gravity_band_cap']}, launches "
           f"{launches}; {time.perf_counter() - t0:.1f} s in all")
+    if plans:
+        log(f"    plans (n, cap, nzi) {plans} at h_max "
+            f"{[round(h, 5) for h in res['h_max']]}")
     for ln in res["lines"]:
         log(f"    {ln}")
     report.setdefault("multi_runs", {})[key] = res
     return r, res
-
-
-# the slab plan's own fail-stop (plan_slab): past 2 h_max no grid of
-# the slab engines fits Evrard 100 within the kernels' cap
-EXPECTED_SLAB_FAULT = "too clustered for the slab-sharded engines"
-
-
-def slab_fault(key, e):
-    """A slab-prop run that ended in EXPECTED_SLAB_FAULT: the h re-grid
-    after an accepted call asks plan_slab for a grid whose cells are
-    wider than 2 h_max, and none fits the kernels' cap. The calls before
-    it are gated as a whole run (multi_run): this returns the run's
-    record from main_in_process's `partial`, its last call accepted (the
-    loop re-plans before it logs the step), the last state's energies
-    as its one constants row."""
-    import torch
-    from sphexa_tpu_torch.observables import conserved_quantities
-    part = getattr(e, "partial", None)
-    if EXPECTED_SLAB_FAULT not in str(e) or part is None \
-            or not part["call_ms"]:
-        raise e
-    tried = part["tried"]
-    assert len(tried) == len(part["made"]) + 1, (key, tried)
-    (box_p, h_p), (box_f, h_f) = tried[-2], tried[-1]
-    assert box_f == box_p and h_f > 1.25 * h_p, \
-        f"{key}: the fault came from no h re-grid"
-    folds = sum(ln.startswith(FAIL_STOPS) for ln in part["lines"])
-    assert folds == 0, f"{key}: {folds} fail-stop(s) before the fault"
-    state, d = part["state"], part["diags"][-1]
-    cfg = part["made"][part["used"][-1]][1]
-    q = conserved_quantities(state.p, cfg, egrav=float(d.egrav))
-    torch.cuda.synchronize()
-    log(f"  {key}: {len(part['call_ms'])} accepted call(s), then the h "
-        f"re-grid ({h_p:.5f} -> {h_f:.5f}) meets the slab plan's "
-        f"fail-stop (EXPECTED_SLAB_FAULT): {e}")
-    return dict(state=state, made=part["made"], fns=part["fns"],
-                diags=part["diags"], launches=part["launches"],
-                lines=part["lines"], fails=[], call_ms=part["call_ms"],
-                step_ms=part["call_ms"], wall=float("nan"),
-                peak=torch.cuda.max_memory_allocated(), e0=part["e0"][0],
-                tried=tried,
-                rows=np.array([[0.0, float(d.ttot), float(d.dt),
-                                float(q.etot), float(q.ecin), float(q.eint),
-                                float(q.egrav)]]))
 
 
 def multi_bdt_rungs(report, r):
@@ -6082,6 +6139,264 @@ def cool_phase(report):
     report["cool_phase_seconds"] = time.perf_counter() - t0
     log(f"  phase (p): {report['cool_phase_seconds']:.1f} s")
 
+
+# ---------------------------------------------------------------------------
+# (s) every pair kernel past cap 1024
+# ---------------------------------------------------------------------------
+
+# cap -> (lattice side, clump radius) of the clump frame (bigcap_state):
+# its densest cell holds 1120, 2003 and 4035 rows, past 1024 and past
+# half the cap (tests/test_torch_bigcap_stages.py holds the stages at
+# cap 1152 on the same construction against the JAX package)
+BIGCAP_FRAMES = {1152: (16, 0.80), 2048: (20, 0.89), 4096: (25, 0.84)}
+# interior cells of each launch held against plain: the 8 of n = 2;
+# at 4096 4 of them, the densest first (sample_occupied_cells): a plain
+# stage evaluates 27 cap^2 = 4.5e8 candidates a cell there
+BIGCAP_CELLS = {1152: 8, 2048: 8, 4096: 4}
+BIGCAP_REPS = 5
+BIGCAP_SEED = 7
+
+
+def bigcap_state(cap, device):
+    """(state, box, cfg, grid) of the clump frame at `cap`: on the open
+    cube [-1, 1]^3 and CMGrid(n=2, cap), a clump with Evrard's 1/r
+    profile (the side^3 lattice on [-1, 1)^3 cut to the unit sphere,
+    radii r -> radius sqrt(r) r) centred at (0.3, 0.3, 0.3), jittered
+    by 3% of the lattice spacing (seeded); h the mean of the distances
+    to the 100th and 101st neighbours over 2 (relaxed: K3 moves no h,
+    no pair on the support's edge), at most 0.45; velocities sigma 0.3,
+    alpha in [0.05, 0.5] and temperatures giving sound speeds near 1
+    (seeded), equal masses."""
+    from scipy.spatial import cKDTree
+    from sphexa_tpu_torch.config import SphConfig
+    from sphexa_tpu_torch.ops.cellmajor import CMGrid
+    from sphexa_tpu_torch.sfc.box import Box, Boundary
+    from sphexa_tpu_torch.sph.eos import ideal_gas_cv
+    from sphexa_tpu_torch.state import make_particles, make_state
+
+    side, radius = BIGCAP_FRAMES[cap]
+    r = np.random.default_rng(BIGCAP_SEED)
+    g = (np.arange(side) + 0.5) / side * 2.0 - 1.0
+    p = np.stack([a.ravel() for a in np.meshgrid(g, g, g, indexing="ij")],
+                 axis=1)
+    rad = np.sqrt((p ** 2).sum(1))
+    p, rad = p[rad <= 1.0], rad[rad <= 1.0]
+    p = p * (radius * np.sqrt(rad))[:, None] + 0.3
+    p = (p + r.normal(0.0, 0.03 * 2.0 / side * radius, p.shape)).clip(
+        -0.999, 0.999)
+    d = cKDTree(p).query(p, 102)[0]
+    h = np.minimum(0.25 * (d[:, -2] + d[:, -1]), 0.45)
+    n = len(h)
+    cfg = SphConfig()
+    r = np.random.default_rng(BIGCAP_SEED + 1)
+    ps = make_particles(
+        n, n, device=device, x=p[:, 0], y=p[:, 1], z=p[:, 2], h=h,
+        m=np.full(n, 1.0 / n), vx=r.normal(0, 0.3, n),
+        vy=r.normal(0, 0.3, n), vz=r.normal(0, 0.3, n),
+        alpha=r.uniform(0.05, 0.5, n),
+        temp=r.uniform(0.5, 1.5, n) / ideal_gas_cv(cfg.mui, cfg.gamma))
+    return (make_state(ps, dt0=1e-5), Box.cube(-1.0, 1.0, Boundary.open),
+            cfg, CMGrid(n=2, cap=cap))
+
+
+def bigcap_calls(cap):
+    """The pair launches of one resident step on the clump frame at
+    `cap` under the direct, mm and avClean configurations ({name: (k,
+    args, out)}, the first launch of each stage), K10-bf16 launched on
+    the mm momentum inputs, and the engine's interior mask."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    from sphexa_tpu_torch.propagator.ve_cellmajor import ResidentVE
+
+    calls = {}
+    for cname in (None, "mm", "avclean"):
+        state, box, cfg, grid = bigcap_state(cap, DEVICE)
+        eng = ResidentVE(box, grid, cfg.replace(**CONFIGS.get(cname, {})),
+                         device=DEVICE)
+        with Spy(pv.PAIR_KERNELS) as spy:
+            eng.step(eng.bind(state))
+        torch.cuda.synchronize()
+        for k, args, out in spy.calls:
+            calls.setdefault(k.name, (k, args, out))
+    k, (J, I2, g, c), _ = calls["pair_momentum_mm"]
+    bf = (J, I2, g, c.replace(mxu_bf16=True))
+    calls["pair_momentum_mm_bf16"] = (k, bf, k._launch(*bf))
+    torch.cuda.synchronize()
+    return calls, eng.intmask
+
+
+def bigcap_gate(act, grid, Z):
+    """K2g's gate pass on the card against its plain version: the count,
+    the listed cells as a set (the card's list is in no fixed order) and
+    the supercells' flags. Returns the count."""
+    import torch
+    from sphexa_tpu_torch.ops import pair_ve as pv
+    ws = pv.pair_gate._launch(act, grid, Z)
+    ref = pv.pair_gate.plain(act, grid, Z)
+    cnt, f0 = int(ref[0]), pv.gate_flags(grid)
+    got = ws[pv.GATE_HDR:pv.GATE_HDR + cnt].sort().values
+    if not (int(ws[0]) == cnt
+            and torch.equal(got, ref[pv.GATE_HDR:pv.GATE_HDR + cnt])
+            and torch.equal(ws[f0:], ref[f0:])):
+        raise AssertionError(f"gate pass at cap {grid.cap}: list or flags "
+                             f"differ from plain")
+    return cnt
+
+
+def bigcap_one(report, rows, cap):
+    """(s) at one cap: every form on the clump frame held against its
+    plain version on sampled cells, timed beside its bound and its
+    shared memory. Returns {row name: record}."""
+    import torch
+    from sphexa_tpu_torch.ops import _cuda
+    from sphexa_tpu_torch.ops import pair_ve as pv
+
+    calls, intmask = bigcap_calls(cap)
+    k, (J, I2, grid, cfg), xh_out = calls["pair_xh"]
+    valid = valid_slots(J)
+    occ = (valid & intmask).view(-1, cap).sum(1)
+    densest = int(occ.max())
+    assert 1024 < densest <= cap and 2 * densest > cap, (cap, densest)
+    # relaxed h: K3 moves none, so one distance pass is all its counting
+    assert torch.equal(xh_out[1][valid & intmask], J[pv.RH][valid & intmask])
+    nc_sph = xh_out[2] + 1
+    cand, inside, per_slot = pair_counts(J, types.SimpleNamespace(
+        intmask=intmask), grid, nc_sph)
+    cells = sample_occupied_cells(grid, valid, intmask, BIGCAP_CELLS[cap],
+                                  cap)
+    lane = torch.arange(cap, device=DEVICE)
+    sampled = torch.zeros(grid.n_slots, dtype=torch.bool, device=DEVICE)
+    sampled[(cells[:, None] * cap + lane).reshape(-1)] = True
+    act, kinds = activity_pattern(grid, valid, seed=3)
+    Z = pv.resolve_zgroup(grid)
+    on = pv.supercell_active(act, grid, Z).repeat_interleave(cap)
+    assert kinds["active"] and kinds["inactive"], kinds
+    assert bool(on[sampled & valid].any()), "no sampled cell is active"
+    n_listed = bigcap_gate(act, grid, Z)
+    rng = np.random.default_rng(4)
+    by_name = {x["name"]: x for x in rows}
+    res = dict(densest=densest, occupied=occ[occ > 0].tolist(),
+               candidates=cand, in_support=inside, cells=int(cells.numel()),
+               supercells=kinds, listed=n_listed)
+    log(f"  cap {cap}: {int(valid.sum())} rows, cell counts "
+        f"{sorted(occ[occ > 0].tolist())}; {cand:.4e} candidates, "
+        f"{inside:.4e} in support; {cells.numel()} cells against plain; "
+        f"activity {kinds}, {n_listed} cells listed by the gate pass "
+        f"(equal to plain)")
+
+    k9 = {}
+
+    def held(k, ref, out, mask):
+        """compare() at the kernel checks' tolerances; K9's slots at its
+        noise floor (k9_noise_floor) within 8 times their noise of the
+        float64 alpha, as tests/test_torch_cuda.py holds K9 past cap
+        128 (ROADMAP Queue 3)."""
+        if body_of(k.name) != "pair_av_mm":
+            return compare(k.name, ref, out, mask, per_row=True)
+        if not k9:
+            J9, I9, g9, c9 = calls["pair_av_mm"][1]
+            k9.update(zip(("ref", "noise", "named"), k9_noise_floor(
+                J9, I9, g9, c9, cells=cells)))
+            res["k9_noise_floor_slots"] = int((valid & sampled & intmask
+                                               & k9["named"]).sum())
+        at = mask & k9["named"]
+        err64 = (out[0, at].double() - k9["ref"][at]).abs()
+        if not bool((err64 <= 8.0 * k9["noise"][at]
+                     * k9["ref"][at].abs()).all()):
+            raise AssertionError(f"{k.name} at cap {cap}: slots at K9's "
+                                 f"noise floor beyond 8x their noise")
+        return compare(k.name, ref, out, mask & ~k9["named"], per_row=True)
+
+    def record(row, ms, err, rel, ops, nbytes, smem, mm=(0.0, 0.0),
+               bf16=False, extra=""):
+        bound, by = pair_bound(ops, nbytes, mm, bf16)
+        rec = dict(ms=ms, bound_ms=bound, bound_by=by, smem_bytes=smem,
+                   max_abs_err=err, max_rel_err=rel)
+        res[row] = rec
+        if row in by_name:
+            by_name[row].setdefault("cap_past_1024", {})[cap] = rec
+        log(f"  cap {cap} {row:30s} {ms:9.3f} ms  bound {bound:.4f} ms "
+            f"({by}); smem {smem} B; err {err:.3e} (rel {rel:.3e}){extra}")
+
+    for name, (k, args, out) in calls.items():
+        J, I2, g, c = args
+        body = body_of(k.name)
+        mask = valid & sampled & intmask
+        if name.endswith("_bf16"):
+            err, rel = bf16_compare(k, args, out, mask, cells=cells)
+            ref = None
+        else:
+            ref = pv._run_plain(k.body, J, I2, g, k.fo, cells=cells,
+                                **k._body_kw(c))
+            err, rel = held(k, ref, out, mask)
+        check_fill(k, J, out, intmask)
+        nbytes = 4 * (J.numel() + (I2.numel() if I2 is not None else 0)
+                      + out.numel())
+        mm = mm_extra_flops(body, J, g, c, valid & intmask,
+                            int((occ > 0).sum()))
+        ops = cand * GEO_FLOPS + inside * BODY_FLOPS[body]
+        smem = _cuda.pair_smem(k.stage, cap, c.mxu_bf16)
+        ms = cuda_ms(lambda: k._launch(J, I2, g, c), BIGCAP_REPS)
+        floor = (f"; {res['k9_noise_floor_slots']} slots at K9's noise "
+                 f"floor within 8x their noise" if body == "pair_av_mm"
+                 else "")
+        record(name, ms, err, rel, ops, nbytes, smem, mm, c.mxu_bf16, floor)
+
+        # K11: bit-equal to the cell launch on the interior, 0 elsewhere
+        kc = next(x for x in pv.COLUMN_KERNELS
+                  if x.name == k.name + "_column")
+        oc = kc._launch(*args)
+        if not (torch.equal(oc[:, intmask], out[:, intmask])
+                and not oc[:, ~intmask].any()):
+            raise AssertionError(f"{kc.name} at cap {cap}: not bit-equal "
+                                 f"to the cell launch")
+        ms = cuda_ms(lambda: kc._launch(*args), BIGCAP_REPS)
+        record(column_row_name(kc, c), ms, err, rel, ops, nbytes, smem, mm,
+               c.mxu_bf16, "; bit-equal to the cell launch")
+
+        # K2g with its gate pass: prev on the inactive supercells, the
+        # ungated results (held above) on the active ones
+        kg = next((x for x in pv.GATED_KERNELS
+                   if x.name == k.name + "_gated"), None)
+        if kg is None or c.mxu_bf16:
+            continue
+        prev = torch.from_numpy(rng.normal(0, 1, (kg.fo, g.n_slots)).astype(
+            np.float32)).to(DEVICE)
+        gargs = (J, I2, g, c, (act, prev), 0)
+        og = kg._launch(*gargs)
+        keep = intmask & ~on
+        if not (torch.equal(og[:, keep], prev[:, keep])
+                and not og[:, ~intmask].any()
+                and torch.equal(og[:, intmask & on], out[:, intmask & on])):
+            raise AssertionError(f"{kg.name} at cap {cap}: not prev on the "
+                                 f"inactive supercells or not the cell "
+                                 f"launch's output on the active ones")
+        gerr, grel = held(k, ref, og, mask & on)
+        ms = cuda_ms(lambda: kg._launch(*gargs), BIGCAP_REPS)
+        a_ops = float(per_slot[on].sum()) * GEO_FLOPS + float(
+            torch.where(valid & intmask & on, nc_sph, 0.0).double().sum()
+        ) * BODY_FLOPS[body]
+        gbytes = nbytes + 4 * (act.numel() + prev.numel())
+        record(kg.name, ms, gerr, grel, a_ops, gbytes, smem,
+               extra="; prev bit-equal on the inactive supercells")
+    return res
+
+
+def bigcap_phase(report, rows):
+    """Phase (s): every pair kernel form past cap 1024 (BIGCAP_FRAMES)."""
+    import torch
+    t0 = time.perf_counter()
+    log("(s) every pair kernel past cap 1024, on the clump frame:")
+    out = {}
+    for cap in BIGCAP_FRAMES:
+        out[cap] = bigcap_one(report, rows, cap)
+        torch.cuda.empty_cache()
+        log(f"  {time.perf_counter() - t0:.1f} s into phase (s)")
+    report["cap_past_1024"] = out
+    report["bigcap_phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase (s): {report['bigcap_phase_seconds']:.1f} s")
+
+
 def compare_mm():
     """--compare's moment-matmul part: K8, K9 and K10 (float32, bf16) at
     the inputs of a Sedov 100^3 step under mxu_moments + mxu_momentum, 3 x 5
@@ -6373,6 +6688,34 @@ def multi_main() -> int:
     return 0
 
 
+def bigcap_main() -> int:
+    """--bigcap: the build and phase (s) alone (no result lines);
+    details to chiprun_out/chip_smoke_bigcap.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"smi": smi_line()}
+    log(report["smi"])
+    t0 = time.perf_counter()
+    _cuda.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    for src, info in _cuda.build_info.items():
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {src}: {line.strip()}")
+    rows = [{"name": k.name} for k in all_kernels()]
+    bigcap_phase(report, rows)
+    report["rows"] = rows
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_bigcap.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def dom_main() -> int:
     """--domains: the build and phase (r) alone (no result lines);
     details to chiprun_out/chip_smoke_domains.json."""
@@ -6423,6 +6766,8 @@ def main() -> int:
         return multi_main()
     if sys.argv[1:2] == ["--domains"]:
         return dom_main()
+    if sys.argv[1:2] == ["--bigcap"]:
+        return bigcap_main()
     sys.path.insert(0, ROOT)
     from sphexa_tpu_torch.ops import _cuda
 
@@ -6527,6 +6872,7 @@ def main() -> int:
     cool_phase(report)
     multi_phase(report, rows)
     dom_phase(report, rows, dom_procs)
+    bigcap_phase(report, rows)
 
     report["smi"] = smi
     report["device"] = torch.cuda.get_device_name(0)

@@ -2641,10 +2641,32 @@ unsigned n_blocks(const PairGeom& g, int zseg)
     return (unsigned)g.nx * g.n * per_col;
 }
 
+// the cap ceiling is pair_ve.MAX_CAP (the generated header's SPH_MAX_CAP);
+// pair_smem gives each stage's shared memory at a cap
 bool bad_launch(const PairGeom& g, const PairGate& gt, int zseg)
 {
-    return g.cap > 1024 || g.cap % 32 || zseg < 0
+    return g.cap < 32 || g.cap > SPH_MAX_CAP || g.cap % 32 || zseg < 0
         || (gt.ws != nullptr && zseg);
+}
+
+// Dynamic shared memory of a block, in bytes; every launch form of a
+// stage (cell, K2g, K11) takes its stage's. K4-K9 and K7c: fixed by
+// T = min(cap, 128), the same past cap 128. K3: the 27-group window and
+// the ballots and list of 27 cap / 32 groups (21,620 bytes at cap 1152,
+// 41,492 at 4096). K10: its fixed 87,872 bytes (float32; bf16 69,184)
+// and the ballots and list of 27 cap / 32 units (115,520 bytes at cap
+// 4096, bf16 96,832), within SMEM_MAX at every cap to SPH_MAX_CAP.
+template <class St>
+size_t tile_smem(int cap)
+{
+    const int T = cap < tile::TILE ? cap : tile::TILE;
+    return sizeof(float) * tile::smem_floats<St>(T);
+}
+
+size_t mm_smem(int cap, bool bf16)
+{
+    return sizeof(float) * (bf16 ? mm::smem_words<true>(cap)
+                                 : mm::smem_words<false>(cap));
 }
 
 // K4-K9 and K7c (stages 1-6, 8): blocks of T = min(cap, 128) threads,
@@ -2657,7 +2679,7 @@ cudaError_t launch_tile(const float* J, const float* I2, float* out,
 {
     if (bad_launch(g, gt, zseg)) return cudaErrorInvalidValue;
     const int T = g.cap < tile::TILE ? g.cap : tile::TILE;
-    const size_t smem = sizeof(float) * tile::smem_floats<St>(T);
+    const size_t smem = tile_smem<St>(g.cap);
     const dim3 grid(n_blocks(g, zseg), (g.cap + T - 1) / T);
     const int vec = reinterpret_cast<size_t>(J) % 16 == 0;
     auto kern = zseg ? tile::cell_tile<St, false, true>
@@ -2687,8 +2709,7 @@ cudaError_t launch_mm(const float* J, float* out, const PairGeom& g,
 {
     if (bad_launch(g, gt, zseg)) return cudaErrorInvalidValue;
     const bool bf = p.mxu_bf16 != 0;
-    const size_t smem = sizeof(float) * (bf ? mm::smem_words<true>(g.cap)
-                                            : mm::smem_words<false>(g.cap));
+    const size_t smem = mm_smem(g.cap, bf);
     const dim3 grid(n_blocks(g, zseg), (g.cap + mm::IB - 1) / mm::IB);
     const int vec = reinterpret_cast<size_t>(J) % 16 == 0;
     auto kern = bf ? (zseg ? mm::cell_mm<true, false, true>
@@ -2723,7 +2744,31 @@ cudaError_t stage_launch(int stage, const float* J, const float* I2,
 #undef TILED
 }
 
+// stage_launch's shared memory per block, or -1 for no such stage
+long long stage_smem(int stage, int cap, bool bf16)
+{
+    switch (stage) {
+    case 0: return xh::smem_bytes(cap);
+    case 1: return tile_smem<tile::GradhStage>(cap);
+    case 2: return tile_smem<tile::IadStage>(cap);
+    case 3: return tile_smem<tile::AvStage>(cap);
+    case 4: return tile_smem<tile::MomStage<false>>(cap);
+    case 5: return tile_smem<tile::IadMmStage>(cap);
+    case 6: return tile_smem<tile::AvMmStage>(cap);
+    case 7: return mm_smem(cap, bf16);
+    case 8: return tile_smem<tile::MomStage<true>>(cap);
+    default: return -1;
+    }
+}
+
 }  // namespace
+
+// bytes of dynamic shared memory a block of `stage` takes at cap (K10
+// under mxu_bf16 with bf16 set); -1 for an unknown stage
+extern "C" int pair_smem(int stage, int cap, int bf16)
+{
+    return (int)stage_smem(stage, cap, bf16 != 0);
+}
 
 // the cell launch. gt.ws == nullptr: the ungated stage (K2); else K2g
 // over the list that pair_gate wrote into gt.ws

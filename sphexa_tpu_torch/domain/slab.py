@@ -59,6 +59,11 @@ class SlabConfig:
         return self.cap + 2 * self.halo_cap
 
 
+def slab_bounds(box: Box, n_slabs: int) -> float:
+    """The z width of each of n_slabs slabs."""
+    return box.lz / n_slabs
+
+
 def slab_of(box: Box, sc: SlabConfig, z):
     """The slab of each z, in float32 as the JAX package bins it."""
     width = box.lz / sc.n_slabs

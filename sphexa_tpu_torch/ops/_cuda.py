@@ -10,7 +10,8 @@ current stream. Every C entry returns cudaGetLastError(); a non-zero
 code raises here.
 
 A header with the kernel constants (the sinc polynomials of
-sph/kernels.py, FILL_POS, the header size of K2g's gate workspace) is
+sph/kernels.py, FILL_POS, the header size of K2g's gate workspace, the
+pair kernels' cap ceiling MAX_CAP) is
 generated into the build directory, so the kernels and the plain
 versions share one definition. Library file
 names carry a hash of source, header and flags: a changed source is
@@ -54,7 +55,8 @@ def _f32_literal(x: float) -> str:
 
 
 def _consts_header() -> str:
-    from sphexa_tpu_torch.ops.pair_ve import _NEG, FILL_POS, GATE_HDR
+    from sphexa_tpu_torch.ops.pair_ve import (_NEG, FILL_POS, GATE_HDR,
+                                              MAX_CAP)
     from sphexa_tpu_torch.sph.kernels import _DSINC_OVER_V_COEF, _SINC_COEF
 
     def poly(name, coef):
@@ -72,6 +74,7 @@ def _consts_header() -> str:
         f"#define SPH_FILL_POS ({_f32_literal(FILL_POS)})",
         f"#define SPH_NEG ({_f32_literal(_NEG)})",
         f"#define SPH_GATE_HDR {GATE_HDR}",
+        f"#define SPH_MAX_CAP {MAX_CAP}",
         poly("sinc_poly", _SINC_COEF),
         poly("dsinc_over_v_poly", _DSINC_OVER_V_COEF),
         ""])
@@ -182,7 +185,8 @@ _ARGTYPES = {
         "pair_launch": [_I, _P, _P, _P, PairGeom, PairParams, PairGate, _P],
         "pair_gate": [_P, PairGeom, _I, _P, _P],
         "pair_launch_column": [_I, _P, _P, _P, PairGeom, PairParams, _I,
-                               _P]},
+                               _P],
+        "pair_smem": [_I, _I, _I]},
     "probes.cu": {
         "fma_ceiling": [_P, _P, _LL, _I, _I, _P],
         "staging": [_I, _P, _P, _I, _P, _I, _LL, _I, _I, _P],
@@ -301,6 +305,16 @@ def pair_launch_column(stage: int, J, I2, out, grid, cfg, K3d: float,
         stage, J.data_ptr(), None if I2 is None else I2.data_ptr(),
         out.data_ptr(), geom, prm, zseg, _stream(J))
     _check(code, f"column pair stage {stage}")
+
+
+def pair_smem(stage: int, cap: int, bf16: bool = False) -> int:
+    """Bytes of dynamic shared memory a block of pair stage `stage` takes
+    at `cap` (every launch form of a stage takes the same; K10's with
+    bf16 its mxu_bf16 form), from cell_pair.cu's own formulas."""
+    nbytes = lib("cell_pair.cu").pair_smem(stage, cap, int(bf16))
+    if nbytes < 0:
+        raise ValueError(f"pair_smem: no stage {stage}")
+    return nbytes
 
 
 def fma_ceiling_launch(x, out, nchain: int, length: int):

@@ -411,6 +411,13 @@ def positions_cm(layout: CMLayout, x, y, z):
             to_cm(layout, z) + sz)
 
 
+def refresh_ghosts(layout: CMLayout, field):
+    """The ghost slots of a cm-frame field pulled anew from their interior
+    sources, after a stage computed new interior values (the periodic
+    analog of a halo field refresh)."""
+    return torch.where(layout.interior, field, field[layout.ghost_pull])
+
+
 def from_cm(layout: CMLayout, field_cm, n: int, fill=0.0):
     """Gather a cm-frame result back to the particle frame."""
     padded = torch.cat([field_cm, field_cm.new_full((1,), fill)])

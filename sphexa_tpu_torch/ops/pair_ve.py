@@ -68,6 +68,7 @@ Row orders of the J matrices are those of the JAX package; the TPU's
 from __future__ import annotations
 
 import functools
+import inspect
 import threading
 
 import numpy as np
@@ -100,6 +101,19 @@ GATE_HDR = 1
 # temporaries to a few tens of MB each)
 _PAIR_BUDGET = 1 << 22
 
+# the largest slot cap the pair kernels take (a multiple of 32): the JAX
+# tile adapter's ceiling off the TPU (multichip.py:216). cell_pair.cu's
+# launch check reads it from the generated header (SPH_MAX_CAP).
+MAX_CAP = 4096
+
+
+def check_cap(cap: int):
+    """Refuses a slot cap the pair kernels do not take."""
+    if cap < 32 or cap % 32 or cap > MAX_CAP:
+        raise ValueError(f"cap {cap}: must be a multiple of 32, at most "
+                         f"{MAX_CAP}")
+
+
 _COUNT_LOCK = threading.Lock()
 
 
@@ -131,9 +145,14 @@ def _nbr_offsets(grid: CMGrid) -> np.ndarray:
 def _run_plain(body, J, I2, grid: CMGrid, fo: int, cells=None, **kw):
     """Evaluate `body` for every interior cell (or the padded cell ids
     `cells`, a subset of them) in chunks of cells.
-    body(I, Jn, i2, **kw) gets I[r] as [C, CAP, 1] i-columns, Jn[r] as
-    [C, 1, 27*CAP] j-rows and i2[r] as [C, CAP, 1], and returns fo
-    [C, CAP, 1] outputs. Slots of other cells come out zero."""
+    body(I, Jn, i2, **kw) gets I[r] as [C, R, 1] i-columns, Jn[r] as
+    [C, 1, 27*CAP] j-rows and i2[r] as [C, R, 1], and returns fo
+    [C, R, 1] outputs; R is CAP, or where one cell's 27 CAP^2 pairs pass
+    _PAIR_BUDGET (caps from 416) a slice of the cell's i-slots, so the
+    temporaries stay within the budget at any cap. A body with a keyword
+    `icell` (the moment bodies, whose origin is the own cell's mean) then
+    also gets the whole cell's I there. Slots of other cells come out
+    zero."""
     cap = grid.cap
     dev = J.device
     out = torch.zeros((fo, grid.n_slots), dtype=J.dtype, device=dev)
@@ -142,6 +161,8 @@ def _run_plain(body, J, I2, grid: CMGrid, fo: int, cells=None, **kw):
     offs = torch.tensor(_nbr_offsets(grid), device=dev)
     lane = torch.arange(cap, device=dev)
     chunk = max(1, _PAIR_BUDGET // (27 * cap * cap))
+    rows = max(1, _PAIR_BUDGET // (27 * cap))       # i-slots a body call
+    whole = "icell" in inspect.signature(body).parameters
     for c0 in range(0, cells.shape[0], chunk):
         cc = cells[c0:c0 + chunk]
         own = (cc[:, None] * cap + lane).reshape(-1)
@@ -151,7 +172,14 @@ def _run_plain(body, J, I2, grid: CMGrid, fo: int, cells=None, **kw):
         I = J[:, own].reshape(J.shape[0], C, cap, 1)
         Jn = J[:, nb.reshape(-1)].reshape(J.shape[0], C, 1, -1)
         i2 = None if I2 is None else I2[:, own].reshape(I2.shape[0], C, cap, 1)
-        res = body(I, Jn, i2, **kw)
+        if rows >= cap:
+            res = body(I, Jn, i2, **kw)
+        else:
+            ikw = dict(kw, icell=I) if whole else kw
+            parts = [body(I[:, :, r0:r0 + rows], Jn,
+                          None if i2 is None else i2[:, :, r0:r0 + rows],
+                          **ikw) for r0 in range(0, cap, rows)]
+            res = [torch.cat(p, dim=1) for p in zip(*parts)]
         out[:, own] = torch.stack([r.reshape(-1) for r in res])
     return out
 
@@ -526,7 +554,8 @@ def _contract(w, cols):
     return torch.matmul(w, M.transpose(1, 2))
 
 
-def _iad_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+def _iad_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int,
+                 icell=None):
     """K5's outputs with tau accumulated directly and the velocity
     gradients from 16 cell-centred j-moments (_iad_hybrid_body,
     pallas_ve.py:769). Outputs 14 rows."""
@@ -535,7 +564,8 @@ def _iad_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
     hinv = 1.0 / hi
     hi_inv2 = hinv * hinv
     h3inv = hinv * hi_inv2
-    ox, oy, oz, ovx, ovy, ovz = _cell_means(I, (RX, RY, RZ, RVX, RVY, RVZ))
+    ox, oy, oz, ovx, ovy, ovz = _cell_means(
+        I if icell is None else icell, (RX, RY, RZ, RVX, RVY, RVZ))
     xib = (I[RX] - ox, I[RY] - oy, I[RZ] - oz)
     vic = (I[RVX] - ovx, I[RVY] - ovy, I[RVZ] - ovz)
 
@@ -577,7 +607,8 @@ def _iad_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
     return _iad_outputs(cij, dVx, dVy, dVz, K3d * h3inv / I[RKX], _oki(I))
 
 
-def _av_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+def _av_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int,
+                icell=None):
     """K6's alpha with graddivv from 8 cell-centred j-moments
     (_av_mm_body, pallas_ve.py:949); the signal-speed max stays per
     pair. Output [alpha]."""
@@ -589,7 +620,8 @@ def _av_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
     ci = I[RC]
     divv_i = I[RDIVV]
     c11i, c12i, c13i, c22i, c23i, c33i = (i2[k] for k in range(6))
-    ox, oy, oz, odv = _cell_means(I, (RX, RY, RZ, RDIVV))
+    ox, oy, oz, odv = _cell_means(I if icell is None else icell,
+                                  (RX, RY, RZ, RDIVV))
     xib = (I[RX] - ox, I[RY] - oy, I[RZ] - oz)
     dvic = divv_i - odv
 
@@ -637,7 +669,8 @@ _C6 = {(0, 0): 0, (0, 1): 1, (1, 0): 1, (0, 2): 2, (2, 0): 2,
        (1, 1): 3, (1, 2): 4, (2, 1): 4, (2, 2): 5}
 
 
-def _momentum_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
+def _momentum_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int,
+                      icell=None):
     """K7's five reductions as one contraction of five pair-weight
     families with 49 cell-centred j-moment columns (_momentum_mm_body,
     pallas_ve.py:1190). Its own arithmetic, not K7's: the Atwood ramp
@@ -661,7 +694,8 @@ def _momentum_mm_body(I, Jn, i2, *, cfg: SphConfig, K3d: float, n_w: int):
     lxmi = torch.log(xmi)
     cii = [torch.where(oki, I[r], 0.0) for r in (R11, R12, R13, R22, R23,
                                                  R33)]
-    ox, oy, oz, ovx, ovy, ovz = _cell_means(I, (RX, RY, RZ, RVX, RVY, RVZ))
+    ox, oy, oz, ovx, ovy, ovz = _cell_means(
+        I if icell is None else icell, (RX, RY, RZ, RVX, RVY, RVZ))
     bic = [torch.where(oki, I[r] - o, 0.0)
            for r, o in ((RX, ox), (RY, oy), (RZ, oz))]
     vic = [torch.where(oki, I[r] - o, 0.0)
@@ -837,6 +871,7 @@ class PairKernel:
         counts its own launch), then the stage's kernel over its list,
         which also writes prev and the zeros into out with 16-byte
         accesses."""
+        check_cap(grid.cap)
         K3d = kernel_3d_k(cfg.sinc_index)
         if gate is not None:
             act, prev = gate
@@ -1120,9 +1155,6 @@ PAIR_KERNELS = KERNELS[1:] + MM_KERNELS + (pair_momentum_avclean,) \
 # stage collection (counterpart of PallasVE)
 # ---------------------------------------------------------------------------
 
-# the largest slot cap the pair kernels take (a multiple of 32)
-MAX_CAP = 1024
-
 
 class PairVE:
     """The five VE pair stages for one (grid, cfg), with the stage
@@ -1145,9 +1177,7 @@ class PairVE:
 
     def __init__(self, grid: CMGrid, cfg: SphConfig, gated: bool = False,
                  zgroup: int = 0, kernel_mode: str = "cell"):
-        if grid.cap % 32 or grid.cap > MAX_CAP:
-            raise ValueError(f"cap {grid.cap}: must be a multiple of 32, "
-                             f"at most {MAX_CAP}")
+        check_cap(grid.cap)
         n_w = int(cfg.sinc_index)
         if float(n_w) != float(cfg.sinc_index) or n_w < 2:
             raise ValueError("the pair stages need an integer sinc index >= 2")

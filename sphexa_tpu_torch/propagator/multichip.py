@@ -28,17 +28,18 @@ Hilbert domain the gravity band cap comes from fmm.estimate_band_cap on
 the realized leaf occupancy. Every overflow is a runtime fail-stop.
 
 ve-pallas-tiles (the 2-D tile domain) is sized as the JAX adapter sizes
-it (multichip.py:198-241), with four differences: the cell cap stays
-within the pair kernels' MAX_CAP (the JAX adapter allows 4096 in
-interpret mode), and where no grid fits the adapter exits; the halo
-cap rises to 1.3 x the measured halo (plan_tile_halo) + 64 where the
-JAX rule's max(0.6 N / D, 256) is below it; a shard count that
-R x C tiles do not factor exactly is refused (the JAX rule
+it off the TPU (multichip.py:198-241: the grid of choose_cap_and_grid
+with cap_max 4096, the pair kernels' MAX_CAP), with three differences:
+the halo cap rises to 1.3 x the measured halo (plan_tile_halo) + 64
+where the JAX rule's max(0.6 N / D, 256) is below it; a shard count
+that R x C tiles do not factor exactly is refused (the JAX rule
 R = 2^floor(floor(log2 D) / 2), C = D // R runs 8 of 9 devices); and a
 step whose tiles outgrew their static windows (TileDiag.span_ok false,
 which the JAX adapter does not read) is handed back to the main loop as
 a re-plan (`_MCDiag.replan`): the loop restores the state and builds a
-new adapter, which re-plans the windows from it (ROADMAP Queue 3).
+new adapter, which re-plans the windows from it (ROADMAP Queue 3). The
+slab props take the JAX slab plan wherever its cap is within MAX_CAP
+(ve_sharded.plan_slab).
 """
 
 from __future__ import annotations
@@ -238,9 +239,9 @@ class MultiChipAdapter:
     def _slab_setup(self, host, box, h_max, quiet):
         """The slab engines' sizing (plan_slab): the halo-width shrink of
         the shard count (below 2 shards the adapter exits, as the JAX
-        one does), measured cell and slab caps, the cell cap within the
-        pair kernels' limit (a finer grid where the JAX rule's cap
-        exceeds it; none fitting raises RuntimeError, a fail-stop)."""
+        one does), measured cell and slab caps: the JAX plan wherever its
+        cell cap is within the pair kernels' ceiling MAX_CAP (4096), else
+        a finer grid (none fitting raises RuntimeError, a fail-stop)."""
         try:
             grid, sc = plan_slab(host, box, h_max, self.D)
         except ValueError as e:
@@ -253,10 +254,9 @@ class MultiChipAdapter:
         return grid, sc
 
     def _tile_setup(self, host, box, h_max, devices, quiet):
-        """The tile domain's sizing (plan_tile_domain: the JAX adapter's,
-        with the cell cap within MAX_CAP, the halo cap at least the
-        measured halo's and R x C = D exactly, else an exit); returns the
-        initial shards."""
+        """The tile domain's sizing (plan_tile_domain: the JAX adapter's
+        off the TPU, with the halo cap at least the measured halo's and
+        R x C = D exactly, else an exit); returns the initial shards."""
         from sphexa_tpu_torch.propagator.ve_pallas_tiles import (
             distribute_tiles, make_ve_step_pallas_tiles, plan_tile_domain)
         try:

@@ -483,13 +483,13 @@ def tile_factors(D: int) -> tuple:
 def plan_tile_domain(box: Box, host: dict, h_max: float, n_global: int,
                      D: int):
     """The tile domain's sizing for D shards (the JAX adapter's,
-    sphexa_tpu/propagator/multichip.py:198-241, with three changes):
-    the global grid is choose_cap_and_grid's at 1.25 h_max with the cell
-    cap within the pair kernels' MAX_CAP; R x C must be D; the halo cap
-    is at least 1.3 x the measured halo (plan_tile_halo) + 64. The
-    windows are plan_tile_caps's + 2. host: field -> numpy array of the
-    alive rows. Returns (grid, TileDomain); raises ValueError where R x C
-    != D or no grid fits."""
+    sphexa_tpu/propagator/multichip.py:198-241, with two changes): the
+    global grid is choose_cap_and_grid's at 1.25 h_max, headroom 16,
+    cap_max MAX_CAP (4096, the JAX adapter's off the TPU); R x C must be
+    D; the halo cap is at least 1.3 x the measured halo (plan_tile_halo)
+    + 64. The windows are plan_tile_caps's + 2. host: field -> numpy
+    array of the alive rows. Returns (grid, TileDomain); raises
+    ValueError where R x C != D or no grid fits."""
     R, C = tile_factors(D)
     if R * C != D:
         raise ValueError(
@@ -502,7 +502,7 @@ def plan_tile_domain(box: Box, host: dict, h_max: float, n_global: int,
             box, h_max * 1.25, n_global, host["x"], host["y"], host["z"],
             cap_max=MAX_CAP, headroom=16)
     except ValueError as e:
-        raise ValueError(f"{e} (the pair kernels' limit)") from None
+        raise ValueError(f"{e} (the pair kernels' ceiling)") from None
     part = dict(n=grid.n, n_rows=R, n_cols=C)
     rows_cap, zcols_cap = plan_tile_caps(box, part, host["x"], host["y"],
                                          host["z"])

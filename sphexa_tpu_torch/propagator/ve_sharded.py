@@ -255,13 +255,14 @@ def plan_slab(host: dict, box: Box, h_max: float, n_slabs: int,
     slab counts. host: numpy arrays of the alive particles. Returns
     (local grid, SlabConfig); the SlabConfig's n_slabs is the D used.
 
-    cap_max (the pair kernels' limit by default): where the JAX rule's
-    cap exceeds it, the finer grids that the 2 h_max bound still allows
-    are measured and the finest within it taken (with the 1.3 margin if
-    one fits, else a headroom of 8 rows); none raises RuntimeError (a
-    slab too thin for 2 h_max at D = 2 raises ValueError). At caps
-    within it the plan is the JAX rule's, which ignores the kernels'
-    ceiling (ROADMAP Queue 3)."""
+    cap_max (the pair kernels' ceiling MAX_CAP by default): at caps
+    within it the plan is the JAX rule's (at Evrard 100, D = 2,
+    CMGrid(n=18, cap=1664, nzi=9)). Only where the JAX rule's cap
+    exceeds it, which the JAX rule does not check, are the finer grids
+    that the 2 h_max bound still allows measured and the finest within
+    it taken (with the 1.3 margin if one fits, else a headroom of 8
+    rows); none raises RuntimeError (a slab too thin for 2 h_max at
+    D = 2 raises ValueError)."""
     D = n_slabs
     while D > 1 and box.lz / D < 2.0 * h_max * 1.05:
         D //= 2
@@ -290,9 +291,10 @@ def plan_slab(host: dict, box: Box, h_max: float, n_slabs: int,
     nz_local, max_occ = measure(n)
     cap_cm = max(128, round_up(int(max_occ * 1.3) + 8, 128))
     if cap_cm > cap_max:
-        # finer grids within choose_cm_grid's 2 h_max bound on the cell
-        # edge: the finest whose cap fits, with the 1.3 margin if one
-        # does, else with the single-device planner's headroom of 8
+        # past the kernels' ceiling only: finer grids within
+        # choose_cm_grid's 2 h_max bound on the cell edge, the finest
+        # whose cap fits, with the 1.3 margin if one does, else with the
+        # single-device planner's headroom of 8
         L = min(box.lx, box.ly, box.lz)
         n_corr = max(1, int(np.floor(L / (2.0 * h_max * 1.25 * 1.05))))
         counts = {m: measure(m) for m in range(n, n_corr + 1)}

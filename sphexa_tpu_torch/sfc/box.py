@@ -80,6 +80,20 @@ def fold(r, length, is_periodic: bool):
     return r - length * torch.round(r / length)
 
 
+def apply_pbc(box: Box, rx, ry, rz):
+    """Minimum-image convention for displacement vectors: the reference
+    applyPBC (box.hpp:235) for interaction distances < L/2, branch-free."""
+    px, py, pz = box.periodic
+    return (fold(rx, box.lx, px), fold(ry, box.ly, py),
+            fold(rz, box.lz, pz))
+
+
+def distance_pbc(box: Box, x1, y1, z1, x2, y2, z2):
+    """Minimum-image distance between two sets of points."""
+    rx, ry, rz = apply_pbc(box, x1 - x2, y1 - y2, z1 - z2)
+    return torch.sqrt(rx * rx + ry * ry + rz * rz)
+
+
 def put_in_box(box: Box, x, y, z):
     """Wrap coordinates back into the box along periodic dimensions."""
     px, py, pz = box.periodic
@@ -99,3 +113,18 @@ def normalize_coords(box: Box, x, y, z):
     nz = (z - box.zmin) / box.lz
     return (torch.clamp(nx, 0.0, _BELOW_ONE), torch.clamp(ny, 0.0, _BELOW_ONE),
             torch.clamp(nz, 0.0, _BELOW_ONE))
+
+
+def extend_to_coords(box: Box, x, y, z, pad_rel: float = 1e-6) -> Box:
+    """The box grown (on the host) to hold the given coordinates along its
+    open dimensions, padded by pad_rel of the extent plus float32's
+    epsilon: makeGlobalBox (box_mpi.hpp:84) for one process."""
+    def pad(c):
+        lo, hi = float(torch.min(c)), float(torch.max(c))
+        d = (hi - lo) * pad_rel + float(np.finfo(np.float32).eps)
+        return lo - d, hi + d
+
+    bx = pad(x) if box.bx == Boundary.open else (box.xmin, box.xmax)
+    by = pad(y) if box.by == Boundary.open else (box.ymin, box.ymax)
+    bz = pad(z) if box.bz == Boundary.open else (box.zmin, box.zmax)
+    return box.with_bounds(bx[0], bx[1], by[0], by[1], bz[0], bz[1])

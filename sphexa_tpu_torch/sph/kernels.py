@@ -62,6 +62,29 @@ def kernel_3d_k(sinc_index: float, support: float = SUPPORT) -> float:
     return 1.0 / simpson(0.0, support, 2000, vol)
 
 
+@functools.lru_cache(maxsize=None)
+def make_tables(sinc_index: float, table_size: int = 20000):
+    """W(v) = sinc(pi v/2)^n and dW/dv tabulated at table_size points on
+    [0, support], as float32 numpy arrays (host)."""
+    v = np.linspace(0.0, SUPPORT, table_size)
+    w = wharmonic_np(v) ** sinc_index
+    wd = (sinc_index * wharmonic_np(v) ** (sinc_index - 1.0)
+          * wharmonic_derivative_np(v))
+    return w.astype(np.float32), wd.astype(np.float32)
+
+
+def table_lookup(table, v):
+    """Linear interpolation in a table of make_tables, the reference's
+    lt::lookup (table_lookup.hpp:14-26): zero at or past the support."""
+    table = torch.as_tensor(table, device=v.device)
+    num_intervals = table.shape[0] - 1
+    idxf = v * (num_intervals / SUPPORT)
+    idx = torch.clamp(idxf.to(torch.int32), 0, num_intervals - 1).long()
+    lo, hi = table[idx], table[idx + 1]
+    out = lo + (hi - lo) * (idxf - idx.to(v.dtype))
+    return torch.where(idxf < num_intervals, out, torch.zeros_like(out))
+
+
 def _pow_int(x, n: int):
     """x**n by binary multiplication for small integer n."""
     result = None

@@ -32,3 +32,8 @@ def kahan_sum(x: torch.Tensor) -> torch.Tensor:
         s, err = _two_sum(s[:n2], s[n2:])
         e = e[:n2] + e[n2:] + err
     return (s + e)[0]
+
+
+def kahan_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Compensated dot product sum(a * b)."""
+    return kahan_sum(a * b)

@@ -558,68 +558,11 @@ def _av_frame(grid, seed):
             np.stack(i2).astype(np.float32), valid)
 
 
-def _k9_noise_body(I, Jn, i2, *, cfg, K3d, n_w):
-    """K9's alpha (pair_ve._av_mm_body) and its float32 rounding noise
-    relative to it, from the inputs, evaluated in the rows' dtype
-    (float64): the unit roundoff times the magnitude of graddivv's terms
-    (each moment sum of G_b taken over |terms|, G's combination through
-    |c_ij|) over |graddivv|, times alpha's relative sensitivity to
-    graddivv. No summation-length factor: the float32 orders measured
-    (kernel, plain, JAX) sit within 4.5 times it."""
-    RC, _, RXM, RDIVV, RVX, RVY, RVZ = range(pv.NBASE, pv.NBASE + 7)
-    hinv = 1.0 / I[pv.RH]
-    ox, oy, oz, odv = pv._cell_means(I, (pv.RX, pv.RY, pv.RZ, RDIVV))
-    xib = (I[pv.RX] - ox, I[pv.RY] - oy, I[pv.RZ] - oz)
-    xjc = (Jn[pv.RX] - ox, Jn[pv.RY] - oy, Jn[pv.RZ] - oz)
-    dvic = I[RDIVV] - odv
-    rx, ry, rz, d2 = pv._geo(I, Jn)
-    w = pv._w_v2(d2 * hinv * hinv, n_w)
-    volj = Jn[RXM] / Jn[RC + 1]
-    vd = volj * (Jn[RDIVV] - odv)
-
-    def S(t):
-        return torch.sum(w * t, dim=-1, keepdim=True)
-
-    G = [xib[b] * (dvic * S(volj) - S(vd)) - (dvic * S(volj * xjc[b])
-                                              - S(vd * xjc[b]))
-         for b in range(3)]
-    M = [xib[b].abs() * (dvic.abs() * S(volj) + S(vd.abs()))
-         + dvic.abs() * S(volj * xjc[b].abs()) + S((vd * xjc[b]).abs())
-         for b in range(3)]
-    c = [[i2[0], i2[1], i2[2]], [i2[1], i2[3], i2[4]],
-         [i2[2], i2[4], i2[5]]]
-    g = torch.sqrt(sum(sum(c[a][b] * G[b] for b in range(3)) ** 2
-                       for a in range(3)))
-    dg = torch.sqrt(sum(sum(c[a][b].abs() * M[b] for b in range(3)) ** 2
-                        for a in range(3)))
-    rv = (rx * (I[RVX] - Jn[RVX]) + ry * (I[RVY] - Jn[RVY])
-          + rz * (I[RVZ] - Jn[RVZ]))
-    vsig = torch.where((w > 0) & (rv < 0.0), I[RC] + Jn[RC] - 3.0 * rv
-                       * torch.rsqrt(torch.clamp_min(d2, 1e-30)), pv._NEG)
-    vs = torch.maximum(torch.amax(vsig, -1, keepdim=True), 1e-30 * I[RC])
-    scale = K3d * hinv ** 3
-
-    def alpha(gd):
-        return pv._alpha_tail(i2, gd, vs, I[RDIVV], I[pv.RH], I[RC], cfg)
-
-    a0, eps = alpha(g * scale), 1e-6
-    sens = (alpha(g * scale * (1 + eps)) - a0).abs() / eps
-    noise = 2.0 ** -24 * sens * dg / torch.clamp_min(g, 1e-300)
-    ok = pv._oki(I)
-    return [torch.where(ok, a0, 0.0),
-            torch.where(ok, noise / torch.clamp_min(a0.abs(), 1e-300), 0.0)]
-
-
 def k9_noise_floor(J, I2, grid, cfg):
-    """K9's alpha from the inputs in float64 and its relative float32
-    noise floor (_k9_noise_body), [n_slots] each, on J's device; and the
-    slots at that floor: where four times the noise reaches K9's rtol
-    of 1e-5 (the mm alpha property, ROADMAP Queue 3: graddivv is a
-    difference of centred moment sums)."""
-    k = pv.pair_av_mm
-    ref, noise = pv._run_plain(_k9_noise_body, J.double(), I2.double(),
-                               grid, 2, **k._body_kw(cfg))
-    return ref, noise, 4.0 * noise >= 1e-5
+    """chip_smoke.k9_noise_floor: K9's float64 alpha, its relative
+    float32 noise floor and the slots at that floor."""
+    import chip_smoke
+    return chip_smoke.k9_noise_floor(J, I2, grid, cfg)
 
 
 @pytest.mark.parametrize("cap", MOMENTUM_CAPS)

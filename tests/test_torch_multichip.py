@@ -205,6 +205,7 @@ def test_plan_slab_within_kernel_cap():
     fits, as this frame's 640 fits the kernels' default limit, it is the
     JAX plan (tests/test_torch_sharded.py::test_plan_slab_equal). The
     limits of 512 and 128 here stand in for the kernels' one."""
+    from sphexa_tpu_torch.ops.pair_ve import MAX_CAP
     from sphexa_tpu_torch.propagator.ve_sharded import plan_slab
 
     r = np.random.default_rng(5)
@@ -215,7 +216,7 @@ def test_plan_slab_within_kernel_cap():
     box = box_from_numpy([-1, 1, -1, 1, -1, 1], [0, 0, 0])
     h_max = 0.06
     g0, sc0 = plan_slab(host, box, h_max, 2)
-    assert 512 < g0.cap <= 1024
+    assert 512 < g0.cap <= MAX_CAP
     g1, sc1 = plan_slab(host, box, h_max, 2, cap_max=512)
     assert g1.cap <= 512 and g1.n > g0.n and sc1 == sc0
     edge = 2.0 / g1.n
