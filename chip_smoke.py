@@ -2102,16 +2102,21 @@ def probes_phase(report):
     """(j) P1-P5: each probe's sweep at its script's sizes (counters
     zeroed before, read after), then each kernel against its plain
     version on the card, the TMA variants also through the libcuda
-    build, and the library yardsticks."""
+    build, and the library yardsticks. P2-P4: a call's bytes three ways
+    and the designs on sources that fit the L2. P5: both designs (and
+    wgmma with its overlap off) in every mode at vpu_flops 0 and 30,
+    each a row with its own bound, and wgmma's time at 2 NCELL."""
     import torch
     from sphexa_tpu_torch.ops import _cuda
     from sphexa_tpu_torch.probes import fma_ceiling as p1
     from sphexa_tpu_torch.probes import mma_micro as p5
+    from sphexa_tpu_torch.probes import mma_parts
     from sphexa_tpu_torch.probes import staging_lab as st
 
-    probes = [p1.fma_chains, *st.PROBES.values(), p5.mma_cells]
+    probes = [p1.fma_chains, *st.PROBES.values()]
     for p in probes:
         p.launches = 0
+    p5.mma_cells.launches = dict.fromkeys(p5.mma_cells.launches, 0)
     s1 = p1.sweep()
     for p in s1:
         log(f"  P1 rows={p['rows']:<2d} chains={p['nchain']:<2d} "
@@ -2119,13 +2124,16 @@ def probes_phase(report):
             f"{p['fp32_pipe_gflops']:9.0f} Gflop/s (fp32 pipe)")
     s5 = p5.sweep()
     for q in s5:
-        log(f"  P5 {q['mode']:12s} vpu={q['vpu_flops']:<2d} {q['ms']:8.3f} ms"
+        log(f"  P5 {q['mode']:12s} vpu={q['vpu_flops']:<2d} "
+            f"{q['design']:12s} {q['ms']:8.3f} ms"
             f"  {q['card_cycles_per_cell']:7.1f} cyc/cell (card)  "
             f"{q['sm_cycles_per_cell']:8.0f} cyc/cell (one SM) at "
             f"{q['sm_mhz']:.0f} MHz")
     s2 = st.sweep()
     torch.cuda.synchronize()
     launches = {p.name: p.launches for p in probes}
+    launches.update({"p5_" + d: n
+                     for d, n in p5.mma_cells.launches.items()})
     assert all(launches.values()), launches
     report["probe_sweeps"] = dict(P1=s1, P2_P4=s2, P5=s5)
     rows = []
@@ -2192,6 +2200,20 @@ def probes_phase(report):
         f"encoder reached {enc} (1: runtime entry point, 2: libcuda), the "
         f"libcuda build's TMA variants equal too")
     report["tma_encoder"] = enc
+    # the bytes of a call three ways (staging_lab.byte_counts: touched
+    # lanes once, the windows as staged, an LRU cache of this card's L2
+    # in the script's program order; counted on the host, so they stay
+    # out of the kernel rows), and the designs on sources of 12.6 to 201
+    # MB with the same windows: the time when the source fits L2
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    counts = {fn: st.byte_counts(fn, starts.cpu(), st.K, st.F, st.NS, nprog,
+                                 l2) for fn in ("many", "few", "pipe")}
+    foot = st.footprint_sweep()
+    report["staging_counts"] = dict(l2_bytes=l2, counts=counts,
+                                    footprint=foot)
+    for c in foot:
+        log(f"  {c['design']:9s} source {c['source_mb']:6.1f} MB "
+            f"{c['ms']:8.3f} ms/call")
     for p in s2:
         design = p["design"]
         probe = st.PROBES[design]
@@ -2201,45 +2223,55 @@ def probes_phase(report):
         lib_ms = cuda_ms(lambda: torch.index_select(src, 1, idx, out=buf), 10)
         o = torch.zeros((nprog * 8, 128), dtype=torch.float32, device=DEVICE)
         plain_ms = cuda_ms(lambda: probe.plain(src, starts, o, st.K), 2)
-        touched = int(torch.unique(idx).numel())
-        st_bytes = {"many": st.K, "few": 1, "pipe": 0}[fn] * 4 * nprog
-        nbytes = 4 * st.F * touched + st_bytes + 2 * o.numel() * 4
+        c = counts[fn]
+        t = {k: (c[k] + c["extra"]) / HBM_BW * 1e3
+             for k in ("unique", "windows", "lru")}
+        l2_ms = min(q["ms"] for q in foot if q["design"] == design)
         rows.append(dict(name=probe.name, route="cuda",
                          source="sphexa_tpu_torch/csrc/probes.cu",
                          replaces=PROBE_REPLACES[probe.name],
                          launches=launches[probe.name], max_abs_err=0.0,
                          ms=p["ms"], plain_ms=plain_ms,
-                         bound_ms=nbytes / HBM_BW * 1e3, bound_by="bytes",
-                         library_ms=lib_ms))
+                         bound_ms=t["unique"], bound_by="bytes",
+                         library_ms=lib_ms, l2_resident_ms=l2_ms))
         log(f"  {design:9s} {p['ms']:8.3f} ms/call  "
-            f"{p['us_per_window'] * 1e3:8.2f} ns/window  {p['gbs']:8.1f} GB/s of windows  index_select "
-            f"{lib_ms:.3f} ms  bound {nbytes / HBM_BW * 1e3:.4f} ms")
+            f"{p['us_per_window'] * 1e3:8.2f} ns/window  {p['gbs']:8.1f} "
+            f"GB/s of windows  index_select {lib_ms:.3f} ms  counted bytes "
+            f"at 3.35 TB/s: unique {t['unique']:.4f} ms, windows "
+            f"{t['windows']:.4f}, LRU {t['lru']:.4f} (share "
+            f"{t['lru'] / p['ms']:.3f}); L2-resident {l2_ms:.3f} ms")
 
-    # P5: each mode against plain (seeded x), vpu_flops 0 and 30
+    # P5: every design, mode and vpu_flops against plain (seeded x) at
+    # the script's NCELL, the wgmma kernel at 2 NCELL (every cell's work
+    # runs: 1.8-2.2x), and a row a design, mode and vpu_flops
     x5 = torch.from_numpy(np.random.default_rng(1).uniform(
         -1.0, 1.0, (p5.FJ, p5.RUNW)).astype(np.float32)).to(DEVICE)
     tol = {"none": 1e-5, "f32": 5e-3, "f32_highest": 1e-5, "bf16": 1e-5}
     err5 = {}
-    for mode in p5.MODES:
-        for vf in p5.VPU_FLOPS:
-            out = p5.mma_cells._launch(x5, mode, vf, p5.NCELL)
-            ref = p5.mma_cells.plain(x5, mode, vf, p5.NCELL)
-            e = float((out - ref).abs().max()) / float(ref.abs().max())
-            if e > tol[mode]:
-                raise AssertionError(f"P5 {mode} vpu={vf}: {e:.3e} of scale")
-            err5[(mode, vf)] = float((out - ref).abs().max())
-    vf = max(p5.VPU_FLOPS)
-    rows_w = []                 # one cell's 9 w blocks, as the kernel's
+    for q in s5:
+        mode, vf, design = q["mode"], q["vpu_flops"], q["design"]
+        out = p5.mma_cells._launch(x5, mode, vf, p5.NCELL, design)
+        ref = p5.mma_cells.plain(x5, mode, vf, p5.NCELL)
+        e = float((out - ref).abs().max()) / float(ref.abs().max())
+        if e > tol[mode]:
+            raise AssertionError(f"P5 {design} {mode} vpu={vf}: {e:.3e} of "
+                                 f"scale")
+        err5[(design, mode, vf)] = float((out - ref).abs().max())
+    scal = p5.scaling()
+    report["p5_scaling"] = scal
+    for q in scal:
+        log(f"  P5 wgmma {q['mode']:12s} vpu={q['vpu_flops']:<2d} "
+            f"{q['ms']:8.3f} ms at NCELL, {q['ms_2x']:8.3f} at 2 NCELL "
+            f"({q['ratio']:.3f}x)")
+        if not 1.8 <= q["ratio"] <= 2.2:
+            raise AssertionError(f"P5 wgmma {q['mode']} vpu="
+                                 f"{q['vpu_flops']}: 2 NCELL takes "
+                                 f"{q['ratio']:.3f}x NCELL's time")
+    B = x5[0:p5.K, 0:p5.RUNW].T.contiguous()
     xr = x5[0:1, :p5.RUNW] + torch.arange(p5.CAP, dtype=torch.float32,
                                           device=DEVICE)[:, None]
-    for g in range(9):
-        wg = xr * (1.0 + g)
-        for _ in range(vf):
-            wg = wg * 1.000001 + 0.5
-        rows_w.append(wg)
-    A = torch.cat(rows_w).repeat(p5.NCELL, 1)          # [NCELL*576, 192]
-    B = x5[0:p5.K, 0:p5.RUNW].T.contiguous()
-    lib = {}
+    A = torch.cat([xr * (1.0 + g) for g in range(9)]).repeat(p5.NCELL, 1)
+    lib = {}                    # the values do not change a product's time
     for tf32 in (True, False):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         lib["f32" if tf32 else "f32_highest"] = cuda_ms(lambda: A @ B, 5)
@@ -2247,25 +2279,45 @@ def probes_phase(report):
     Ab, Bb = A.bfloat16(), B.bfloat16()
     lib["bf16"] = cuda_ms(lambda: Ab @ Bb, 5)
     del A, Ab
-    plain5 = cuda_ms(lambda: p5.mma_cells.plain(x5, "f32", vf, p5.NCELL), 3)
-    t_vpu = p5.vpu_ops(vf) / (FP32_PEAK / 2) * 1e3
+    # the wgmma kernel with its elementwise work or its product removed
+    parts = mma_parts.sweep()
+    report["p5_parts"] = parts
+    part_ms = {(q["mode"], q["vpu_flops"], q["part"]): q["ms"] for q in parts}
+    for q in parts:
+        log(f"  P5 wgmma {q['mode']:12s} vpu={q['vpu_flops']:<2d} "
+            f"{q['part']:12s} {q['ms']:8.4f} ms")
     tc = {"none": 0.0, "f32": p5.dot_flops() / TF32_PEAK * 1e3,
           "f32_highest": 3 * p5.dot_flops() / TF32_PEAK * 1e3,
           "bf16": p5.dot_flops() / BF16_PEAK * 1e3}
+    plain5 = {}
     for q in s5:
-        if q["vpu_flops"] != vf:
-            continue
-        mode = q["mode"]
-        rows.append(dict(name=f"mma_cells_{mode}", route="cuda",
+        mode, vf, design = q["mode"], q["vpu_flops"], q["design"]
+        if (mode, vf) not in plain5:
+            plain5[(mode, vf)] = cuda_ms(lambda: p5.mma_cells.plain(
+                x5, mode, vf, p5.NCELL), 3)
+        bound = max(p5.vpu_ops(vf) / (FP32_PEAK / 2) * 1e3, tc[mode])
+        name = (f"mma_cells_none_vpu{vf}" if mode == "none"
+                else f"mma_cells_{design}_{mode}_vpu{vf}")
+        rows.append(dict(name=name, route="cuda",
                          source="sphexa_tpu_torch/csrc/probes.cu",
                          replaces=PROBE_REPLACES["mma_cells"],
-                         launches=launches["mma_cells"],
-                         max_abs_err=err5[(mode, vf)], ms=q["ms"],
-                         plain_ms=plain5, bound_ms=max(t_vpu, tc[mode]),
-                         bound_by="operations", library_ms=lib.get(mode)))
-    log(f"  P5 library (torch.matmul of the {9 * p5.NCELL} products, "
-        f"vpu={vf}): TF32 {lib['f32']:.3f} ms, float32 "
-        f"{lib['f32_highest']:.3f} ms, bf16 {lib['bf16']:.3f} ms")
+                         launches=launches["p5_" + design],
+                         max_abs_err=err5[(design, mode, vf)], ms=q["ms"],
+                         plain_ms=plain5[(mode, vf)], bound_ms=bound,
+                         bound_by="operations", library_ms=lib.get(mode),
+                         registers=q["registers"],
+                         local_bytes=q["local_bytes"],
+                         blocks_per_sm=q["blocks_per_sm"],
+                         product_ms=part_ms.get((mode, 0, "product"))
+                         if design == "wgmma" else None,
+                         elementwise_ms=part_ms.get((mode, vf, "elementwise"))
+                         if design == "wgmma" else None))
+        log(f"  {name:36s} {q['ms']:8.3f} ms  bound {bound:.4f} ms (share "
+            f"{bound / q['ms']:.3f})  {q['registers']} registers, "
+            f"{q['local_bytes']} B spilled, {q['blocks_per_sm']} blocks/SM")
+    log(f"  P5 library (torch.matmul of the {9 * p5.NCELL} products): TF32 "
+        f"{lib['f32']:.3f} ms, float32 {lib['f32_highest']:.3f} ms, bf16 "
+        f"{lib['bf16']:.3f} ms")
     report["kernels_probes"] = rows
     return rows
 
@@ -6716,6 +6768,30 @@ def bigcap_main() -> int:
     return 0
 
 
+def probes_main() -> int:
+    """--probes: the build of probes.cu and phase (j) alone (no result
+    lines); details to chiprun_out/chip_smoke_probes.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from sphexa_tpu_torch.ops import _cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"smi": smi_line()}
+    log(report["smi"])
+    t0 = time.perf_counter()
+    _cuda.build(["probes.cu", *_cuda.VARIANTS])
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    report["ptxas"] = {s: i["ptxas"] for s, i in _cuda.build_info.items()}
+    report["rows"] = probes_phase(report)
+    log(f"phase (j): {time.perf_counter() - t0:.1f} s with the build")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_probes.json"),
+              "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    return 0
+
+
 def dom_main() -> int:
     """--domains: the build and phase (r) alone (no result lines);
     details to chiprun_out/chip_smoke_domains.json."""
@@ -6768,6 +6844,8 @@ def main() -> int:
         return dom_main()
     if sys.argv[1:2] == ["--bigcap"]:
         return bigcap_main()
+    if sys.argv[1:2] == ["--probes"]:
+        return probes_main()
     sys.path.insert(0, ROOT)
     from sphexa_tpu_torch.ops import _cuda
 
@@ -6779,7 +6857,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    _cuda.build()
+    _cuda.build(_cuda.SOURCES + tuple(_cuda.VARIANTS))
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s")
     for src, info in _cuda.build_info.items():

@@ -38,18 +38,22 @@
 // runtime's driver entry point, or (built with -DPROBES_LINK_LIBCUDA
 // -lcuda) linked directly.
 //
-// P5: a block per cell (4 warps, 16 rows each) runs the script's 9 dots
-// [64, 192] x [192, 16] of w_g = (x[0, :] + row) * (1 + g) after
-// vpu_flops elementwise steps w = w * 1.000001 + 0.5 (rounded as the
-// plain version: no contraction), on the tensor cores with mma.sync:
+// P5: every cell runs the script's 9 dots [64, 192] x [192, 16] of
+// w_g = (x[0, :] + row) * (1 + g) after vpu_flops elementwise steps
+// w = w * 1.000001 + 0.5 (rounded as the plain version: no contraction)
+// against B = x[0:16, :]^T, summed into acc [64, 16]:
 //   mode 0 none    no product: acc += w[:, :16]
-//   mode 1 f32     TF32 m16n8k8 (a float32 product at TF32 precision)
-//   mode 2 f32_highest  3xTF32 (hi*hi + hi*lo + lo*hi), float32 accuracy
-//   mode 3 bf16    bf16 m16n8k16, float32 accumulation
-// Every block computes the same [64, 16] result and writes it (the TPU
-// program writes one out block); the other 176 columns stay zero.
-// Bound: the tensor-core operations of the mode, or the fp32 elementwise
-// work, whichever is larger.
+//   mode 1 f32     TF32 (a float32 product at TF32 precision)
+//   mode 2 f32_highest  3xTF32 (lo*hi + hi*lo + hi*hi), float32 accuracy
+//   mode 3 bf16    bf16 operands, float32 accumulation
+// Every cell computes the same [64, 16] result and it is written into
+// columns 0-15 of out (the TPU program writes one out block); the other
+// 176 columns stay zero. Bound: the tensor-core operations of the mode,
+// or the fp32 elementwise work, whichever is larger. Two designs:
+//   mma_sync  a block per cell (4 warps, 16 rows each), mma.sync m16n8k8
+//             (TF32) or m16n8k16 (bf16), B reloaded from shared memory
+//             at every step; mode 0's loop serves both designs
+//   wgmma     modes 1-3: persistent warpgroups (see mma_micro_wgmma)
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -597,6 +601,373 @@ mma_micro_kernel(const float* __restrict__ x, float* __restrict__ out,
     if (sink) out[t] = junk;          // keeps mode 0's other columns live
 }
 
+// --------------------------------------------------------------------------
+// P5, wgmma design
+// --------------------------------------------------------------------------
+//
+// A block is one warpgroup (128 threads; warp w holds rows 16 w to
+// 16 w + 15) and walks the cells blockIdx.x, + gridDim.x, ...; the grid
+// is the SM count times the blocks an SM holds. What the mma_sync design
+// repeats at every step is done once a block here:
+//   - B is staged once in shared memory in wgmma's K-major canonical
+//     layout without swizzle: 8 x 16-byte core matrices of 128 contiguous
+//     bytes, core (kc, nb) (16-byte K chunk kc, rows 8 nb to 8 nb + 7 of
+//     B^T) at byte 128 (2 kc + nb), so LBO (the next core along K) is 256
+//     bytes and SBO (the next 8 rows) 128; a k-step (32 bytes of K)
+//     starts 512 bytes further. A warpgroup reads whole 128-byte cores,
+//     which span the 32 banks once. Mode 1 holds B rounded to TF32,
+//     mode 2 its hi and lo parts (split once), mode 3 B in bf16. The
+//     descriptors are built once.
+//   - x[0, :] is staged permuted, so a thread reads the columns of 16
+//     w columns for its two rows with one 16-byte load.
+// A is the w tile in registers (wgmma's register-A form, which TF32 and
+// bf16 both take): each thread computes its fragment elementwise, as
+// the mma_sync design does, and the tensor cores read it from the
+// registers, so the [64, 192] tile never goes through shared memory
+// (at n16 a shared-memory A would be read at 4x the bytes of B a step).
+// A chunk is 96 of a dot's 192 columns (12 k8 steps of TF32, 6 k16
+// steps of bf16; 3xTF32 32 columns, 4 k8 steps, so that its hi and lo
+// parts fit twice in the registers at 3 blocks an SM), 48 floats a
+// thread (3xTF32 16); a cell is 18 chunks (54). Longer chunks mean fewer
+// commit/wait rounds and longer chains at fewer blocks an SM; 96 columns
+// are the longest whose two buffers TF32 keeps in registers at 2 blocks
+// an SM. Two chunk buffers alternate: the chain of chunk q is
+// issued (wgmma.fence, the steps, commit_group), then chunk q + 1's w
+// and its vpu_flops chain are computed while the tensor cores run q,
+// and only then wait_group 1 frees q's buffer for q + 2. With OVERLAP
+// false, wait_group 0 follows every commit (the chain and the
+// elementwise work of one warpgroup in turn, for measuring the
+// overlap). A cell's first step starts the accumulator afresh (scale-d
+// 0), so the registers that the last cell leaves are its sum, as every
+// cell's. The rows enter the w of each chunk through an empty asm, so
+// the compiler can neither hoist a chunk's elementwise work out of the
+// cell loop nor merge it across cells.
+// Rounding, as the mma_sync design's: B is rounded to TF32 (cvt.rna) or
+// split (hi = cvt.rna(x), lo = cvt.rna(x - hi)) once, A in each chunk
+// the same way but by integer operations (mw_tf32, bit-equal to
+// cvt.rna); the chains run lo*hi, hi*lo, hi*hi a step into the one
+// accumulator. So the two designs differ only in the order of the sums.
+//
+// Built with -DMW_PART=1 or 2 (ops/_cuda.py's VARIANTS probes_product
+// and probes_elementwise), the kernel loses one of its two parts, so
+// that probes/mma_parts.py can time each alone:
+//   1 product      no elementwise work: w's columns and rows go to the
+//                  conversion as loaded (no add, multiply or vpu_flops
+//                  steps)
+//   2 elementwise  no product: each wgmma becomes two lop3 that fold its
+//                  A registers into the accumulator (half an instruction
+//                  an element, so that nothing is dead)
+
+#ifndef MW_PART
+#define MW_PART 0
+#endif
+
+constexpr int MW_GROUPS = MM_RUNW / 16;       // 16-column groups a row
+constexpr int MW_B_WORDS = MM_N * MM_RUNW;    // 32-bit words of TF32 B
+
+// the K-major, no-swizzle shared-memory matrix descriptor at p: start
+// address, LBO 256 bytes, SBO 128 bytes (16-byte units), layout type 0
+__device__ __forceinline__ uint64_t mw_desc(const void* p)
+{
+    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4)
+        | ((uint64_t)(256 >> 4) << 16) | ((uint64_t)(128 >> 4) << 32);
+}
+
+// the word of element (n, k) of B^T [16, 192] with `per` elements in 16
+// bytes (TF32 4, bf16 8) in the layout above, in units of an element
+__device__ __forceinline__ int mw_core_index(int n, int k, int per)
+{
+    return (((k / per) * 2 + n / 8) * 8 + n % 8) * per + k % per;
+}
+
+__device__ __forceinline__ void wg_fence()
+{
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit()
+{
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait()
+{
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// cvt.rna.tf32.f32 by an integer add and a mask (nearest, ties away
+// from zero: the carry out of the 13 dropped bits rounds the
+// magnitude), bit-equal for finite x and cheaper than the cvt here
+// (PERF.md, P5).
+__device__ __forceinline__ uint32_t mw_tf32(float x)
+{
+    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+#if MW_PART == 2
+// MW_PART 2's stand-in for a wgmma
+__device__ __forceinline__ void mw_fold(float (&d)[8], const uint32_t* a)
+{
+    asm volatile("lop3.b32 %0, %0, %2, %3, 0x96;\n"
+                 "lop3.b32 %1, %1, %4, %5, 0x96;\n"
+                 : "+f"(d[0]), "+f"(d[1])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]));
+}
+#endif
+
+// d += (or = with acc 0) A [64, 8] (registers) x B [8, 16] (desc)
+__device__ __forceinline__ void wg_tf32(float (&d)[8], const uint32_t* a,
+                                        uint64_t desc, int acc)
+{
+#if MW_PART == 2
+    mw_fold(d, a);
+#else
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
+        "p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+#endif
+}
+
+// d += (or = with acc 0) A [64, 16] (registers) x B [16, 16] (desc)
+__device__ __forceinline__ void wg_bf16(float (&d)[8], const uint32_t* a,
+                                        uint64_t desc, int acc)
+{
+#if MW_PART == 2
+    mw_fold(d, a);
+#else
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
+        "p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+#endif
+}
+
+// the chunk of mode MODE: COLS of the 192 w columns, NV floats of them a
+// thread (2 rows x COLS / 4), STEPS k-steps, NA fragment registers
+template <int MODE>
+struct MwChunk {
+    static constexpr int COLS = MODE == 2 ? 32 : 96;
+    static constexpr int CHUNKS = MM_RUNW / COLS;        // a dot
+    static constexpr int PER_CELL = 9 * CHUNKS;
+    static constexpr int NV = COLS / 2;
+    static constexpr int STEPS = COLS / (MODE == 3 ? 16 : 8);
+    static constexpr int NA = MODE == 2 ? 2 * NV : MODE == 3 ? NV / 2 : NV;
+};
+
+// one chunk's A fragment: mode 1 a[NV] (4 a k8 step), mode 2 a[0:NV] hi
+// and a[NV:2 NV] lo, mode 3 a[NV / 2] (4 bf16 pairs a k16 step)
+template <int MODE>
+struct MwFrag {
+    uint32_t a[MwChunk<MODE>::NA];
+};
+
+// chunk q of the walk (cell q / PER_CELL, dot g, chunk c of the dot)
+// into f: the thread's rows ra, ra + 8 and, for each of the chunk's
+// 16-column groups, the four columns p of its permuted x, in the order
+// v = {w(ra, p0), w(rb, p0), w(ra, p1), w(rb, p1), ...}. The empty asm
+// at the end keeps the fragment's definitions ahead of the chain in the
+// compiler's order (CUTLASS's warpgroup_fence_operand). ptxas still
+// moves bf16's packing and TF32's rounding next to each wgmma and then
+// serializes those chains (its C7513 note in the build log); 3xTF32's
+// is not.
+template <int MODE>
+__device__ __forceinline__ void mw_compute(MwFrag<MODE>& f,
+                                           const float4* xq, int q,
+                                           float ra, float rb, int tq,
+                                           int vpu_flops)
+{
+    using C = MwChunk<MODE>;
+    const int qq = q % C::PER_CELL, g = qq / C::CHUNKS, c = qq % C::CHUNKS;
+    asm volatile("" : "+f"(ra), "+f"(rb));
+    [[maybe_unused]] const float scale = (float)(1 + g);
+    float v[C::NV];
+#pragma unroll
+    for (int j = 0; j < C::NV / 8; ++j) {
+        const float4 p = xq[(C::NV / 8 * c + j) * 4 + tq];
+        const float pc[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#if MW_PART == 1
+            v[8 * j + 2 * i] = pc[i];
+            v[8 * j + 2 * i + 1] = rb;
+#else
+            v[8 * j + 2 * i] = __fmul_rn(__fadd_rn(pc[i], ra), scale);
+            v[8 * j + 2 * i + 1] = __fmul_rn(__fadd_rn(pc[i], rb), scale);
+#endif
+        }
+    }
+    for (int s = 0; s < (MW_PART == 1 ? 0 : vpu_flops); ++s) {
+#pragma unroll
+        for (int e = 0; e < C::NV; ++e)
+            v[e] = __fadd_rn(__fmul_rn(v[e], 1.000001f), 0.5f);
+    }
+    if constexpr (MODE == 1) {
+#pragma unroll
+        for (int e = 0; e < C::NV; ++e) f.a[e] = mw_tf32(v[e]);
+    } else if constexpr (MODE == 2) {
+#pragma unroll
+        for (int e = 0; e < C::NV; ++e) {
+            f.a[e] = mw_tf32(v[e]);
+            f.a[C::NV + e] = mw_tf32(v[e] - __uint_as_float(f.a[e]));
+        }
+    } else {
+#pragma unroll
+        for (int s = 0; s < C::STEPS; ++s) {
+            const float* w = v + 8 * s;
+            f.a[4 * s] = bf16x2(w[0], w[2]);
+            f.a[4 * s + 1] = bf16x2(w[1], w[3]);
+            f.a[4 * s + 2] = bf16x2(w[4], w[6]);
+            f.a[4 * s + 3] = bf16x2(w[5], w[7]);
+        }
+    }
+#pragma unroll
+    for (int e = 0; e < C::NA; ++e) asm volatile("" : "+r"(f.a[e]));
+}
+
+// chunk q's chain, committed as one group
+template <int MODE>
+__device__ __forceinline__ void mw_issue(float (&d)[8], const MwFrag<MODE>& f,
+                                         int q, uint64_t dhi, uint64_t dlo)
+{
+    using C = MwChunk<MODE>;
+    const int qq = q % C::PER_CELL, c = qq % C::CHUNKS;
+    const int acc0 = qq != 0;
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < C::STEPS; ++s) {
+        const uint64_t off = 32 * (C::STEPS * c + s);   // 512 bytes a step
+        const int acc = s == 0 ? acc0 : 1;
+        if constexpr (MODE == 1) {
+            wg_tf32(d, f.a + 4 * s, dhi + off, acc);
+        } else if constexpr (MODE == 2) {
+            wg_tf32(d, f.a + C::NV + 4 * s, dhi + off, acc);
+            wg_tf32(d, f.a + 4 * s, dlo + off, 1);
+            wg_tf32(d, f.a + 4 * s, dhi + off, 1);
+        } else {
+            wg_bf16(d, f.a + 4 * s, dhi + off, acc);
+        }
+    }
+    wg_commit();
+}
+
+template <int MODE, bool OVERLAP>
+__global__ void __launch_bounds__(128)
+mma_micro_wgmma(const float* __restrict__ x, float* __restrict__ out,
+                int ncell, int vpu_flops)
+{
+    static_assert(MODE >= 1 && MODE <= 3, "modes 1-3 take a product");
+    constexpr int NB = MODE == 3 ? MW_B_WORDS / 2 : MW_B_WORDS;
+    __shared__ __align__(128) uint32_t bs[MODE == 2 ? 2 * NB : NB];
+    __shared__ __align__(16) float4 xq[MW_GROUPS * 4];
+    const int t = threadIdx.x;
+    if constexpr (MODE == 3) {
+        for (int e = t; e < MW_B_WORDS / 2; e += 128) {
+            const int n = e / (MM_RUNW / 2), k = 2 * (e % (MM_RUNW / 2));
+            const float* b = x + n * MM_RUNW + k;
+            bs[mw_core_index(n, k, 8) / 2] = bf16x2(b[0], b[1]);
+        }
+    } else {
+        for (int e = t; e < MW_B_WORDS; e += 128) {
+            const int n = e / MM_RUNW, k = e % MM_RUNW;
+            const int i = mw_core_index(n, k, 4);
+            if constexpr (MODE == 1) {
+                bs[i] = tf32(x[e]);
+            } else {
+                split_tf32(x[e], bs[i], bs[NB + i]);
+            }
+        }
+    }
+    if (t < MW_GROUPS * 4) {
+        const int j = t / 4, q = t % 4;
+        const float* r = x + 16 * j;
+        xq[t] = MODE == 3
+            ? make_float4(r[2 * q], r[2 * q + 1], r[2 * q + 8], r[2 * q + 9])
+            : make_float4(r[q], r[q + 4], r[q + 8], r[q + 12]);
+    }
+    // the generic proxy's stores are made visible to wgmma's reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint64_t dhi = mw_desc(bs), dlo = mw_desc(bs + NB);
+
+    const int lane = t % 32, gq = lane / 4, tq = lane % 4;
+    const int row = 16 * (t / 32) + gq;
+    const float ra = (float)row, rb = (float)(row + 8);
+    const int nmine = (int)blockIdx.x < ncell
+        ? (ncell - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+    const int total = nmine * MwChunk<MODE>::PER_CELL;
+    if (total == 0) return;
+    float d[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    MwFrag<MODE> fa, fb;
+    mw_compute(fa, xq, 0, ra, rb, tq, vpu_flops);
+    for (int q = 0;; q += 2) {
+        mw_issue(d, fa, q, dhi, dlo);
+        if (q + 1 == total) break;
+        wg_wait<OVERLAP ? 1 : 0>();                // fb's last chain done
+        mw_compute(fb, xq, q + 1, ra, rb, tq, vpu_flops);
+        mw_issue(d, fb, q + 1, dhi, dlo);
+        if (q + 2 == total) break;
+        wg_wait<OVERLAP ? 1 : 0>();                // fa's last chain done
+        mw_compute(fa, xq, q + 2, ra, rb, tq, vpu_flops);
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+    // d[i]: row (i / 2) % 2 * 8 + row, column 8 (i / 4) + 2 tq + i % 2
+    float* o = out + row * MM_RUNW + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+        o[((i / 2) % 2) * 8 * MM_RUNW + 8 * (i / 4) + i % 2] = d[i];
+}
+
+// the kernel of (design, mode): design 0 mma_sync (every mode), 1 wgmma,
+// 2 wgmma with its overlap off (modes 1-3); nullptr for none
+const void* mma_kernel(int design, int mode)
+{
+    switch (design * 4 + mode) {
+    case 0: return (const void*)mma_micro_kernel<0>;
+    case 1: return (const void*)mma_micro_kernel<1>;
+    case 2: return (const void*)mma_micro_kernel<2>;
+    case 3: return (const void*)mma_micro_kernel<3>;
+    case 5: return (const void*)mma_micro_wgmma<1, true>;
+    case 6: return (const void*)mma_micro_wgmma<2, true>;
+    case 7: return (const void*)mma_micro_wgmma<3, true>;
+    case 9: return (const void*)mma_micro_wgmma<1, false>;
+    case 10: return (const void*)mma_micro_wgmma<2, false>;
+    case 11: return (const void*)mma_micro_wgmma<3, false>;
+    default: return nullptr;
+    }
+}
+
+// the persistent grid of a wgmma kernel: SMs times the blocks of 128
+// threads an SM holds
+cudaError_t mw_grid(const void* kern, int* per_sm, int* n_sm)
+{
+    int dev;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, 128,
+                                                          0);
+    return e;
+}
+
 }  // namespace
 
 extern "C" int fma_ceiling(const float* x, float* out, long long n,
@@ -631,26 +1002,54 @@ extern "C" int staging(int variant, const float* src, const int* starts,
     return (int)cudaGetLastError();
 }
 
-// mode: 0 none, 1 f32 (TF32), 2 f32_highest (3xTF32), 3 bf16; x [16, 192]
-// and out [64, 192] float32, out zeroed by the caller
-extern "C" int mma_micro(int mode, const float* x, float* out, int ncell,
-                         int vpu_flops, void* stream)
+// design: 0 mma_sync, 1 wgmma, 2 wgmma with its overlap off; mode: 0
+// none (mma_sync only), 1 f32 (TF32), 2 f32_highest (3xTF32), 3 bf16;
+// x [16, 192] and out [64, 192] float32, out zeroed by the caller
+extern "C" int mma_micro(int design, int mode, const float* x, float* out,
+                         int ncell, int vpu_flops, void* stream)
 {
     cudaStream_t st = (cudaStream_t)stream;
-    if (ncell < 0 || vpu_flops < 0) return (int)cudaErrorInvalidValue;
+    const void* kern = mma_kernel(design, mode);
+    if (kern == nullptr || ncell < 0 || vpu_flops < 0)
+        return (int)cudaErrorInvalidValue;
     if (ncell == 0) return 0;
-    switch (mode) {
-    case 0: mma_micro_kernel<0><<<ncell, 128, 0, st>>>(x, out, vpu_flops, 0);
-        break;
-    case 1: mma_micro_kernel<1><<<ncell, 128, 0, st>>>(x, out, vpu_flops, 0);
-        break;
-    case 2: mma_micro_kernel<2><<<ncell, 128, 0, st>>>(x, out, vpu_flops, 0);
-        break;
-    case 3: mma_micro_kernel<3><<<ncell, 128, 0, st>>>(x, out, vpu_flops, 0);
-        break;
-    default: return (int)cudaErrorInvalidValue;
+    if (design == 0) {
+        int sink = 0;
+        void* args[] = {&x, &out, &vpu_flops, &sink};
+        cudaError_t e = cudaLaunchKernel(kern, ncell, 128, args, 0, st);
+        return (int)(e != cudaSuccess ? e : cudaGetLastError());
     }
-    return (int)cudaGetLastError();
+    int per_sm, n_sm;
+    cudaError_t e = mw_grid(kern, &per_sm, &n_sm);
+    if (e != cudaSuccess) return (int)e;
+    const int grid = ncell < per_sm * n_sm ? ncell : per_sm * n_sm;
+    if (grid == 0) return (int)cudaErrorInvalidConfiguration;
+    void* args[] = {&x, &out, &ncell, &vpu_flops};
+    e = cudaLaunchKernel(kern, grid, 128, args, 0, st);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// what the kernel of (design, mode) is built and launched with:
+// info = {registers a thread, local (spill) bytes a thread, static
+// shared bytes, blocks an SM holds, SMs, grid at ncell past it (0: a
+// block per cell)}
+extern "C" int mma_micro_info(int design, int mode, int* info)
+{
+    const void* kern = mma_kernel(design, mode);
+    if (kern == nullptr) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, kern);
+    if (e != cudaSuccess) return (int)e;
+    int per_sm, n_sm;
+    e = mw_grid(kern, &per_sm, &n_sm);
+    if (e != cudaSuccess) return (int)e;
+    info[0] = a.numRegs;
+    info[1] = (int)a.localSizeBytes;
+    info[2] = (int)a.sharedSizeBytes;
+    info[3] = per_sm;
+    info[4] = n_sm;
+    info[5] = design == 0 ? 0 : per_sm * n_sm;
+    return 0;
 }
 
 // 1: cuTensorMapEncodeTiled through the runtime's driver entry point;

@@ -38,11 +38,15 @@ BUILD_DIR = _PKG.parent / "build" / "sphexa_tpu_torch"
 SOURCES = ("ghost_refresh.cu", "cell_pair.cu", "probes.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# a second build of a source, with more flags: probes.cu reaching the
+# other builds of a source, with more flags: probes.cu reaching the
 # driver's cuTensorMapEncodeTiled by linking libcuda (the toolkit's stub
-# library) instead of through the runtime's driver entry point
+# library) instead of through the runtime's driver entry point, and P5's
+# wgmma kernel with its product or its elementwise work cut out
+# (probes/mma_parts.py)
 VARIANTS = {"probes_libcuda": ("probes.cu", ["-DPROBES_LINK_LIBCUDA",
-                                             "-lcuda"])}
+                                             "-lcuda"]),
+            "probes_product": ("probes.cu", ["-DMW_PART=1"]),
+            "probes_elementwise": ("probes.cu", ["-DMW_PART=2"])}
 
 _libs: dict = {}
 _LIB_LOCK = threading.Lock()
@@ -124,7 +128,7 @@ def build(sources=SOURCES) -> dict:
                                     "ptxas": log.read_text()}
             continue
         src, extra = _source(name)
-        if extra:
+        if "-lcuda" in extra:
             stubs = Path(_nvcc()).resolve().parents[1] / "lib64" / "stubs"
             extra = extra + ["-L", str(stubs)]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -190,7 +194,8 @@ _ARGTYPES = {
     "probes.cu": {
         "fma_ceiling": [_P, _P, _LL, _I, _I, _P],
         "staging": [_I, _P, _P, _I, _P, _I, _LL, _I, _I, _P],
-        "mma_micro": [_I, _P, _P, _I, _I, _P],
+        "mma_micro": [_I, _I, _P, _P, _I, _I, _P],
+        "mma_micro_info": [_I, _I, _P],
         "tma_encoder": []},
 }
 
@@ -335,10 +340,46 @@ def staging_launch(variant: int, src, starts, out, K: int,
     _check(code, f"staging variant {variant}")
 
 
-def mma_micro_launch(mode: int, x, out, ncell: int, vpu_flops: int):
-    code = lib("probes.cu").mma_micro(mode, x.data_ptr(), out.data_ptr(),
-                                      ncell, vpu_flops, _stream(x))
-    _check(code, f"mma_micro mode {mode}")
+# P5's designs (csrc/probes.cu mma_micro): "wgmma_serial" is the wgmma
+# kernel with its overlap switched off, for measuring the overlap
+MMA_DESIGNS = {"mma_sync": 0, "wgmma": 1, "wgmma_serial": 2}
+
+
+def mma_design(design: str, mode: int) -> int:
+    """The C index of P5's design, refusing an unknown design or mode, or
+    mode 0 (no product) under a wgmma design."""
+    if design not in MMA_DESIGNS:
+        raise ValueError(f"mma_micro: design {design!r}, one of "
+                         f"{tuple(MMA_DESIGNS)}")
+    if mode not in (0, 1, 2, 3):
+        raise ValueError(f"mma_micro: mode {mode}, one of 0-3")
+    if mode == 0 and design != "mma_sync":
+        raise ValueError("mma_micro: mode 0 (none) has no product; only "
+                         "the mma_sync design's loop runs it")
+    return MMA_DESIGNS[design]
+
+
+def mma_micro_launch(design: str, mode: int, x, out, ncell: int,
+                     vpu_flops: int, library: str = "probes.cu"):
+    """P5: one call of design `design` in mode `mode` writes the cells'
+    block into out (library: probes.cu or one of its VARIANTS)."""
+    d = mma_design(design, mode)
+    code = lib(library).mma_micro(d, mode, x.data_ptr(), out.data_ptr(),
+                                  ncell, vpu_flops, _stream(x))
+    _check(code, f"mma_micro {design} mode {mode}")
+
+
+def mma_micro_info(design: str, mode: int) -> dict:
+    """What P5's kernel of (design, mode) is built and launched with, on
+    the current device: registers and local (spill) bytes a thread,
+    static shared bytes, blocks an SM holds, SMs, and the grid at a cell
+    count past it (0: a block per cell)."""
+    d = mma_design(design, mode)
+    info = (ctypes.c_int * 6)()
+    _check(lib("probes.cu").mma_micro_info(d, mode, info),
+           f"mma_micro_info {design} mode {mode}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm", "sms", "grid"), info))
 
 
 def tma_encoder(library: str = "probes.cu") -> int:

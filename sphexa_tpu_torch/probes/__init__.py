@@ -23,7 +23,7 @@ import torch
 class Probe:
     """A probe kernel: launch(*args) on CUDA tensors, plain(*args) on CPU
     tensors (the first argument decides). `launches` counts kernel
-    launches."""
+    launches (`_count`, after each)."""
 
     def __init__(self, name: str, plain, launch):
         self.name = name
@@ -38,8 +38,11 @@ class Probe:
         if dev.type != "cuda":
             raise ValueError(f"{self.name}: no kernel for device {dev}")
         out = self._launch(*args)
-        self.launches += 1
+        self._count(*args)
         return out
+
+    def _count(self, *args):
+        self.launches += 1
 
 
 def cuda_ms(fn, reps: int) -> float:

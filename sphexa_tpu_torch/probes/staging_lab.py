@@ -18,6 +18,15 @@ make_few, a cp.async ring for make_pipe. A kernel call adds its fold
 into out, so reps launches sum in the script's order. The sweep prints
 the ms of one call and the cost per staged window.
 
+A call's bytes are counted three ways (`byte_counts`): the source lanes
+its windows touch, read once (unique); every window as staged (the
+windows overlap, so this counts lanes again); and what a device memory
+behind an LRU cache of the card's L2 size must deliver when the programs
+run in the script's order (`lru_bytes`, in 32-byte sectors of every row).
+`footprint_sweep` times the designs on sources of 12.6 MB to the
+script's 201 MB with the same windows, so that the source fits the L2
+at the small end.
+
     python -m sphexa_tpu_torch.probes.staging_lab [K] [F] [nprog]
 """
 
@@ -34,6 +43,7 @@ from sphexa_tpu_torch.probes import Probe, card, cuda_ms, need_cuda
 K, F, NPROG, REPS = 9, 24, 8192, 4
 NS = 1 << 21
 LANES = 128
+SECTOR = 8                      # lanes of float32 in one 32-byte sector
 
 
 def _fold(win):
@@ -146,6 +156,62 @@ def window_bytes(k: int, f: int, nprog: int) -> int:
     return 4 * k * f * LANES * nprog
 
 
+def _lanes(fn: str, starts, k: int, ns: int, nprog: int):
+    """First lane and lane count of each run of source lanes the
+    script's function reads, in program order then window order."""
+    st = np.asarray(starts)[:nprog].astype(np.int64)
+    if fn == "many":
+        return st[:, :k].reshape(-1), LANES
+    if fn == "few":
+        return st[:, 0], LANES * k
+    nsb = ns // LANES
+    blk = (np.arange(nprog)[:, None] * 7 + np.arange(k)[None] * 13) \
+        % (nsb - 1)
+    return blk.reshape(-1) * LANES, LANES
+
+
+def lru_bytes(fn: str, starts, k: int, f: int, ns: int, nprog: int,
+              cache_bytes: int) -> int:
+    """Bytes device memory delivers to one call of the script's function
+    `fn` ("many", "few", "pipe") behind an LRU cache of cache_bytes,
+    the programs in order: each run of lanes is read as 32-byte sectors
+    of all f rows (a sector column, 32 f bytes), a sector column missing
+    from the cache costs its bytes."""
+    from collections import OrderedDict
+
+    first, n = _lanes(fn, starts, k, ns, nprog)
+    cap = cache_bytes // (4 * SECTOR * f)
+    cache = OrderedDict()
+    misses = 0
+    for a in first.tolist():
+        for c in range(a // SECTOR, (a + n - 1) // SECTOR + 1):
+            if c in cache:
+                cache.move_to_end(c)
+            else:
+                misses += 1
+                cache[c] = None
+                if len(cache) > cap:
+                    cache.popitem(last=False)
+    return misses * 4 * SECTOR * f
+
+
+def byte_counts(fn: str, starts, k: int, f: int, ns: int, nprog: int,
+                cache_bytes: int) -> dict:
+    """A call's source bytes three ways: unique (each touched lane once),
+    windows (as staged) and lru (lru_bytes); "extra" is what every count
+    adds: the starts read and out read and written."""
+    first, n = _lanes(fn, starts, k, ns, nprog)
+    touched = np.zeros(ns, dtype=bool)
+    for a in first.tolist():
+        touched[a:a + n] = True
+    extra = 4 * nprog * {"many": k, "few": 1, "pipe": 0}[fn] \
+        + 2 * 4 * nprog * 8 * LANES
+    return dict(unique=4 * f * int(touched.sum()),
+                windows=window_bytes(k, f, nprog),
+                lru=lru_bytes(fn, starts, k, f, ns, nprog, cache_bytes),
+                extra=extra)
+
+
 def sweep(k=K, f=F, nprog=NPROG, reps_timed: int = 20, device="cuda"):
     """One call of each design on the card: [{design, ms, us_per_window,
     gbs}] (gbs: staged window bytes over the call's time)."""
@@ -162,6 +228,24 @@ def sweep(k=K, f=F, nprog=NPROG, reps_timed: int = 20, device="cuda"):
     return rows
 
 
+def footprint_sweep(k=K, f=F, nprog=NPROG, device="cuda"):
+    """One call of each design with the source 2^17 to NS = 2^21 lanes
+    wide (12.6 MB to 201 MB at F 24), the same K windows a program:
+    [{design, ns, source_mb, ms}]."""
+    rows = []
+    for sh in range(17, 22):
+        ns = 1 << sh
+        src, starts = (t.to(device) for t in inputs(k, f, ns, nprog))
+        out = torch.zeros((nprog * 8, LANES), dtype=torch.float32,
+                          device=device)
+        for design, probe in PROBES.items():
+            ms = cuda_ms(lambda: probe(src, starts, out, k), 10)
+            rows.append(dict(design=design, ns=ns,
+                             source_mb=4 * f * ns / 1e6, ms=ms))
+        del src, starts, out
+    return rows
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     k = int(argv[0]) if len(argv) > 0 else K
@@ -173,6 +257,9 @@ def main(argv=None) -> int:
         print(f"{r['design']:9s} {r['ms']:8.3f} ms/call  "
               f"{r['us_per_window'] * 1e3:8.2f} ns/window  "
               f"{r['gbs']:8.1f} GB/s of windows")
+    for r in footprint_sweep(k=k, f=f, nprog=nprog):
+        print(f"{r['design']:9s} source {r['source_mb']:6.1f} MB "
+              f"{r['ms']:8.3f} ms/call")
     return 0
 
 

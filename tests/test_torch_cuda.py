@@ -47,7 +47,8 @@ inactive interior slots equal prev and active ones the ungated launch,
 bit for bit, and the slots outside the interior cells hold 0.
 The probe kernels (P1-P5) are held against their
 plain versions: P1-P4 rtol 1e-6 (the same float32 operations), P5 1e-5 of the
-output's scale (TF32: 5e-3). K1z (the ghost refresh with refresh_z=False)
+output's scale (TF32: 5e-3), each design (mma_sync, wgmma and wgmma with
+its overlap off) at 1 cell, 64 and past the persistent grid. K1z (the ghost refresh with refresh_z=False)
 is bit-equal to its plain version, and the slab-sharded resident step
 (two shards on the one card) holds the CPU run's diagnostics at the
 tolerances of chip_smoke.py's engine check (dt rtol 1e-5, eint 1e-6,
@@ -822,16 +823,28 @@ def test_p2_p4_kernels_match_plain(cuda, design):
     torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("ncell", ["1", "64", "grid+5"])
+@pytest.mark.parametrize("vf", [0, 30])
 @pytest.mark.parametrize("mode,tol", [("none", 1e-5), ("f32", 5e-3),
                                       ("f32_highest", 1e-5),
                                       ("bf16", 1e-5)])
-def test_p5_kernel_matches_plain(cuda, mode, tol):
+@pytest.mark.parametrize("design", ["mma_sync", "wgmma", "wgmma_serial"])
+def test_p5_kernel_matches_plain(cuda, design, mode, tol, vf, ncell):
+    """Each P5 design against its plain version at 1 cell, 64 and the
+    persistent grid plus 5 (a cell count that is no multiple of the
+    grid: 5 blocks walk one cell more); mode "none" runs mma_sync's loop
+    under every design."""
     from sphexa_tpu_torch.probes import mma_micro as p5
     torch.backends.cuda.matmul.allow_tf32 = False
     x = torch.from_numpy(np.random.default_rng(1).uniform(
         -1.0, 1.0, (p5.FJ, p5.RUNW)).astype(np.float32)).to(cuda)
-    for vf in (0, 30):
-        out = p5.mma_cells(x, mode, vf, 64)
-        ref = p5.mma_cells.plain(x, mode, vf, 64)
-        err = float((out - ref).abs().max())
-        assert err <= tol * float(ref.abs().max()), (mode, vf, err)
+    grid = p5.info(mode, design)["grid"] or 132
+    n = {"1": 1, "64": 64, "grid+5": grid + 5}[ncell]
+    kd = p5.kernel_design(mode, design)
+    before = p5.mma_cells.launches[kd]
+    out = p5.mma_cells(x, mode, vf, n, design)
+    assert p5.mma_cells.launches[kd] == before + 1
+    ref = p5.mma_cells.plain(x, mode, vf, n)
+    assert not out[:, p5.K:].any()
+    err = float((out - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), (design, mode, vf, n, err)

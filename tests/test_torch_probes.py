@@ -15,6 +15,9 @@ scripts' module globals (nothing in scripts/ is edited):
     under bf16 both sides round the operands to bf16 and sum in float32).
 Each staging design of the port is held against the script function it
 computes; the CPU wrappers run the plain versions and count no launch.
+P2-P4's byte counts (staging_lab.byte_counts) are held against the
+plain versions' own window lanes; P5's design names, the launcher's
+refusals and mma_parts' builds of the source need no card.
 """
 
 import numpy as np
@@ -24,7 +27,9 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from scripts import dma_lab, mxu_micro, vpu_ceiling
-from sphexa_tpu_torch.probes import fma_ceiling, mma_micro, staging_lab
+from sphexa_tpu_torch.ops import _cuda
+from sphexa_tpu_torch.probes import (fma_ceiling, mma_micro, mma_parts,
+                                     staging_lab)
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -82,6 +87,70 @@ def test_p5_mma_cells_match_script(monkeypatch, interpret, mode, vpu_flops):
     assert a.shape == b.shape == (mma_micro.CAP, mma_micro.RUNW)
     assert (b[:, mma_micro.K:] == 0).all()
     assert np.abs(b - a).max() <= 1e-5 * np.abs(a).max()
+
+
+@pytest.mark.parametrize("fn", ["many", "few", "pipe"])
+def test_p2_p4_byte_counts(fn):
+    """unique: the lanes the plain version's windows read; lru: every
+    sector column a miss with no cache, each once with a cache past the
+    source."""
+    src, starts = staging_lab.inputs(K, F, NS, NPROG)
+    win = staging_lab._INDEX[fn](src, starts, K, NPROG)   # [K, nprog, 128]
+    idx = win.reshape(-1)
+    c = staging_lab.byte_counts(fn, starts, K, F, NS, NPROG,
+                                cache_bytes=4 * F * NS)
+    assert c["unique"] == 4 * F * int(torch.unique(idx).numel())
+    assert c["windows"] == 4 * F * idx.numel()
+    sectors = idx // staging_lab.SECTOR
+    runs = (win.permute(1, 0, 2).reshape(NPROG, -1) if fn == "few"
+            else win.reshape(-1, 128)) // staging_lab.SECTOR
+    col = 4 * F * staging_lab.SECTOR
+    assert c["lru"] == col * int(torch.unique(sectors).numel())
+    cold = staging_lab.lru_bytes(fn, starts, K, F, NS, NPROG, cache_bytes=0)
+    assert cold == col * sum(int(torch.unique(r).numel()) for r in runs)
+
+
+def test_p5_designs():
+    """The designs' names; "none" runs mma_sync's loop under either, and
+    a CPU tensor takes the plain version under every design."""
+    assert mma_micro.DESIGNS == ("mma_sync", "wgmma")
+    assert mma_micro.kernel_design("none", "wgmma") == "mma_sync"
+    assert mma_micro.kernel_design("bf16", "wgmma_serial") == "wgmma_serial"
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1.0, 1.0, (mma_micro.FJ, mma_micro.RUNW)).astype(np.float32))
+    ref = mma_micro.mma_cells.plain(x, "bf16", 2, 1)
+    for design in _cuda.MMA_DESIGNS:
+        assert torch.equal(mma_micro.mma_cells(x, "bf16", 2, 1, design), ref)
+    assert not any(mma_micro.mma_cells.launches.values())
+
+
+@pytest.mark.parametrize("design,mode", [("tensor", 1), ("wgmma", 0),
+                                         ("wgmma_serial", 0),
+                                         ("mma_sync", 4)])
+def test_p5_launcher_refuses(design, mode):
+    """An unknown design or mode, or mode 0 (no product) under wgmma, is
+    refused before any build or launch."""
+    x = torch.zeros((mma_micro.FJ, mma_micro.RUNW))
+    out = torch.zeros((mma_micro.CAP, mma_micro.RUNW))
+    with pytest.raises(ValueError):
+        _cuda.mma_micro_launch(design, mode, x, out, 1, 0)
+    with pytest.raises(ValueError):
+        _cuda.mma_micro_info(design, mode)
+    if design == "tensor":
+        with pytest.raises(ValueError):
+            mma_micro.make("f32", 0, design)
+
+
+@pytest.mark.parametrize("part", ["elementwise", "product"])
+def test_p5_parts_cut_the_source(part):
+    """Each part of mma_parts is probes.cu built with -DMW_PART=1 or 2, a
+    value the source tests (the library is built on the card only)."""
+    flag = {"product": 1, "elementwise": 2}[part]
+    name = mma_parts.LIBRARIES[part]
+    assert _cuda._source(name) == ("probes.cu", [f"-DMW_PART={flag}"])
+    assert f"#if MW_PART == {flag}" in (_cuda._CSRC / "probes.cu").read_text()
+    header = _cuda._consts_header()
+    assert _cuda._target(name, header) != _cuda._target("probes.cu", header)
 
 
 def test_probe_sizes_are_the_scripts():
